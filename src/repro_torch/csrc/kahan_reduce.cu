@@ -1,0 +1,258 @@
+// Compensated dot and sum on Hopper: the paper's two kernel bodies.
+//
+// Replaces the four Pallas calls of the JAX package:
+//   kahan_dot_grid  <- repro/kernels/kahan_dot.py  dot_accumulators (:89)
+//                      and dot_accumulators_batched (:139), body _dot_kernel
+//   kahan_sum_grid  <- repro/kernels/kahan_sum.py  sum_accumulators (:63)
+//                      and sum_accumulators_batched (:105), body _sum_kernel
+//
+// Layout (the reference's, so the (s, c) grids are bitwise equal):
+//   the input row of length n (padded by the caller to a multiple of
+//   cells = 8 * U * 128) is read as steps = n / cells blocks of
+//   [8U, 128]; accumulator cell (r, l) folds element
+//   g * cells + r * 128 + l at step g, in order g = 0 .. steps-1.
+//   One launch serves the single and the batched call: blockIdx.y is the
+//   batch row. Threads across blockIdx.x * blockDim.x own the cells; each
+//   thread keeps its (s, c) pair in registers, walks the steps in order
+//   and writes its cell of the [B, 8U, 128] s and c grids at the end. No
+//   atomics, no cross-block reduction: the two-sum merge of the grid
+//   stays in torch (kernels/engine.py), as it stays outside Pallas in the
+//   reference.
+//
+// Arithmetic: built with -fmad=false, so no product is contracted by the
+// compiler. __fmaf_rn / __fma_rn sit at exactly the two sites where XLA
+// on the CPU contracts the reference: s = fma(a, b, s) in naive and
+// pairwise, y = fma(a, b, c) in kahan. dot2's TwoProd uses the Veltkamp
+// split with plain ops; the sum kernel has no fma. The scheme is a
+// template argument (ids in kernels/schemes.py). T is float, double or
+// Bf16: the reference rounds every bfloat16 op separately and contracts
+// nothing, which Bf16 reproduces with the conversion intrinsics (each op
+// computed in float32, rounded to bfloat16).
+//
+// What bounds it on the H100: every input byte is read once, so it is
+// bandwidth-bound (n * sizeof(T) bytes per stream over 3.35 TB/s). What
+// holds it back: bitwise parity fixes the number of independent chains
+// at 1024 * U (8192 at the default U = 8), i.e. 64 blocks of 128 threads
+// per batch row on 132 SMs, each thread a serial dependent chain. The
+// kernel keeps DEPTH steps of loads in flight per thread ahead of the
+// chain, which is far too little to cover HBM latency with so few
+// threads; deeper pipelining (cp.async / TMA stages) or a different
+// port-default U is later work.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kThreads = 128;   // one block = one row r of the [8U, 128] grid
+constexpr int kDepth = 8;       // steps of loads issued ahead of the chain
+
+enum Scheme { NAIVE = 0, KAHAN = 1, PAIRWISE = 2, DOT2 = 3 };
+constexpr long long kPairwiseFold = 32;
+
+// bfloat16 storage; every op computed in float32 and rounded to
+// nearest-even bfloat16, as XLA and torch on the CPU do.
+struct Bf16 {
+  __nv_bfloat16 v;
+  Bf16() = default;
+  __device__ explicit Bf16(float f) : v(__float2bfloat16_rn(f)) {}
+  __device__ float f() const { return __bfloat162float(v); }
+};
+__device__ __forceinline__ Bf16 operator+(Bf16 a, Bf16 b) { return Bf16(a.f() + b.f()); }
+__device__ __forceinline__ Bf16 operator-(Bf16 a, Bf16 b) { return Bf16(a.f() - b.f()); }
+__device__ __forceinline__ Bf16 operator*(Bf16 a, Bf16 b) { return Bf16(a.f() * b.f()); }
+static_assert(sizeof(Bf16) == 2, "Bf16 must be 2 bytes");
+
+__device__ __forceinline__ float fused(float a, float b, float c) {
+  return __fmaf_rn(a, b, c);
+}
+__device__ __forceinline__ double fused(double a, double b, double c) {
+  return __fma_rn(a, b, c);
+}
+__device__ __forceinline__ Bf16 fused(Bf16 a, Bf16 b, Bf16 c) {
+  return a * b + c;   // not contracted in bfloat16 (see the header)
+}
+
+template <typename T> struct Split;
+template <> struct Split<float> { static constexpr float value = 4097.0f; };
+template <> struct Split<double> { static constexpr double value = 134217729.0; };
+template <> struct Split<Bf16> { static constexpr float value = 4097.0f; };
+
+template <typename T>
+__device__ __forceinline__ void two_sum(T a, T b, T& s, T& e) {
+  s = a + b;
+  const T bp = s - a;
+  const T ap = s - bp;
+  e = (a - ap) + (b - bp);
+}
+
+template <typename T>
+__device__ __forceinline__ void two_prod(T a, T b, T& p, T& e) {
+  const T k = T(Split<T>::value);
+  p = a * b;
+  const T a_big = k * a;
+  const T a_hi = a_big - (a_big - a);
+  const T a_lo = a - a_hi;
+  const T b_big = k * b;
+  const T b_hi = b_big - (b_big - b);
+  const T b_lo = b - b_hi;
+  e = ((a_hi * b_hi - p) + a_hi * b_lo + a_lo * b_hi) + a_lo * b_lo;
+}
+
+// scheme.update: fold an already-formed term x (sum path, no fma).
+template <int S, typename T>
+__device__ __forceinline__ void update(T& s, T& c, T x, long long g) {
+  if constexpr (S == NAIVE) {
+    s = s + x;
+  } else if constexpr (S == KAHAN) {
+    const T y = x + c;
+    const T t = s + y;
+    c = y - (t - s);
+    s = t;
+  } else if constexpr (S == PAIRWISE) {
+    s = s + x;
+    if (g % kPairwiseFold == kPairwiseFold - 1) { c = c + s; s = T(0); }
+  } else {
+    T t, e;
+    two_sum(s, x, t, e);
+    s = t;
+    c = c + e;
+  }
+}
+
+// scheme.mul_update: fold the product a * b (dot path).
+template <int S, typename T>
+__device__ __forceinline__ void mul_update(T& s, T& c, T a, T b, long long g) {
+  if constexpr (S == NAIVE) {
+    s = fused(a, b, s);
+  } else if constexpr (S == KAHAN) {
+    const T y = fused(a, b, c);
+    const T t = s + y;
+    c = y - (t - s);
+    s = t;
+  } else if constexpr (S == PAIRWISE) {
+    s = fused(a, b, s);
+    if (g % kPairwiseFold == kPairwiseFold - 1) { c = c + s; s = T(0); }
+  } else {
+    T p, ep, t, es;
+    two_prod(a, b, p, ep);
+    two_sum(s, p, t, es);
+    s = t;
+    c = c + (ep + es);
+  }
+}
+
+template <int S, typename T>
+__global__ void __launch_bounds__(kThreads)
+kahan_dot_grid(const T* __restrict__ a, const T* __restrict__ b,
+               T* __restrict__ s_out, T* __restrict__ c_out,
+               long long n, int cells) {
+  const int cell = blockIdx.x * blockDim.x + threadIdx.x;
+  if (cell >= cells) return;
+  const long long row = blockIdx.y;
+  const T* ar = a + row * n + cell;
+  const T* br = b + row * n + cell;
+  const long long steps = n / cells;
+  T s = T(0), c = T(0);
+  long long g = 0;
+  for (; g + kDepth <= steps; g += kDepth) {
+    T av[kDepth], bv[kDepth];
+#pragma unroll
+    for (int k = 0; k < kDepth; ++k) {
+      av[k] = ar[(g + k) * cells];
+      bv[k] = br[(g + k) * cells];
+    }
+#pragma unroll
+    for (int k = 0; k < kDepth; ++k) mul_update<S>(s, c, av[k], bv[k], g + k);
+  }
+  for (; g < steps; ++g) mul_update<S>(s, c, ar[g * cells], br[g * cells], g);
+  s_out[row * cells + cell] = s;
+  c_out[row * cells + cell] = c;
+}
+
+template <int S, typename T>
+__global__ void __launch_bounds__(kThreads)
+kahan_sum_grid(const T* __restrict__ x, T* __restrict__ s_out,
+               T* __restrict__ c_out, long long n, int cells) {
+  const int cell = blockIdx.x * blockDim.x + threadIdx.x;
+  if (cell >= cells) return;
+  const long long row = blockIdx.y;
+  const T* xr = x + row * n + cell;
+  const long long steps = n / cells;
+  T s = T(0), c = T(0);
+  long long g = 0;
+  for (; g + kDepth <= steps; g += kDepth) {
+    T xv[kDepth];
+#pragma unroll
+    for (int k = 0; k < kDepth; ++k) xv[k] = xr[(g + k) * cells];
+#pragma unroll
+    for (int k = 0; k < kDepth; ++k) update<S>(s, c, xv[k], g + k);
+  }
+  for (; g < steps; ++g) update<S>(s, c, xr[g * cells], g);
+  s_out[row * cells + cell] = s;
+  c_out[row * cells + cell] = c;
+}
+
+dim3 grid_for(long long batch, int cells) {
+  return dim3((cells + kThreads - 1) / kThreads, (unsigned)batch);
+}
+
+template <typename T>
+int dot_dispatch(int scheme, const void* a, const void* b, void* s, void* c,
+                 long long batch, long long n, int cells, cudaStream_t st) {
+  const dim3 grid = grid_for(batch, cells);
+  auto ta = static_cast<const T*>(a);
+  auto tb = static_cast<const T*>(b);
+  auto ts = static_cast<T*>(s);
+  auto tc = static_cast<T*>(c);
+  switch (scheme) {
+    case NAIVE: kahan_dot_grid<NAIVE, T><<<grid, kThreads, 0, st>>>(ta, tb, ts, tc, n, cells); break;
+    case KAHAN: kahan_dot_grid<KAHAN, T><<<grid, kThreads, 0, st>>>(ta, tb, ts, tc, n, cells); break;
+    case PAIRWISE: kahan_dot_grid<PAIRWISE, T><<<grid, kThreads, 0, st>>>(ta, tb, ts, tc, n, cells); break;
+    case DOT2: kahan_dot_grid<DOT2, T><<<grid, kThreads, 0, st>>>(ta, tb, ts, tc, n, cells); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int sum_dispatch(int scheme, const void* x, void* s, void* c,
+                 long long batch, long long n, int cells, cudaStream_t st) {
+  const dim3 grid = grid_for(batch, cells);
+  auto tx = static_cast<const T*>(x);
+  auto ts = static_cast<T*>(s);
+  auto tc = static_cast<T*>(c);
+  switch (scheme) {
+    case NAIVE: kahan_sum_grid<NAIVE, T><<<grid, kThreads, 0, st>>>(tx, ts, tc, n, cells); break;
+    case KAHAN: kahan_sum_grid<KAHAN, T><<<grid, kThreads, 0, st>>>(tx, ts, tc, n, cells); break;
+    case PAIRWISE: kahan_sum_grid<PAIRWISE, T><<<grid, kThreads, 0, st>>>(tx, ts, tc, n, cells); break;
+    case DOT2: kahan_sum_grid<DOT2, T><<<grid, kThreads, 0, st>>>(tx, ts, tc, n, cells); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// C entry points. dtype: 0 = float32, 1 = float64, 2 = bfloat16. Each returns
+// cudaGetLastError() after the launch (0 = launched).
+extern "C" int kahan_dot_launch(int scheme, int dtype, const void* a,
+                                const void* b, void* s, void* c,
+                                long long batch, long long n, int cells,
+                                void* stream) {
+  auto st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return dot_dispatch<float>(scheme, a, b, s, c, batch, n, cells, st);
+  if (dtype == 1) return dot_dispatch<double>(scheme, a, b, s, c, batch, n, cells, st);
+  if (dtype == 2) return dot_dispatch<Bf16>(scheme, a, b, s, c, batch, n, cells, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+extern "C" int kahan_sum_launch(int scheme, int dtype, const void* x, void* s,
+                                void* c, long long batch, long long n,
+                                int cells, void* stream) {
+  auto st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return sum_dispatch<float>(scheme, x, s, c, batch, n, cells, st);
+  if (dtype == 1) return sum_dispatch<double>(scheme, x, s, c, batch, n, cells, st);
+  if (dtype == 2) return sum_dispatch<Bf16>(scheme, x, s, c, batch, n, cells, st);
+  return (int)cudaErrorInvalidValue;
+}

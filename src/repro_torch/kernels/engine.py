@@ -1,0 +1,234 @@
+"""Compensated-reduction engine (1-D half), in PyTorch.
+
+Counterpart of ``repro/kernels/engine.py``. One accumulator contract for
+every compensated reduction:
+
+    total = s + c            (the ``kahan_step`` sign convention)
+    merge = two-sum tree     (``merge_accumulators``: pad to a power of
+                              two, fold halves in a fixed order)
+
+``CompensatedReduction`` resolves the scheme, unroll and accumulate dtype
+once (from its arguments, else the ambient ``schemes.use_policy``
+default), promotes inputs to the accumulate dtype BEFORE padding, pads
+with exact zeros to the kernel block ``8U * 128`` (an empty input becomes
+one zero block), runs the kernel wrappers and merges their grids. The
+merge is plain torch on whatever device the grids are on, as the
+reference does it outside Pallas.
+
+Matmul and flash attention are ported in later slices.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Optional, Union
+
+import torch
+
+from repro_torch.core import kahan as K
+from repro_torch.kernels import kahan_dot as _kd
+from repro_torch.kernels import kahan_sum as _ks
+from repro_torch.kernels import schemes as _schemes
+from repro_torch.kernels.schemes import CompensationScheme, Policy
+
+Tensor = torch.Tensor
+LANES = _kd.LANES
+SUBLANES = _kd.SUBLANES
+
+SchemeSpec = Union[str, CompensationScheme, Policy, None]
+
+#: every kernel wrapper of this slice, by name (launch counters)
+WRAPPERS = {
+    "dot_accumulators": _kd.dot_accumulators,
+    "dot_accumulators_batched": _kd.dot_accumulators_batched,
+    "sum_accumulators": _ks.sum_accumulators,
+    "sum_accumulators_batched": _ks.sum_accumulators_batched,
+}
+
+
+def launch_counts() -> Dict[str, int]:
+    """Kernel launches per wrapper."""
+    return {name: fn.launches for name, fn in WRAPPERS.items()}
+
+
+def reset_launch_counts() -> None:
+    for fn in WRAPPERS.values():
+        fn.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Accumulators and the merge
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class Accumulator:
+    """A compensated accumulator grid: ``total = s + c`` elementwise.
+    ``[rows, lanes]`` for single reductions, ``[batch, rows, lanes]`` for
+    batched ones."""
+
+    s: Tensor
+    c: Tensor
+
+    def total(self) -> Tensor:
+        """Scalar for a ``[rows, lanes]`` grid, ``[batch]`` for a batched
+        one (the same tree per row)."""
+        if self.s.dim() == 3:
+            b = self.s.shape[0]
+            return merge_accumulator_grids(
+                self.s.reshape(b, -1).T, self.c.reshape(b, -1).T)
+        return merge_accumulators(self.s, self.c)
+
+
+def merge_accumulators(s: Tensor, c: Tensor) -> Tensor:
+    """Deterministic compensated merge of an accumulator grid -> scalar:
+    flatten, pad to a power of two with zeros, fold halves with two-sum,
+    collapse to ``s + c`` (``repro/kernels/engine.py:132-142``)."""
+    return merge_accumulator_grids(s.reshape(-1), c.reshape(-1))
+
+
+def merge_accumulator_grids(s: Tensor, c: Tensor) -> Tensor:
+    """The same tree along the leading axis only, elementwise over the
+    trailing ones (``repro/kernels/engine.py:145-165``)."""
+    n = s.shape[0]
+    p2 = 1 << (n - 1).bit_length()
+    if p2 != n:
+        pad = s.new_zeros((p2 - n, *s.shape[1:]))
+        s = torch.cat([s, pad])
+        c = torch.cat([c, pad])
+    while s.shape[0] > 1:
+        half = s.shape[0] // 2
+        s, c = K.kahan_combine(s[:half], c[:half], s[half:], c[half:])
+    return s[0] + c[0]
+
+
+# ---------------------------------------------------------------------------
+# The engine
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class CompensatedReduction:
+    """Shared promotion / padding / merge policy for the compensated
+    reductions.
+
+    scheme        registered name, CompensationScheme or Policy (None ->
+                  the ambient policy)
+    unroll        accumulator-group count U; kernel block (8U, 128)
+    compute_dtype accumulate dtype (None -> the policy's)
+
+    ``last_path`` says which path the latest reduction took: "kernel" (a
+    CUDA launch) or "cpu" (the plain version on CPU tensors).
+    """
+
+    scheme: SchemeSpec = None
+    unroll: Optional[int] = None
+    compute_dtype: Any = None
+    last_path: str = dataclasses.field(default="", init=False)
+
+    def __post_init__(self):
+        spec = self.scheme
+        if isinstance(spec, Policy):
+            pol = spec
+            spec = pol.scheme
+        else:
+            pol = _schemes.current_policy()
+            if spec is None:
+                spec = pol.scheme
+        self.scheme = _schemes.resolve_scheme(spec)
+        if self.unroll is None:
+            self.unroll = pol.unroll
+        if self.unroll < 1:
+            raise ValueError(f"unroll must be >= 1, got {self.unroll}")
+        self.compute_dtype = (
+            pol.compute_dtype if self.compute_dtype is None
+            else _schemes.resolve_compute_dtype(self.compute_dtype))
+
+    @property
+    def block(self) -> int:
+        return SUBLANES * self.unroll * LANES
+
+    def _note_path(self, x: Tensor) -> None:
+        self.last_path = "cpu" if x.device.type == "cpu" else "kernel"
+
+    # -- promotion + padding (the one place) --------------------------------
+    def _prep1d(self, x: Tensor) -> Tensor:
+        """Ravel, promote to the compute dtype, zero-pad to the block (an
+        empty input becomes one zero block)."""
+        x = x.reshape(-1).to(self.compute_dtype)
+        pad = (-x.shape[0]) % self.block
+        if pad or x.shape[0] == 0:
+            pad = pad or self.block
+            x = torch.cat([x, x.new_zeros((pad,))])
+        return x.contiguous()
+
+    def _prep2d(self, x: Tensor) -> Tensor:
+        """[batch, ...] -> [batch, n_padded] in the compute dtype."""
+        x = x.reshape(x.shape[0], -1).to(self.compute_dtype)
+        pad = (-x.shape[1]) % self.block
+        if pad or x.shape[1] == 0:
+            pad = pad or self.block
+            x = torch.cat([x, x.new_zeros((x.shape[0], pad))], dim=1)
+        return x.contiguous()
+
+    # -- accumulator producers ----------------------------------------------
+    def dot_accumulators(self, a: Tensor, b: Tensor) -> Accumulator:
+        if a.numel() != b.numel():
+            raise ValueError(
+                f"dot operands must have equal size: {tuple(a.shape)} vs "
+                f"{tuple(b.shape)}")
+        a, b = self._prep1d(a), self._prep1d(b)
+        acc = Accumulator(*_kd.dot_accumulators(
+            a, b, scheme=self.scheme, unroll=self.unroll))
+        self._note_path(a)
+        return acc
+
+    def sum_accumulators(self, x: Tensor) -> Accumulator:
+        x = self._prep1d(x)
+        acc = Accumulator(*_ks.sum_accumulators(
+            x, scheme=self.scheme, unroll=self.unroll))
+        self._note_path(x)
+        return acc
+
+    def batched_dot_accumulators(self, a: Tensor, b: Tensor) -> Accumulator:
+        if a.shape != b.shape:
+            raise ValueError(
+                f"batched_dot operands must match: {tuple(a.shape)} vs "
+                f"{tuple(b.shape)}")
+        a, b = self._prep2d(a), self._prep2d(b)
+        acc = Accumulator(*_kd.dot_accumulators_batched(
+            a, b, scheme=self.scheme, unroll=self.unroll))
+        self._note_path(a)
+        return acc
+
+    def batched_sum_accumulators(self, x: Tensor) -> Accumulator:
+        x = self._prep2d(x)
+        acc = Accumulator(*_ks.sum_accumulators_batched(
+            x, scheme=self.scheme, unroll=self.unroll))
+        self._note_path(x)
+        return acc
+
+    # -- collapsed results ---------------------------------------------------
+    def dot(self, a: Tensor, b: Tensor) -> Tensor:
+        """Compensated dot of two tensors (raveled); compute-dtype scalar."""
+        return self.dot_accumulators(a, b).total()
+
+    def asum(self, x: Tensor) -> Tensor:
+        """Compensated sum of a tensor (raveled); compute-dtype scalar."""
+        return self.sum_accumulators(x).total()
+
+    def batched_dot(self, a: Tensor, b: Tensor) -> Tensor:
+        """[batch, n] x [batch, n] -> [batch] in one launch; bitwise equal
+        to a loop of ``dot`` calls."""
+        return self.batched_dot_accumulators(a, b).total()
+
+    def batched_asum(self, x: Tensor) -> Tensor:
+        """[batch, n] -> [batch] in one launch; bitwise equal to a loop of
+        ``asum`` calls."""
+        return self.batched_sum_accumulators(x).total()
+
+    # -- later slices --------------------------------------------------------
+    def matmul(self, *args, **kwargs):
+        raise NotImplementedError("ported in a later slice — see ROADMAP")
+
+    batched_matmul = matmul
+    flash_attention = matmul
+    flash_chunk_attention = matmul

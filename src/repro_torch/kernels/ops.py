@@ -1,0 +1,52 @@
+"""Public entry points of the compensated reductions — a thin veneer over
+``CompensatedReduction`` (counterpart of ``repro/kernels/ops.py``).
+
+Every function takes ``scheme`` (a registered name, a
+``CompensationScheme`` or a ``Policy``; None -> the ambient
+``schemes.use_policy`` default), ``unroll`` and ``compute_dtype``. The
+inputs' device decides where the work runs: CUDA tensors launch the
+Hopper kernels, CPU tensors run their plain versions.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels.engine import CompensatedReduction, SchemeSpec
+
+Tensor = torch.Tensor
+
+
+def _engine(scheme: SchemeSpec, unroll: Optional[int],
+            compute_dtype) -> CompensatedReduction:
+    return CompensatedReduction(scheme=scheme, unroll=unroll,
+                                compute_dtype=compute_dtype)
+
+
+def dot(a: Tensor, b: Tensor, *, scheme: SchemeSpec = None,
+        unroll: Optional[int] = None, compute_dtype=None) -> Tensor:
+    """Compensated dot product of two tensors (raveled); compute-dtype
+    scalar."""
+    return _engine(scheme, unroll, compute_dtype).dot(a, b)
+
+
+def asum(x: Tensor, *, scheme: SchemeSpec = None,
+         unroll: Optional[int] = None, compute_dtype=None) -> Tensor:
+    """Compensated sum of a tensor (raveled); compute-dtype scalar."""
+    return _engine(scheme, unroll, compute_dtype).asum(x)
+
+
+def batched_dot(a: Tensor, b: Tensor, *, scheme: SchemeSpec = None,
+                unroll: Optional[int] = None, compute_dtype=None) -> Tensor:
+    """[batch, n] x [batch, n] -> [batch] compensated dots in one launch —
+    bitwise equal to a loop of ``dot`` calls."""
+    return _engine(scheme, unroll, compute_dtype).batched_dot(a, b)
+
+
+def batched_asum(x: Tensor, *, scheme: SchemeSpec = None,
+                 unroll: Optional[int] = None, compute_dtype=None) -> Tensor:
+    """[batch, n] -> [batch] compensated sums in one launch — bitwise
+    equal to a loop of ``asum`` calls."""
+    return _engine(scheme, unroll, compute_dtype).batched_asum(x)

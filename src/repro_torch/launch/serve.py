@@ -1,0 +1,161 @@
+"""Serving launcher of the port: it runs a request trace through the
+continuous-batching engine (counterpart of ``repro/launch/serve.py``).
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch olmo-1b \
+        --trace 0:64:16,0:128:16,2:32:16,5:96:16 --stats --scheme kahan
+
+runs OLMo-1B at its published width on the card with random weights made
+from ``--seed``. ``--smoke`` selects the reduced config, ``--device cpu``
+runs on the CPU (the kernels' plain versions). ``--trace`` cells are
+``arrival:prompt_len:new_tokens[:temperature]`` (arrival in engine
+steps); without it a uniform batch comes from ``--batch`` /
+``--prompt-len`` / ``--new-tokens``. ``--stats`` prints the compensated
+per-request squared logit norms: one batched sum-kernel launch per decode
+tick over the whole slot batch.
+
+The flags are the reference launcher's, plus ``--device``.
+``--prefill-mode flash``, ``--kv-layout paged`` and ``--prefix-cache``
+are ported in a later slice and fail fast (``--page-size`` and
+``--num-pages``, which only size the paged layout, come with it).
+"""
+
+import argparse
+from typing import List, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.configs import get_config, get_smoke
+from repro_torch.device import resolve_device
+from repro_torch.kernels import Policy, schemes
+from repro_torch.serve import (
+    EngineConfig,
+    InferenceEngine,
+    Request,
+    SamplingParams,
+)
+
+
+def parse_trace(spec: str, default_temp: float,
+                ) -> List[Tuple[int, int, int, float]]:
+    """'arrival:prompt_len:new_tokens[:temperature],...' -> tuples,
+    every cell validated at the parse boundary."""
+    cells = []
+    for cell in spec.split(","):
+        parts = cell.strip().split(":")
+        if len(parts) not in (3, 4):
+            raise ValueError(
+                f"trace cell {cell!r}: want arrival:prompt_len:new_tokens"
+                "[:temperature]")
+        arrival, plen, new = (int(p) for p in parts[:3])
+        temp = float(parts[3]) if len(parts) == 4 else default_temp
+        if arrival < 0:
+            raise ValueError(f"trace cell {cell!r}: arrival must be >= 0 "
+                             f"(engine steps), got {arrival}")
+        if plen < 1:
+            raise ValueError(f"trace cell {cell!r}: prompt_len must be >= 1, "
+                             f"got {plen}")
+        if new < 1:
+            raise ValueError(f"trace cell {cell!r}: new_tokens must be >= 1, "
+                             f"got {new}")
+        if temp < 0:
+            raise ValueError(f"trace cell {cell!r}: temperature must be >= 0 "
+                             f"(0 = greedy), got {temp}")
+        cells.append((arrival, plen, new, temp))
+    return cells
+
+
+def build_requests(cfg, cells, seed: int):
+    """Requests with prompts drawn from ``seed``; request_id = cell index."""
+    rng = np.random.default_rng(seed)
+    requests, arrivals = [], []
+    for arrival, plen, new, temp in cells:
+        requests.append(Request(
+            prompt=rng.integers(0, cfg.vocab_size, (plen,)).astype(np.int32),
+            sampling=SamplingParams(temperature=temp, max_new_tokens=new),
+            request_id=len(requests)))
+        arrivals.append(arrival)
+    return requests, arrivals
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--trace", default="")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--new-tokens", type=int, default=16)
+    ap.add_argument("--max-slots", type=int, default=4)
+    ap.add_argument("--max-len", type=int, default=0,
+                    help="per-slot cache capacity; 0 -> fit the trace")
+    ap.add_argument("--prefill-chunk", type=int, default=64,
+                    help="prompt-chunk width; 0 -> one-shot prefill")
+    ap.add_argument("--prefill-budget", type=int, default=0,
+                    help="max prefill chunks per engine step; 0 -> unbounded")
+    ap.add_argument("--prefill-mode", default="scan")
+    ap.add_argument("--kv-layout", default="dense")
+    ap.add_argument("--prefix-cache", action="store_true")
+    ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seed of the prompts and the random weights")
+    ap.add_argument("--stats", action="store_true",
+                    help="print compensated per-request logit norms")
+    ap.add_argument("--scheme", default="kahan",
+                    help="compensation scheme of the telemetry "
+                         f"(registered: {', '.join(sorted(schemes.names()))})")
+    ap.add_argument("--unroll", type=int, default=8)
+    ap.add_argument("--compute-dtype", default="float32")
+    ap.add_argument("--device", default=None,
+                    help="'cuda' (default) or 'cpu'")
+    args = ap.parse_args(argv)
+
+    later = []
+    if args.prefill_mode != "scan":
+        later.append(f"--prefill-mode {args.prefill_mode}")
+    if args.kv_layout != "dense":
+        later.append(f"--kv-layout {args.kv_layout}")
+    if args.prefix_cache:
+        later.append("--prefix-cache")
+    if later:
+        raise ValueError(f"{', '.join(later)}: ported in a later slice — "
+                         f"see ROADMAP")
+
+    cells = (parse_trace(args.trace, args.temperature) if args.trace else
+             [(0, args.prompt_len, args.new_tokens, args.temperature)]
+             * args.batch)
+    policy = Policy(scheme=args.scheme, unroll=args.unroll,
+                    compute_dtype=args.compute_dtype)
+    cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
+    max_len = args.max_len or max(p + n for _, p, n, _ in cells)
+    requests, arrivals = build_requests(cfg, cells, args.seed)
+    device = resolve_device(args.device)
+    if device.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    engine = InferenceEngine(
+        cfg, EngineConfig(max_slots=args.max_slots, max_len=max_len,
+                          track_stats=args.stats, policy=policy,
+                          prefill_chunk=args.prefill_chunk or None,
+                          prefill_budget=args.prefill_budget or None),
+        seed=args.seed, device=device)
+    for t, events in engine.stream(requests, arrivals):
+        chunks = " ".join(f"r{rid}+{w}" for rid, w in engine.last_chunks)
+        emitted = ", ".join(
+            f"r{e.request_id}:{e.token}{'*' if e.done else ''}"
+            for e in events)
+        print(f"# step {t:3d} occupancy={engine.scheduler.occupancy} "
+              f"prefilling={len(engine.scheduler.prefilling)} "
+              f"queued={engine.scheduler.queued}"
+              f"{'  chunks: ' + chunks if chunks else ''}  {emitted}")
+    for rid, h in sorted(engine.handles.items()):
+        arrival, plen, new, temp = cells[rid]
+        print(f"request {rid} (arrived t={arrival}, prompt={plen}, "
+              f"new={new}, temp={temp}): {h.tokens}")
+        if args.stats and h.telemetry:
+            print(f"request {rid}: |logits|^2 ({args.scheme}) "
+                  f"first={h.telemetry[0]:.6e} last={h.telemetry[-1]:.6e}")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,3 @@
+"""Model zoo of the port: the dense decoder family."""
+
+from repro_torch.models.model_zoo import build_model  # noqa: F401
