@@ -8,38 +8,53 @@ the port on the card, phase by phase; any failed phase raises and the
 script exits non-zero. It exits non-zero before doing anything when
 there is no CUDA device or no ``src/repro_torch`` beside it.
 
-1. The card (``nvidia-smi`` name and power limit) and the kernel build.
-2. Kernel parity: for every built-in scheme x U in {1, 8} x {float32,
-   float64, bfloat16}, the (s, c) grids of ``kahan_dot_grid`` and
-   ``kahan_sum_grid`` — single and batched — equal their plain PyTorch
-   versions bit for bit, and a batched launch equals a loop of single
-   ones.
+1. The card (``nvidia-smi`` name and power limit) and the kernel build:
+   one ``nvcc`` per source, all started together.
+2. Kernel parity. Reductions: for every built-in scheme x U in {1, 8} x
+   {float32, float64, bfloat16}, the (s, c) grids of ``kahan_dot_grid``
+   and ``kahan_sum_grid`` -- single and batched -- equal their plain
+   PyTorch versions bit for bit, and a batched launch equals a loop of
+   single ones. Flash: for every built-in scheme x causal / not (B7) x
+   q_groups in {1, 2}, at OLMo-1B's head dim with Sq and Skv off their
+   blocks and Skv over 3 k-blocks, the raw (l, acc) grids of
+   ``flash_accumulators`` (B7) and ``flash_chunk_accumulators`` (B8)
+   equal their plain version bit for bit, and B8 rows at block-aligned
+   offsets equal B7's rows bit for bit.
 3. Kernel times: each kernel at the shape its main path gives it (dot and
    sum at the paper's in-memory size n = 2^27 for kahan and naive,
    batched dot and sum at [8, 2^24], the serving telemetry at
-   [max_slots, 57344]), with CUDA events after warm-up, beside its bytes
-   bound, its plain version's time and one PyTorch call computing the
-   same function (``library_ms``, a yardstick the port never calls).
-4. The main path's two paths, each with every launch count set to 0
-   just before it and read just after it. Serving: the engine answers a
-   4-request trace with OLMo-1B at its published width (random bf16
-   weights from a seeded generator; chunked scan prefill, dense KV,
-   ``track_stats=True``, scheme kahan). Entry points: the paper's
-   ``ops.dot / asum / batched_dot / batched_asum`` run once each. Checked:
-   every request emits its tokens, the telemetry is finite, the sum
-   kernel launched once per decode tick and finished prefill and no other
-   kernel launched while serving, one tick's telemetry equals the plain
-   version's bit for bit on the same logits, and every kernel launched on
-   the entry-point path.
+   [max_slots, 57344], B7 at OLMo-1B's head shape [16, 2048, 128] causal,
+   B8 at the serving chunk [16, 64, 128] against both serve runs' cache
+   lengths), with CUDA events after warm-up, beside its bound (bytes or
+   float32 operations), its plain version's time and one PyTorch call
+   computing the same function (``library_ms``, a yardstick the port
+   never calls: ``scaled_dot_product_attention`` in float32 with the
+   same mask for the flash kernels).
+4. The main path's paths, each with every launch count set to 0 just
+   before it and read just after it. Serving OLMo-1B at its published
+   width (random bf16 weights from a seeded generator, dense KV,
+   ``track_stats=True``, scheme kahan): the 4-request trace with chunked
+   scan prefill, the same trace with ``kahan_attention=True,
+   prefill_mode="flash"``, and one long request (1920-token prompt) under
+   flash. Checked: every request emits its tokens, the telemetry is
+   finite, the sum kernel launched once per decode tick and finished
+   prefill, B8 exactly n_layers per chunk of width > 1 under flash and
+   never under scan, no other kernel while serving, one tick's telemetry
+   equals the plain version's bit for bit. Entry points: the paper's
+   ``ops.dot / asum / batched_dot / batched_asum`` once each,
+   ``TransformerLM.prefill`` on a 2048-token prompt (B7 once per layer;
+   its logits finite and close to the materialized attention path's) and
+   the ``flash_attention`` veneer once.
 5. Solo vs interleaved: request 0 replayed alone emits bitwise the same
-   tokens and telemetry.
+   tokens and telemetry, under scan and under flash.
 
 The last three lines are the card (``nvidia-smi`` name and power
 limit), one JSON object ``{"kernels": [...]}`` and
 ``{"ok": true, "device": {...}}``. The kernels line has one row per
-kernel and path it runs on (``"path"``: "entry" or "serve"): its
-``launches`` are that path's count and its times were taken at that
-path's shape.
+kernel and path it runs on (``"path"``: "entry", "serve" for the scan
+trace, "serve-flash" for the same trace under flash, "serve-long" for the
+long request): its ``launches`` are that path's count and its times were
+taken at that path's shape.
 """
 
 from __future__ import annotations
@@ -49,6 +64,7 @@ import math
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -59,7 +75,10 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
 
 TRACE = "0:64:16,0:128:16,2:32:16,5:96:16"
+LONG_TRACE = "0:1920:64"
 PAPER_N = 1 << 27
+PREFILL_LEN = 2048          # OLMo-1B's published context
+LIBRARIES = ("kahan_reduce", "kahan_flash")
 
 
 def check(ok: bool, what: str) -> None:
@@ -100,16 +119,24 @@ def main() -> int:
     from repro_torch.kernels import _build
 
     t0 = time.perf_counter()
-    _build.library("kahan_reduce")
-    log(f"# phase 1: built kahan_reduce.cu in {time.perf_counter() - t0:.1f} s")
+    with ThreadPoolExecutor(len(LIBRARIES)) as pool:
+        list(pool.map(_build.build, LIBRARIES))
+    for name in LIBRARIES:
+        _build.library(name)
+    log(f"# phase 1: built {', '.join(f'{n}.cu' for n in LIBRARIES)} in "
+        f"{time.perf_counter() - t0:.1f} s (one nvcc each, in parallel)")
 
     from repro_torch.configs import get_config
 
     dev = torch.device("cuda")
+    cfg = get_config("olmo-1b")
     kernels = Kernels(torch, dev)
     kernels.parity()
+    kernels.flash_parity(cfg.head_dim)
     kernels.times(PAPER_N)
-    serve_stats = main_path(torch, kernels, get_config("olmo-1b"), PAPER_N)
+    kernels.flash_times(cfg, PREFILL_LEN, serve_max_len(TRACE),
+                        serve_max_len(LONG_TRACE))
+    serve_stats = main_path(torch, kernels, cfg, PAPER_N)
     log(json.dumps({"serve": serve_stats}))
     log(card)
     log(json.dumps({"kernels": kernels.rows()}))
@@ -117,6 +144,14 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def serve_max_len(trace: str) -> int:
+    """The per-slot cache length a trace is served with (prompt + new
+    tokens of its longest request), as the launcher fits it."""
+    from repro_torch.launch.serve import parse_trace
+
+    return max(p + n for _, p, n, _ in parse_trace(trace, 0.0))
 
 
 def cuda_ms(torch, fn, reps: int, warmup: int = 2) -> float:
@@ -134,16 +169,27 @@ def cuda_ms(torch, fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
+def bound_ms(n_bytes: float, n_ops: float):
+    """(least time in ms, what bounds it) for ``n_bytes`` moved once and
+    ``n_ops`` float32 operations on the H100."""
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = n_ops / FP32_FLOPS_PER_S * 1e3
+    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms
+                                   else "operations")
+
+
 class Kernels:
-    """Phases 2 and 3, and the JSON rows of the four wrappers."""
+    """Phases 2 and 3, and the JSON rows of the six wrappers."""
 
     def __init__(self, torch, dev):
-        from repro_torch.kernels import engine, kahan_dot, kahan_sum, schemes
+        from repro_torch.kernels import (engine, flash_attention, kahan_dot,
+                                         kahan_sum, schemes)
 
         self.torch = torch
         self.dev = dev
         self.engine, self.kd, self.ks, self.schemes = (engine, kahan_dot,
                                                        kahan_sum, schemes)
+        self.fa = flash_attention
         self.gen = torch.Generator(device=dev).manual_seed(0)
         self.err = {name: 0.0 for name in engine.WRAPPERS}
         self.timing = {}
@@ -154,6 +200,9 @@ class Kernels:
                         dtype=torch.float64)
         e = torch.randint(-8, 8, shape, generator=self.gen, device=self.dev)
         return (x * torch.exp2(e.double())).to(dtype)
+
+    def normal(self, shape):
+        return self.torch.randn(shape, generator=self.gen, device=self.dev)
 
     def compare(self, name, got, want, what):
         torch = self.torch
@@ -209,6 +258,52 @@ class Kernels:
         log(f"# phase 2: {cases} parity cases x 4 wrappers bitwise equal to "
             f"their plain versions; batched == loop of single launches")
 
+    def flash_parity(self, dh: int):
+        """B7 and B8 against their plain version, bitwise: Sq = 300 and
+        Skv = 600 (blocks 256: Sq padded to 512, Skv to 768 = 3 k-blocks,
+        60 padded keys masked), every built-in scheme, q_groups 1 and 2."""
+        torch, fa = self.torch, self.fa
+        bh, sq, skv, bk = 4, 300, 600, 256
+        cases = 0
+        for groups in (1, 2):
+            eng = self.engine.CompensatedReduction(scheme="kahan")
+            q, k, v, bq, bk, _, _ = eng._flash_prep(
+                "flash_parity", self.normal((bh, sq, dh)),
+                self.normal((bh // groups, skv, dh)),
+                self.normal((bh // groups, skv, dh)), 256, bk, groups)
+            for name in ("naive", "kahan", "pairwise", "dot2"):
+                sch = self.schemes.get(name)
+                kw = dict(block_q=bq, block_k=bk, scheme=sch, kv_len=skv,
+                          q_groups=groups)
+                for causal in (True, False):
+                    what = f"{name} causal={causal} G={groups}"
+                    got = fa.flash_accumulators(q, k, v, causal=causal, **kw)
+                    want = fa.flash_plain(q, k, v, scheme=sch, block_k=bk,
+                                          kv_len=skv, causal=causal,
+                                          q_groups=groups)
+                    self.compare("flash_accumulators", got, want, what)
+                    cases += 1
+                full = fa.flash_accumulators(q, k, v, causal=True, **kw)
+                for off in (0, 64, 256):
+                    w = 64
+                    qc = q[:, off:off + w].contiguous()
+                    kwc = dict(kw, block_q=w)
+                    got = fa.flash_chunk_accumulators(qc, k, v, off, **kwc)
+                    want = fa.flash_plain(qc, k, v, scheme=sch, block_k=bk,
+                                          kv_len=skv, causal=True, q_off=off,
+                                          q_groups=groups)
+                    self.compare("flash_chunk_accumulators", got, want,
+                                 f"{name} G={groups} q_off={off}")
+                    check(all(torch.equal(g, f[:, off:off + w])
+                              for g, f in zip(got, full)),
+                          f"B8 rows at q_off={off} != B7 rows ({name}, "
+                          f"G={groups})")
+                    cases += 1
+        sync(torch, self.dev)
+        log(f"# phase 2: {cases} flash parity cases (dh={dh}, Sq={sq}, "
+            f"Skv={skv}, block_k={bk}) bitwise equal to the plain version; "
+            f"B8 rows at aligned offsets == B7 rows, bitwise")
+
     # -- 3. times -------------------------------------------------------------
     def time_one(self, name, scheme, args, plain_fn, library_fn, reps=20,
                  label=None):
@@ -232,18 +327,15 @@ class Kernels:
         in_bytes = numel * args[0].element_size()
         mix = sch.instruction_mix
         ops = n_elem * (mix.flops if name.startswith("dot") else mix.adds)
-        bytes_ms = (in_bytes + grid_bytes) / HBM_BYTES_PER_S * 1e3
-        ops_ms = ops / FP32_FLOPS_PER_S * 1e3
+        least, by = bound_ms(in_bytes + grid_bytes, ops)
         row = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-               "bound_ms": max(bytes_ms, ops_ms),
-               "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+               "bound_ms": least, "bound_by": by,
                "shape": list(args[0].shape), "scheme": scheme,
                "gbytes_per_s": (in_bytes + grid_bytes) / ms / 1e6}
         self.timing[(name, label or scheme)] = row
         log(f"# {name} {label or scheme} {row['shape']}: kernel {ms:.4f} ms "
-            f"({row['gbytes_per_s']:.0f} GB/s), bytes bound "
-            f"{bytes_ms:.4f} ms at {HBM_BYTES_PER_S / 1e12} TB/s, plain "
-            f"{plain_ms:.1f} ms, library {library_ms:.4f} ms")
+            f"({row['gbytes_per_s']:.0f} GB/s), {by} bound {least:.4f} ms, "
+            f"plain {plain_ms:.1f} ms, library {library_ms:.4f} ms")
 
     def times(self, paper_n):
         torch = self.torch
@@ -276,25 +368,104 @@ class Kernels:
                       lambda: torch.sum(x, dim=1), reps=200, label="serve")
         del a, b, a2, b2
 
+    def time_flash(self, name, label, q, k, v, q_off, reps):
+        """One flash wrapper (scheme kahan) at the engine's padded shapes
+        for q [BH, Sq, dh] and the cache k/v [BH, Skv, dh]: kernel, plain
+        and library (float32 ``scaled_dot_product_attention``, the same
+        causal mask on absolute positions) times, and the parity check."""
+        torch, fa = self.torch, self.fa
+        F = torch.nn.functional
+        sch = self.schemes.get("kahan")
+        bh, sq, dh = q.shape
+        skv = k.shape[1]
+        eng = self.engine.CompensatedReduction(scheme=sch)
+        qp, kp, vp, bq, bk, _, _ = eng._flash_prep(name, q, k, v, 256, 256, 1)
+        kw = dict(block_q=bq, block_k=bk, scheme=sch, kv_len=skv)
+        if name == "flash_accumulators":
+            kernel = lambda: fa.flash_accumulators(  # noqa: E731
+                qp, kp, vp, causal=True, **kw)
+        else:
+            kernel = lambda: fa.flash_chunk_accumulators(  # noqa: E731
+                qp, kp, vp, q_off, **kw)
+        got = kernel()
+        sync(torch, self.dev)
+        t0 = time.perf_counter()
+        want = fa.flash_plain(qp, kp, vp, scheme=sch, block_k=bk, kv_len=skv,
+                              causal=True, q_off=q_off)
+        sync(torch, self.dev)
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        self.compare(name, got, want, f"kahan at {label} {tuple(q.shape)}")
+        ms = cuda_ms(torch, kernel, reps)
+        mask = ((q_off + torch.arange(sq, device=self.dev))[:, None]
+                >= torch.arange(skv, device=self.dev)[None, :])
+        library_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+            q[None], k[None], v[None], attn_mask=mask), reps)
+        sq_pad, skv_pad = qp.shape[1], kp.shape[1]
+        flops = 4 * bh * sq_pad * skv_pad * dh
+        n_bytes = 4 * (qp.numel() + kp.numel() + vp.numel()
+                       + 2 * (bh * sq_pad + qp.numel()))
+        least, by = bound_ms(n_bytes, flops)
+        row = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+               "bound_ms": least, "bound_by": by, "shape": [bh, sq, dh],
+               "skv": skv, "scheme": "kahan",
+               "tflops": flops / ms / 1e9}
+        self.timing[(name, label)] = row
+        log(f"# {name} {label} q {[bh, sq, dh]} kv {skv}: kernel {ms:.4f} ms "
+            f"({row['tflops']:.2f} TFLOP/s fp32), {by} bound {least:.4f} ms, "
+            f"plain {plain_ms:.1f} ms, library (sdpa f32) {library_ms:.4f} ms")
+
+    def flash_times(self, cfg, prefill_len, serve_len, long_len):
+        """B7 at the entry path's shape (every head of a 2048-token
+        prefill), B8 at the serving chunk against each serve run's
+        cache."""
+        h, dh = cfg.n_heads, cfg.head_dim
+        self.time_flash("flash_accumulators", "entry",
+                        self.normal((h, prefill_len, dh)),
+                        self.normal((h, prefill_len, dh)),
+                        self.normal((h, prefill_len, dh)), 0, reps=10)
+        for label, length in (("serve", serve_len), ("serve-long", long_len)):
+            # the last full chunk of a prompt that fills the cache
+            off = (length - 64) // 64 * 64
+            self.time_flash("flash_chunk_accumulators", label,
+                            self.normal((h, 64, dh)),
+                            self.normal((h, length, dh)),
+                            self.normal((h, length, dh)), off, reps=50)
+
     def rows(self):
         """One JSON row per wrapper and path that launches it, with that
         path's launch count, timed at that path's shape."""
-        src = "src/repro_torch/csrc/kahan_reduce.cu"
+        reduce_src = "src/repro_torch/csrc/kahan_reduce.cu"
+        flash_src = "src/repro_torch/csrc/kahan_flash.cu"
         replaces = {
             "dot_accumulators": "src/repro/kernels/kahan_dot.py:89",
             "dot_accumulators_batched": "src/repro/kernels/kahan_dot.py:139",
             "sum_accumulators": "src/repro/kernels/kahan_sum.py:63",
             "sum_accumulators_batched": "src/repro/kernels/kahan_sum.py:105",
+            "flash_accumulators":
+                "src/repro/kernels/flash_attention.py:262",
+            "flash_chunk_accumulators":
+                "src/repro/kernels/flash_attention.py:377",
         }
-        # (path, timing label) of each row: the entry points run every
-        # kernel at the phase-3 shapes, serving runs the batched sum only
-        rows = [(name, "entry", "kahan") for name in replaces]
-        rows.append(("sum_accumulators_batched", "serve", "serve"))
+        # every (kernel, path) pair that launched, timed at that path's
+        # shape: the reductions at the phase-3 sizes, B4 on every serving
+        # path at the telemetry shape, B7 at the prefill shape, B8 at each
+        # serving run's cache length
+        special = {("flash_chunk_accumulators", "serve-long"): "serve-long"}
+        rows = []
+        for path, counts in self.launches.items():
+            for name in replaces:
+                if counts[name]:
+                    default = ("serve" if path.startswith("serve")
+                               else "entry" if name.startswith("flash")
+                               else "kahan")
+                    rows.append((name, path,
+                                 special.get((name, path), default)))
         out = []
         for name, path, label in rows:
             t = self.timing[(name, label)]
             out.append({
-                "name": name, "route": "cuda", "source": src,
+                "name": name, "route": "cuda",
+                "source": flash_src if name.startswith("flash") else reduce_src,
                 "replaces": replaces[name], "path": path,
                 "launches": self.launches[path][name],
                 "max_abs_err": self.err[name], "ms": t["ms"],
@@ -304,41 +475,37 @@ class Kernels:
         return out
 
 
-def main_path(torch, kernels: Kernels, cfg, paper_n):
-    """Phases 4 and 5: the port's main path with the launch counts reset
-    just before it, then solo vs interleaved."""
-    from repro_torch.kernels import Policy, ops
-    from repro_torch.kernels.engine import (
-        Accumulator,
-        CompensatedReduction,
-        launch_counts,
-        reset_launch_counts,
-    )
+def serve_run(torch, kernels, cfg, model, params, trace, prefill_mode):
+    """Serve ``trace`` once with every launch count reset just before and
+    read just after; times every decode tick and prefill chunk. Checks
+    what holds on every serving path: each request emits its tokens, the
+    telemetry is finite and positive, and the sum kernel launched once
+    per decode tick and once per finished prefill."""
+    from repro_torch.kernels import Policy
+    from repro_torch.kernels.engine import launch_counts, reset_launch_counts
     from repro_torch.launch.serve import build_requests, parse_trace
-    from repro_torch.models import build_model
     from repro_torch.serve import EngineConfig, InferenceEngine
 
-    cells = parse_trace(TRACE, 0.0)
-    requests, arrivals = build_requests(cfg, cells, seed=0)
-    ec = EngineConfig(max_slots=4, max_len=max(p + n for _, p, n, _ in cells),
-                      prefill_chunk=64, track_stats=True,
-                      policy=Policy(scheme="kahan"))
     dev = kernels.dev
-    model = build_model(cfg, dev)
-    params = model.init(torch.Generator(device=dev).manual_seed(0))
-    n_params = sum(t.numel() for t in _leaves(params))
-    log(f"# phase 4: OLMo-1B {cfg.n_layers}L d={cfg.d_model} "
-        f"H={cfg.n_heads} ff={cfg.d_ff} vocab={cfg.vocab_size} "
-        f"({cfg.padded_vocab} padded), {n_params / 1e9:.3f} B params "
-        f"{cfg.param_dtype}")
+    cells = parse_trace(trace, 0.0)
+    requests, arrivals = build_requests(cfg, cells, seed=0)
+    ec = EngineConfig(max_slots=4, max_len=serve_max_len(trace),
+                      prefill_chunk=64, track_stats=True,
+                      policy=Policy(scheme="kahan"),
+                      prefill_mode=prefill_mode)
     engine = InferenceEngine(cfg, ec, model=model, params=params)
-
-    tick_ms, chunk_ms, chunk_pos = [], [], []
+    check(engine.prefill_body == prefill_mode,
+          f"engine resolved prefill body {engine.prefill_body!r}, wanted "
+          f"{prefill_mode!r}")
+    tick_ms, chunk_ms, chunk_pos, widths = [], [], [], []
     captured = {}
     sum_kernel = kernels.engine.WRAPPERS["sum_accumulators_batched"]
+    flash_kernels = [kernels.engine.WRAPPERS[n] for n in
+                     ("flash_accumulators", "flash_chunk_accumulators")]
 
     def timed_tick(running, events, _orig=engine._decode_tick):
         before = sum_kernel.launches
+        flash_before = [f.launches for f in flash_kernels]
         sync(torch, dev)
         t0 = time.perf_counter()
         _orig(running, events)
@@ -347,6 +514,8 @@ def main_path(torch, kernels: Kernels, cfg, paper_n):
         check(sum_kernel.launches == before + 1,
               "the telemetry sum kernel did not launch exactly once in a "
               "decode tick")
+        check([f.launches for f in flash_kernels] == flash_before,
+              "a flash kernel launched in a decode tick")
 
     def timed_chunk(slot, h, events, _orig=engine._run_chunk):
         start = h.prefill_pos
@@ -356,6 +525,7 @@ def main_path(torch, kernels: Kernels, cfg, paper_n):
         sync(torch, dev)
         chunk_ms.append((time.perf_counter() - t0) * 1e3)
         chunk_pos.append(h.prefill_pos - start)
+        widths.append(engine.last_chunks[-1][1])
 
     def captured_norms(logits, _orig=engine._norms):
         out = _orig(logits)
@@ -373,30 +543,7 @@ def main_path(torch, kernels: Kernels, cfg, paper_n):
     served = engine.run(requests, arrivals)
     sync(torch, dev)
     wall = time.perf_counter() - t0
-    serve_counts = launch_counts()
-    for name in kernels.engine.WRAPPERS:
-        want = name == "sum_accumulators_batched"
-        check((serve_counts[name] > 0) == want,
-              f"{name} launched {serve_counts[name]} times while serving")
-    # the paper's entry points, at the shapes of phase 3
-    a = kernels.data((paper_n,), torch.float32)
-    b = kernels.data((paper_n,), torch.float32)
-    sync(torch, dev)
-    reset_launch_counts()
-    totals = [ops.dot(a, b), ops.asum(a),
-              ops.batched_dot(a.view(8, -1), b.view(8, -1)),
-              ops.batched_asum(a.view(8, -1))]
-    sync(torch, dev)
-    entry_counts = launch_counts()
-    kernels.launches = {"serve": serve_counts, "entry": entry_counts}
-    log(f"# main path launch counts: serving {serve_counts}; the paper's "
-        f"entry points {entry_counts}")
-    for name in kernels.engine.WRAPPERS:
-        check(entry_counts[name] > 0,
-              f"{name} never launched by the paper's entry points")
-    check(all(bool(torch.isfinite(t).all()) for t in totals),
-          "non-finite result from the paper's entry points")
-    del a, b
+    counts = launch_counts()
 
     n_tok = 0
     for (arrival, plen, new, _), req in zip(cells, requests):
@@ -410,76 +557,205 @@ def main_path(torch, kernels: Kernels, cfg, paper_n):
               f"request {req.request_id}: telemetry not finite")
         n_tok += len(h.tokens)
     n_ticks = len(tick_ms)
-    check(serve_counts["sum_accumulators_batched"] == n_ticks + len(cells),
-          f"sum kernel launched {serve_counts['sum_accumulators_batched']} "
-          f"times for {n_ticks} decode ticks + {len(cells)} finished "
-          f"prefills")
+    check(counts["sum_accumulators_batched"] == n_ticks + len(cells),
+          f"sum kernel launched {counts['sum_accumulators_batched']} times "
+          f"for {n_ticks} decode ticks + {len(cells)} finished prefills")
+    n_prompt = sum(chunk_pos)
+    stats = {
+        "trace": trace, "prefill_mode": prefill_mode,
+        "kahan_attention": cfg.kahan_attention, "requests": len(cells),
+        "tokens": n_tok, "wall_s": wall, "tokens_per_s": n_tok / wall,
+        "decode_ticks": n_ticks,
+        "decode_tick_ms_mean": sum(tick_ms) / max(n_ticks, 1),
+        "decode_tick_ms_min": min(tick_ms, default=None),
+        "decode_s": sum(tick_ms) / 1e3,
+        "prefill_chunks": len(chunk_ms), "chunk_widths": widths,
+        "prefill_s": sum(chunk_ms) / 1e3,
+        "prefill_chunk_ms_mean": sum(chunk_ms) / len(chunk_ms),
+        "prefill_ms_per_position": sum(chunk_ms) / n_prompt,
+        "prefill_positions_per_s": n_prompt / (sum(chunk_ms) / 1e3),
+        "launches": counts,
+        "max_memory_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+    }
+    log(f"# phase 4 [{prefill_mode}, kahan_attention={cfg.kahan_attention}]"
+        f" {trace}: {len(cells)} requests, {n_tok} tokens in {wall:.2f} s "
+        f"({stats['tokens_per_s']:.1f} tokens/s); {len(chunk_ms)} prefill "
+        f"chunks in {stats['prefill_s']:.2f} s "
+        f"({stats['prefill_ms_per_position']:.3f} ms per position); "
+        f"{n_ticks} decode ticks in {stats['decode_s']:.2f} s "
+        f"({stats['decode_tick_ms_mean']:.2f} ms mean); launches {counts}")
+    return ec, requests, served, captured, stats
 
+
+def check_flash_launches(cfg, stats, what):
+    """Under flash, B8 ran n_layers times per chunk of width > 1 (a
+    width-1 tail runs the decode mode, as in the reference) and B7 and
+    the dot / single sum kernels never."""
+    counts = stats["launches"]
+    wide = sum(1 for w in stats["chunk_widths"] if w > 1)
+    check(counts["flash_chunk_accumulators"] == cfg.n_layers * wide,
+          f"{what}: B8 launched {counts['flash_chunk_accumulators']} times "
+          f"for {wide} chunks x {cfg.n_layers} layers")
+    for name in ("flash_accumulators", "dot_accumulators",
+                 "dot_accumulators_batched", "sum_accumulators"):
+        check(counts[name] == 0,
+              f"{what}: {name} launched {counts[name]} times while serving")
+
+
+def main_path(torch, kernels: Kernels, cfg, paper_n):
+    """Phases 4 and 5: the port's main paths, each with the launch counts
+    reset just before it, then solo vs interleaved."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.engine import (
+        Accumulator,
+        CompensatedReduction,
+        launch_counts,
+        reset_launch_counts,
+    )
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models import build_model
+    from repro_torch.serve import InferenceEngine
+
+    dev = kernels.dev
+    model = build_model(cfg, dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    flash_cfg = cfg.replace(kahan_attention=True)
+    flash_model = build_model(flash_cfg, dev)
+    n_params = sum(t.numel() for t in _leaves(params))
+    log(f"# phase 4: OLMo-1B {cfg.n_layers}L d={cfg.d_model} "
+        f"H={cfg.n_heads} ff={cfg.d_ff} vocab={cfg.vocab_size} "
+        f"({cfg.padded_vocab} padded), {n_params / 1e9:.3f} B params "
+        f"{cfg.param_dtype}")
+
+    # -- serving: scan, flash on the same trace, and one long flash request
+    ec, requests, served, captured, scan = serve_run(
+        torch, kernels, cfg, model, params, TRACE, "scan")
+    for name in kernels.engine.WRAPPERS:
+        check((scan["launches"][name] > 0)
+              == (name == "sum_accumulators_batched"),
+              f"{name} launched {scan['launches'][name]} times while "
+              f"serving under scan")
     # one tick's telemetry against the plain version on the same logits
     logits = captured["logits"][:, :cfg.vocab_size]
     eng = CompensatedReduction(scheme=ec.policy)
     sq = eng._prep2d(logits.float() * logits.float())
     s, c = kernels.ks.sum_plain(sq, scheme=eng.scheme, unroll=eng.unroll)
-    plain_norms = Accumulator(s, c).total()
-    check(torch.equal(plain_norms, captured["norms"]),
+    check(torch.equal(Accumulator(s, c).total(), captured["norms"]),
           "decode-tick telemetry differs from the plain version")
-    stats = {
-        "trace": TRACE, "requests": len(cells), "tokens": n_tok,
-        "wall_s": wall, "tokens_per_s": n_tok / wall,
-        "decode_ticks": n_ticks, "decode_tick_ms_mean": sum(tick_ms) / n_ticks,
-        "decode_tick_ms_min": min(tick_ms),
-        "prefill_chunks": len(chunk_ms),
-        "prefill_chunk_ms_mean": sum(chunk_ms) / len(chunk_ms),
-        "prefill_ms_per_position": sum(chunk_ms) / sum(chunk_pos),
-        "sum_launches_serving": serve_counts["sum_accumulators_batched"],
-        "max_memory_gb": (torch.cuda.max_memory_allocated(dev) / 1e9
-                          if dev.type == "cuda" else None),
-        "decode_position": profile_decode_step(torch, model, params, dev,
-                                               ec.max_len),
-    }
-    log(f"# phase 4: served {len(cells)} requests, {n_tok} tokens in "
-        f"{wall:.2f} s ({stats['tokens_per_s']:.1f} tokens/s); decode tick "
-        f"{stats['decode_tick_ms_mean']:.2f} ms mean over {n_ticks}; prefill "
-        f"chunk {stats['prefill_chunk_ms_mean']:.1f} ms mean over "
-        f"{len(chunk_ms)} ({stats['prefill_ms_per_position']:.2f} ms per "
-        f"position); one tick's telemetry bitwise equal to the plain version")
+    log("# phase 4: one tick's telemetry bitwise equal to the plain version")
+    scan["decode_position"] = profile_decode_step(torch, model, params, dev,
+                                                  ec.max_len)
+
+    fec, _, fserved, _, flash = serve_run(
+        torch, kernels, flash_cfg, flash_model, params, TRACE, "flash")
+    check_flash_launches(flash_cfg, flash, "flash serving")
+    flash["chunk_profile"] = profile_flash_chunk(torch, flash_model, params,
+                                                 dev, fec.max_len)
+    agree = [sum(a == b for a, b in zip(served[r.request_id].tokens,
+                                        fserved[r.request_id].tokens))
+             for r in requests]
+    flash["greedy_tokens_equal_to_scan"] = agree
+    log(f"# phase 4: prefill {flash['prefill_ms_per_position']:.3f} ms per "
+        f"position under flash vs {scan['prefill_ms_per_position']:.3f} "
+        f"under scan; {flash['tokens_per_s']:.1f} vs "
+        f"{scan['tokens_per_s']:.1f} tokens/s; greedy tokens equal to scan's "
+        f"per request (not checked): {agree}")
+    _, _, _, _, long = serve_run(torch, kernels, flash_cfg, flash_model,
+                                 params, LONG_TRACE, "flash")
+    check_flash_launches(flash_cfg, long, "long flash request")
+    long["chunk_profile"] = profile_flash_chunk(
+        torch, flash_model, params, dev, serve_max_len(LONG_TRACE))
+
+    # -- the entry points: the paper's reductions, prefill, the veneer
+    a = kernels.data((paper_n,), torch.float32)
+    b = kernels.data((paper_n,), torch.float32)
+    prompt = torch.randint(0, cfg.vocab_size, (1, PREFILL_LEN),
+                           generator=kernels.gen, device=dev)
+    heads = [kernels.normal((cfg.n_heads, PREFILL_LEN, cfg.head_dim))
+             for _ in range(3)]
+    sync(torch, dev)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    totals = [ops.dot(a, b), ops.asum(a),
+              ops.batched_dot(a.view(8, -1), b.view(8, -1)),
+              ops.batched_asum(a.view(8, -1))]
+    t1 = time.perf_counter()
+    flash_logits, _ = flash_model.prefill(
+        params, prompt, flash_model.init_cache(1, PREFILL_LEN))
+    sync(torch, dev)
+    prefill_ms = (time.perf_counter() - t1) * 1e3
+    veneer = flash_attention(*heads, scheme="kahan")
+    sync(torch, dev)
+    entry_counts = launch_counts()
+    kernels.launches = {"entry": entry_counts, "serve": scan["launches"],
+                        "serve-flash": flash["launches"],
+                        "serve-long": long["launches"]}
+    log(f"# main path launch counts: the entry points {entry_counts} "
+        f"(reductions {1e3 * (t1 - t0):.1f} ms, {PREFILL_LEN}-token flash "
+        f"prefill {prefill_ms:.1f} ms)")
+    for name in list(kernels.engine.WRAPPERS)[:4]:
+        check(entry_counts[name] > 0,
+              f"{name} never launched by the paper's entry points")
+    check(entry_counts["flash_accumulators"] == cfg.n_layers + 1,
+          f"B7 launched {entry_counts['flash_accumulators']} times for "
+          f"{cfg.n_layers} prefill layers + 1 veneer call")
+    check(entry_counts["flash_chunk_accumulators"] == 0,
+          "B8 launched on the entry path")
+    check(all(bool(torch.isfinite(t).all()) for t in totals + [veneer]),
+          "non-finite result from the entry points")
+    check(flash_logits.shape == (1, cfg.padded_vocab)
+          and bool(torch.isfinite(flash_logits[:, :cfg.vocab_size]).all()),
+          "prefill logits not finite / of the wrong shape")
+    # the same prompt through the materialized attention core
+    plain_logits, _ = model.prefill(params, prompt,
+                                    model.init_cache(1, PREFILL_LEN))
+    fl, pl = (x[0, :cfg.vocab_size].double() for x in (flash_logits,
+                                                       plain_logits))
+    rel = float((fl - pl).norm() / pl.norm())
+    log(f"# entry: {PREFILL_LEN}-token prefill logits, flash vs materialized "
+        f"attention: relative L2 {rel:.3e}, argmax {int(fl.argmax())} vs "
+        f"{int(pl.argmax())}")
+    check(rel < 0.1, f"flash prefill logits differ from the materialized "
+          f"path's by {rel:.3e} (relative L2)")
+    del a, b, heads
 
     # -- 5. solo vs interleaved ------------------------------------------------
-    solo_engine = InferenceEngine(cfg, ec, model=model, params=params)
     req0 = requests[0]
-    solo = solo_engine.run([req0])[req0.request_id]
-    check(solo.tokens == served[req0.request_id].tokens,
-          "request 0: tokens differ solo vs interleaved")
-    check(solo.telemetry == served[req0.request_id].telemetry,
-          "request 0: telemetry differs solo vs interleaved")
-    log(f"# phase 5: request 0 alone == interleaved, bitwise "
-        f"({len(solo.tokens)} tokens and telemetry values)")
-    return stats
+    for what, c, m, e, out in (("scan", cfg, model, ec, served),
+                               ("flash", flash_cfg, flash_model, fec,
+                                fserved)):
+        solo = InferenceEngine(c, e, model=m, params=params).run(
+            [req0])[req0.request_id]
+        check(solo.tokens == out[req0.request_id].tokens,
+              f"request 0: tokens differ solo vs interleaved ({what})")
+        check(solo.telemetry == out[req0.request_id].telemetry,
+              f"request 0: telemetry differs solo vs interleaved ({what})")
+        log(f"# phase 5 [{what}]: request 0 alone == interleaved, bitwise "
+            f"({len(solo.tokens)} tokens and telemetry values)")
+    return {"scan": scan, "flash": flash, "flash_long": long,
+            "entry_prefill_ms": prefill_ms, "entry_logits_rel_l2": rel}
 
 
-def profile_decode_step(torch, model, params, dev, max_len, reps=5):
-    """Host time and device-busy time of one batch-1 decode position (the
-    unit a decode tick runs per slot and prefill per prompt position).
-    Host time is the mean of ``reps`` unprofiled steps; device-busy time
-    sums the device kernels ``torch.profiler`` records in one more step
-    (None when it records no device time)."""
+def profile_step(torch, dev, step, what, reps=5):
+    """Host time and device-busy time of ``step(i)``: host time is the mean
+    of ``reps`` unprofiled calls after one warm-up; device-busy time sums
+    the device kernels ``torch.profiler`` records in one more call (None
+    when it records no device time)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    cache = model.init_cache(1, max_len)
-    tok = torch.tensor([1], device=dev)
-    model.decode_step(params, cache, tok, 0)            # warm-up
+    step(0)                                             # warm-up
     sync(torch, dev)
     t0 = time.perf_counter()
-    for pos in range(1, reps + 1):
-        model.decode_step(params, cache, tok, pos)
+    for i in range(1, reps + 1):
+        step(i)
     sync(torch, dev)
     host_ms = (time.perf_counter() - t0) * 1e3 / reps
     activities = [ProfilerActivity.CPU]
     if dev.type == "cuda":
         activities.append(ProfilerActivity.CUDA)
     with profile(activities=activities) as prof:
-        model.decode_step(params, cache, tok, reps + 1)
+        step(reps + 1)
         sync(torch, dev)
     kernels = [(e.self_device_time_total / 1e3, e.key[:60], e.count)
                for e in prof.key_averages()
@@ -491,10 +767,34 @@ def profile_decode_step(torch, model, params, dev, max_len, reps=5):
            "device_idle_share": 1 - busy_ms / host_ms if busy_ms else None,
            "device_kernels": sum(k[2] for k in kernels),
            "top_kernels_ms": [[name, ms, n] for ms, name, n in top]}
-    log(f"# decode position: {host_ms:.2f} ms host clock, device busy "
+    log(f"# {what}: {host_ms:.2f} ms host clock, device busy "
         f"{busy_ms:.3f} ms in {out['device_kernels']} kernels; top "
         f"{out['top_kernels_ms']}")
     return out
+
+
+def profile_decode_step(torch, model, params, dev, max_len):
+    """One batch-1 decode position: the unit a decode tick runs per slot
+    and scan prefill per prompt position."""
+    cache = model.init_cache(1, max_len)
+    tok = torch.tensor([1], device=dev)
+    return profile_step(
+        torch, dev, lambda i: model.decode_step(params, cache, tok, i),
+        "decode position")
+
+
+def profile_flash_chunk(torch, model, params, dev, max_len):
+    """One 64-token flash prefill chunk, the last full chunk of a prompt
+    that fills a ``max_len`` cache (the unit flash prefill runs per
+    chunk)."""
+    w = min(64, max_len)
+    off = (max_len - w) // w * w
+    cache = model.init_cache(1, max_len)
+    toks = torch.ones((1, w), dtype=torch.long, device=dev)
+    return profile_step(
+        torch, dev,
+        lambda i: model.prefill_chunk_parallel(params, toks, cache, off, w),
+        f"flash chunk of {w} at offset {off} (cache {max_len})")
 
 
 def _leaves(tree):

@@ -1,10 +1,10 @@
 """Build and bind the port's CUDA kernels: ``nvcc`` into a shared library
 with a plain C interface, loaded with ``ctypes``.
 
-The library is compiled from ``repro_torch/csrc/*.cu`` at first use, into
-``build/kernels/`` at the root of the checkout, and reused while its
-source is unchanged (the file name carries a hash of the source and the
-flags). Nothing is built when a module is imported, and nothing falls
+The library is compiled from ``repro_torch/csrc/<name>.cu`` (with the
+shared headers ``csrc/*.cuh``) at first use, into ``build/kernels/`` at
+the root of the checkout, and reused while its sources are unchanged (the
+file name carries a hash of the source, the headers and the flags). Nothing is built when a module is imported, and nothing falls
 back: a missing ``nvcc``, a failed build or a refused launch raises.
 """
 
@@ -39,6 +39,13 @@ _SIGNATURES = {
         # (scheme, dtype, x, s, c, batch, n, cells, stream)
         "kahan_sum_launch": (_I, _I, _V, _V, _V, _LL, _LL, _I, _V),
     },
+    "kahan_flash": {
+        # (scheme, dtype, q, k, v, l_s, l_c, a_s, a_c, bh, q_groups, sq,
+        #  skv, dh, block_k, kv_len, q_off, causal, scale, stream)
+        "kahan_flash_launch": (_I, _I, _V, _V, _V, _V, _V, _V, _V, _I, _I,
+                               _I, _I, _I, _I, _I, _I, _I, ctypes.c_float,
+                               _V),
+    },
 }
 
 #: dtype codes of the C entry points.
@@ -62,6 +69,8 @@ def build(name: str) -> Path:
     unless that file exists; returns its path."""
     src = CSRC / f"{name}.cu"
     digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
     out = BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
     if out.exists():
         return out

@@ -15,17 +15,23 @@ one zero block), runs the kernel wrappers and merges their grids. The
 merge is plain torch on whatever device the grids are on, as the
 reference does it outside Pallas.
 
-Matmul and flash attention are ported in later slices.
+Flash attention (``flash_attention`` / ``flash_chunk_attention``) runs the
+same policy on the online-softmax accumulators: promote q/k/v to the
+compute dtype, zero-pad Sq and Skv to the (clamped) blocks, launch the
+flash grid (padded keys masked by ``kv_len``), finalize both pairs with
+``s + c`` and divide, ``o / max(l, 1e-30)``. Matmul is ported in a later
+slice.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional, Union
+from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
 
 from repro_torch.core import kahan as K
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import kahan_dot as _kd
 from repro_torch.kernels import kahan_sum as _ks
 from repro_torch.kernels import schemes as _schemes
@@ -37,12 +43,14 @@ SUBLANES = _kd.SUBLANES
 
 SchemeSpec = Union[str, CompensationScheme, Policy, None]
 
-#: every kernel wrapper of this slice, by name (launch counters)
+#: every kernel wrapper of the port, by name (launch counters)
 WRAPPERS = {
     "dot_accumulators": _kd.dot_accumulators,
     "dot_accumulators_batched": _kd.dot_accumulators_batched,
     "sum_accumulators": _ks.sum_accumulators,
     "sum_accumulators_batched": _ks.sum_accumulators_batched,
+    "flash_accumulators": _fa.flash_accumulators,
+    "flash_chunk_accumulators": _fa.flash_chunk_accumulators,
 }
 
 
@@ -225,10 +233,110 @@ class CompensatedReduction:
         ``asum`` calls."""
         return self.batched_sum_accumulators(x).total()
 
+    # -- flash attention -----------------------------------------------------
+    def flash_attention(self, q: Tensor, k: Tensor, v: Tensor, *,
+                        block_q: int = 256, block_k: int = 256,
+                        causal: bool = True, q_groups: int = 1) -> Tensor:
+        """Fused attention with compensated online-softmax accumulators.
+
+        q ``[BH, Sq, dh]``; k/v ``[BH // q_groups, Skv, dh]`` (each k/v
+        head-row serves ``q_groups`` consecutive query head-rows, never
+        repeated). Returns ``[BH, Sq, dh]`` in the compute dtype
+        (``repro/kernels/engine.py:419-442``)."""
+        l_acc, o_acc, sq = self.flash_attention_accumulators(
+            q, k, v, block_q=block_q, block_k=block_k, causal=causal,
+            q_groups=q_groups)
+        return _finalize_flash(l_acc, o_acc)[:, :sq, :]
+
+    def flash_attention_accumulators(self, q: Tensor, k: Tensor, v: Tensor,
+                                     *, block_q: int = 256,
+                                     block_k: int = 256, causal: bool = True,
+                                     q_groups: int = 1,
+                                     ) -> Tuple[Accumulator, Accumulator,
+                                                int]:
+        """Raw (l, acc) pairs of the flash grid: (l ``[BH, Sq_pad, 1]``, acc
+        ``[BH, Sq_pad, dh]``, the un-padded Sq)."""
+        q, k, v, block_q, block_k, sq, skv = self._flash_prep(
+            "flash_attention", q, k, v, block_q, block_k, q_groups)
+        l_s, l_c, o_s, o_c = _fa.flash_accumulators(
+            q, k, v, block_q=block_q, block_k=block_k, scheme=self.scheme,
+            causal=causal, kv_len=skv, q_groups=q_groups)
+        self._note_path(q)
+        return Accumulator(l_s, l_c), Accumulator(o_s, o_c), sq
+
+    def flash_chunk_attention(self, q: Tensor, k: Tensor, v: Tensor, *,
+                              q_off: int, block_q: int = 256,
+                              block_k: int = 256, q_groups: int = 1,
+                              ) -> Tensor:
+        """Chunked-prefill fused attention: a chunk of queries ``[BH, W,
+        dh]`` at absolute positions ``q_off + i`` attends the whole cache
+        ``[BH // q_groups, Skv, dh]``, causal on absolute positions (which
+        also excludes rows not yet written). Same policy and block body as
+        ``flash_attention``, so rows whose absolute positions coincide with
+        a full-sequence call's are bitwise equal. Returns ``[BH, W, dh]``
+        (``repro/kernels/engine.py:480-504``)."""
+        l_acc, o_acc, w = self.flash_chunk_attention_accumulators(
+            q, k, v, q_off=q_off, block_q=block_q, block_k=block_k,
+            q_groups=q_groups)
+        return _finalize_flash(l_acc, o_acc)[:, :w, :]
+
+    def flash_chunk_attention_accumulators(self, q: Tensor, k: Tensor,
+                                           v: Tensor, *, q_off: int,
+                                           block_q: int = 256,
+                                           block_k: int = 256,
+                                           q_groups: int = 1,
+                                           ) -> Tuple[Accumulator,
+                                                      Accumulator, int]:
+        """Raw (l, acc) pairs of the chunked-prefill grid. Padded query
+        rows run at positions past the chunk; the caller slices them
+        off."""
+        q, k, v, block_q, block_k, w, skv = self._flash_prep(
+            "flash_chunk_attention", q, k, v, block_q, block_k, q_groups)
+        l_s, l_c, o_s, o_c = _fa.flash_chunk_accumulators(
+            q, k, v, q_off, block_q=block_q, block_k=block_k,
+            scheme=self.scheme, kv_len=skv, q_groups=q_groups)
+        self._note_path(q)
+        return Accumulator(l_s, l_c), Accumulator(o_s, o_c), w
+
+    def _flash_prep(self, what: str, q: Tensor, k: Tensor, v: Tensor,
+                    block_q: int, block_k: int, q_groups: int):
+        """GQA check, block clamps ``min(bq, round_up(Sq, 8))`` and
+        ``min(bk, round_up(Skv, 128))``, promotion to the compute dtype,
+        then zero-padding of Sq and Skv to the blocks. Returns the padded
+        q, k, v, the blocks and the un-padded Sq and Skv."""
+        bh, sq, _ = q.shape
+        if bh != k.shape[0] * q_groups:
+            raise ValueError(
+                f"{what}: q has {bh} head-rows but k/v carry {k.shape[0]} "
+                f"with q_groups={q_groups} (expected BH == BH_kv * "
+                f"q_groups)")
+        skv = k.shape[1]
+        block_q = min(block_q, _round_up(sq, 8))
+        block_k = min(block_k, _round_up(skv, 128))
+        q = _pad_rows(q.to(self.compute_dtype), (-sq) % block_q)
+        k = _pad_rows(k.to(self.compute_dtype), (-skv) % block_k)
+        v = _pad_rows(v.to(self.compute_dtype), (-skv) % block_k)
+        return q, k, v, block_q, block_k, sq, skv
+
     # -- later slices --------------------------------------------------------
     def matmul(self, *args, **kwargs):
         raise NotImplementedError("ported in a later slice — see ROADMAP")
 
     batched_matmul = matmul
-    flash_attention = matmul
-    flash_chunk_attention = matmul
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def _pad_rows(x: Tensor, pad: int) -> Tensor:
+    """Zero rows appended on axis 1 of ``[B, S, dh]``; contiguous."""
+    if pad:
+        x = torch.cat([x, x.new_zeros((x.shape[0], pad, x.shape[2]))], dim=1)
+    return x.contiguous()
+
+
+def _finalize_flash(l_acc: Accumulator, o_acc: Accumulator) -> Tensor:
+    """``finalize(acc) / max(finalize(l), 1e-30)`` with ``finalize(s, c) =
+    s + c``."""
+    return (o_acc.s + o_acc.c) / torch.clamp_min(l_acc.s + l_acc.c, 1e-30)

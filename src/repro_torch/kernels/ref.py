@@ -77,3 +77,58 @@ def batched_sum_ref(x: Tensor, scheme: SchemeSpec = None, rows: int = 8,
     """Oracle for the batched sum grid: the single oracle per row."""
     return torch.stack([sum_ref(r, scheme, rows, lanes,
                                 compute_dtype=compute_dtype) for r in x])
+
+
+def flash_attention_ref(q: Tensor, k: Tensor, v: Tensor,
+                        scheme: SchemeSpec = None, *, block_q: int = 256,
+                        block_k: int = 256, causal: bool = True,
+                        q_groups: int = 1, q_off: int = 0,
+                        compute_dtype=None) -> Tensor:
+    """Oracle of the flash engine (``repro/kernels/ref.py:161-257``): it
+    replays the engine's policy (block clamps, promotion, zero-padding,
+    ``s + c`` finalize and ``o / max(l, 1e-30)``) and runs the shared
+    block body ``flash_block_update`` per query block and k-block, with
+    k/v repeated ``q_groups`` times (pure data movement). Query rows are
+    independent, so it is bitwise equal to the engine's
+    ``flash_attention`` (``q_off = 0``) and, with ``causal=True``, to
+    ``flash_chunk_attention`` (rows at ``q_off + i``). q ``[BH, Sq, dh]``; k/v ``[BH //
+    q_groups, Skv, dh]``; returns ``[BH, Sq, dh]`` in the compute dtype."""
+    from repro_torch.kernels.flash_attention import (
+        NEG_INF, flash_block_update, softmax_scale)
+
+    sch = _schemes.resolve_scheme(scheme)
+    cdt = _schemes.resolve_compute_dtype(compute_dtype)
+    bh, sq, dh = q.shape
+    if k.shape[0] * q_groups != bh:
+        raise ValueError(f"q has {bh} head-rows, k/v {k.shape[0]} with "
+                         f"q_groups={q_groups}")
+    k = k.repeat_interleave(q_groups, dim=0).to(cdt)
+    v = v.repeat_interleave(q_groups, dim=0).to(cdt)
+    skv = k.shape[1]
+    block_q = min(block_q, -(-sq // 8) * 8)
+    block_k = min(block_k, -(-skv // 128) * 128)
+    n_qb, n_kb = -(-sq // block_q), -(-skv // block_k)
+    q = torch.cat([q.to(cdt), q.new_zeros((bh, n_qb * block_q - sq, dh),
+                                          dtype=cdt)], dim=1)
+    pad = q.new_zeros((bh, n_kb * block_k - skv, dh))
+    k, v = torch.cat([k, pad], dim=1), torch.cat([v, pad], dim=1)
+    rows = []
+    for qb in range(n_qb):
+        qblk = q[:, qb * block_q:(qb + 1) * block_q]
+        q_pos = (q_off + qb * block_q
+                 + torch.arange(block_q, device=q.device))[:, None]
+        m = torch.full((bh, block_q, 1), NEG_INF, dtype=cdt, device=q.device)
+        l_s = torch.zeros((bh, block_q, 1), dtype=cdt, device=q.device)
+        l_c = torch.zeros_like(l_s)
+        a_s = torch.zeros_like(qblk)
+        a_c = torch.zeros_like(qblk)
+        for kb in range(n_kb):
+            lo, hi = kb * block_k, (kb + 1) * block_k
+            m, l_s, l_c, a_s, a_c = flash_block_update(
+                sch, qblk, k[:, lo:hi], v[:, lo:hi], m, l_s, l_c, a_s, a_c,
+                q_pos=q_pos,
+                k_pos=torch.arange(lo, hi, device=q.device)[None, :],
+                kv_len=skv, causal=causal,
+                scale=softmax_scale(dh), step=kb)
+        rows.append((a_s + a_c) / torch.clamp_min(l_s + l_c, 1e-30))
+    return torch.cat(rows, dim=1)[:, :sq]

@@ -13,10 +13,16 @@ steps); without it a uniform batch comes from ``--batch`` /
 per-request squared logit norms: one batched sum-kernel launch per decode
 tick over the whole slot batch.
 
+``--prefill-mode flash`` runs each prompt chunk in one forward pass
+(``prefill_chunk_parallel``); its attention goes through the chunk flash
+kernel when the config has ``kahan_attention``, else through the
+materialized attention core. A config without the parallel path runs the
+scan body, with a notice.
+
 The flags are the reference launcher's, plus ``--device``.
-``--prefill-mode flash``, ``--kv-layout paged`` and ``--prefix-cache``
-are ported in a later slice and fail fast (``--page-size`` and
-``--num-pages``, which only size the paged layout, come with it).
+``--kv-layout paged`` and ``--prefix-cache`` are ported in a later slice
+and fail fast (``--page-size`` and ``--num-pages``, which only size the
+paged layout, come with it).
 """
 
 import argparse
@@ -93,7 +99,9 @@ def main(argv=None):
                     help="prompt-chunk width; 0 -> one-shot prefill")
     ap.add_argument("--prefill-budget", type=int, default=0,
                     help="max prefill chunks per engine step; 0 -> unbounded")
-    ap.add_argument("--prefill-mode", default="scan")
+    ap.add_argument("--prefill-mode", default="scan",
+                    help="chunk body: 'scan' (per-position oracle) or "
+                         "'flash' (one forward pass per chunk)")
     ap.add_argument("--kv-layout", default="dense")
     ap.add_argument("--prefix-cache", action="store_true")
     ap.add_argument("--temperature", type=float, default=0.0)
@@ -110,9 +118,10 @@ def main(argv=None):
                     help="'cuda' (default) or 'cpu'")
     args = ap.parse_args(argv)
 
+    if args.prefill_mode not in ("scan", "flash"):
+        raise ValueError(f"--prefill-mode must be 'scan' or 'flash', got "
+                         f"{args.prefill_mode!r}")
     later = []
-    if args.prefill_mode != "scan":
-        later.append(f"--prefill-mode {args.prefill_mode}")
     if args.kv_layout != "dense":
         later.append(f"--kv-layout {args.kv_layout}")
     if args.prefix_cache:
@@ -137,10 +146,16 @@ def main(argv=None):
         cfg, EngineConfig(max_slots=args.max_slots, max_len=max_len,
                           track_stats=args.stats, policy=policy,
                           prefill_chunk=args.prefill_chunk or None,
-                          prefill_budget=args.prefill_budget or None),
+                          prefill_budget=args.prefill_budget or None,
+                          prefill_mode=args.prefill_mode),
         seed=args.seed, device=device)
+    if engine.prefill_body != args.prefill_mode:
+        print(f"# prefill-mode {args.prefill_mode!r} requested but family "
+              f"{cfg.family!r} runs the {engine.prefill_body!r} body "
+              f"(per-position fallback — unsupported config)")
     for t, events in engine.stream(requests, arrivals):
-        chunks = " ".join(f"r{rid}+{w}" for rid, w in engine.last_chunks)
+        chunks = " ".join(f"r{rid}+{w}/{body}"
+                          for rid, w, body in engine.last_chunks)
         emitted = ", ".join(
             f"r{e.request_id}:{e.token}{'*' if e.done else ''}"
             for e in events)

@@ -1,6 +1,6 @@
 """Shared model-assembly pieces of the port (counterpart of
-``repro/models/common.py``): chunked scan prefill, the decode logits and
-the embedding/head initialisation.
+``repro/models/common.py``): chunked scan prefill, the decode and
+parallel-chunk logits and the embedding/head initialisation.
 """
 
 from __future__ import annotations
@@ -48,6 +48,16 @@ def prefill_chunk_scan(step_fn: Callable, tokens: Tensor, cache: Any,
 # ---------------------------------------------------------------------------
 # Embedding / head helpers
 # ---------------------------------------------------------------------------
+
+def parallel_chunk_logits(x: Tensor, params: Params, cfg: ArchConfig,
+                          nvalid: int) -> Tensor:
+    """Logits of the last VALID position of a parallel prefill chunk
+    (``repro/models/common.py:204-220``): ``x`` [1, w, D] final hidden
+    states, ``nvalid`` >= 1 real positions; only that one row pays the
+    vocabulary projection. Returns [1, V_pad]."""
+    idx = min(max(nvalid - 1, 0), x.shape[1] - 1)
+    return decode_logits(x[:, idx:idx + 1, :], params, cfg)
+
 
 def lm_head_weight(params: Params, cfg: ArchConfig) -> Tensor:
     """[D, V_padded] head weight (transposed embed table when tied)."""

@@ -8,17 +8,21 @@ Parameters are plain nested dicts of tensors in the reference's layouts
 ``cfg.param_dtype``, matmuls in ``cfg.compute_dtype``, softmax / norm
 statistics / logits in float32.
 
-Attention runs in decode mode against a KV cache: one query position per
-call, attending every row of the cache under a causal mask on absolute
-positions, as the reference's ``_attn_core`` does (plain matmuls and an
-explicit softmax; no fused attention operator). Chunked scan prefill
-(``models.common.prefill_chunk_scan``) calls it once per prompt position.
+Attention against a KV cache has the reference's three modes
+(``repro/models/layers.py:306-462``): decode (one position, attending every
+cache row under a causal mask on absolute positions), whole-prompt
+prefill (fill the cache prefix, attend the in-flight k/v) and chunk
+prefill (one prompt chunk at an offset, attending the whole cache). With
+``kahan_attention`` the two prefill modes run the compensated flash
+kernels (``_flash_core``: B7, ``_flash_chunk_core``: B8); otherwise, and
+always in decode, the materialized ``_attn_core`` (plain matmuls and an
+explicit softmax, q-chunked at ``ATTN_Q_CHUNK``).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -111,14 +115,68 @@ class AttnStatic:
     d_head: int
     freqs: Tensor
     compute_dtype: torch.dtype
+    kahan_attention: bool = False
+
+
+#: q-chunk of the materialized attention core: bounds the float32 score
+#: slab to [B, KV, G, ATTN_Q_CHUNK, S_kv] per chunk
+ATTN_Q_CHUNK = 512
+
+
+def _flatten_heads(qg: Tensor, k: Tensor, v: Tensor):
+    """qg [B,S,KV,G,dh] -> [B*KV*G, S, dh] ([batch, kv_head, group]-major);
+    k/v [B,Skv,KV,dh] -> [B*KV, Skv, dh] once: the kernel reads k/v row
+    ``bh // G``, so grouped k/v are never repeated."""
+    b, s, kvh, g, dh = qg.shape
+    skv = k.shape[1]
+    qf = qg.permute(0, 2, 3, 1, 4).reshape(b * kvh * g, s, dh)
+    kf = k.permute(0, 2, 1, 3).reshape(b * kvh, skv, dh)
+    vf = v.permute(0, 2, 1, 3).reshape(b * kvh, skv, dh)
+    return qf, kf, vf
+
+
+def _unflatten_heads(out: Tensor, qg: Tensor, compute_dtype) -> Tensor:
+    b, s, kvh, g, dh = qg.shape
+    out = out.reshape(b, kvh, g, s, dh).permute(0, 3, 1, 2, 4)
+    return out.to(compute_dtype)
+
+
+def _flash_core(qg: Tensor, k: Tensor, v: Tensor, compute_dtype) -> Tensor:
+    """Causal GQA through the engine's flash kernel (B7). qg [B,Sq,KV,G,dh];
+    k/v [B,Skv,KV,dh]. The ambient Policy selects scheme and accumulate
+    dtype (``repro/models/layers.py:201-224``)."""
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    qf, kf, vf = _flatten_heads(qg, k, v)
+    out = flash_attention(qf, kf, vf, causal=True, q_groups=qg.shape[3])
+    return _unflatten_heads(out, qg, compute_dtype)
+
+
+def _flash_chunk_core(qg: Tensor, k: Tensor, v: Tensor, q_off: int,
+                      compute_dtype) -> Tensor:
+    """Chunked-prefill GQA through the chunk flash kernel (B8): qg
+    [B,W,KV,G,dh] at absolute positions ``q_off + i`` against the slot's
+    whole cache k/v [B,Skv,KV,dh] (``repro/models/layers.py:227-249``)."""
+    from repro_torch.kernels.flash_attention import flash_chunk_attention
+
+    qf, kf, vf = _flatten_heads(qg, k, v)
+    out = flash_chunk_attention(qf, kf, vf, q_off=q_off,
+                                q_groups=qg.shape[3])
+    return _unflatten_heads(out, qg, compute_dtype)
 
 
 def _attn_core(q: Tensor, k: Tensor, v: Tensor, q_pos: Tensor,
                k_pos: Tensor, compute_dtype) -> Tensor:
-    """Causal grouped-query attention. q: [B,Sq,KV,G,dh]; k/v:
+    """Causal grouped-query attention, q-chunked at ``ATTN_Q_CHUNK``
+    (``repro/models/layers.py:252-303``). q: [B,Sq,KV,G,dh]; k/v:
     [B,Skv,KV,dh]. Scores in float32, masked by absolute positions,
     softmax with the reference's guards (``m >= -1e30``, ``l >= 1e-30``).
     Returns [B,Sq,KV,G,dh] in the compute dtype."""
+    if q.shape[1] > ATTN_Q_CHUNK:
+        return torch.cat([
+            _attn_core(q[:, i:i + ATTN_Q_CHUNK], k, v,
+                       q_pos[i:i + ATTN_Q_CHUNK], k_pos, compute_dtype)
+            for i in range(0, q.shape[1], ATTN_Q_CHUNK)], dim=1)
     scale = q.shape[-1] ** -0.5
     scores = torch.einsum("bqkgd,bskd->bkgqs", q.float(), k.float()) * scale
     ok = (q_pos[:, None] - k_pos[None, :]) >= 0
@@ -131,31 +189,62 @@ def _attn_core(q: Tensor, k: Tensor, v: Tensor, q_pos: Tensor,
     return torch.einsum("bkgqs,bskd->bqkgd", p, v)
 
 
-def attention(p: Params, st: AttnStatic, x: Tensor, *, pos: int,
-              cache: Tuple[Tensor, Tensor]) -> Tensor:
-    """One decode position: x [B,1,D] at absolute position ``pos``.
+def attention(p: Params, st: AttnStatic, x: Tensor, *,
+              cache: Tuple[Tensor, Tensor], pos: Optional[int] = None,
+              chunk_valid: Optional[int] = None) -> Tensor:
+    """Attention against a KV cache ([B,S,KV,dh] each), in one of three
+    modes. The cache is written IN PLACE (the reference returns an
+    updated copy; PyTorch eager saves copying the whole cache).
 
-    Writes this position's K/V into ``cache`` ([B,S,KV,dh] each) IN PLACE
-    (the reference returns an updated copy; a PyTorch eager step saves
-    copying the whole cache), then attends every cache row, keys past
-    ``pos`` masked. Returns [B,1,D].
+    decode          ``pos`` given, x [B,1,D]: write position ``pos``,
+                    attend every cache row, keys past ``pos`` masked.
+    prefill         ``pos`` None, x [B,S,D] at positions 0..S-1: fill the
+                    cache prefix, attend the in-flight k/v causally.
+    chunk prefill   ``pos`` and ``chunk_valid`` given, x [B,W,D] (W > 1)
+                    at positions ``pos + i``, the first ``chunk_valid``
+                    real (the rest bucket padding): write cache rows
+                    ``[pos, pos + chunk_valid)`` only, so padding never
+                    touches the cache, then attend the whole cache read
+                    back in the compute dtype, causal on absolute
+                    positions (which also excludes rows not yet written).
+
+    Prefill and chunk prefill run the flash kernels when
+    ``st.kahan_attention``; decode always runs ``_attn_core``, as in the
+    reference. Returns [B,S,D].
     """
     cd = st.compute_dtype
-    b = x.shape[0]
-    q_pos = torch.tensor([pos], device=x.device)
-    q = rope_apply(dense(p["q"], x, cd), q_pos, st.freqs)   # [B,1,H,dh]
-    k = rope_apply(dense(p["k"], x, cd), q_pos, st.freqs)   # [B,1,KV,dh]
+    b, s, _ = x.shape
+    start = 0 if pos is None else pos
+    q_pos = torch.arange(start, start + s, device=x.device)
+    q = rope_apply(dense(p["q"], x, cd), q_pos, st.freqs)   # [B,S,H,dh]
+    k = rope_apply(dense(p["k"], x, cd), q_pos, st.freqs)   # [B,S,KV,dh]
     v = dense(p["v"], x, cd)
     ck, cv = cache
-    ck[:, pos] = k[:, 0].to(ck.dtype)
-    cv[:, pos] = v[:, 0].to(cv.dtype)
     s_kv = ck.shape[1]
-    k_pos = torch.arange(s_kv, device=x.device)
-    k_pos = torch.where(k_pos <= pos, k_pos, _FAR)
     groups = st.n_heads // st.n_kv
-    qg = q.reshape(b, 1, st.n_kv, groups, st.d_head)
-    out = _attn_core(qg, ck.to(cd), cv.to(cd), q_pos, k_pos, cd)
-    return dense(p["o"], out.reshape(b, 1, -1), cd)
+    qg = q.reshape(b, s, st.n_kv, groups, st.d_head)
+    if pos is None:                                         # prefill
+        ck[:, :s] = k.to(ck.dtype)
+        cv[:, :s] = v.to(cv.dtype)
+        if st.kahan_attention:
+            out = _flash_core(qg, k, v, cd)
+        else:
+            out = _attn_core(qg, k, v, q_pos, q_pos, cd)
+    elif chunk_valid is not None and s > 1:                 # chunk prefill
+        ck[:, pos:pos + chunk_valid] = k[:, :chunk_valid].to(ck.dtype)
+        cv[:, pos:pos + chunk_valid] = v[:, :chunk_valid].to(cv.dtype)
+        if st.kahan_attention:
+            out = _flash_chunk_core(qg, ck.to(cd), cv.to(cd), pos, cd)
+        else:
+            out = _attn_core(qg, ck.to(cd), cv.to(cd), q_pos,
+                             torch.arange(s_kv, device=x.device), cd)
+    else:                                                   # decode
+        ck[:, pos] = k[:, 0].to(ck.dtype)
+        cv[:, pos] = v[:, 0].to(cv.dtype)
+        k_pos = torch.arange(s_kv, device=x.device)
+        k_pos = torch.where(k_pos <= pos, k_pos, _FAR)
+        out = _attn_core(qg, ck.to(cd), cv.to(cd), q_pos, k_pos, cd)
+    return dense(p["o"], out.reshape(b, s, -1), cd)
 
 
 # ---------------------------------------------------------------------------

@@ -9,11 +9,17 @@ axis is 1. Where the reference scans over layers, the port loops.
 
     init(generator)                               -> params
     init_cache(batch_size, max_len)               -> cache
+    prefill(params, tokens, cache)                -> (logits [B, V_pad], cache)
     decode_step(params, cache, tokens, pos)       -> logits [B, V_pad]
     prefill_chunk(params, tokens, cache, offset, nvalid)
                                                   -> (logits [1, V_pad], cache)
+    prefill_chunk_parallel(params, tokens, cache, offset, nvalid)
+                                                  -> (logits [1, V_pad], cache)
 
-``decode_step`` and ``prefill_chunk`` write the cache in place.
+Every step writes the cache in place. ``prefill_chunk`` is the
+per-position scan (the oracle); ``prefill_chunk_parallel`` runs the whole
+chunk in ONE forward pass, its attention through the chunk flash kernel
+when ``kahan_attention``.
 """
 
 from __future__ import annotations
@@ -30,6 +36,7 @@ from repro_torch.models.common import (
     init_embed_and_head,
     init_params,
     norm_shapes,
+    parallel_chunk_logits,
     prefill_chunk_scan,
 )
 from repro_torch.models.layers import (
@@ -55,7 +62,13 @@ class TransformerLM:
         self.st = AttnStatic(
             cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
             rope_freqs(cfg.head_dim, cfg.rope_theta, self.device),
-            self.compute_dtype)
+            self.compute_dtype, kahan_attention=cfg.kahan_attention)
+        # one forward pass over a chunk is position-independent only
+        # without MLA, MoE capacity routing or sliding-window ring caches
+        # (``repro/models/transformer.py:91-99``); other configs keep the
+        # per-position scan
+        self.parallel_prefill_ok = (cfg.mla is None and cfg.moe is None
+                                    and cfg.sliding_window <= 0)
 
     # ------------------------------------------------------------------ init
     def block_spec(self) -> Dict[str, Any]:
@@ -111,27 +124,41 @@ class TransformerLM:
         return {"blocks": (mk(), mk())}
 
     # --------------------------------------------------------------- forward
-    def _decode_x(self, params: Params, cache, x: Tensor, pos: int,
-                  ) -> Tensor:
+    def _run_blocks(self, params: Params, cache, x: Tensor, *, pos=None,
+                    chunk_valid=None) -> Tensor:
+        """The layer loop over [B,S,D] hidden states; ``pos`` /
+        ``chunk_valid`` select the attention mode (``layers.attention``).
+        Returns the final-normed hidden states."""
         cfg = self.cfg
         blocks = params["blocks"]
         ck_all, cv_all = cache["blocks"]
         for layer in range(cfg.n_layers):
             p = _index(blocks, layer)
             a_in = norm_apply(p["ln1"], x, cfg.norm)
-            x = x + attention(p["attn"], self.st, a_in, pos=pos,
-                              cache=(ck_all[layer], cv_all[layer]))
+            x = x + attention(p["attn"], self.st, a_in,
+                              cache=(ck_all[layer], cv_all[layer]), pos=pos,
+                              chunk_valid=chunk_valid)
             m_in = norm_apply(p["ln2"], x, cfg.norm)
             x = x + mlp_apply(p["ffn"], m_in, self.compute_dtype)
-        x = norm_apply(params["final_norm"], x, cfg.norm)
-        return decode_logits(x, params, cfg)
+        return norm_apply(params["final_norm"], x, cfg.norm)
+
+    def prefill(self, params: Params, tokens: Tensor, cache,
+                ) -> Tuple[Tensor, Any]:
+        """Whole-prompt prefill: ``tokens`` [B, S] at positions 0..S-1 fill
+        the cache prefix (``cache`` from ``init_cache(B, max_len >= S)``);
+        returns (logits of the last position [B, V_pad], cache). With
+        ``kahan_attention`` every layer's attention is one flash launch."""
+        x = embed_lookup(params["embed"], tokens, self.compute_dtype)
+        x = self._run_blocks(params, cache, x)
+        return decode_logits(x[:, -1:, :], params, self.cfg), cache
 
     def decode_step(self, params: Params, cache, tokens: Tensor, pos: int,
                     ) -> Tensor:
         """One position for a batch: ``tokens`` [B] at absolute position
         ``pos`` -> logits [B, V_pad] float32; K/V written into ``cache``."""
         x = embed_lookup(params["embed"], tokens[:, None], self.compute_dtype)
-        return self._decode_x(params, cache, x, pos)
+        x = self._run_blocks(params, cache, x, pos=pos)
+        return decode_logits(x, params, self.cfg)
 
     def prefill_chunk(self, params: Params, tokens: Tensor, cache,
                       offset: int, nvalid: int) -> Tuple[Tensor, Any]:
@@ -142,6 +169,26 @@ class TransformerLM:
             return self.decode_step(params, c, tok, pos)
 
         return prefill_chunk_scan(step, tokens, cache, offset, nvalid)
+
+    def prefill_chunk_parallel(self, params: Params, tokens: Tensor, cache,
+                               offset: int, nvalid: int,
+                               ) -> Tuple[Tensor, Any]:
+        """Multi-token chunk prefill: ONE forward pass over the chunk
+        ``tokens`` [1, w] at positions ``offset + i`` (same contract as
+        ``prefill_chunk``; ``repro/models/transformer.py:362-401``). Only
+        the first ``nvalid`` positions write the cache, and the logits come
+        from the last valid one. A width-1 chunk runs the decode mode, as
+        in the reference; configs without ``parallel_prefill_ok`` take the
+        per-position scan."""
+        if not self.parallel_prefill_ok:
+            return self.prefill_chunk(params, tokens, cache, offset, nvalid)
+        if not 1 <= nvalid <= tokens.shape[-1]:
+            raise ValueError(
+                f"nvalid={nvalid} outside [1, {tokens.shape[-1]}]")
+        x = embed_lookup(params["embed"], tokens, self.compute_dtype)
+        x = self._run_blocks(params, cache, x, pos=offset,
+                             chunk_valid=nvalid)
+        return parallel_chunk_logits(x, params, self.cfg, nvalid), cache
 
 
 def _index(tree, i: int):

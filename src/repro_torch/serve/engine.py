@@ -1,5 +1,6 @@
 """Request-level continuous-batching inference engine, in PyTorch
-(counterpart of ``repro/serve/engine.py``: dense KV layout, scan prefill).
+(counterpart of ``repro/serve/engine.py``: dense KV layout, scan and
+flash prefill).
 
     engine = InferenceEngine(cfg, EngineConfig(max_slots=8, max_len=512))
     handle = engine.submit(Request(prompt=[3, 1, 4], sampling=SamplingParams(
@@ -18,9 +19,17 @@ THE NUMERICS CONTRACT within the port: a request's tokens and telemetry
 are bitwise identical whether it runs alone or interleaved with other
 traffic, and whether its prompt is prefilled in chunks or one-shot.
 
-* Prefill runs every prompt position through the model's own batch-1
-  decode step (``models.common.prefill_chunk_scan``), so chunking cannot
-  change a position's arithmetic.
+* Prefill (``prefill_mode="scan"``, the default and the oracle) runs
+  every prompt position through the model's own batch-1 decode step
+  (``models.common.prefill_chunk_scan``), so chunking cannot change a
+  position's arithmetic. ``prefill_mode="flash"`` runs each chunk in ONE
+  forward pass (``prefill_chunk_parallel``), its attention through the
+  chunk flash kernel when the config has ``kahan_attention``. A chunk's
+  width and offset are a pure function of the request's own prompt, so
+  solo-vs-interleaved stays bitwise; chunked-vs-one-shot gives the same
+  tokens, with the telemetry within a tolerance (different widths round
+  the projections differently). ``engine.prefill_body`` reports the
+  resolved body: configs without the parallel path run "scan".
 * The decode tick runs the slots ONE AT A TIME through the same batch-1
   decode step — the analogue of the reference's ``lax.scan`` over slots.
   A batched matmul would let the library pick its kernel by batch size,
@@ -32,10 +41,12 @@ traffic, and whether its prompt is prefilled in chunks or one-shot.
   per-request loop — plus one per finished prefill.
 
 ONE ``Policy`` (``EngineConfig.policy``) selects the compensation scheme,
-unroll and accumulate dtype of the telemetry.
+unroll and accumulate dtype of everything the engine computes: the
+telemetry, and the flash kernels' accumulators (prefill chunks run under
+``use_policy``).
 
-The reference's flash prefill, paged KV layout, prefix cache and vmapped
-slot loop are ported in later slices; asking for them raises.
+The reference's paged KV layout, prefix cache and vmapped slot loop are
+ported in later slices; asking for them raises.
 """
 
 from __future__ import annotations
@@ -63,10 +74,10 @@ class EngineConfig:
     """Engine-level serving configuration.
 
     The fields are the reference's, so a caller written against the
-    reference's API runs unchanged. ``slot_loop``, ``prefill_mode``,
-    ``kv_layout`` and ``prefix_cache`` accept only the value this slice
-    carries: the reference's other options raise, naming the later slice,
-    instead of being ignored.
+    reference's API runs unchanged. ``slot_loop``, ``kv_layout`` and
+    ``prefix_cache`` accept only the value the port carries: the
+    reference's other options raise, naming the later slice, instead of
+    being ignored.
 
     max_slots      decode batch width: concurrent requests per tick
     max_len        per-slot cache capacity (prompt + generated tokens)
@@ -77,7 +88,8 @@ class EngineConfig:
     slot_loop      "scan" only: slots run one at a time
     prefill_chunk  prompt-chunk width; None = one-shot (whole prompt)
     prefill_budget max prefill chunks per ``step()``; None = unbounded
-    prefill_mode   "scan" only: per-position prefill
+    prefill_mode   "scan" (per-position, the oracle) or "flash" (one
+                   forward pass per chunk)
     kv_layout      "dense" only
     prefix_cache   False only
     """
@@ -98,9 +110,9 @@ class EngineConfig:
         if self.slot_loop != "scan":
             raise ValueError(f"slot_loop={self.slot_loop!r}: only 'scan' "
                              f"here; 'vmap' is {_LATER}")
-        if self.prefill_mode != "scan":
-            raise ValueError(f"prefill_mode={self.prefill_mode!r}: only "
-                             f"'scan' here; 'flash' is {_LATER}")
+        if self.prefill_mode not in ("scan", "flash"):
+            raise ValueError(f"prefill_mode must be 'scan' or 'flash', "
+                             f"got {self.prefill_mode!r}")
         if self.kv_layout != "dense":
             raise ValueError(f"kv_layout={self.kv_layout!r}: only 'dense' "
                              f"here; 'paged' is {_LATER}")
@@ -197,11 +209,22 @@ class InferenceEngine:
         self.slots = SlotKVCache(model, ec.max_slots, ec.max_len)
         self.scheduler = SlotScheduler(ec.max_slots)
         self._next_id = 0
-        # (request_id, width) of every prefill chunk the most recent step()
-        # ran
-        self.last_chunks: List[Tuple[int, int]] = []
+        parallel = ec.prefill_mode == "flash" and model.parallel_prefill_ok
+        self._prefill_body = "flash" if parallel else "scan"
+        self._chunk_fn = (model.prefill_chunk_parallel if parallel
+                          else model.prefill_chunk)
+        # (request_id, width, body) of every prefill chunk the most recent
+        # step() ran
+        self.last_chunks: List[Tuple[int, int, str]] = []
         self.t = 0
         self.handles: Dict[int, RequestHandle] = {}
+
+    @property
+    def prefill_body(self) -> str:
+        """The RESOLVED chunk body: "flash" only when ``prefill_mode ==
+        "flash"`` and the model's ``parallel_prefill_ok``; otherwise
+        "scan"."""
+        return self._prefill_body
 
     # ------------------------------------------------------------ submission
     def submit(self, request: Request) -> RequestHandle:
@@ -292,12 +315,13 @@ class InferenceEngine:
         offset = h.prefill_pos
         width, nvalid = _next_chunk(h.prompt_len, offset,
                                     self.ec.prefill_chunk)
-        self.last_chunks.append((h.request_id, width))
+        self.last_chunks.append((h.request_id, width, self.prefill_body))
         toks = np.zeros((1, width), np.int64)
         toks[0, :nvalid] = np.asarray(h.request.prompt)[offset:offset + nvalid]
-        logits, _ = self.model.prefill_chunk(
-            self.params, torch.from_numpy(toks).to(self.device),
-            gather_row(self.slots.cache, slot), offset, nvalid)
+        with _schemes.use_policy(self.policy):
+            logits, _ = self._chunk_fn(
+                self.params, torch.from_numpy(toks).to(self.device),
+                gather_row(self.slots.cache, slot), offset, nvalid)
         h.prefill_pos = offset + nvalid
         if h.prefill_pos == h.prompt_len:
             self.scheduler.mark_running(h)

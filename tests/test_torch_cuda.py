@@ -108,3 +108,105 @@ def test_smoke_engine_on_card_solo_vs_interleaved(cuda_device):
             [req])[req.request_id]
         assert solo.tokens == served[req.request_id].tokens
         assert solo.telemetry == served[req.request_id].telemetry
+
+
+def _ulps(a, b):
+    """Max distance in float32 units in the last place."""
+    ia = a.contiguous().view(torch.int32).long()
+    ib = b.contiguous().view(torch.int32).long()
+    ia = torch.where(ia < 0, -(ia & 0x7FFFFFFF), ia)
+    ib = torch.where(ib < 0, -(ib & 0x7FFFFFFF), ib)
+    return int((ia - ib).abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dh", [16, 128])
+def test_cuda_flash_kernels_match_plain(cuda_device, dh):
+    """Tier 2 on the card: the flash grids (B7 and B8) equal their plain
+    version bit for bit, every built-in scheme, causal and not, GQA with
+    G in {1, 2}, Sq and Skv off their blocks and Skv over 3 k-blocks."""
+    from repro_torch.kernels import engine
+    from repro_torch.kernels import flash_attention as fa
+
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    bh, sq, skv, bq, bk = 4, 150, 300, 64, 128
+    sq_pad, skv_pad = 192, 384
+
+    def data(rows, n):
+        x = torch.randn((rows, n, dh), generator=gen, device=cuda_device)
+        return torch.cat([x, x.new_zeros((rows, (sq_pad if n == sq else
+                                                 skv_pad) - n, dh))], 1)
+
+    for groups in (1, 2):
+        q = data(bh, sq)
+        k, v = data(bh // groups, skv), data(bh // groups, skv)
+        for scheme in SCHEMES:
+            sch = tschemes.get(scheme)
+            for causal in (True, False):
+                kw = dict(block_q=bq, block_k=bk, scheme=sch, kv_len=skv,
+                          q_groups=groups)
+                before = engine.launch_counts()["flash_accumulators"]
+                got = fa.flash_accumulators(q, k, v, causal=causal, **kw)
+                assert (engine.launch_counts()["flash_accumulators"]
+                        == before + 1)
+                want = fa.flash_plain(q, k, v, scheme=sch, block_k=bk,
+                                      kv_len=skv, causal=causal,
+                                      q_groups=groups)
+                torch.cuda.synchronize()
+                for name, g, w in zip(("l_s", "l_c", "a_s", "a_c"), got,
+                                      want):
+                    assert torch.equal(g, w), (
+                        f"{scheme} causal={causal} G={groups} {name}: "
+                        f"{_ulps(g, w)} ulp")
+            # B8 at block-aligned offsets: the rows of the B7 grid
+            full = fa.flash_accumulators(q, k, v, causal=True, **kw)
+            for off in (0, 64, 128):
+                chunk = fa.flash_chunk_accumulators(
+                    q[:, off:off + bq].contiguous(), k, v, off, **kw)
+                for g, w in zip(chunk, full):
+                    assert torch.equal(g, w[:, off:off + bq]), (scheme, off)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_engine_equals_oracle(cuda_device):
+    """The engine's flash entries on the card equal the plain oracle
+    ``ref.flash_attention_ref`` (which replays the engine's policy), bit
+    for bit, and launch their kernel once each."""
+    from repro_torch.kernels import engine, ref
+    from repro_torch.kernels import flash_attention as fa
+
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    q = torch.randn((4, 70, 128), generator=gen, device=cuda_device)
+    k = torch.randn((2, 200, 128), generator=gen, device=cuda_device)
+    v = torch.randn((2, 200, 128), generator=gen, device=cuda_device)
+    got = fa.flash_attention(q, k, v, scheme="kahan", q_groups=2)
+    want = ref.flash_attention_ref(q, k, v, "kahan", q_groups=2)
+    assert torch.equal(got, want)
+    before = engine.launch_counts()["flash_chunk_accumulators"]
+    got = fa.flash_chunk_attention(q[:, :64], k, v, q_off=100,
+                                   scheme="dot2", q_groups=2)
+    want = ref.flash_attention_ref(q[:, :64], k, v, "dot2", q_groups=2,
+                                   q_off=100)
+    assert torch.equal(got, want)
+    assert engine.launch_counts()["flash_chunk_accumulators"] == before + 1
+
+
+@pytest.mark.cuda
+def test_cuda_flash_rejects_what_it_does_not_take(cuda_device):
+    """float64 has no flash instantiation (TypeError); a runtime scheme
+    has no device function (NotImplementedError); neither launches."""
+    from repro_torch.kernels import engine
+    from repro_torch.kernels import flash_attention as fa
+
+    x = torch.zeros((2, 128, 16), device=cuda_device)
+    kw = dict(block_q=128, block_k=128, kv_len=128, causal=True)
+    before = engine.launch_counts()
+    with pytest.raises(TypeError, match="float32"):
+        fa.flash_accumulators(x.double(), x.double(), x.double(),
+                              scheme=tschemes.KAHAN, **kw)
+    mine = tschemes.CompensationScheme(
+        name="test_torch_cuda_flash", update=lambda s, c, x, step: (s + x, c),
+        instruction_mix=tschemes.InstructionMix(adds=1, muls=1))
+    with pytest.raises(NotImplementedError, match="test_torch_cuda_flash"):
+        fa.flash_accumulators(x, x, x, scheme=mine, **kw)
+    assert engine.launch_counts() == before

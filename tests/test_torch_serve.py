@@ -202,8 +202,8 @@ def test_slot_cache_rows_and_eviction(served):
 
 
 def test_engine_rejects_later_slices(served):
-    for kw in (dict(prefill_mode="flash"), dict(kv_layout="paged"),
-               dict(prefix_cache=True), dict(slot_loop="vmap")):
+    for kw in (dict(kv_layout="paged"), dict(prefix_cache=True),
+               dict(slot_loop="vmap")):
         with pytest.raises(ValueError, match="later slice"):
             EngineConfig(**kw)
     cfg = served["cfg"]
