@@ -19,42 +19,65 @@ there is no CUDA device or no ``src/repro_torch`` beside it.
    blocks and Skv over 3 k-blocks, the raw (l, acc) grids of
    ``flash_accumulators`` (B7) and ``flash_chunk_accumulators`` (B8)
    equal their plain version bit for bit, and B8 rows at block-aligned
-   offsets equal B7's rows bit for bit.
+   offsets equal B7's rows bit for bit. Matmul: for every built-in scheme
+   x {float32, float64}, with M, N and K padded by the engine (M 1 and 37,
+   N 200, K 1100; and a K of 16 blocks), operands in bf16 and float32, the
+   (s, c) grids of ``matmul_accumulators`` (B5) equal ``matmul_plain``
+   bit for bit, bf16 operands equal the same operands promoted first,
+   ``matmul_accumulators_batched`` (B6) equals its plain version and a
+   loop of B5, the rows of an M = 64 product equal M = 1 products of the
+   same rows, and the autograd backward of ``ops.matmul`` launches B5
+   twice and equals B5 on (g, bT) and (aT, g).
 3. Kernel times: each kernel at the shape its main path gives it (dot and
    sum at the paper's in-memory size n = 2^27 for kahan and naive,
    batched dot and sum at [8, 2^24], the serving telemetry at
    [max_slots, 57344], B7 at OLMo-1B's head shape [16, 2048, 128] causal,
    B8 at the serving chunk [16, 64, 128] against both serve runs' cache
-   lengths), with CUDA events after warm-up, beside its bound (bytes or
-   float32 operations), its plain version's time and one PyTorch call
-   computing the same function (``library_ms``, a yardstick the port
-   never calls: ``scaled_dot_product_attention`` in float32 with the
-   same mask for the flash kernels).
+   lengths, B5 at OLMo-1B's projection shapes at decode (M 8 after
+   padding) and in a 64-token chunk plus the up projection of a
+   2048-token prefill, B6 at 4 chunk-sized q projections), with CUDA
+   events after warm-up, beside its bound (bytes or float32 operations),
+   its plain version's time and one PyTorch call computing the same
+   function (``library_ms``, a yardstick the port never calls:
+   ``scaled_dot_product_attention`` in float32 with the same mask for the
+   flash kernels, ``torch.matmul`` / ``bmm`` on the operands promoted to
+   float32, TF32 off, for the matmul kernels).
 4. The main path's paths, each with every launch count set to 0 just
    before it and read just after it. Serving OLMo-1B at its published
    width (random bf16 weights from a seeded generator, dense KV,
    ``track_stats=True``, scheme kahan): the 4-request trace with chunked
    scan prefill, the same trace with ``kahan_attention=True,
    prefill_mode="flash"``, and one long request (1920-token prompt) under
-   flash. Checked: every request emits its tokens, the telemetry is
-   finite, the sum kernel launched once per decode tick and finished
-   prefill, B8 exactly n_layers per chunk of width > 1 under flash and
-   never under scan, no other kernel while serving, one tick's telemetry
-   equals the plain version's bit for bit. Entry points: the paper's
-   ``ops.dot / asum / batched_dot / batched_asum`` once each,
-   ``TransformerLM.prefill`` on a 2048-token prompt (B7 once per layer;
-   its logits finite and close to the materialized attention path's) and
-   the ``flash_attention`` veneer once.
+   flash, and the same trace again with ``kahan_matmul=True`` as well
+   (every dense projection through B5). Checked: every request emits its
+   tokens, the telemetry is finite, the sum kernel launched once per
+   decode tick and finished prefill, B8 exactly n_layers per chunk of
+   width > 1 under flash and never under scan, B5 exactly 7 * n_layers
+   per prefill chunk and decode position with ``kahan_matmul`` and never
+   without it, no other kernel while serving, one tick's telemetry
+   equals the plain version's bit for bit, and a 64-token chunk's logits
+   with ``kahan_matmul`` are close to the flash run's (relative L2 below
+   5e-2, the same argmax). One decode position is profiled with and
+   without ``kahan_matmul`` (device kernels, cuBLAS gemm/gemv kernels).
+   Entry points: the paper's ``ops.dot / asum / batched_dot /
+   batched_asum`` once each, ``TransformerLM.prefill`` on a 2048-token
+   prompt (B7 once per layer; its logits finite and close to the
+   materialized attention path's), the ``flash_attention`` veneer once,
+   ``ops.matmul`` at the 2048-token up projection and
+   ``ops.batched_matmul`` once.
 5. Solo vs interleaved: request 0 replayed alone emits bitwise the same
-   tokens and telemetry, under scan and under flash.
+   tokens and telemetry, under scan, under flash and with
+   ``kahan_matmul``.
 
 The last three lines are the card (``nvidia-smi`` name and power
 limit), one JSON object ``{"kernels": [...]}`` and
 ``{"ok": true, "device": {...}}``. The kernels line has one row per
 kernel and path it runs on (``"path"``: "entry", "serve" for the scan
-trace, "serve-flash" for the same trace under flash, "serve-long" for the
-long request): its ``launches`` are that path's count and its times were
-taken at that path's shape.
+trace, "serve-flash" for the same trace under flash, "serve-matmul" for
+it with ``kahan_matmul`` too, "serve-long" for the long request): its
+``launches`` are that path's count and its times were taken at that
+path's shape (B5 on "serve-matmul": the decode q/k/v/o shape, the one
+launched most).
 """
 
 from __future__ import annotations
@@ -78,7 +101,10 @@ TRACE = "0:64:16,0:128:16,2:32:16,5:96:16"
 LONG_TRACE = "0:1920:64"
 PAPER_N = 1 << 27
 PREFILL_LEN = 2048          # OLMo-1B's published context
-LIBRARIES = ("kahan_reduce", "kahan_flash")
+LIBRARIES = ("kahan_reduce", "kahan_flash", "kahan_matmul")
+#: dense projections per layer with kahan_matmul (q, k, v, o, gate, up,
+#: down), each one B5 launch per prefill chunk and per decode position
+PROJECTIONS = 7
 
 
 def check(ok: bool, what: str) -> None:
@@ -136,6 +162,8 @@ def main() -> int:
     kernels.times(PAPER_N)
     kernels.flash_times(cfg, PREFILL_LEN, serve_max_len(TRACE),
                         serve_max_len(LONG_TRACE))
+    kernels.matmul_parity()
+    kernels.matmul_times(cfg, PREFILL_LEN)
     serve_stats = main_path(torch, kernels, cfg, PAPER_N)
     log(json.dumps({"serve": serve_stats}))
     log(card)
@@ -183,13 +211,14 @@ class Kernels:
 
     def __init__(self, torch, dev):
         from repro_torch.kernels import (engine, flash_attention, kahan_dot,
-                                         kahan_sum, schemes)
+                                         kahan_matmul, kahan_sum, schemes)
 
         self.torch = torch
         self.dev = dev
         self.engine, self.kd, self.ks, self.schemes = (engine, kahan_dot,
                                                        kahan_sum, schemes)
         self.fa = flash_attention
+        self.km = kahan_matmul
         self.gen = torch.Generator(device=dev).manual_seed(0)
         self.err = {name: 0.0 for name in engine.WRAPPERS}
         self.timing = {}
@@ -431,11 +460,188 @@ class Kernels:
                             self.normal((h, length, dh)),
                             self.normal((h, length, dh)), off, reps=50)
 
+    # -- matmul (B5, B6) -------------------------------------------------------
+    def matmul_parity(self):
+        """B5 and B6 against ``matmul_plain``, bitwise, at shapes the
+        engine pads (see the module docstring, phase 2)."""
+        torch, km = self.torch, self.km
+        f32, f64, bf16 = torch.float32, torch.float64, torch.bfloat16
+        cases = 0
+        for dtype in (f32, f64):
+            for name in ("naive", "kahan", "pairwise", "dot2"):
+                eng = self.engine.CompensatedReduction(scheme=name,
+                                                       compute_dtype=dtype)
+                for m, k, n in ((1, 1100, 200), (37, 1100, 200),
+                                (8, 8192, 256)):
+                    for odt in ((f32, bf16) if dtype == f32 else (f64,)):
+                        what = f"{name} {dtype} operands {odt} {m}x{k}x{n}"
+                        a = self.normal((m, k)).to(odt)
+                        b = self.normal((k, n)).to(odt)
+                        blocks = eng._matmul_blocks(m, n, k, None, None, None)
+                        ap, bp = eng._prep_matmul(a, b, blocks)
+                        check(ap.dtype == bp.dtype == odt,
+                              f"the engine copied {odt} operands ({what})")
+                        kw = dict(scheme=eng.scheme, block_m=blocks[0],
+                                  block_n=blocks[1], block_k=blocks[2],
+                                  compute_dtype=dtype)
+                        got = km.matmul_accumulators(ap, bp, **kw)
+                        want = km.matmul_plain(ap[None], bp[None],
+                                               scheme=eng.scheme,
+                                               block_k=blocks[2],
+                                               compute_dtype=dtype)
+                        self.compare("matmul_accumulators", got,
+                                     (want[0][0], want[1][0]), what)
+                        if odt == bf16:
+                            promoted = km.matmul_accumulators(
+                                ap.float(), bp.float(), **kw)
+                            check(all(torch.equal(g, p) for g, p in
+                                      zip(got, promoted)),
+                                  f"bf16 operands != promoted first ({what})")
+                        cases += 1
+                # B6 against its plain version and a loop of B5
+                a = self.normal((3, 37, 1100)).to(dtype)
+                b = self.normal((3, 1100, 200)).to(dtype)
+                blocks = eng._matmul_blocks(37, 200, 1100, None, None, None)
+                ap, bp = eng._prep_matmul(a, b, blocks)
+                kw = dict(scheme=eng.scheme, block_m=blocks[0],
+                          block_n=blocks[1], block_k=blocks[2],
+                          compute_dtype=dtype)
+                got = km.matmul_accumulators_batched(ap, bp, **kw)
+                want = km.matmul_plain(ap, bp, scheme=eng.scheme,
+                                       block_k=blocks[2], compute_dtype=dtype)
+                self.compare("matmul_accumulators_batched", got, want,
+                             f"{name} {dtype} [3, 37, 1100] x [3, 1100, 200]")
+                for i in range(3):
+                    one = km.matmul_accumulators(ap[i], bp[i], **kw)
+                    check(all(torch.equal(g[i], o) for g, o in zip(got, one)),
+                          f"B6 != a loop of B5 ({name}, {dtype})")
+                # rows of an M = 64 product == M = 1 products (both tiles)
+                a = self.normal((64, 2048)).to(dtype)
+                b = self.normal((2048, 512)).to(dtype)
+                full = eng.matmul(a, b)
+                for r in (0, 31, 63):
+                    check(torch.equal(eng.matmul(a[r:r + 1], b),
+                                      full[r:r + 1]),
+                          f"row {r} of an M = 64 product != its M = 1 product "
+                          f"({name}, {dtype})")
+                cases += 2
+        cases += self.matmul_backward()
+        sync(torch, self.dev)
+        log(f"# phase 2: {cases} matmul parity cases bitwise equal to the "
+            f"plain version (B5, B6); bf16 operands == promoted first; B6 == "
+            f"a loop of B5; rows invariant to M; backward == B5 on (g, bT) "
+            f"and (aT, g), 2 launches")
+
+    def matmul_backward(self):
+        """The autograd backward of ``ops.matmul`` (bf16 a, float32 b as
+        in a projection) launches B5 twice and equals B5 on (g, bT) and
+        (aT, g) at the forward's blocks, bit for bit."""
+        torch = self.torch
+        from repro_torch.kernels import ops
+
+        a = self.normal((20, 700)).requires_grad_()
+        b = self.normal((700, 300)).requires_grad_()
+        g = self.normal((20, 300))
+        out = ops.matmul(a.bfloat16(), b, scheme="kahan")
+        counter = self.engine.WRAPPERS["matmul_accumulators"]
+        before = counter.launches
+        out.backward(g)
+        check(counter.launches == before + 2,
+              f"the backward launched B5 {counter.launches - before} times")
+        # the forward's blocks: (min(256, 24), min(256, 384), min(512, 768))
+        kw = dict(scheme="kahan", block_m=24, block_n=256, block_k=512)
+        da = ops.matmul(g, b.detach().T, **kw).bfloat16().float()
+        db = ops.matmul(a.detach().bfloat16().T, g, **kw)
+        check(torch.equal(a.grad, da) and torch.equal(b.grad, db),
+              "matmul backward != B5 on (g, bT) and (aT, g)")
+        return 1
+
+    def time_matmul(self, label, m, k, n, batch=None, reps=20):
+        """B5 (or B6 with ``batch``) at ``[M, K] x [K, N]`` with bf16
+        operands, as the projections give it (M a multiple of 8, so the
+        engine pads nothing): kernel, plain and library (``torch.matmul``
+        / ``bmm`` on the operands promoted to float32, TF32 off) times,
+        and the parity check. The timed launches cycle through copies of
+        the operands that together exceed the 50 MB L2 cache twice, as a
+        decode position finds the weights cold."""
+        torch, km = self.torch, self.km
+        lead = () if batch is None else (batch,)
+        name = ("matmul_accumulators" if batch is None
+                else "matmul_accumulators_batched")
+        wrapper = self.engine.WRAPPERS[name]
+        eng = self.engine.CompensatedReduction(scheme="kahan")
+        a = self.normal((*lead, m, k)).bfloat16()
+        b = self.normal((*lead, k, n)).bfloat16()
+        blocks = eng._matmul_blocks(m, n, k, None, None, None)
+        ap, bp = eng._prep_matmul(a, b, blocks)
+        check(ap.shape == a.shape and bp.data_ptr() == b.data_ptr(),
+              f"the engine padded or copied operands at {label}")
+        kw = dict(scheme=eng.scheme, block_m=blocks[0], block_n=blocks[1],
+                  block_k=blocks[2], compute_dtype=torch.float32)
+        got = wrapper(ap, bp, **kw)
+        sync(torch, self.dev)
+        t0 = time.perf_counter()
+        want = km.matmul_plain(ap.reshape(-1, m, k), bp.reshape(-1, k, n),
+                               scheme=eng.scheme, block_k=blocks[2],
+                               compute_dtype=torch.float32)
+        sync(torch, self.dev)
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        if batch is None:
+            want = (want[0][0], want[1][0])
+        self.compare(name, got, want, f"kahan at {label}")
+        del want, got
+        operands = cold_copies(torch, (ap, bp))
+        ms = cuda_ms(torch, cycle(lambda x, y: wrapper(x, y, **kw),
+                                  operands), reps)
+        promoted = cold_copies(torch, (ap.float(), bp.float()))
+        library_ms = cuda_ms(torch, cycle(torch.matmul, promoted), reps)
+        del operands, promoted
+        nb = 1 if batch is None else batch
+        n_bytes = (ap.numel() * ap.element_size()
+                   + bp.numel() * bp.element_size() + 2 * nb * m * n * 4)
+        flops = 2 * nb * m * n * k
+        least, by = bound_ms(n_bytes, flops)
+        row = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+               "bound_ms": least, "bound_by": by,
+               "shape": [*lead, m, k, n], "scheme": "kahan",
+               "block_k": blocks[2], "tflops": flops / ms / 1e9,
+               "gbytes_per_s": n_bytes / ms / 1e6}
+        self.timing[(name, label)] = row
+        log(f"# {name} {label} {row['shape']}: kernel {ms:.4f} ms "
+            f"({row['tflops']:.2f} TFLOP/s, {row['gbytes_per_s']:.0f} GB/s), "
+            f"{by} bound {least:.4f} ms, plain {plain_ms:.1f} ms, library "
+            f"(f32 matmul) {library_ms:.4f} ms")
+
+    def matmul_times(self, cfg, prefill_len):
+        """B5 at every projection shape of OLMo-1B at decode (M 8 after
+        padding) and in a 64-token chunk, and at the up projection of a
+        ``prefill_len``-token prefill; B6 at 4 chunk-sized q
+        projections."""
+        d, f = cfg.d_model, cfg.d_ff
+        hd = cfg.n_heads * cfg.head_dim
+        shapes = (("qkvo", d, hd), ("gate-up", d, f), ("down", f, d))
+        for label, m, reps in (("decode", 8, 50), ("chunk", 64, 20)):
+            for proj, k, n in shapes:
+                self.time_matmul(f"{label}-{proj}", m, k, n, reps=reps)
+        self.time_matmul("prefill-up", prefill_len, d, f, reps=5)
+        self.time_matmul("batched", 64, d, hd, batch=4, reps=10)
+        # per layer: 4 q/k/v/o, 2 gate/up and 1 down launch
+        per_layer = (("qkvo", 4), ("gate-up", 2), ("down", 1))
+        self.matmul_totals = {
+            f"{label}_{key}": cfg.n_layers * sum(
+                n * self.timing[("matmul_accumulators", f"{label}-{p}")][key]
+                for p, n in per_layer)
+            for label in ("decode", "chunk") for key in ("ms", "bound_ms")}
+        t = self.matmul_totals
+        log(f"# B5 per decode position ({PROJECTIONS * cfg.n_layers} "
+            f"launches): {t['decode_ms']:.3f} ms, bound "
+            f"{t['decode_bound_ms']:.3f} ms; per 64-token chunk "
+            f"{t['chunk_ms']:.3f} ms, bound {t['chunk_bound_ms']:.3f} ms")
+
     def rows(self):
         """One JSON row per wrapper and path that launches it, with that
         path's launch count, timed at that path's shape."""
-        reduce_src = "src/repro_torch/csrc/kahan_reduce.cu"
-        flash_src = "src/repro_torch/csrc/kahan_flash.cu"
+        src = "src/repro_torch/csrc/"
         replaces = {
             "dot_accumulators": "src/repro/kernels/kahan_dot.py:89",
             "dot_accumulators_batched": "src/repro/kernels/kahan_dot.py:139",
@@ -445,12 +651,20 @@ class Kernels:
                 "src/repro/kernels/flash_attention.py:262",
             "flash_chunk_accumulators":
                 "src/repro/kernels/flash_attention.py:377",
+            "matmul_accumulators": "src/repro/kernels/kahan_matmul.py:101",
+            "matmul_accumulators_batched":
+                "src/repro/kernels/kahan_matmul.py:153",
         }
         # every (kernel, path) pair that launched, timed at that path's
         # shape: the reductions at the phase-3 sizes, B4 on every serving
         # path at the telemetry shape, B7 at the prefill shape, B8 at each
-        # serving run's cache length
-        special = {("flash_chunk_accumulators", "serve-long"): "serve-long"}
+        # serving run's cache length, B5 at the decode q/k/v/o shape when
+        # serving and at the 2048-token up projection on the entry path,
+        # B6 at its batched shape
+        special = {("flash_chunk_accumulators", "serve-long"): "serve-long",
+                   ("matmul_accumulators", "entry"): "prefill-up",
+                   ("matmul_accumulators", "serve-matmul"): "decode-qkvo",
+                   ("matmul_accumulators_batched", "entry"): "batched"}
         rows = []
         for path, counts in self.launches.items():
             for name in replaces:
@@ -465,7 +679,10 @@ class Kernels:
             t = self.timing[(name, label)]
             out.append({
                 "name": name, "route": "cuda",
-                "source": flash_src if name.startswith("flash") else reduce_src,
+                "source": src + ("kahan_flash.cu" if name.startswith("flash")
+                                 else "kahan_matmul.cu"
+                                 if name.startswith("matmul")
+                                 else "kahan_reduce.cu"),
                 "replaces": replaces[name], "path": path,
                 "launches": self.launches[path][name],
                 "max_abs_err": self.err[name], "ms": t["ms"],
@@ -473,6 +690,31 @@ class Kernels:
                 "bound_by": t["bound_by"], "library_ms": t["library_ms"],
                 "shape": t["shape"]})
         return out
+
+
+L2_BYTES = 50e6
+
+
+def cold_copies(torch, tensors):
+    """Copies of ``tensors`` (the first is the tensors themselves) that
+    together hold at least twice the L2 cache, so that cycling through
+    them reads every operand from device memory."""
+    size = sum(t.numel() * t.element_size() for t in tensors)
+    n = max(1, math.ceil(2 * L2_BYTES / size))
+    return [tensors] + [tuple(t.clone() for t in tensors)
+                        for _ in range(n - 1)]
+
+
+def cycle(fn, operand_sets):
+    """``fn`` over the next operand set at each call."""
+    state = {"i": 0}
+
+    def call():
+        args = operand_sets[state["i"] % len(operand_sets)]
+        state["i"] += 1
+        return fn(*args)
+
+    return call
 
 
 def serve_run(torch, kernels, cfg, model, params, trace, prefill_mode):
@@ -497,7 +739,7 @@ def serve_run(torch, kernels, cfg, model, params, trace, prefill_mode):
     check(engine.prefill_body == prefill_mode,
           f"engine resolved prefill body {engine.prefill_body!r}, wanted "
           f"{prefill_mode!r}")
-    tick_ms, chunk_ms, chunk_pos, widths = [], [], [], []
+    tick_ms, chunk_ms, chunk_pos, widths, positions = [], [], [], [], []
     captured = {}
     sum_kernel = kernels.engine.WRAPPERS["sum_accumulators_batched"]
     flash_kernels = [kernels.engine.WRAPPERS[n] for n in
@@ -511,6 +753,7 @@ def serve_run(torch, kernels, cfg, model, params, trace, prefill_mode):
         _orig(running, events)
         sync(torch, dev)
         tick_ms.append((time.perf_counter() - t0) * 1e3)
+        positions.append(len(running))
         check(sum_kernel.launches == before + 1,
               "the telemetry sum kernel did not launch exactly once in a "
               "decode tick")
@@ -563,9 +806,10 @@ def serve_run(torch, kernels, cfg, model, params, trace, prefill_mode):
     n_prompt = sum(chunk_pos)
     stats = {
         "trace": trace, "prefill_mode": prefill_mode,
-        "kahan_attention": cfg.kahan_attention, "requests": len(cells),
+        "kahan_attention": cfg.kahan_attention,
+        "kahan_matmul": cfg.kahan_matmul, "requests": len(cells),
         "tokens": n_tok, "wall_s": wall, "tokens_per_s": n_tok / wall,
-        "decode_ticks": n_ticks,
+        "decode_ticks": n_ticks, "decode_positions": sum(positions),
         "decode_tick_ms_mean": sum(tick_ms) / max(n_ticks, 1),
         "decode_tick_ms_min": min(tick_ms, default=None),
         "decode_s": sum(tick_ms) / 1e3,
@@ -577,8 +821,8 @@ def serve_run(torch, kernels, cfg, model, params, trace, prefill_mode):
         "launches": counts,
         "max_memory_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
     }
-    log(f"# phase 4 [{prefill_mode}, kahan_attention={cfg.kahan_attention}]"
-        f" {trace}: {len(cells)} requests, {n_tok} tokens in {wall:.2f} s "
+    log(f"# phase 4 [{prefill_mode}, kahan_attention={cfg.kahan_attention}, "
+        f"kahan_matmul={cfg.kahan_matmul}] {trace}: {len(cells)} requests, {n_tok} tokens in {wall:.2f} s "
         f"({stats['tokens_per_s']:.1f} tokens/s); {len(chunk_ms)} prefill "
         f"chunks in {stats['prefill_s']:.2f} s "
         f"({stats['prefill_ms_per_position']:.3f} ms per position); "
@@ -589,15 +833,25 @@ def serve_run(torch, kernels, cfg, model, params, trace, prefill_mode):
 
 def check_flash_launches(cfg, stats, what):
     """Under flash, B8 ran n_layers times per chunk of width > 1 (a
-    width-1 tail runs the decode mode, as in the reference) and B7 and
-    the dot / single sum kernels never."""
+    width-1 tail runs the decode mode, as in the reference); with
+    ``kahan_matmul`` B5 ran once per projection, layer, prefill chunk and
+    decode position, and never without it; B6, B7 and the dot / single
+    sum kernels never."""
     counts = stats["launches"]
     wide = sum(1 for w in stats["chunk_widths"] if w > 1)
     check(counts["flash_chunk_accumulators"] == cfg.n_layers * wide,
           f"{what}: B8 launched {counts['flash_chunk_accumulators']} times "
           f"for {wide} chunks x {cfg.n_layers} layers")
+    units = stats["prefill_chunks"] + stats["decode_positions"]
+    want = PROJECTIONS * cfg.n_layers * units if cfg.kahan_matmul else 0
+    check(counts["matmul_accumulators"] == want,
+          f"{what}: B5 launched {counts['matmul_accumulators']} times, "
+          f"want {want} ({PROJECTIONS} x {cfg.n_layers} layers x {units} "
+          f"chunks and decode positions)" if cfg.kahan_matmul else
+          f"{what}: B5 launched without kahan_matmul")
     for name in ("flash_accumulators", "dot_accumulators",
-                 "dot_accumulators_batched", "sum_accumulators"):
+                 "dot_accumulators_batched", "sum_accumulators",
+                 "matmul_accumulators_batched"):
         check(counts[name] == 0,
               f"{what}: {name} launched {counts[name]} times while serving")
 
@@ -660,6 +914,33 @@ def main_path(torch, kernels: Kernels, cfg, paper_n):
         f"under scan; {flash['tokens_per_s']:.1f} vs "
         f"{scan['tokens_per_s']:.1f} tokens/s; greedy tokens equal to scan's "
         f"per request (not checked): {agree}")
+    matmul_cfg = flash_cfg.replace(kahan_matmul=True)
+    matmul_model = build_model(matmul_cfg, dev)
+    mec, _, mserved, _, mm = serve_run(
+        torch, kernels, matmul_cfg, matmul_model, params, TRACE, "flash")
+    check_flash_launches(matmul_cfg, mm, "kahan_matmul serving")
+    mm["decode_position"] = profile_decode_step(torch, matmul_model, params,
+                                                dev, mec.max_len)
+    mm["chunk_profile"] = profile_flash_chunk(torch, matmul_model, params,
+                                              dev, mec.max_len)
+    mm["cublas_kernels_dropped_per_position"] = (
+        scan["decode_position"]["cublas_kernels"]
+        - mm["decode_position"]["cublas_kernels"])
+    mm["chunk_logits"] = compare_chunk_logits(torch, kernels, cfg,
+                                              flash_model, matmul_model,
+                                              params)
+    mm["dense_enqueue_us"] = dense_enqueue_cost(torch, kernels, cfg)
+    log(f"# phase 4 [kahan_matmul vs flash]: {mm['tokens_per_s']:.1f} vs "
+        f"{flash['tokens_per_s']:.1f} tokens/s; decode tick "
+        f"{mm['decode_tick_ms_mean']:.2f} vs "
+        f"{flash['decode_tick_ms_mean']:.2f} ms mean; prefill "
+        f"{mm['prefill_ms_per_position']:.3f} vs "
+        f"{flash['prefill_ms_per_position']:.3f} ms per position; gemm/gemv "
+        f"kernels per decode position "
+        f"{mm['decode_position']['cublas_kernels']} vs "
+        f"{scan['decode_position']['cublas_kernels']} (dropped "
+        f"{mm['cublas_kernels_dropped_per_position']}; "
+        f"{PROJECTIONS * cfg.n_layers} projections)")
     _, _, _, _, long = serve_run(torch, kernels, flash_cfg, flash_model,
                                  params, LONG_TRACE, "flash")
     check_flash_launches(flash_cfg, long, "long flash request")
@@ -673,6 +954,11 @@ def main_path(torch, kernels: Kernels, cfg, paper_n):
                            generator=kernels.gen, device=dev)
     heads = [kernels.normal((cfg.n_heads, PREFILL_LEN, cfg.head_dim))
              for _ in range(3)]
+    hd = cfg.n_heads * cfg.head_dim
+    up = [kernels.normal((PREFILL_LEN, cfg.d_model)).bfloat16(),
+          kernels.normal((cfg.d_model, cfg.d_ff)).bfloat16()]
+    qs = [kernels.normal((4, 64, cfg.d_model)).bfloat16(),
+          kernels.normal((4, cfg.d_model, hd)).bfloat16()]
     sync(torch, dev)
     reset_launch_counts()
     t0 = time.perf_counter()
@@ -685,10 +971,14 @@ def main_path(torch, kernels: Kernels, cfg, paper_n):
     sync(torch, dev)
     prefill_ms = (time.perf_counter() - t1) * 1e3
     veneer = flash_attention(*heads, scheme="kahan")
+    t2 = time.perf_counter()
+    products = [ops.matmul(*up), ops.batched_matmul(*qs)]
     sync(torch, dev)
+    matmul_ms = (time.perf_counter() - t2) * 1e3
     entry_counts = launch_counts()
     kernels.launches = {"entry": entry_counts, "serve": scan["launches"],
                         "serve-flash": flash["launches"],
+                        "serve-matmul": mm["launches"],
                         "serve-long": long["launches"]}
     log(f"# main path launch counts: the entry points {entry_counts} "
         f"(reductions {1e3 * (t1 - t0):.1f} ms, {PREFILL_LEN}-token flash "
@@ -701,8 +991,27 @@ def main_path(torch, kernels: Kernels, cfg, paper_n):
           f"{cfg.n_layers} prefill layers + 1 veneer call")
     check(entry_counts["flash_chunk_accumulators"] == 0,
           "B8 launched on the entry path")
-    check(all(bool(torch.isfinite(t).all()) for t in totals + [veneer]),
+    check(entry_counts["matmul_accumulators"] == 1
+          and entry_counts["matmul_accumulators_batched"] == 1,
+          f"B5 / B6 launched {entry_counts['matmul_accumulators']} / "
+          f"{entry_counts['matmul_accumulators_batched']} times for one "
+          f"ops.matmul and one ops.batched_matmul")
+    check(all(bool(torch.isfinite(t).all())
+              for t in totals + [veneer] + products),
           "non-finite result from the entry points")
+    # the 2048-token up projection against float32 torch.matmul, within
+    # 1e-5 of |a| @ |b| (the block products' rounding, fixed order)
+    af, bf = up[0].float(), up[1].float()
+    scale = torch.matmul(af.abs(), bf.abs())
+    up_err = float(((products[0] - torch.matmul(af, bf)).abs()
+                    / scale).max())
+    log(f"# entry: ops.matmul {list(af.shape)} x {list(bf.shape)} and "
+        f"ops.batched_matmul {[4, 64, cfg.d_model, hd]} in {matmul_ms:.1f} "
+        f"ms; the product within {up_err:.2e} of |a| @ |b| of float32 "
+        f"torch.matmul")
+    check(up_err < 1e-5, f"ops.matmul differs from float32 torch.matmul by "
+          f"{up_err:.2e} of |a| @ |b|")
+    del af, bf, scale, products
     check(flash_logits.shape == (1, cfg.padded_vocab)
           and bool(torch.isfinite(flash_logits[:, :cfg.vocab_size]).all()),
           "prefill logits not finite / of the wrong shape")
@@ -723,7 +1032,9 @@ def main_path(torch, kernels: Kernels, cfg, paper_n):
     req0 = requests[0]
     for what, c, m, e, out in (("scan", cfg, model, ec, served),
                                ("flash", flash_cfg, flash_model, fec,
-                                fserved)):
+                                fserved),
+                               ("kahan_matmul", matmul_cfg, matmul_model,
+                                mec, mserved)):
         solo = InferenceEngine(c, e, model=m, params=params).run(
             [req0])[req0.request_id]
         check(solo.tokens == out[req0.request_id].tokens,
@@ -732,8 +1043,67 @@ def main_path(torch, kernels: Kernels, cfg, paper_n):
               f"request 0: telemetry differs solo vs interleaved ({what})")
         log(f"# phase 5 [{what}]: request 0 alone == interleaved, bitwise "
             f"({len(solo.tokens)} tokens and telemetry values)")
-    return {"scan": scan, "flash": flash, "flash_long": long,
-            "entry_prefill_ms": prefill_ms, "entry_logits_rel_l2": rel}
+    return {"scan": scan, "flash": flash, "matmul": mm, "flash_long": long,
+            "entry_prefill_ms": prefill_ms, "entry_logits_rel_l2": rel,
+            "entry_matmul_ms": matmul_ms, "entry_matmul_err": up_err,
+            "b5_totals": kernels.matmul_totals}
+
+
+def dense_enqueue_cost(torch, kernels, cfg, calls=200):
+    """Host microseconds to enqueue one decode q projection (``dense`` on
+    [1, 1, d] bf16 against [d, H, dh] bf16), plain (cuBLAS) and
+    compensated (B5 through ``ops.matmul``): ``calls`` calls on the host
+    clock without a synchronise, then the total once the card is done."""
+    from repro_torch.models.layers import dense
+
+    x = kernels.normal((1, 1, cfg.d_model)).bfloat16()
+    p = {"w": kernels.normal((cfg.d_model, cfg.n_heads,
+                              cfg.head_dim)).bfloat16()}
+    out = {}
+    for compensated in (False, True):
+        fn = lambda: dense(p, x, torch.bfloat16,  # noqa: E731
+                           compensated=compensated)
+        fn()
+        sync(torch, kernels.dev)
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        enqueued = time.perf_counter() - t0
+        sync(torch, kernels.dev)
+        total = time.perf_counter() - t0
+        key = "compensated" if compensated else "plain"
+        out[key] = {"enqueue_us": enqueued / calls * 1e6,
+                    "total_us": total / calls * 1e6}
+    log(f"# phase 4: one decode q projection, host us per call (enqueue / "
+        f"total): plain {out['plain']['enqueue_us']:.1f} / "
+        f"{out['plain']['total_us']:.1f}, compensated "
+        f"{out['compensated']['enqueue_us']:.1f} / "
+        f"{out['compensated']['total_us']:.1f}")
+    return out
+
+
+def compare_chunk_logits(torch, kernels, cfg, flash_model, matmul_model,
+                         params):
+    """One 64-token chunk at offset 0 through the flash model and the
+    ``kahan_matmul`` model: the last position's logits within 5e-2
+    (relative L2) and the same argmax."""
+    w = 64
+    toks = torch.randint(0, cfg.vocab_size, (1, w), generator=kernels.gen,
+                         device=kernels.dev)
+    out = []
+    for m in (flash_model, matmul_model):
+        logits, _ = m.prefill_chunk_parallel(params, toks,
+                                             m.init_cache(1, w), 0, w)
+        out.append(logits[0, :cfg.vocab_size].double())
+    fl, ml = out
+    rel = float((ml - fl).norm() / fl.norm())
+    same = int(ml.argmax()) == int(fl.argmax())
+    log(f"# phase 4: a {w}-token chunk's logits with kahan_matmul vs flash: "
+        f"relative L2 {rel:.3e}, argmax {int(ml.argmax())} vs "
+        f"{int(fl.argmax())}")
+    check(rel < 5e-2 and same, f"kahan_matmul chunk logits differ from the "
+          f"flash run's: relative L2 {rel:.3e}, same argmax {same}")
+    return {"rel_l2": rel, "same_argmax": same}
 
 
 def profile_step(torch, dev, step, what, reps=5):
@@ -757,7 +1127,7 @@ def profile_step(torch, dev, step, what, reps=5):
     with profile(activities=activities) as prof:
         step(reps + 1)
         sync(torch, dev)
-    kernels = [(e.self_device_time_total / 1e3, e.key[:60], e.count)
+    kernels = [(e.self_device_time_total / 1e3, e.key, e.count)
                for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA]
     busy_ms = sum(k[0] for k in kernels)
@@ -766,11 +1136,20 @@ def profile_step(torch, dev, step, what, reps=5):
            "device_busy_ms": busy_ms or None,
            "device_idle_share": 1 - busy_ms / host_ms if busy_ms else None,
            "device_kernels": sum(k[2] for k in kernels),
-           "top_kernels_ms": [[name, ms, n] for ms, name, n in top]}
+           "cublas_kernels": sum(n for _, key, n in kernels
+                                 if is_cublas(key)),
+           "top_kernels_ms": [[name[:60], ms, n] for ms, name, n in top]}
     log(f"# {what}: {host_ms:.2f} ms host clock, device busy "
-        f"{busy_ms:.3f} ms in {out['device_kernels']} kernels; top "
-        f"{out['top_kernels_ms']}")
+        f"{busy_ms:.3f} ms in {out['device_kernels']} kernels "
+        f"({out['cublas_kernels']} gemm/gemv); top {out['top_kernels_ms']}")
     return out
+
+
+def is_cublas(kernel_name: str) -> bool:
+    """A cuBLAS / cuBLASLt product kernel: gemm and gemv kernels, and the
+    ``nvjet`` kernels cuBLASLt runs on Hopper."""
+    name = kernel_name.lower()
+    return any(word in name for word in ("gemm", "gemv", "nvjet"))
 
 
 def profile_decode_step(torch, model, params, dev, max_len):

@@ -26,7 +26,8 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parents[1] / "build" / "kernels"
 
 #: contraction off: the kernels place their fused multiply-adds by hand
-#: (``__fmaf_rn`` / ``__fma_rn``) at exactly the reference's fused sites.
+#: (``__fmaf_rn`` / ``__fma_rn``) at exactly the reference's fused sites,
+#: and nowhere else (the flash and matmul chains have none).
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
 
@@ -45,6 +46,12 @@ _SIGNATURES = {
         "kahan_flash_launch": (_I, _I, _V, _V, _V, _V, _V, _V, _V, _I, _I,
                                _I, _I, _I, _I, _I, _I, _I, ctypes.c_float,
                                _V),
+    },
+    "kahan_matmul": {
+        # (scheme, dtype, a_dtype, b_dtype, a, b, s, c, batch, m, n, k,
+        #  block_k, stream)
+        "kahan_matmul_launch": (_I, _I, _I, _I, _V, _V, _V, _V, _I, _I, _I,
+                                _I, _I, _V),
     },
 }
 

@@ -19,8 +19,14 @@ Flash attention (``flash_attention`` / ``flash_chunk_attention``) runs the
 same policy on the online-softmax accumulators: promote q/k/v to the
 compute dtype, zero-pad Sq and Skv to the (clamped) blocks, launch the
 flash grid (padded keys masked by ``kv_len``), finalize both pairs with
-``s + c`` and divide, ``o / max(l, 1e-30)``. Matmul is ported in a later
-slice.
+``s + c`` and divide, ``o / max(l, 1e-30)``.
+
+Matmul (``matmul`` / ``batched_matmul``) resolves ``(block_m, block_n,
+block_k)`` from the policy's ``blocks`` and clamps them to the problem,
+brings each operand to a dtype the kernel widens on load (bf16 weights
+stay as they are stored), zero-pads M, N and K to the blocks, launches
+the matmul grid and finalizes ``s + c``. ``matmul`` is differentiable:
+its backward runs the same compensated kernel with the same blocks.
 """
 
 from __future__ import annotations
@@ -29,10 +35,12 @@ import dataclasses
 from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core import kahan as K
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import kahan_dot as _kd
+from repro_torch.kernels import kahan_matmul as _km
 from repro_torch.kernels import kahan_sum as _ks
 from repro_torch.kernels import schemes as _schemes
 from repro_torch.kernels.schemes import CompensationScheme, Policy
@@ -51,6 +59,8 @@ WRAPPERS = {
     "sum_accumulators_batched": _ks.sum_accumulators_batched,
     "flash_accumulators": _fa.flash_accumulators,
     "flash_chunk_accumulators": _fa.flash_chunk_accumulators,
+    "matmul_accumulators": _km.matmul_accumulators,
+    "matmul_accumulators_batched": _km.matmul_accumulators_batched,
 }
 
 
@@ -121,6 +131,8 @@ class CompensatedReduction:
     scheme        registered name, CompensationScheme or Policy (None ->
                   the ambient policy)
     unroll        accumulator-group count U; kernel block (8U, 128)
+    blocks        matmul (block_m, block_n, block_k) defaults (None -> the
+                  policy's)
     compute_dtype accumulate dtype (None -> the policy's)
 
     ``last_path`` says which path the latest reduction took: "kernel" (a
@@ -129,6 +141,7 @@ class CompensatedReduction:
 
     scheme: SchemeSpec = None
     unroll: Optional[int] = None
+    blocks: Optional[Tuple[int, int, int]] = None
     compute_dtype: Any = None
     last_path: str = dataclasses.field(default="", init=False)
 
@@ -146,6 +159,8 @@ class CompensatedReduction:
             self.unroll = pol.unroll
         if self.unroll < 1:
             raise ValueError(f"unroll must be >= 1, got {self.unroll}")
+        if self.blocks is None:
+            self.blocks = pol.blocks
         self.compute_dtype = (
             pol.compute_dtype if self.compute_dtype is None
             else _schemes.resolve_compute_dtype(self.compute_dtype))
@@ -318,11 +333,136 @@ class CompensatedReduction:
         v = _pad_rows(v.to(self.compute_dtype), (-skv) % block_k)
         return q, k, v, block_q, block_k, sq, skv
 
-    # -- later slices --------------------------------------------------------
-    def matmul(self, *args, **kwargs):
-        raise NotImplementedError("ported in a later slice — see ROADMAP")
+    # -- matmul --------------------------------------------------------------
+    def _matmul_blocks(self, m: int, n: int, k: int,
+                       block_m: Optional[int], block_n: Optional[int],
+                       block_k: Optional[int]) -> Tuple[int, int, int]:
+        """Resolve and clamp the blocks of an ``(m, k) x (k, n)`` problem:
+        ``min(bm, round_up(m, 8))``, ``min(bn, round_up(n, 128))``,
+        ``min(bk, round_up(k, 128))`` (``repro/kernels/engine.py:315-326``).
+        Unset blocks come from ``self.blocks``."""
+        bm, bn, bk = self.blocks
+        return (min(bm if block_m is None else block_m, _round_up(m, 8)),
+                min(bn if block_n is None else block_n, _round_up(n, 128)),
+                min(bk if block_k is None else block_k, _round_up(k, 128)))
 
-    batched_matmul = matmul
+    def _prep_matmul(self, a: Tensor, b: Tensor,
+                     blocks: Tuple[int, int, int]) -> Tuple[Tensor, Tensor]:
+        """Bring both operands to the compute dtype, then zero-pad M, N and
+        K to block multiples (``repro/kernels/engine.py:328-346``), for 2-D
+        and batched 3-D operands. An operand the kernel widens on load
+        (``kahan_matmul.OPERAND_DTYPES``) keeps its dtype: widening is
+        exact, so the grids equal those of operands promoted first, and a
+        bf16 weight that needs no padding is used where it lies."""
+        block_m, block_n, block_k = blocks
+        m, k = a.shape[-2:]
+        n = b.shape[-1]
+        keep = _km.OPERAND_DTYPES[self.compute_dtype]
+        if a.dtype not in keep:
+            a = a.to(self.compute_dtype)
+        if b.dtype not in keep:
+            b = b.to(self.compute_dtype)
+        pm, pn, pk = (-m) % block_m, (-n) % block_n, (-k) % block_k
+        if pm or pk:
+            a = F.pad(a, (0, pk, 0, pm))
+        if pk or pn:
+            b = F.pad(b, (0, pn, 0, pk))
+        return a.contiguous(), b.contiguous()
+
+    def matmul_accumulators(self, a: Tensor, b: Tensor, *,
+                            block_m: Optional[int] = None,
+                            block_n: Optional[int] = None,
+                            block_k: Optional[int] = None) -> Accumulator:
+        """(s, c) grids of ``a @ b``, each ``[M_pad, N_pad]`` (padded to
+        block multiples; callers slice after finalizing)."""
+        m, k = a.shape
+        if b.dim() != 2 or b.shape[0] != k:
+            raise ValueError(f"matmul operands mismatch: {tuple(a.shape)} "
+                             f"vs {tuple(b.shape)}")
+        blocks = self._matmul_blocks(m, b.shape[1], k, block_m, block_n,
+                                     block_k)
+        a, b = self._prep_matmul(a, b, blocks)
+        acc = Accumulator(*_km.matmul_accumulators(
+            a, b, scheme=self.scheme, block_m=blocks[0], block_n=blocks[1],
+            block_k=blocks[2], compute_dtype=self.compute_dtype))
+        self._note_path(a)
+        return acc
+
+    def batched_matmul_accumulators(self, a: Tensor, b: Tensor, *,
+                                    block_m: Optional[int] = None,
+                                    block_n: Optional[int] = None,
+                                    block_k: Optional[int] = None,
+                                    ) -> Accumulator:
+        """(s, c) grids ``[batch, M_pad, N_pad]`` from ONE launch."""
+        batch, m, k = a.shape
+        if b.dim() != 3 or b.shape[0] != batch or b.shape[1] != k:
+            raise ValueError(f"batched_matmul operands mismatch: "
+                             f"{tuple(a.shape)} vs {tuple(b.shape)}")
+        blocks = self._matmul_blocks(m, b.shape[2], k, block_m, block_n,
+                                     block_k)
+        a, b = self._prep_matmul(a, b, blocks)
+        acc = Accumulator(*_km.matmul_accumulators_batched(
+            a, b, scheme=self.scheme, block_m=blocks[0], block_n=blocks[1],
+            block_k=blocks[2], compute_dtype=self.compute_dtype))
+        self._note_path(a)
+        return acc
+
+    def matmul(self, a: Tensor, b: Tensor, *, block_m: Optional[int] = None,
+               block_n: Optional[int] = None,
+               block_k: Optional[int] = None) -> Tensor:
+        """``a @ b`` ``[M, K] x [K, N] -> [M, N]`` in the compute dtype,
+        with compensated accumulation across K-blocks. Differentiable: the
+        backward (``da = g @ bᵀ``, ``db = aᵀ @ g``) runs the same kernel
+        with this call's clamped blocks (``repro/kernels/engine.py:
+        604-654``)."""
+        if a.dim() != 2 or b.dim() != 2:
+            raise ValueError(f"matmul wants 2-D operands, got "
+                             f"{tuple(a.shape)} and {tuple(b.shape)}")
+        blocks = self._matmul_blocks(a.shape[0], b.shape[1], a.shape[1],
+                                     block_m, block_n, block_k)
+        eng = CompensatedReduction(scheme=self.scheme, unroll=self.unroll,
+                                   blocks=blocks,
+                                   compute_dtype=self.compute_dtype)
+        out = _CompensatedMatmul.apply(a, b, eng)
+        self.last_path = eng.last_path
+        return out
+
+    def batched_matmul(self, a: Tensor, b: Tensor, *,
+                       block_m: Optional[int] = None,
+                       block_n: Optional[int] = None,
+                       block_k: Optional[int] = None) -> Tensor:
+        """``[batch, M, K] x [batch, K, N] -> [batch, M, N]`` in one
+        launch, bitwise equal to a loop of ``matmul`` calls."""
+        m, n = a.shape[1], b.shape[2]
+        acc = self.batched_matmul_accumulators(
+            a, b, block_m=block_m, block_n=block_n, block_k=block_k)
+        return (acc.s + acc.c)[:, :m, :n]
+
+
+class _CompensatedMatmul(torch.autograd.Function):
+    """``eng.matmul_accumulators`` finalized and sliced, with a backward
+    through the same compensated kernel (the reference's ``custom_vjp``,
+    ``repro/kernels/engine.py:640-653``). ``eng`` carries the forward's
+    clamped blocks, which the backward products clamp again to their own
+    shapes."""
+
+    @staticmethod
+    def forward(ctx, a: Tensor, b: Tensor, eng: CompensatedReduction):
+        ctx.save_for_backward(a, b)
+        ctx.eng = eng
+        acc = eng.matmul_accumulators(a, b)
+        return (acc.s + acc.c)[:a.shape[0], :b.shape[1]]
+
+    @staticmethod
+    def backward(ctx, g: Tensor):
+        a, b = ctx.saved_tensors
+        eng = ctx.eng
+        da = db = None
+        if ctx.needs_input_grad[0]:
+            da = _CompensatedMatmul.apply(g, b.T, eng).to(a.dtype)
+        if ctx.needs_input_grad[1]:
+            db = _CompensatedMatmul.apply(a.T, g, eng).to(b.dtype)
+        return da, db, None
 
 
 def _round_up(x: int, m: int) -> int:

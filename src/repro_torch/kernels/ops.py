@@ -3,9 +3,11 @@
 
 Every function takes ``scheme`` (a registered name, a
 ``CompensationScheme`` or a ``Policy``; None -> the ambient
-``schemes.use_policy`` default), ``unroll`` and ``compute_dtype``. The
-inputs' device decides where the work runs: CUDA tensors launch the
-Hopper kernels, CPU tensors run their plain versions.
+``schemes.use_policy`` default) and ``compute_dtype``; the reductions
+take ``unroll``, the matmuls ``block_m`` / ``block_n`` / ``block_k``
+(None -> the policy's ``blocks``). The inputs' device decides where the
+work runs: CUDA tensors launch the Hopper kernels, CPU tensors run their
+plain versions.
 """
 
 from __future__ import annotations
@@ -50,3 +52,23 @@ def batched_asum(x: Tensor, *, scheme: SchemeSpec = None,
     """[batch, n] -> [batch] compensated sums in one launch — bitwise
     equal to a loop of ``asum`` calls."""
     return _engine(scheme, unroll, compute_dtype).batched_asum(x)
+
+
+def matmul(a: Tensor, b: Tensor, *, block_m: Optional[int] = None,
+           block_n: Optional[int] = None, block_k: Optional[int] = None,
+           scheme: SchemeSpec = None, compute_dtype=None) -> Tensor:
+    """C = A @ B with compensated accumulation across K-blocks
+    (compute-dtype result). Pads M/N/K to block multiples and slices back;
+    differentiable, its backward through the same compensated kernel."""
+    return _engine(scheme, None, compute_dtype).matmul(
+        a, b, block_m=block_m, block_n=block_n, block_k=block_k)
+
+
+def batched_matmul(a: Tensor, b: Tensor, *, block_m: Optional[int] = None,
+                   block_n: Optional[int] = None,
+                   block_k: Optional[int] = None, scheme: SchemeSpec = None,
+                   compute_dtype=None) -> Tensor:
+    """[batch, M, K] x [batch, K, N] -> [batch, M, N] compensated matmuls
+    in one launch — bitwise equal to a loop of ``matmul`` calls."""
+    return _engine(scheme, None, compute_dtype).batched_matmul(
+        a, b, block_m=block_m, block_n=block_n, block_k=block_k)

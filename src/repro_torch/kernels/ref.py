@@ -1,12 +1,13 @@
 """Plain oracles of the compensated reductions (counterpart of
-``repro/kernels/ref.py:52-116``).
+``repro/kernels/ref.py:52-160, 258``).
 
 Each oracle views the data as ``[steps, rows, lanes]``, folds it into a
 ``(rows, lanes)`` accumulator grid with the scheme's own callables and
 merges with the engine's two-sum tree. With ``rows = 8 * unroll`` it is
 bitwise equal to the corresponding ``ops`` entry point. Unlike the
 engine, the oracles pad to ``rows * lanes`` only, so an empty input folds
-no step at all (the total is still 0).
+no step at all (the total is still 0). The matmul oracle folds K-blocks
+of ``bk`` columns, each block product in the kernel's ascending order.
 """
 
 from __future__ import annotations
@@ -77,6 +78,45 @@ def batched_sum_ref(x: Tensor, scheme: SchemeSpec = None, rows: int = 8,
     """Oracle for the batched sum grid: the single oracle per row."""
     return torch.stack([sum_ref(r, scheme, rows, lanes,
                                 compute_dtype=compute_dtype) for r in x])
+
+
+def matmul_ref(a: Tensor, b: Tensor, bk: int = 512,
+               scheme: SchemeSpec = None, *, compute_dtype=None) -> Tensor:
+    """Oracle of the matmul kernel: block products over K-blocks of ``bk``
+    columns (zero-padded), folded with ``scheme.update`` at the block
+    index, finalized ``s + c``. a ``[M, K]``, b ``[K, N]`` in any float
+    dtype; accumulates in the compute dtype. Equal to ``ops.matmul`` bit
+    for bit at the same ``bk``."""
+    from repro_torch.kernels.kahan_matmul import block_product
+
+    sch = _schemes.resolve_scheme(scheme)
+    cdt = _schemes.resolve_compute_dtype(compute_dtype)
+    a = _pad_to(a.to(cdt), bk)
+    b = _pad_to(b.to(cdt).T, bk).T
+    s = a.new_zeros((a.shape[0], b.shape[1]))
+    c = torch.zeros_like(s)
+    for g in range(a.shape[1] // bk):
+        lo, hi = g * bk, (g + 1) * bk
+        s, c = sch.update(s, c, block_product(a[:, lo:hi], b[lo:hi]), g)
+    return s + c
+
+
+def batched_matmul_ref(a: Tensor, b: Tensor, bk: int = 512,
+                       scheme: SchemeSpec = None, *,
+                       compute_dtype=None) -> Tensor:
+    """Oracle of the batched matmul grid: the single oracle per batch
+    index."""
+    return torch.stack([matmul_ref(x, y, bk, scheme,
+                                   compute_dtype=compute_dtype)
+                        for x, y in zip(a, b)])
+
+
+def matmul_exact_f64(a, b):
+    """High-precision reference (numpy float64) for accuracy
+    comparisons."""
+    import numpy as np
+
+    return np.asarray(a, np.float64) @ np.asarray(b, np.float64)
 
 
 def flash_attention_ref(q: Tensor, k: Tensor, v: Tensor,

@@ -249,20 +249,26 @@ class Policy:
 
     scheme         registered scheme name or a CompensationScheme object
     unroll         accumulator-group count U; the kernel block is (8U, 128)
+    blocks         matmul (block_m, block_n, block_k) tile sizes
     compute_dtype  accumulate dtype: float32 (default) | float64 | bfloat16
     """
 
     scheme: Union[str, CompensationScheme] = "kahan"
     unroll: int = 8
+    blocks: Tuple[int, int, int] = (256, 256, 512)
     compute_dtype: Any = torch.float32
 
     def __post_init__(self):
         object.__setattr__(self, "scheme", resolve_scheme(self.scheme))
+        object.__setattr__(self, "blocks", tuple(int(b) for b in self.blocks))
         object.__setattr__(self, "compute_dtype", resolve_compute_dtype(
             torch.float32 if self.compute_dtype is None
             else self.compute_dtype))
         if self.unroll < 1:
             raise ValueError(f"Policy.unroll must be >= 1, got {self.unroll}")
+        if len(self.blocks) != 3 or min(self.blocks) < 1:
+            raise ValueError(f"Policy.blocks must be three positive sizes "
+                             f"(block_m, block_n, block_k), got {self.blocks}")
 
 
 def resolve_scheme(spec: Union[str, CompensationScheme, None],

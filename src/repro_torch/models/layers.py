@@ -1,5 +1,5 @@
 """Model layers of the dense decoder, in PyTorch (counterpart of
-``repro/models/layers.py``, dense non-compensated path).
+``repro/models/layers.py``, dense path).
 
 Parameters are plain nested dicts of tensors in the reference's layouts
 (q/k/v ``w``: ``[d, H, dh]``, o ``w``: ``[H*dh, d]``, embedding table
@@ -16,7 +16,10 @@ prefill (one prompt chunk at an offset, attending the whole cache). With
 ``kahan_attention`` the two prefill modes run the compensated flash
 kernels (``_flash_core``: B7, ``_flash_chunk_core``: B8); otherwise, and
 always in decode, the materialized ``_attn_core`` (plain matmuls and an
-explicit softmax, q-chunked at ``ATTN_Q_CHUNK``).
+explicit softmax, q-chunked at ``ATTN_Q_CHUNK``). With ``kahan_matmul``
+every dense projection (q, k, v, o, gate, up, down) runs the engine's
+compensated matmul (B5); the tied head stays a plain matmul, as the
+reference computes it outside any kernel.
 """
 
 from __future__ import annotations
@@ -43,11 +46,23 @@ def dtype_of(name: str) -> torch.dtype:
 # Linear / norms / embeddings
 # ---------------------------------------------------------------------------
 
-def dense(p: Params, x: Tensor, compute_dtype: torch.dtype) -> Tensor:
+def dense(p: Params, x: Tensor, compute_dtype: torch.dtype, *,
+          compensated: bool = False) -> Tensor:
     """Dense projection ``x @ w`` contracting the last axis of ``x`` with
-    the first of ``w`` (whose trailing axes may be fused, e.g. (H, dh))."""
+    the first of ``w`` (whose trailing axes may be fused, e.g. (H, dh)).
+    With ``compensated`` (ArchConfig ``kahan_matmul``) the contraction is
+    ``ops.matmul`` on ``[B*S, d_in] x [d_in, prod(out)]`` (differentiable),
+    scheme / blocks / accumulate dtype from the ambient Policy, the result
+    cast to the compute dtype (``repro/models/layers.py:63-87``)."""
     w = p["w"].to(compute_dtype)
-    y = torch.matmul(x.to(compute_dtype), w.reshape(w.shape[0], -1))
+    w2 = w.reshape(w.shape[0], -1)
+    if compensated:
+        from repro_torch.kernels import ops
+
+        x2 = x.to(compute_dtype).reshape(-1, x.shape[-1])
+        y = ops.matmul(x2, w2).to(compute_dtype)
+    else:
+        y = torch.matmul(x.to(compute_dtype), w2)
     y = y.reshape(*x.shape[:-1], *w.shape[1:])
     if "b" in p:
         y = y + p["b"].to(compute_dtype)
@@ -116,6 +131,7 @@ class AttnStatic:
     freqs: Tensor
     compute_dtype: torch.dtype
     kahan_attention: bool = False
+    kahan_matmul: bool = False
 
 
 #: q-chunk of the materialized attention core: bounds the float32 score
@@ -210,15 +226,19 @@ def attention(p: Params, st: AttnStatic, x: Tensor, *,
 
     Prefill and chunk prefill run the flash kernels when
     ``st.kahan_attention``; decode always runs ``_attn_core``, as in the
-    reference. Returns [B,S,D].
+    reference. The q, k, v and o projections run the compensated matmul
+    when ``st.kahan_matmul``. Returns [B,S,D].
     """
     cd = st.compute_dtype
+    cmp = st.kahan_matmul
     b, s, _ = x.shape
     start = 0 if pos is None else pos
     q_pos = torch.arange(start, start + s, device=x.device)
-    q = rope_apply(dense(p["q"], x, cd), q_pos, st.freqs)   # [B,S,H,dh]
-    k = rope_apply(dense(p["k"], x, cd), q_pos, st.freqs)   # [B,S,KV,dh]
-    v = dense(p["v"], x, cd)
+    q = rope_apply(dense(p["q"], x, cd, compensated=cmp), q_pos,
+                   st.freqs)                                # [B,S,H,dh]
+    k = rope_apply(dense(p["k"], x, cd, compensated=cmp), q_pos,
+                   st.freqs)                                # [B,S,KV,dh]
+    v = dense(p["v"], x, cd, compensated=cmp)
     ck, cv = cache
     s_kv = ck.shape[1]
     groups = st.n_heads // st.n_kv
@@ -244,18 +264,21 @@ def attention(p: Params, st: AttnStatic, x: Tensor, *,
         k_pos = torch.arange(s_kv, device=x.device)
         k_pos = torch.where(k_pos <= pos, k_pos, _FAR)
         out = _attn_core(qg, ck.to(cd), cv.to(cd), q_pos, k_pos, cd)
-    return dense(p["o"], out.reshape(b, s, -1), cd)
+    return dense(p["o"], out.reshape(b, s, -1), cd, compensated=cmp)
 
 
 # ---------------------------------------------------------------------------
 # MLP
 # ---------------------------------------------------------------------------
 
-def mlp_apply(p: Params, x: Tensor, compute_dtype) -> Tensor:
-    """SwiGLU: ``down(silu(gate(x)) * up(x))``, silu in float32."""
-    g = F.silu(dense(p["gate"], x, compute_dtype).float()).to(compute_dtype)
-    u = dense(p["up"], x, compute_dtype)
-    return dense(p["down"], g * u, compute_dtype)
+def mlp_apply(p: Params, x: Tensor, compute_dtype, *,
+              compensated: bool = False) -> Tensor:
+    """SwiGLU: ``down(silu(gate(x)) * up(x))``, silu in float32; the three
+    projections compensated when ``compensated`` (``kahan_matmul``)."""
+    cd, cmp = compute_dtype, compensated
+    g = F.silu(dense(p["gate"], x, cd, compensated=cmp).float()).to(cd)
+    u = dense(p["up"], x, cd, compensated=cmp)
+    return dense(p["down"], g * u, cd, compensated=cmp)
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,7 @@
 """Model factory: ArchConfig -> model instance (counterpart of
 ``repro/models/model_zoo.py``). The port serves the dense family, with
-``kahan_attention`` routing prefill through the flash kernels."""
+``kahan_attention`` routing prefill through the flash kernels and
+``kahan_matmul`` the dense projections through the compensated matmul."""
 
 from __future__ import annotations
 
@@ -25,8 +26,6 @@ def build_model(cfg: ArchConfig, device: torch.device) -> TransformerLM:
         later.append(f"mlp {cfg.mlp!r}")
     if cfg.qkv_bias:
         later.append("qkv bias")
-    if cfg.kahan_matmul:
-        later.append("kahan_matmul routing")
     if later:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(later)} ported in a later slice — see "

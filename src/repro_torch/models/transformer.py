@@ -62,7 +62,8 @@ class TransformerLM:
         self.st = AttnStatic(
             cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
             rope_freqs(cfg.head_dim, cfg.rope_theta, self.device),
-            self.compute_dtype, kahan_attention=cfg.kahan_attention)
+            self.compute_dtype, kahan_attention=cfg.kahan_attention,
+            kahan_matmul=cfg.kahan_matmul)
         # one forward pass over a chunk is position-independent only
         # without MLA, MoE capacity routing or sliding-window ring caches
         # (``repro/models/transformer.py:91-99``); other configs keep the
@@ -139,7 +140,8 @@ class TransformerLM:
                               cache=(ck_all[layer], cv_all[layer]), pos=pos,
                               chunk_valid=chunk_valid)
             m_in = norm_apply(p["ln2"], x, cfg.norm)
-            x = x + mlp_apply(p["ffn"], m_in, self.compute_dtype)
+            x = x + mlp_apply(p["ffn"], m_in, self.compute_dtype,
+                              compensated=cfg.kahan_matmul)
         return norm_apply(params["final_norm"], x, cfg.norm)
 
     def prefill(self, params: Params, tokens: Tensor, cache,

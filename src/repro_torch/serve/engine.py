@@ -334,17 +334,18 @@ class InferenceEngine:
     def _decode_tick(self, running: Dict[int, RequestHandle],
                      events: List[TokenEvent]) -> None:
         """One decode position for every running slot, one slot at a time
-        through the batch-1 decode step; then ONE telemetry launch over
-        the whole [max_slots, vocab] logit batch (rows of idle slots are
-        zero)."""
+        through the batch-1 decode step under the engine's Policy (as a
+        prefill chunk runs); then ONE telemetry launch over the whole
+        [max_slots, vocab] logit batch (rows of idle slots are zero)."""
         logits = torch.zeros((self.ec.max_slots, self.cfg.padded_vocab),
                              dtype=torch.float32, device=self.device)
         toks: Dict[int, int] = {}
         for slot, h in running.items():
             tok_in = torch.tensor([h.tokens[-1]], device=self.device)
-            row_logits = self.model.decode_step(
-                self.params, gather_row(self.slots.cache, slot), tok_in,
-                h.pos)
+            with _schemes.use_policy(self.policy):
+                row_logits = self.model.decode_step(
+                    self.params, gather_row(self.slots.cache, slot), tok_in,
+                    h.pos)
             logits[slot] = row_logits[0]
             toks[slot] = self._sample(row_logits[0], h.seed, h.emitted,
                                       h.request.sampling.temperature)

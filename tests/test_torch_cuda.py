@@ -210,3 +210,130 @@ def test_cuda_flash_rejects_what_it_does_not_take(cuda_device):
     with pytest.raises(NotImplementedError, match="test_torch_cuda_flash"):
         fa.flash_accumulators(x, x, x, scheme=mine, **kw)
     assert engine.launch_counts() == before
+
+
+def _matmul_operands(gen, dev, m, k, n, dtype):
+    a = torch.randn((m, k), generator=gen, device=dev).to(dtype)
+    b = torch.randn((k, n), generator=gen, device=dev).to(dtype)
+    return a, b
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cuda_matmul_kernel_matches_plain(cuda_device, dtype):
+    """Tier 2 on the card: B5's grids equal the plain version bit for bit,
+    every built-in scheme, ragged M, N and K padded by the engine, a K of
+    16 blocks, operands in the compute dtype and (float32) in bf16."""
+    from repro_torch.kernels import engine
+    from repro_torch.kernels import kahan_matmul as km
+
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+    operand_dtypes = ((dtype, torch.bfloat16) if dtype == torch.float32
+                      else (dtype,))
+    for scheme in SCHEMES:
+        for m, k, n in ((1, 1100, 200), (37, 1100, 200), (8, 8192, 256)):
+            for odt in operand_dtypes:
+                eng = engine.CompensatedReduction(scheme=scheme,
+                                                  compute_dtype=dtype)
+                a, b = _matmul_operands(gen, cuda_device, m, k, n, odt)
+                blocks = eng._matmul_blocks(m, n, k, None, None, None)
+                ap, bp = eng._prep_matmul(a, b, blocks)
+                assert ap.dtype == bp.dtype == odt
+                before = engine.launch_counts()["matmul_accumulators"]
+                got = km.matmul_accumulators(
+                    ap, bp, scheme=eng.scheme, block_m=blocks[0],
+                    block_n=blocks[1], block_k=blocks[2],
+                    compute_dtype=dtype)
+                assert (engine.launch_counts()["matmul_accumulators"]
+                        == before + 1)
+                want = km.matmul_plain(ap[None], bp[None], scheme=eng.scheme,
+                                       block_k=blocks[2],
+                                       compute_dtype=dtype)
+                torch.cuda.synchronize()
+                for g, w in zip(got, want):
+                    assert torch.equal(g, w[0]), (scheme, m, k, n, odt)
+
+
+@pytest.mark.cuda
+def test_cuda_matmul_bf16_operands_equal_promoted_first(cuda_device):
+    """bf16 operands widened where the kernel reads them give the same
+    grids as the same operands promoted to float32 first."""
+    from repro_torch.kernels import kahan_matmul as km
+
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    a, b = _matmul_operands(gen, cuda_device, 64, 2048, 512, torch.bfloat16)
+    kw = dict(scheme=tschemes.KAHAN, block_m=64, block_n=256, block_k=512)
+    for x, y in ((a, b), (a.float(), b), (a, b.float())):
+        got = km.matmul_accumulators(x, y, **kw)
+        want = km.matmul_accumulators(a.float(), b.float(), **kw)
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scheme", SCHEMES)
+def test_cuda_batched_matmul_equals_loop_and_rows(cuda_device, scheme):
+    """Tier 2 on the card: B6 equals a loop of B5 launches, and the rows
+    of an M = 64 call equal M = 1 calls of the same rows, bitwise."""
+    from repro_torch.kernels import engine, ops
+
+    gen = torch.Generator(device=cuda_device).manual_seed(4)
+    a = torch.randn((3, 64, 1024), generator=gen, device=cuda_device)
+    b = torch.randn((3, 1024, 384), generator=gen, device=cuda_device)
+    before = engine.launch_counts()
+    batched = ops.batched_matmul(a, b, scheme=scheme)
+    loop = [ops.matmul(a[i], b[i], scheme=scheme) for i in range(3)]
+    after = engine.launch_counts()
+    assert after["matmul_accumulators_batched"] == (
+        before["matmul_accumulators_batched"] + 1)
+    assert after["matmul_accumulators"] == before["matmul_accumulators"] + 3
+    for i in range(3):
+        assert torch.equal(batched[i], loop[i])
+    for r in (0, 17, 63):
+        assert torch.equal(ops.matmul(a[0, r:r + 1], b[0], scheme=scheme),
+                           loop[0][r:r + 1])
+
+
+@pytest.mark.cuda
+def test_cuda_matmul_backward_launches_the_kernel(cuda_device):
+    """The autograd backward of ``ops.matmul`` launches B5 twice, and its
+    gradients equal B5 on ``(g, bᵀ)`` and ``(aᵀ, g)`` bit for bit."""
+    from repro_torch.kernels import engine, ops
+
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    a = torch.randn((20, 700), generator=gen, device=cuda_device)
+    b = torch.randn((700, 300), generator=gen, device=cuda_device)
+    g = torch.randn((20, 300), generator=gen, device=cuda_device)
+    a.requires_grad_()
+    b.requires_grad_()
+    out = ops.matmul(a.bfloat16(), b, scheme="dot2")
+    before = engine.launch_counts()["matmul_accumulators"]
+    out.backward(g)
+    assert engine.launch_counts()["matmul_accumulators"] == before + 2
+    # the forward's blocks: (min(256, 24), min(256, 384), min(512, 768))
+    kw = dict(scheme="dot2", block_m=24, block_n=256, block_k=512)
+    da = ops.matmul(g, b.detach().T, **kw).bfloat16().float()
+    db = ops.matmul(a.detach().bfloat16().T, g, **kw)
+    assert torch.equal(a.grad, da) and torch.equal(b.grad, db)
+
+
+@pytest.mark.cuda
+def test_cuda_matmul_rejects_what_it_does_not_take(cuda_device):
+    """A bfloat16 compute dtype has no matmul instantiation (TypeError); a
+    runtime scheme has no device function (NotImplementedError); neither
+    launches."""
+    from repro_torch.kernels import engine
+    from repro_torch.kernels import kahan_matmul as km
+
+    x = torch.zeros((8, 128), device=cuda_device, dtype=torch.bfloat16)
+    w = torch.zeros((128, 128), device=cuda_device, dtype=torch.bfloat16)
+    kw = dict(block_m=8, block_n=128, block_k=128)
+    before = engine.launch_counts()
+    with pytest.raises(TypeError, match="float32 and float64"):
+        km.matmul_accumulators(x, w, scheme=tschemes.KAHAN,
+                               compute_dtype=torch.bfloat16, **kw)
+    mine = tschemes.CompensationScheme(
+        name="test_torch_cuda_matmul", update=lambda s, c, x, step: (s + x, c),
+        instruction_mix=tschemes.InstructionMix(adds=1, muls=1))
+    with pytest.raises(NotImplementedError, match="test_torch_cuda_matmul"):
+        km.matmul_accumulators(x, w, scheme=mine, **kw)
+    assert engine.launch_counts() == before

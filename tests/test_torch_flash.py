@@ -44,6 +44,7 @@ from repro_torch.configs import get_smoke
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import engine as teng
 from repro_torch.kernels import flash_attention as tfa
+from repro_torch.kernels import kahan_matmul as tkm
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels import schemes as tschemes
 from repro_torch.kernels.schemes import Policy
@@ -421,7 +422,9 @@ def test_flash_tokens_exact_across_bodies_and_widths(tiny_flash, other):
 
 def test_prefill_body_resolution_and_errors(tiny_flash):
     """"flash" resolves to "scan" for a model without the parallel path;
-    bad modes, GQA mismatches and kahan_matmul fail fast."""
+    bad modes and GQA mismatches fail fast; a ``kahan_matmul`` model
+    builds, and its kernel refuses a bfloat16 compute dtype on the card
+    (the check it runs before a CUDA launch)."""
     s = tiny_flash
     model = build_model(s["cfg"], CPU)
     model.parallel_prefill_ok = False
@@ -441,8 +444,10 @@ def test_prefill_body_resolution_and_errors(tiny_flash):
                                torch.zeros(2, 128, 16), block_q=8,
                                block_k=128, scheme=tschemes.KAHAN,
                                causal=True, kv_len=128)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        build_model(s["cfg"].replace(kahan_matmul=True), CPU)
+    assert build_model(s["cfg"].replace(kahan_matmul=True),
+                       CPU).st.kahan_matmul
+    with pytest.raises(TypeError, match="float32 and float64 only"):
+        tkm.check_device_call(tschemes.KAHAN, torch.bfloat16)
 
 
 def test_launcher_serves_flash_on_cpu(capsys):

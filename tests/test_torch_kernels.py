@@ -194,7 +194,7 @@ def test_policy_and_runtime_scheme():
 
 def test_boundary_validation():
     """Unknown schemes / dtypes and malformed kernel inputs fail fast."""
-    from repro_torch.kernels import kahan_dot, kahan_sum
+    from repro_torch.kernels import kahan_dot, kahan_matmul, kahan_sum
 
     with pytest.raises(ValueError, match="unknown compensation scheme"):
         tops.dot(torch.ones(3), torch.ones(3), scheme="nope")
@@ -208,5 +208,10 @@ def test_boundary_validation():
     with pytest.raises(ValueError, match="\\[B, n\\]"):
         kahan_sum.sum_accumulators_batched(torch.ones(1024),
                                            scheme=tschemes.KAHAN, unroll=1)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        teng.CompensatedReduction().matmul(torch.ones(2, 2), torch.ones(2, 2))
+    with pytest.raises(ValueError, match="mismatch"):
+        teng.CompensatedReduction().matmul_accumulators(torch.ones(2, 3),
+                                                        torch.ones(2, 2))
+    with pytest.raises(ValueError, match="multiples"):
+        kahan_matmul.matmul_accumulators(torch.ones(8, 100),
+                                         torch.ones(100, 128),
+                                         scheme=tschemes.KAHAN)
