@@ -27,15 +27,21 @@ there is no CUDA device or no ``src/repro_torch`` beside it.
    ``matmul_accumulators_batched`` (B6) equals its plain version and a
    loop of B5, the rows of an M = 64 product equal M = 1 products of the
    same rows, and the autograd backward of ``ops.matmul`` launches B5
-   twice and equals B5 on (g, bT) and (aT, g).
+   twice and equals B5 on (g, bT) and (aT, g). The M <= 8 path on
+   unpadded rows: M in {1, 3, 8} x 1, 4 and 16 K-blocks x N a multiple of
+   the CTA's 16 columns and not, for every scheme, float32 (bf16 and
+   float32 operands) and float64, equal to ``matmul_plain`` bit for bit;
+   operands whose rows are not 16-byte aligned (staged without cp.async);
+   B6 at batch 4 and M 1 equal to a loop of B5.
 3. Kernel times: each kernel at the shape its main path gives it (dot and
    sum at the paper's in-memory size n = 2^27 for kahan and naive,
    batched dot and sum at [8, 2^24], the serving telemetry at
    [max_slots, 57344], B7 at OLMo-1B's head shape [16, 2048, 128] causal,
    B8 at the serving chunk [16, 64, 128] against both serve runs' cache
-   lengths, B5 at OLMo-1B's projection shapes at decode (M 8 after
-   padding) and in a 64-token chunk plus the up projection of a
-   2048-token prefill, B6 at 4 chunk-sized q projections), with CUDA
+   lengths, B5 at OLMo-1B's projection shapes at decode (M 1, the served
+   shape, and M 8 for comparison with the padded rows of earlier runs)
+   and in a 64-token chunk plus the up projection of a 2048-token
+   prefill, B6 at 4 chunk-sized q projections), with CUDA
    events after warm-up, beside its bound (bytes or float32 operations),
    its plain version's time and one PyTorch call computing the same
    function (``library_ms``, a yardstick the port never calls:
@@ -76,8 +82,8 @@ kernel and path it runs on (``"path"``: "entry", "serve" for the scan
 trace, "serve-flash" for the same trace under flash, "serve-matmul" for
 it with ``kahan_matmul`` too, "serve-long" for the long request): its
 ``launches`` are that path's count and its times were taken at that
-path's shape (B5 on "serve-matmul": the decode q/k/v/o shape, the one
-launched most).
+path's shape (B5 on "serve-matmul": the decode q/k/v/o shape at M 1,
+the one launched most).
 """
 
 from __future__ import annotations
@@ -195,6 +201,29 @@ def cuda_ms(torch, fn, reps: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def graph_ms(torch, fn, launches: int = 20, replays: int = 5) -> float:
+    """Mean device milliseconds of ``fn()``: ``launches`` calls captured
+    in one CUDA graph (after warm-up), replayed ``replays`` times between
+    CUDA events. For kernels shorter than their wrapper's enqueue on the
+    host, where back-to-back calls would time the host."""
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (replays * launches)
 
 
 def bound_ms(n_bytes: float, n_ops: float):
@@ -526,11 +555,53 @@ class Kernels:
                           f"({name}, {dtype})")
                 cases += 2
         cases += self.matmul_backward()
+        cases += self.matmul_rows_parity()
         sync(torch, self.dev)
         log(f"# phase 2: {cases} matmul parity cases bitwise equal to the "
             f"plain version (B5, B6); bf16 operands == promoted first; B6 == "
             f"a loop of B5; rows invariant to M; backward == B5 on (g, bT) "
-            f"and (aT, g), 2 launches")
+            f"and (aT, g), 2 launches; the M <= 8 path on unpadded rows")
+
+    def matmul_rows_parity(self):
+        """The M <= 8 path on unpadded rows against ``matmul_plain``,
+        bitwise: M in {1, 3, 8} x 1, 4 and 16 K-blocks of 128 x N = 256
+        and 200 (a multiple of the CTA's 16 columns and not) for every
+        scheme and dtype; rows that are not 16-byte aligned (N 131, K-blocks
+        of 100); B6 at batch 4, M 1 == a loop of B5."""
+        torch, km = self.torch, self.km
+        f32, f64, bf16 = torch.float32, torch.float64, torch.bfloat16
+        cases = 0
+        for dtype in (f32, f64):
+            for name in ("naive", "kahan", "pairwise", "dot2"):
+                sch = self.schemes.get(name)
+                for odt in ((f32, bf16) if dtype == f32 else (f64,)):
+                    shapes = [(m, steps * 128, n, 128) for m in (1, 3, 8)
+                              for steps in (1, 4, 16) for n in (256, 200)]
+                    for m, k, n, bk in shapes + [(3, 300, 131, 100)]:
+                        a = self.normal((m, k)).to(odt)
+                        b = self.normal((k, n)).to(odt)
+                        kw = dict(scheme=sch, block_m=8, block_n=n,
+                                  block_k=bk, compute_dtype=dtype)
+                        got = km.matmul_accumulators(a, b, **kw)
+                        want = km.matmul_plain(a[None], b[None], scheme=sch,
+                                               block_k=bk,
+                                               compute_dtype=dtype)
+                        self.compare("matmul_accumulators", got,
+                                     (want[0][0], want[1][0]),
+                                     f"{name} {dtype} operands {odt} M={m} "
+                                     f"{k}x{n} block_k={bk}")
+                        cases += 1
+                a = self.normal((4, 1, 2048)).to(dtype)
+                b = self.normal((4, 2048, 384)).to(dtype)
+                kw = dict(scheme=sch, block_m=8, block_n=128, block_k=512,
+                          compute_dtype=dtype)
+                got = km.matmul_accumulators_batched(a, b, **kw)
+                for i in range(4):
+                    one = km.matmul_accumulators(a[i], b[i], **kw)
+                    check(all(torch.equal(g[i], o) for g, o in zip(got, one)),
+                          f"B6 at M 1 != a loop of B5 ({name}, {dtype})")
+                cases += 1
+        return cases
 
     def matmul_backward(self):
         """The autograd backward of ``ops.matmul`` (bf16 a, float32 b as
@@ -558,12 +629,14 @@ class Kernels:
 
     def time_matmul(self, label, m, k, n, batch=None, reps=20):
         """B5 (or B6 with ``batch``) at ``[M, K] x [K, N]`` with bf16
-        operands, as the projections give it (M a multiple of 8, so the
-        engine pads nothing): kernel, plain and library (``torch.matmul``
+        operands, as the projections give it (the engine pads nothing at
+        these widths): kernel, plain and library (``torch.matmul``
         / ``bmm`` on the operands promoted to float32, TF32 off) times,
         and the parity check. The timed launches cycle through copies of
         the operands that together exceed the 50 MB L2 cache twice, as a
-        decode position finds the weights cold."""
+        decode position finds the weights cold, and are captured in a CUDA
+        graph: a decode-shape launch is shorter than the wrapper's
+        enqueue on the host."""
         torch, km = self.torch, self.km
         lead = () if batch is None else (batch,)
         name = ("matmul_accumulators" if batch is None
@@ -591,10 +664,10 @@ class Kernels:
         self.compare(name, got, want, f"kahan at {label}")
         del want, got
         operands = cold_copies(torch, (ap, bp))
-        ms = cuda_ms(torch, cycle(lambda x, y: wrapper(x, y, **kw),
-                                  operands), reps)
+        ms = graph_ms(torch, cycle(lambda x, y: wrapper(x, y, **kw),
+                                   operands), reps)
         promoted = cold_copies(torch, (ap.float(), bp.float()))
-        library_ms = cuda_ms(torch, cycle(torch.matmul, promoted), reps)
+        library_ms = graph_ms(torch, cycle(torch.matmul, promoted), reps)
         del operands, promoted
         nb = 1 if batch is None else batch
         n_bytes = (ap.numel() * ap.element_size()
@@ -613,14 +686,15 @@ class Kernels:
             f"(f32 matmul) {library_ms:.4f} ms")
 
     def matmul_times(self, cfg, prefill_len):
-        """B5 at every projection shape of OLMo-1B at decode (M 8 after
-        padding) and in a 64-token chunk, and at the up projection of a
-        ``prefill_len``-token prefill; B6 at 4 chunk-sized q
-        projections."""
+        """B5 at every projection shape of OLMo-1B at decode (M 1, as
+        served; M 8, the padded rows earlier runs timed) and in a 64-token
+        chunk, and at the up projection of a ``prefill_len``-token
+        prefill; B6 at 4 chunk-sized q projections."""
         d, f = cfg.d_model, cfg.d_ff
         hd = cfg.n_heads * cfg.head_dim
         shapes = (("qkvo", d, hd), ("gate-up", d, f), ("down", f, d))
-        for label, m, reps in (("decode", 8, 50), ("chunk", 64, 20)):
+        for label, m, reps in (("decode", 1, 50), ("decode8", 8, 50),
+                               ("chunk", 64, 20)):
             for proj, k, n in shapes:
                 self.time_matmul(f"{label}-{proj}", m, k, n, reps=reps)
         self.time_matmul("prefill-up", prefill_len, d, f, reps=5)
@@ -631,12 +705,15 @@ class Kernels:
             f"{label}_{key}": cfg.n_layers * sum(
                 n * self.timing[("matmul_accumulators", f"{label}-{p}")][key]
                 for p, n in per_layer)
-            for label in ("decode", "chunk") for key in ("ms", "bound_ms")}
+            for label in ("decode", "decode8", "chunk")
+            for key in ("ms", "bound_ms", "library_ms")}
         t = self.matmul_totals
         log(f"# B5 per decode position ({PROJECTIONS * cfg.n_layers} "
-            f"launches): {t['decode_ms']:.3f} ms, bound "
-            f"{t['decode_bound_ms']:.3f} ms; per 64-token chunk "
-            f"{t['chunk_ms']:.3f} ms, bound {t['chunk_bound_ms']:.3f} ms")
+            f"launches, M 1): {t['decode_ms']:.3f} ms, bound "
+            f"{t['decode_bound_ms']:.3f} ms, f32 matmul "
+            f"{t['decode_library_ms']:.3f} ms (at M 8: {t['decode8_ms']:.3f} "
+            f"ms); per 64-token chunk {t['chunk_ms']:.3f} ms, bound "
+            f"{t['chunk_bound_ms']:.3f} ms")
 
     def rows(self):
         """One JSON row per wrapper and path that launches it, with that

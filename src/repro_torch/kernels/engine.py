@@ -24,9 +24,11 @@ flash grid (padded keys masked by ``kv_len``), finalize both pairs with
 Matmul (``matmul`` / ``batched_matmul``) resolves ``(block_m, block_n,
 block_k)`` from the policy's ``blocks`` and clamps them to the problem,
 brings each operand to a dtype the kernel widens on load (bf16 weights
-stay as they are stored), zero-pads M, N and K to the blocks, launches
-the matmul grid and finalizes ``s + c``. ``matmul`` is differentiable:
-its backward runs the same compensated kernel with the same blocks.
+stay as they are stored), zero-pads N and K where they are ragged (M
+goes as it is: the kernel masks it), launches the matmul grid and
+finalizes ``s + c``. ``matmul`` is differentiable: its backward runs the
+same compensated kernel with the same blocks; without a gradient to
+track it launches directly, with no autograd node.
 """
 
 from __future__ import annotations
@@ -348,45 +350,56 @@ class CompensatedReduction:
 
     def _prep_matmul(self, a: Tensor, b: Tensor,
                      blocks: Tuple[int, int, int]) -> Tuple[Tensor, Tensor]:
-        """Bring both operands to the compute dtype, then zero-pad M, N and
-        K to block multiples (``repro/kernels/engine.py:328-346``), for 2-D
-        and batched 3-D operands. An operand the kernel widens on load
-        (``kahan_matmul.OPERAND_DTYPES``) keeps its dtype: widening is
-        exact, so the grids equal those of operands promoted first, and a
-        bf16 weight that needs no padding is used where it lies."""
-        block_m, block_n, block_k = blocks
-        m, k = a.shape[-2:]
-        n = b.shape[-1]
+        """Bring both operands to the compute dtype, then zero-pad N and K
+        to block multiples (``repro/kernels/engine.py:328-346``, which pads
+        M as well: the kernel masks rows past M, and a row's bits do not
+        depend on M), for 2-D and batched 3-D operands. An operand the
+        kernel widens on load (``kahan_matmul.OPERAND_DTYPES``) keeps its
+        dtype: widening is exact, so the grids equal those of operands
+        promoted first, and a bf16 weight that needs no padding is used
+        where it lies."""
+        _, block_n, block_k = blocks
+        k, n = b.shape[-2:]
         keep = _km.OPERAND_DTYPES[self.compute_dtype]
         if a.dtype not in keep:
             a = a.to(self.compute_dtype)
         if b.dtype not in keep:
             b = b.to(self.compute_dtype)
-        pm, pn, pk = (-m) % block_m, (-n) % block_n, (-k) % block_k
-        if pm or pk:
-            a = F.pad(a, (0, pk, 0, pm))
+        pn, pk = (-n) % block_n, (-k) % block_k
+        if pk:
+            a = F.pad(a, (0, pk))
         if pk or pn:
             b = F.pad(b, (0, pn, 0, pk))
         return a.contiguous(), b.contiguous()
+
+    def _matmul_grids(self, a: Tensor, b: Tensor,
+                      blocks: Tuple[int, int, int]) -> Tuple[Tensor, Tensor]:
+        """ONE launch of B5 (2-D operands) or B6 (3-D) at ``blocks``: the
+        (s, c) grids ``[..., M, N_pad]``, M as given."""
+        a, b = self._prep_matmul(a, b, blocks)
+        launch = (_km.matmul_accumulators if a.dim() == 2
+                  else _km.matmul_accumulators_batched)
+        s, c = launch(a, b, scheme=self.scheme, block_m=blocks[0],
+                      block_n=blocks[1], block_k=blocks[2],
+                      compute_dtype=self.compute_dtype)
+        self._note_path(a)
+        return s, c
 
     def matmul_accumulators(self, a: Tensor, b: Tensor, *,
                             block_m: Optional[int] = None,
                             block_n: Optional[int] = None,
                             block_k: Optional[int] = None) -> Accumulator:
         """(s, c) grids of ``a @ b``, each ``[M_pad, N_pad]`` (padded to
-        block multiples; callers slice after finalizing)."""
+        block multiples, as the reference's; callers slice after
+        finalizing). The rows past M are zeros that no thread computes."""
         m, k = a.shape
         if b.dim() != 2 or b.shape[0] != k:
             raise ValueError(f"matmul operands mismatch: {tuple(a.shape)} "
                              f"vs {tuple(b.shape)}")
         blocks = self._matmul_blocks(m, b.shape[1], k, block_m, block_n,
                                      block_k)
-        a, b = self._prep_matmul(a, b, blocks)
-        acc = Accumulator(*_km.matmul_accumulators(
-            a, b, scheme=self.scheme, block_m=blocks[0], block_n=blocks[1],
-            block_k=blocks[2], compute_dtype=self.compute_dtype))
-        self._note_path(a)
-        return acc
+        return _padded_rows(self._matmul_grids(a, b, blocks),
+                            (-m) % blocks[0])
 
     def batched_matmul_accumulators(self, a: Tensor, b: Tensor, *,
                                     block_m: Optional[int] = None,
@@ -394,79 +407,96 @@ class CompensatedReduction:
                                     block_k: Optional[int] = None,
                                     ) -> Accumulator:
         """(s, c) grids ``[batch, M_pad, N_pad]`` from ONE launch."""
+        m, blocks = self._batched_blocks(a, b, block_m, block_n, block_k)
+        return _padded_rows(self._matmul_grids(a, b, blocks),
+                            (-m) % blocks[0])
+
+    def _batched_blocks(self, a: Tensor, b: Tensor, block_m, block_n,
+                        block_k) -> Tuple[int, Tuple[int, int, int]]:
         batch, m, k = a.shape
         if b.dim() != 3 or b.shape[0] != batch or b.shape[1] != k:
             raise ValueError(f"batched_matmul operands mismatch: "
                              f"{tuple(a.shape)} vs {tuple(b.shape)}")
-        blocks = self._matmul_blocks(m, b.shape[2], k, block_m, block_n,
-                                     block_k)
-        a, b = self._prep_matmul(a, b, blocks)
-        acc = Accumulator(*_km.matmul_accumulators_batched(
-            a, b, scheme=self.scheme, block_m=blocks[0], block_n=blocks[1],
-            block_k=blocks[2], compute_dtype=self.compute_dtype))
-        self._note_path(a)
-        return acc
+        return m, self._matmul_blocks(m, b.shape[2], k, block_m, block_n,
+                                      block_k)
 
     def matmul(self, a: Tensor, b: Tensor, *, block_m: Optional[int] = None,
                block_n: Optional[int] = None,
                block_k: Optional[int] = None) -> Tensor:
         """``a @ b`` ``[M, K] x [K, N] -> [M, N]`` in the compute dtype,
-        with compensated accumulation across K-blocks. Differentiable: the
-        backward (``da = g @ bᵀ``, ``db = aᵀ @ g``) runs the same kernel
-        with this call's clamped blocks (``repro/kernels/engine.py:
-        604-654``)."""
-        if a.dim() != 2 or b.dim() != 2:
-            raise ValueError(f"matmul wants 2-D operands, got "
+        with compensated accumulation across K-blocks: one launch on
+        unpadded rows. Differentiable: when grad mode is on and an operand
+        requires grad, the autograd Function's backward (``da = g @ bᵀ``,
+        ``db = aᵀ @ g``) runs the same kernel with this call's clamped
+        blocks (``repro/kernels/engine.py:604-654``); otherwise the same
+        launch runs with no autograd node."""
+        if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
+            raise ValueError(f"matmul wants [M, K] x [K, N] operands, got "
                              f"{tuple(a.shape)} and {tuple(b.shape)}")
         blocks = self._matmul_blocks(a.shape[0], b.shape[1], a.shape[1],
                                      block_m, block_n, block_k)
-        eng = CompensatedReduction(scheme=self.scheme, unroll=self.unroll,
-                                   blocks=blocks,
-                                   compute_dtype=self.compute_dtype)
-        out = _CompensatedMatmul.apply(a, b, eng)
-        self.last_path = eng.last_path
-        return out
+        if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
+            return _CompensatedMatmul.apply(a, b, self, blocks)
+        return self._finalized_matmul(a, b, blocks)
+
+    def _finalized_matmul(self, a: Tensor, b: Tensor,
+                          blocks: Tuple[int, int, int]) -> Tensor:
+        s, c = self._matmul_grids(a, b, blocks)
+        return _sliced_cols(s + c, b.shape[-1])
 
     def batched_matmul(self, a: Tensor, b: Tensor, *,
                        block_m: Optional[int] = None,
                        block_n: Optional[int] = None,
                        block_k: Optional[int] = None) -> Tensor:
         """``[batch, M, K] x [batch, K, N] -> [batch, M, N]`` in one
-        launch, bitwise equal to a loop of ``matmul`` calls."""
-        m, n = a.shape[1], b.shape[2]
-        acc = self.batched_matmul_accumulators(
-            a, b, block_m=block_m, block_n=block_n, block_k=block_k)
-        return (acc.s + acc.c)[:, :m, :n]
+        launch on unpadded rows, bitwise equal to a loop of ``matmul``
+        calls."""
+        _, blocks = self._batched_blocks(a, b, block_m, block_n, block_k)
+        s, c = self._matmul_grids(a, b, blocks)
+        return _sliced_cols(s + c, b.shape[-1])
 
 
 class _CompensatedMatmul(torch.autograd.Function):
-    """``eng.matmul_accumulators`` finalized and sliced, with a backward
-    through the same compensated kernel (the reference's ``custom_vjp``,
-    ``repro/kernels/engine.py:640-653``). ``eng`` carries the forward's
-    clamped blocks, which the backward products clamp again to their own
-    shapes."""
+    """``eng._finalized_matmul`` with a backward through the same
+    compensated kernel (the reference's ``custom_vjp``,
+    ``repro/kernels/engine.py:640-653``). The backward products take the
+    forward's clamped ``blocks``, clamped again to their own shapes."""
 
     @staticmethod
-    def forward(ctx, a: Tensor, b: Tensor, eng: CompensatedReduction):
+    def forward(ctx, a: Tensor, b: Tensor, eng: CompensatedReduction,
+                blocks: Tuple[int, int, int]):
         ctx.save_for_backward(a, b)
-        ctx.eng = eng
-        acc = eng.matmul_accumulators(a, b)
-        return (acc.s + acc.c)[:a.shape[0], :b.shape[1]]
+        ctx.eng, ctx.blocks = eng, blocks
+        return eng._finalized_matmul(a, b, blocks)
 
     @staticmethod
     def backward(ctx, g: Tensor):
         a, b = ctx.saved_tensors
-        eng = ctx.eng
+        eng, (bm, bn, bk) = ctx.eng, ctx.blocks
         da = db = None
         if ctx.needs_input_grad[0]:
-            da = _CompensatedMatmul.apply(g, b.T, eng).to(a.dtype)
+            da = eng.matmul(g, b.T, block_m=bm, block_n=bn,
+                            block_k=bk).to(a.dtype)
         if ctx.needs_input_grad[1]:
-            db = _CompensatedMatmul.apply(a.T, g, eng).to(b.dtype)
-        return da, db, None
+            db = eng.matmul(a.T, g, block_m=bm, block_n=bn,
+                            block_k=bk).to(b.dtype)
+        return da, db, None, None
 
 
 def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
+
+
+def _padded_rows(grids: Tuple[Tensor, Tensor], pad: int) -> Accumulator:
+    """The (s, c) grids with ``pad`` zero rows appended on axis -2."""
+    if pad:
+        grids = tuple(F.pad(x, (0, 0, 0, pad)) for x in grids)
+    return Accumulator(*grids)
+
+
+def _sliced_cols(x: Tensor, n: int) -> Tensor:
+    """``x[..., :n]``, or ``x`` itself when it has no padded column."""
+    return x if x.shape[-1] == n else x[..., :n]
 
 
 def _pad_rows(x: Tensor, pad: int) -> Tensor:

@@ -17,7 +17,10 @@ they agree bit for bit; XLA's in-block ``dot_general`` order cannot be
 reproduced, so against the reference the port holds a tolerance. Only
 ``block_k`` decides the bits: each output cell is independent of the
 others, so a row is the same whatever ``M`` is and whatever the other
-rows hold, and ``block_m`` / ``block_n`` are only the padding unit.
+rows hold, and ``block_m`` / ``block_n`` are only the padding unit: the
+kernel masks rows past ``M``, so ``M`` need not be a multiple of
+``block_m`` (the finalized products pass it unpadded; at ``M <= 8`` no
+thread works on a row past it).
 
 Operands may be stored in a narrower dtype than the compute dtype
 (``OPERAND_DTYPES``: bfloat16 or float32 for a float32 compute dtype) and
@@ -89,11 +92,12 @@ def _launch(a: Tensor, b: Tensor, *, scheme: CompensationScheme,
             f"{tuple(a.shape)} and {tuple(b.shape)}")
     batch, m, k = a.shape
     n = b.shape[2]
-    if min(m, n, k) == 0 or m % block_m or n % block_n or k % block_k:
+    if min(m, n, k) == 0 or n % block_n or k % block_k:
         raise ValueError(
-            f"matmul kernel: M={m}, N={n}, K={k} must be positive multiples "
-            f"of the blocks ({block_m}, {block_n}, {block_k}) (the engine "
-            f"pads)")
+            f"matmul kernel: M={m}, N={n}, K={k} must be positive, N and K "
+            f"multiples of the blocks ({block_n}, {block_k}) (the engine "
+            f"pads them; M, masked by the kernel, need not be a multiple of "
+            f"{block_m})")
     allowed = OPERAND_DTYPES.get(compute_dtype, ())
     if a.dtype not in allowed or b.dtype not in allowed:
         raise TypeError(
@@ -145,9 +149,9 @@ def matmul_accumulators(a: Tensor, b: Tensor, *, scheme: CompensationScheme,
                         block_k: int = 512,
                         compute_dtype: torch.dtype = torch.float32,
                         ) -> Tuple[Tensor, Tensor]:
-    """``[M, K] x [K, N]`` (padded by the caller to block multiples,
-    operands in ``OPERAND_DTYPES[compute_dtype]``) -> ``[M, N]`` (s, c)
-    grids in the compute dtype. Replaces
+    """``[M, K] x [K, N]`` (N and K padded by the caller to block
+    multiples, operands in ``OPERAND_DTYPES[compute_dtype]``) -> ``[M,
+    N]`` (s, c) grids in the compute dtype. Replaces
     ``repro/kernels/kahan_matmul.py:101``."""
     s, c = _launch(a[None], b[None], scheme=scheme, block_m=block_m,
                    block_n=block_n, block_k=block_k,

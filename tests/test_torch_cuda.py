@@ -337,3 +337,43 @@ def test_cuda_matmul_rejects_what_it_does_not_take(cuda_device):
     with pytest.raises(NotImplementedError, match="test_torch_cuda_matmul"):
         km.matmul_accumulators(x, w, scheme=mine, **kw)
     assert engine.launch_counts() == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scheme", SCHEMES)
+def test_cuda_matmul_rows_path_matches_plain(cuda_device, scheme):
+    """The M <= 8 path on unpadded rows: M in {1, 3, 8} x 1, 4 and 16
+    K-blocks, float32 (bf16 and float32 operands) and float64, N a
+    multiple of the CTA's 16 columns and not, equal to ``matmul_plain``
+    bit for bit; B6 at M 1 equals a loop of B5."""
+    from repro_torch.kernels import kahan_matmul as km
+
+    gen = torch.Generator(device=cuda_device).manual_seed(6)
+    sch = tschemes.get(scheme)
+    for dtype, odts in ((torch.float32, (torch.float32, torch.bfloat16)),
+                        (torch.float64, (torch.float64,))):
+        for odt in odts:
+            for m in (1, 3, 8):
+                for steps in (1, 4, 16):
+                    for n in (256, 200):
+                        a, b = _matmul_operands(gen, cuda_device, m,
+                                                steps * 128, n, odt)
+                        kw = dict(scheme=sch, block_m=8, block_n=n,
+                                  block_k=128, compute_dtype=dtype)
+                        got = km.matmul_accumulators(a, b, **kw)
+                        want = km.matmul_plain(a[None], b[None], scheme=sch,
+                                               block_k=128,
+                                               compute_dtype=dtype)
+                        torch.cuda.synchronize()
+                        for g, w in zip(got, want):
+                            assert torch.equal(g, w[0]), (m, steps, n, odt)
+        a = torch.randn((4, 1, 2048), generator=gen,
+                        device=cuda_device).to(dtype)
+        b = torch.randn((4, 2048, 384), generator=gen,
+                        device=cuda_device).to(dtype)
+        kw = dict(scheme=sch, block_m=8, block_n=128, block_k=512,
+                  compute_dtype=dtype)
+        batched = km.matmul_accumulators_batched(a, b, **kw)
+        for i in range(4):
+            one = km.matmul_accumulators(a[i], b[i], **kw)
+            assert all(torch.equal(g[i], o) for g, o in zip(batched, one))

@@ -195,6 +195,68 @@ def test_oracle_and_accumulators_equal_engine_bitwise(scheme):
     assert torch.equal((acc.s + acc.c)[:13, :70], got)
 
 
+@pytest.mark.parametrize("m", [1, 3, 5])
+@pytest.mark.parametrize("scheme", SCHEMES)
+def test_unpadded_rows_equal_padded_call_bitwise(scheme, m, monkeypatch):
+    """Tier 2: ``ops.matmul`` builds one engine per call and hands the
+    kernel wrapper its M rows as they are (no pad of M: the kernel masks
+    rows past M); the result equals the first M rows of the same call on
+    operands zero-padded to 8 rows, bit for bit."""
+    a, b = _operands(20 + m, m, 700, 130)
+    ta, tb = torch.from_numpy(a), torch.from_numpy(b)
+    rows, engines = [], []
+    launch = tkm.matmul_accumulators
+    init = teng.CompensatedReduction.__post_init__
+
+    def spy(x, y, **kw):
+        rows.append(x.shape[0])
+        return launch(x, y, **kw)
+
+    def counting_init(self):
+        engines.append(self)
+        init(self)
+
+    monkeypatch.setattr(tkm, "matmul_accumulators", spy)
+    monkeypatch.setattr(teng.CompensatedReduction, "__post_init__",
+                        counting_init)
+    got = tops.matmul(ta, tb, scheme=scheme, block_k=256)
+    assert rows == [m] and len(engines) == 1
+    padded = torch.cat([ta, ta.new_zeros((8 - m, ta.shape[1]))])
+    want = tops.matmul(padded, tb, scheme=scheme, block_k=256)
+    assert rows == [m, 8]
+    assert got.shape == (m, 130) and torch.equal(got, want[:m])
+
+
+@pytest.mark.parametrize("scheme", SCHEMES)
+def test_no_autograd_node_without_grad_bitwise(scheme, monkeypatch):
+    """Without a gradient to track (plain tensors, or ``torch.no_grad()``)
+    ``ops.matmul`` launches directly, never entering the autograd
+    Function, and its result has no ``grad_fn``; with one it goes through
+    the Function. All three are equal bit for bit."""
+    a, b = _operands(4, 5, 600, 70)
+    ta, tb = torch.from_numpy(a), torch.from_numpy(b)
+    kw = dict(scheme=scheme, block_k=256)
+    entered = []
+    forward = teng._CompensatedMatmul.forward
+
+    def counting_forward(ctx, *args):
+        entered.append(1)
+        return forward(ctx, *args)
+
+    monkeypatch.setattr(teng._CompensatedMatmul, "forward",
+                        staticmethod(counting_forward))
+    plain = tops.matmul(ta, tb, **kw)
+    ga, gb = ta.clone().requires_grad_(), tb.clone().requires_grad_()
+    with torch.no_grad():
+        no_grad = tops.matmul(ga, gb, **kw)
+    assert entered == []
+    tracked = tops.matmul(ga, gb, **kw)
+    assert entered == [1]
+    assert plain.grad_fn is None and no_grad.grad_fn is None
+    assert tracked.grad_fn is not None
+    assert torch.equal(plain, no_grad) and torch.equal(plain, tracked)
+
+
 def test_kahan_beats_naive_on_long_k():
     """Accuracy against float64 (the reference's
     ``tests/test_kernels.py:79``): over a long K (256 K-blocks of 128),
