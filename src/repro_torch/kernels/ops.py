@@ -12,10 +12,12 @@ plain versions.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
 
+from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.engine import CompensatedReduction, SchemeSpec
 
 Tensor = torch.Tensor
@@ -58,8 +60,10 @@ def matmul(a: Tensor, b: Tensor, *, block_m: Optional[int] = None,
            block_n: Optional[int] = None, block_k: Optional[int] = None,
            scheme: SchemeSpec = None, compute_dtype=None) -> Tensor:
     """C = A @ B with compensated accumulation across K-blocks
-    (compute-dtype result). Pads M/N/K to block multiples and slices back;
-    differentiable, its backward through the same compensated kernel."""
+    (compute-dtype result). Pads N and K to block multiples and slices N
+    back; M goes in as it is (the kernel masks the rows past it, and a
+    row's bits do not depend on M). Differentiable, its backward through
+    the same compensated kernel."""
     return _engine(scheme, None, compute_dtype).matmul(
         a, b, block_m=block_m, block_n=block_n, block_k=block_k)
 
@@ -72,3 +76,10 @@ def batched_matmul(a: Tensor, b: Tensor, *, block_m: Optional[int] = None,
     in one launch — bitwise equal to a loop of ``matmul`` calls."""
     return _engine(scheme, None, compute_dtype).batched_matmul(
         a, b, block_m=block_m, block_n=block_n, block_k=block_k)
+
+
+# Convenience: the plain-torch oracles with the same semantics, under the
+# reference's names (``repro/kernels/ops.py:125-129``).
+dot_ref = functools.partial(_ref.dot_ref)
+sum_ref = functools.partial(_ref.sum_ref)
+matmul_ref = functools.partial(_ref.matmul_ref)

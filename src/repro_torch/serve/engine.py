@@ -51,8 +51,9 @@ ported in later slices; asking for them raises.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
-from typing import Dict, Iterator, List, Optional, Sequence, Tuple
+from typing import Deque, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -88,6 +89,10 @@ class EngineConfig:
     slot_loop      "scan" only: slots run one at a time
     prefill_chunk  prompt-chunk width; None = one-shot (whole prompt)
     prefill_budget max prefill chunks per ``step()``; None = unbounded
+    max_finished   retain at most this many FINISHED handles in
+                   ``engine.handles`` (oldest-finished evicted first);
+                   None = retain all (callers can still drain with
+                   ``pop_finished()``)
     prefill_mode   "scan" (per-position, the oracle) or "flash" (one
                    forward pass per chunk)
     kv_layout      "dense" only
@@ -102,6 +107,7 @@ class EngineConfig:
     slot_loop: str = "scan"
     prefill_chunk: Optional[int] = 64
     prefill_budget: Optional[int] = None
+    max_finished: Optional[int] = None
     prefill_mode: str = "scan"
     kv_layout: str = "dense"
     prefix_cache: bool = False
@@ -130,6 +136,10 @@ class EngineConfig:
             raise ValueError(
                 f"prefill_budget must be >= 1 (or None for unbounded), "
                 f"got {self.prefill_budget}")
+        if self.max_finished is not None and self.max_finished < 0:
+            raise ValueError(
+                f"max_finished must be >= 0 (or None to retain all), "
+                f"got {self.max_finished}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -218,6 +228,8 @@ class InferenceEngine:
         self.last_chunks: List[Tuple[int, int, str]] = []
         self.t = 0
         self.handles: Dict[int, RequestHandle] = {}
+        # request ids of the retained finished handles, oldest first
+        self._finished: Deque[int] = collections.deque()
 
     @property
     def prefill_body(self) -> str:
@@ -368,7 +380,25 @@ class InferenceEngine:
         if done:
             slot = self.scheduler.release(h)
             self.slots.reset(slot)      # eviction hook: no stale state
+            self._finished.append(h.request_id)
+            if self.ec.max_finished is not None:
+                while len(self._finished) > self.ec.max_finished:
+                    self.handles.pop(self._finished.popleft(), None)
         events.append(TokenEvent(h.request_id, token, nval, done))
+
+    # ------------------------------------------------------- handle hygiene
+    def pop_finished(self) -> Dict[int, RequestHandle]:
+        """Drain the retained finished handles (request_id -> handle) and
+        drop them from ``engine.handles``: what keeps a long-lived
+        engine's handle table bounded (see also
+        ``EngineConfig.max_finished``)."""
+        out = {}
+        while self._finished:
+            rid = self._finished.popleft()
+            h = self.handles.pop(rid, None)
+            if h is not None:
+                out[rid] = h
+        return out
 
     # ------------------------------------------------------------ driving
     def stream(self, requests: Sequence[Request] = (),
@@ -393,7 +423,9 @@ class InferenceEngine:
             arrivals: Optional[Sequence[int]] = None,
             ) -> Dict[int, RequestHandle]:
         """Submit ``requests`` (staggered by ``arrivals``) and step until
-        drained; returns ``request_id -> handle`` for this trace."""
+        drained; returns ``request_id -> handle`` for the trace this call
+        drove (handles are captured at submission, so they survive
+        ``max_finished`` eviction)."""
         driven = {rid: h for rid, h in self.handles.items() if not h.done}
         for _ in self.stream(requests, arrivals, _sink=driven):
             pass

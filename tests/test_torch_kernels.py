@@ -169,6 +169,23 @@ def test_ref_oracles_equal_entry_points(scheme):
                  tref.batched_sum_ref(_t(a), scheme, rows=8), "bsum")
 
 
+@pytest.mark.parametrize("name", ["dot_ref", "sum_ref", "matmul_ref"])
+def test_ops_ref_aliases_equal_ref(name):
+    """``ops.dot_ref`` / ``sum_ref`` / ``matmul_ref`` (the reference's
+    names) are the ``ref`` oracles: bitwise equal on the same inputs."""
+    a, b = _data((2, 3 * 128 + 5), seed=11)
+    if name == "matmul_ref":
+        args = (_t(_data((5, 3 * 128), seed=12)),
+                _t(_data((3 * 128, 7), seed=13)))
+        kw = dict(bk=128, scheme="kahan")
+    elif name == "dot_ref":
+        args, kw = (_t(a[0]), _t(b[0])), dict(scheme="dot2")
+    else:
+        args, kw = (_t(a[0]),), dict(scheme="pairwise")
+    _assert_same(getattr(tref, name)(*args, **kw),
+                 getattr(tops, name)(*args, **kw), name)
+
+
 def test_policy_and_runtime_scheme():
     """The ambient policy resolves unset knobs; a scheme registered at
     runtime works through every entry point (on the CPU: plain path)."""

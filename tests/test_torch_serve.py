@@ -232,3 +232,64 @@ def test_launcher_serves_a_trace_on_cpu(capsys):
     with pytest.raises(ValueError, match="later slice"):
         serve.main(["--arch", "olmo-1b", "--smoke", "--device", "cpu",
                     "--kv-layout", "paged"])
+
+
+# ---------------------------------------------------------------------------
+# Finished-handle hygiene: the reference's tests, replayed on the port
+# ---------------------------------------------------------------------------
+
+def _spec_requests(cfg, spec, seed):
+    """spec: [(prompt_len, max_new), ...] -> deterministic greedy
+    requests (the reference's ``tests/test_serve_engine.py::_requests``)."""
+    rng = np.random.default_rng(seed)
+    return [Request(prompt=rng.integers(0, cfg.vocab_size, (p,)).astype(
+                        np.int32),
+                    sampling=SamplingParams(max_new_tokens=n), request_id=i)
+            for i, (p, n) in enumerate(spec)]
+
+
+def test_finished_handle_eviction_and_run_returns_driven(served):
+    """``max_finished`` bounds the retained FINISHED handles; ``run``
+    still returns every handle of the trace it drove (captured at
+    submission, surviving eviction); an evicted request_id may be
+    resubmitted."""
+    cfg = served["cfg"]
+    eng = InferenceEngine(cfg, EngineConfig(max_slots=2, max_len=16,
+                                            max_finished=1),
+                          model=served["model"], params=served["params"])
+    reqs = _spec_requests(cfg, [(4, 2), (5, 2), (3, 2)], seed=29)
+    done = eng.run(reqs)
+    assert sorted(done) == [0, 1, 2]
+    assert all(h.done and len(h.tokens) == 2 for h in done.values())
+    assert len(eng.handles) == 1                 # bounded retention
+    drained = eng.pop_finished()
+    assert len(drained) == 1 and not eng.handles
+    again = eng.run([reqs[0]])
+    assert again[0].done and len(again[0].tokens) == 2
+
+
+def test_pop_finished_drains_default_retention(served):
+    cfg = served["cfg"]
+    eng = InferenceEngine(cfg, EngineConfig(max_slots=2, max_len=16),
+                          model=served["model"], params=served["params"])
+    eng.run(_spec_requests(cfg, [(4, 1), (5, 2)], seed=31))
+    assert sorted(eng.pop_finished()) == [0, 1]
+    assert eng.handles == {} and eng.pop_finished() == {}
+
+
+def test_engine_config_validation():
+    """The serving knobs validate at construction, as the reference's
+    do, ``max_finished`` among them."""
+    with pytest.raises(ValueError, match="max_len"):
+        EngineConfig(max_len=0)
+    with pytest.raises(ValueError, match="prefill_chunk"):
+        EngineConfig(prefill_chunk=0)
+    with pytest.raises(ValueError, match="prefill_budget"):
+        EngineConfig(prefill_budget=0)
+    with pytest.raises(ValueError, match="max_finished"):
+        EngineConfig(max_finished=-1)
+    with pytest.raises(ValueError, match="prefill_mode"):
+        EngineConfig(prefill_mode="bogus")
+    EngineConfig(prefill_chunk=None, prefill_budget=None, max_finished=None)
+    EngineConfig(max_finished=0)
+    EngineConfig(prefill_mode="flash")
