@@ -32,7 +32,11 @@ there is no CUDA device or no ``src/repro_torch`` beside it.
    the CTA's 16 columns and not, for every scheme, float32 (bf16 and
    float32 operands) and float64, equal to ``matmul_plain`` bit for bit;
    operands whose rows are not 16-byte aligned (staged without cp.async);
-   B6 at batch 4 and M 1 equal to a loop of B5.
+   B6 at batch 4 and M 1 equal to a loop of B5. The M > 8 path: M in {9,
+   32, 37, 64, 100, 300} x 1, 3, 4, 16 and 17 K-blocks x N 200, every
+   scheme, float32 (bf16 and float32 operands) and float64, equal to
+   ``matmul_plain`` bit for bit; B6 at batch 3 equal to a loop of B5; rows
+   0, 8, 31 and M - 1 of M in {9, 64, 300} equal M = 1 products.
 3. Kernel times: each kernel at the shape its main path gives it (dot and
    sum at the paper's in-memory size n = 2^27 for kahan and naive,
    batched dot and sum at [8, 2^24], the serving telemetry at
@@ -40,8 +44,10 @@ there is no CUDA device or no ``src/repro_torch`` beside it.
    B8 at the serving chunk [16, 64, 128] against both serve runs' cache
    lengths, B5 at OLMo-1B's projection shapes at decode (M 1, the served
    shape, and M 8 for comparison with the padded rows of earlier runs)
-   and in a 64-token chunk plus the up projection of a 2048-token
-   prefill, B6 at 4 chunk-sized q projections), with CUDA
+   and in a 64- and a 32-token chunk plus the up projection of a
+   2048-token prefill, B6 at 4 chunk-sized q projections; each with the
+   tile and cluster size the kernel chose and its share of the mul+add
+   ceiling, 2·M·N·K over half the float32 fma rate), with CUDA
    events after warm-up, beside its bound (bytes or float32 operations),
    its plain version's time and one PyTorch call computing the same
    function (``library_ms``, a yardstick the port never calls:
@@ -556,11 +562,65 @@ class Kernels:
                 cases += 2
         cases += self.matmul_backward()
         cases += self.matmul_rows_parity()
+        cases += self.matmul_grid_parity()
         sync(torch, self.dev)
         log(f"# phase 2: {cases} matmul parity cases bitwise equal to the "
             f"plain version (B5, B6); bf16 operands == promoted first; B6 == "
             f"a loop of B5; rows invariant to M; backward == B5 on (g, bT) "
-            f"and (aT, g), 2 launches; the M <= 8 path on unpadded rows")
+            f"and (aT, g), 2 launches; the M <= 8 path on unpadded rows; "
+            f"the M > 8 tiles (TM 32, 64, 128) over 1-17 K-blocks split "
+            f"over clusters")
+
+    def matmul_grid_parity(self):
+        """The M > 8 path against ``matmul_plain``, bitwise: M in {9, 32,
+        37, 64, 100, 300} (every tile height, masked rows) x 1, 3, 4, 16
+        and 17 K-blocks of 128 (cluster splits that do and do not divide
+        the K-blocks, and more rounds than ranks) x N = 200 (ragged), for
+        every scheme, float32 (bf16 and float32 operands) and float64; B6
+        at batch 3 equal to a loop of B5; rows 0, 8, 31 and M - 1 of M in
+        {9, 64, 300} equal M = 1 products (across the rows / grid
+        boundary)."""
+        torch, km = self.torch, self.km
+        f32, f64, bf16 = torch.float32, torch.float64, torch.bfloat16
+        cases = 0
+        for dtype in (f32, f64):
+            for name in ("naive", "kahan", "pairwise", "dot2"):
+                sch = self.schemes.get(name)
+                kw = dict(scheme=sch, block_m=8, block_n=200, block_k=128,
+                          compute_dtype=dtype)
+                for odt in ((f32, bf16) if dtype == f32 else (f64,)):
+                    for m in (9, 32, 37, 64, 100, 300):
+                        for steps in (1, 3, 4, 16, 17):
+                            a = self.normal((m, steps * 128)).to(odt)
+                            b = self.normal((steps * 128, 200)).to(odt)
+                            got = km.matmul_accumulators(a, b, **kw)
+                            want = km.matmul_plain(a[None], b[None],
+                                                   scheme=sch, block_k=128,
+                                                   compute_dtype=dtype)
+                            self.compare("matmul_accumulators", got,
+                                         (want[0][0], want[1][0]),
+                                         f"{name} {dtype} operands {odt} "
+                                         f"M={m} {steps} K-blocks, N=200")
+                            cases += 1
+                for m in (9, 64, 300):
+                    a = self.normal((3, m, 2048)).to(dtype)
+                    b = self.normal((3, 2048, 200)).to(dtype)
+                    got = km.matmul_accumulators_batched(a, b, **kw)
+                    for i in range(3):
+                        one = km.matmul_accumulators(a[i], b[i], **kw)
+                        check(all(torch.equal(g[i], o)
+                                  for g, o in zip(got, one)),
+                              f"B6 at M {m} != a loop of B5 ({name}, "
+                              f"{dtype})")
+                    for r in sorted({0, 8, 31, m - 1} & set(range(m))):
+                        one = km.matmul_accumulators(a[0, r:r + 1], b[0],
+                                                     **kw)
+                        check(all(torch.equal(g[0, r:r + 1], o)
+                                  for g, o in zip(got, one)),
+                              f"row {r} of M = {m} != its M = 1 product "
+                              f"({name}, {dtype})")
+                    cases += 1
+        return cases
 
     def matmul_rows_parity(self):
         """The M <= 8 path on unpadded rows against ``matmul_plain``,
@@ -674,27 +734,38 @@ class Kernels:
                    + bp.numel() * bp.element_size() + 2 * nb * m * n * 4)
         flops = 2 * nb * m * n * k
         least, by = bound_ms(n_bytes, flops)
+        # the fixed chain's own ceiling: a separate multiply and add per
+        # term, at half the fma rate
+        ceiling = flops / (FP32_FLOPS_PER_S / 2) * 1e3
+        tm, tn, split = km.grid_plan(nb, m, n, k, blocks[2])
         row = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
                "bound_ms": least, "bound_by": by,
                "shape": [*lead, m, k, n], "scheme": "kahan",
                "block_k": blocks[2], "tflops": flops / ms / 1e9,
-               "gbytes_per_s": n_bytes / ms / 1e6}
+               "gbytes_per_s": n_bytes / ms / 1e6,
+               "mul_add_ceiling_ms": ceiling,
+               "ceiling_share": ceiling / ms,
+               "tile": [tm, tn] if tm else None, "cluster": split or None}
         self.timing[(name, label)] = row
+        plan = (f"tile {tm}x{tn}, cluster {split}" if tm
+                else "rows path (M <= 8)")
         log(f"# {name} {label} {row['shape']}: kernel {ms:.4f} ms "
             f"({row['tflops']:.2f} TFLOP/s, {row['gbytes_per_s']:.0f} GB/s), "
-            f"{by} bound {least:.4f} ms, plain {plain_ms:.1f} ms, library "
-            f"(f32 matmul) {library_ms:.4f} ms")
+            f"{by} bound {least:.4f} ms, mul+add ceiling {ceiling:.4f} ms "
+            f"({100 * ceiling / ms:.1f}%), {plan}, plain {plain_ms:.1f} ms, "
+            f"library (f32 matmul) {library_ms:.4f} ms")
 
     def matmul_times(self, cfg, prefill_len):
         """B5 at every projection shape of OLMo-1B at decode (M 1, as
-        served; M 8, the padded rows earlier runs timed) and in a 64-token
-        chunk, and at the up projection of a ``prefill_len``-token
-        prefill; B6 at 4 chunk-sized q projections."""
+        served; M 8, the padded rows earlier runs timed) and in a 64- and a
+        32-token chunk (the serving trace's chunks), and at the up
+        projection of a ``prefill_len``-token prefill; B6 at 4
+        chunk-sized q projections."""
         d, f = cfg.d_model, cfg.d_ff
         hd = cfg.n_heads * cfg.head_dim
         shapes = (("qkvo", d, hd), ("gate-up", d, f), ("down", f, d))
         for label, m, reps in (("decode", 1, 50), ("decode8", 8, 50),
-                               ("chunk", 64, 20)):
+                               ("chunk", 64, 20), ("chunk32", 32, 20)):
             for proj, k, n in shapes:
                 self.time_matmul(f"{label}-{proj}", m, k, n, reps=reps)
         self.time_matmul("prefill-up", prefill_len, d, f, reps=5)
@@ -705,15 +776,18 @@ class Kernels:
             f"{label}_{key}": cfg.n_layers * sum(
                 n * self.timing[("matmul_accumulators", f"{label}-{p}")][key]
                 for p, n in per_layer)
-            for label in ("decode", "decode8", "chunk")
-            for key in ("ms", "bound_ms", "library_ms")}
+            for label in ("decode", "decode8", "chunk", "chunk32")
+            for key in ("ms", "bound_ms", "library_ms", "mul_add_ceiling_ms")}
         t = self.matmul_totals
         log(f"# B5 per decode position ({PROJECTIONS * cfg.n_layers} "
             f"launches, M 1): {t['decode_ms']:.3f} ms, bound "
             f"{t['decode_bound_ms']:.3f} ms, f32 matmul "
             f"{t['decode_library_ms']:.3f} ms (at M 8: {t['decode8_ms']:.3f} "
             f"ms); per 64-token chunk {t['chunk_ms']:.3f} ms, bound "
-            f"{t['chunk_bound_ms']:.3f} ms")
+            f"{t['chunk_bound_ms']:.3f} ms, mul+add ceiling "
+            f"{t['chunk_mul_add_ceiling_ms']:.3f} ms, f32 matmul "
+            f"{t['chunk_library_ms']:.3f} ms; per 32-token chunk "
+            f"{t['chunk32_ms']:.3f} ms")
 
     def rows(self):
         """One JSON row per wrapper and path that launches it, with that

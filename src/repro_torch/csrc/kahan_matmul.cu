@@ -36,14 +36,44 @@
 //
 // Two paths, chosen by M; both give the bits above.
 //
-// M > 8 (chunks and prefill): one CTA of 256 threads owns a 64 x 64 tile
-// of outputs; each thread owns 4 x 4 cells (rows ty + 16 * i, columns
-// tx + 16 * j, so a warp reads consecutive columns) and keeps their p, s
-// and c in registers. K is staged through shared memory kTileK columns at
-// a time, inside each K-block. Bound on the H100: the 2 * M * N * K
-// float32 operations over 67 TFLOP/s; the fixed in-block chain forbids
-// tensor cores, separate multiply and add halve the CUDA cores' fma rate,
-// and this tile overlaps no load with compute.
+// M > 8 (chunks, prefill and B6; kahan_matmul_grid). What bounds it is
+// the operations. The fixed in-block chain (a rounded product and a rounded
+// add per term, in ascending order) rules out tensor cores and fma, so the
+// ceiling is the CUDA cores issuing one multiply and one add per term:
+// 2 * M * N * K operations at about 33.5 TFLOP/s, half the card's 67
+// TFLOP/s fma rate. What the design does about what held the earlier
+// 64 x 64 tile (one CTA over all of K) far below that:
+// - too few CTAs (32 at M 64, N 2048): a tile's K-blocks are split over a
+//   thread-block cluster of `split` CTAs (split = min(steps, 8), lowered
+//   until tiles * split is at most twice the SM count; 1, and no cluster,
+//   where the tiles alone fill the card). In round r the CTA of rank q
+//   forms p of K-block r * split + q over the whole tile and leaves it in
+//   its shared memory; after a cluster barrier rank q folds its slice of
+//   the tile's cells, reading each live K-block's p from its owner's shared
+//   memory (distributed shared memory) in the order g = 0, 1, ..., and keeps
+//   s and c of the slice in its own shared memory across rounds. One
+//   launch, no workspace in device memory, no atomics. At split 1 each
+//   thread folds its own cells from registers.
+// - a slow CTA: only p lives in the chain's registers (s and c sit in
+//   shared memory, touched once per K-block); each thread owns RM x 4 cells
+//   (rows ty + 16 * i, four adjacent columns; 8 x 4 at TM 128) and reads
+//   them with vector shared loads, four k at a time, the loop over a
+//   stage's kTileK columns unrolled whole. Operands are widened once, where
+//   they enter shared memory, not by each of the 16 threads that read an
+//   element: a stage is loaded from device memory into registers (16-byte
+//   vector loads of float32, 8-byte of bf16) while the stage before it is
+//   multiplied, then widened and stored into the other of two shared
+//   buffers; one barrier a stage. This replaces a ring of cp.async copies
+//   that kept bf16 in shared memory and widened it where it was read: at
+//   M 64 the widening then took a fifth of the chain's issue slots, and
+//   that ring measured slower on every shape.
+// - masked rows: the tile has TM = 32, 64 or 128 rows by M (128 from M =
+//   256; float64 always 32), so a 32-token chunk computes no masked half.
+// Past M, N and the K-block the stages are zero-filled, and the chain runs
+// whole stages: a term +0 * +0 = +0 leaves p's bits as they are (p starts
+// at +0, and a rounded sum is -0 only when both terms are). Four elements
+// that are not aligned for one vector load, or not all in range, are read
+// one by one into the same registers.
 //
 // M <= 8 (decode and the batch-1 body; kahan_matmul_rows): no row is
 // padded and no thread works on a row past M. What bounds it is the bytes
@@ -85,6 +115,7 @@
 #include <cstdint>
 
 #include <cuda_bf16.h>
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include "schemes.cuh"
@@ -93,97 +124,362 @@ namespace {
 
 using namespace repro_schemes;
 
-constexpr int kThreads = 256;
-constexpr int kTileK = 32;    // K columns staged per shared-memory step
+// ---- M > 8: K-blocks split over a cluster, folded in order ---------------
 
-template <typename T> __device__ __forceinline__ T widen(float x) { return T(x); }
-template <typename T> __device__ __forceinline__ T widen(double x) { return T(x); }
-template <typename T> __device__ __forceinline__ T widen(__nv_bfloat16 x) {
-  return T(__bfloat162float(x));
+constexpr int kThreads = 256;   // 16 x 16 threads, each RM x kRegN cells
+constexpr int kTileN = 64;      // columns of a tile
+constexpr int kRegN = 4;        // adjacent columns a thread owns
+constexpr int kTileK = 64;      // K columns a stage holds
+constexpr int kMaxSplit = 8;    // CTAs of a cluster (portable limit)
+
+// padded row of an A stage, in elements of the compute dtype: 16 bytes
+// past kTileK keep rows 16-byte aligned and put the two adjacent rows a
+// warp reads in different banks
+template <typename T> __host__ __device__ constexpr int a_ld() {
+  return kTileK + 16 / sizeof(T);
 }
 
-template <int S, typename T, typename TA, typename TB, int TM, int TN, int RM,
-          int RN>
-__global__ void __launch_bounds__(kThreads)
+// Four adjacent elements of the compute dtype in shared memory: one vector
+// load or store.
+template <typename T> struct Quad;
+template <> struct Quad<float> {
+  float4 v;
+  __device__ __forceinline__ void load(const float* p) {
+    v = *reinterpret_cast<const float4*>(p);
+  }
+  __device__ __forceinline__ float operator[](int j) const {
+    return j == 0 ? v.x : j == 1 ? v.y : j == 2 ? v.z : v.w;
+  }
+};
+template <> struct Quad<double> {
+  double2 v, w;
+  __device__ __forceinline__ void load(const double* p) {
+    v = *reinterpret_cast<const double2*>(p);
+    w = *reinterpret_cast<const double2*>(p + 2);
+  }
+  __device__ __forceinline__ double operator[](int j) const {
+    return j == 0 ? v.x : j == 1 ? v.y : j == 2 ? w.x : w.y;
+  }
+};
+__device__ __forceinline__ void store4(float* p, const float (&x)[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(x[0], x[1], x[2], x[3]);
+}
+__device__ __forceinline__ void store4(double* p, const double (&x)[4]) {
+  *reinterpret_cast<double2*>(p) = make_double2(x[0], x[1]);
+  *reinterpret_cast<double2*>(p + 2) = make_double2(x[2], x[3]);
+}
+
+// Four adjacent operand elements as read from device memory (one vector
+// load where they are aligned and all in range), kept as stored until they
+// are widened into shared memory.
+template <typename X> struct Raw4;
+template <> struct Raw4<float> {
+  float4 v;
+  __device__ __forceinline__ void load(const float* p) {
+    v = *reinterpret_cast<const float4*>(p);
+  }
+  __device__ __forceinline__ void set(int j, const float* p, bool ok) {
+    const float x = ok ? *p : 0.0f;
+    if (j == 0) v.x = x;
+    else if (j == 1) v.y = x;
+    else if (j == 2) v.z = x;
+    else v.w = x;
+  }
+  template <typename T>
+  __device__ __forceinline__ void widen4(T (&x)[4]) const {
+    x[0] = v.x; x[1] = v.y; x[2] = v.z; x[3] = v.w;
+  }
+};
+template <> struct Raw4<double> {
+  double2 v, w;
+  __device__ __forceinline__ void load(const double* p) {
+    v = *reinterpret_cast<const double2*>(p);
+    w = *reinterpret_cast<const double2*>(p + 2);
+  }
+  __device__ __forceinline__ void set(int j, const double* p, bool ok) {
+    const double x = ok ? *p : 0.0;
+    if (j == 0) v.x = x;
+    else if (j == 1) v.y = x;
+    else if (j == 2) w.x = x;
+    else w.y = x;
+  }
+  template <typename T>
+  __device__ __forceinline__ void widen4(T (&x)[4]) const {
+    x[0] = v.x; x[1] = v.y; x[2] = w.x; x[3] = w.y;
+  }
+};
+template <> struct Raw4<__nv_bfloat16> {
+  uint2 v;   // element 2q in the low half of word q
+  __device__ __forceinline__ void load(const __nv_bfloat16* p) {
+    v = *reinterpret_cast<const uint2*>(p);
+  }
+  __device__ __forceinline__ void set(int j, const __nv_bfloat16* p,
+                                     bool ok) {
+    const unsigned x = ok ? __bfloat16_as_ushort(*p) : 0u;
+    unsigned& word = j < 2 ? v.x : v.y;
+    word = j % 2 ? (word & 0xffffu) | (x << 16) : (word & 0xffff0000u) | x;
+  }
+  // bf16 -> float is exact: the bits move to the top half
+  template <typename T>
+  __device__ __forceinline__ void widen4(T (&x)[4]) const {
+    x[0] = __uint_as_float(v.x << 16);
+    x[1] = __uint_as_float(v.x & 0xffff0000u);
+    x[2] = __uint_as_float(v.y << 16);
+    x[3] = __uint_as_float(v.y & 0xffff0000u);
+  }
+};
+
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+struct GridWalk {
+  int m, n, k, block_k, steps, split, rank, tiles_per_block, n_tiles;
+  int m0, n0;
+  bool vec_a, vec_b;   // quads of A rows / B rows may be read as vectors
+};
+
+// The quads of stage tile t (round t / tiles_per_block, columns [kt *
+// kTileK, + kTileK) of K-block round * split + rank) that this thread
+// moves: A's rows are 8 quads of k, B's 16 quads of columns; zeros past M,
+// N and the K-block.
+template <int TM, typename TA, typename TB>
+struct StageRegs {
+  static constexpr int kQA = TM * (kTileK / 4) / kThreads;
+  static constexpr int kQB = kTileK * (kTileN / 4) / kThreads;
+  Raw4<TA> a[kQA];
+  Raw4<TB> b[kQB];
+
+  __device__ __forceinline__ void fetch(const TA* ga, const TB* gb, int t,
+                                        const GridWalk& w) {
+    const int r = t / w.tiles_per_block;
+    const long long g = (long long)r * w.split + w.rank;
+    if (t >= w.n_tiles || g >= w.steps) return;
+    const int k_in = (t - r * w.tiles_per_block) * kTileK;
+    const int rows = min(kTileK, w.block_k - k_in);   // K columns of the tile
+    const long long k0 = g * w.block_k + k_in;
+#pragma unroll
+    for (int u = 0; u < kQA; ++u) {
+      const int e = threadIdx.x + u * kThreads;
+      const int i = e / (kTileK / 4), kq = 4 * (e % (kTileK / 4));
+      const int row = w.m0 + i;
+      const TA* src = ga + (long long)row * w.k + k0 + kq;
+      if (w.vec_a && row < w.m && kq + 4 <= rows) {
+        a[u].load(src);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          a[u].set(j, src + j, row < w.m && kq + j < rows);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kQB; ++u) {
+      const int e = threadIdx.x + u * kThreads;
+      const int kk = e / (kTileN / 4), jq = 4 * (e % (kTileN / 4));
+      const int col = w.n0 + jq;
+      const TB* src = gb + (k0 + kk) * w.n + col;
+      if (w.vec_b && kk < rows && col + 4 <= w.n) {
+        b[u].load(src);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          b[u].set(j, src + j, kk < rows && col + j < w.n);
+      }
+    }
+  }
+
+  // widen into the stage buffers: A as [TM][a_ld], B as [kTileK][kTileN]
+  template <typename T>
+  __device__ __forceinline__ void store(T* as, T* bs) const {
+#pragma unroll
+    for (int u = 0; u < kQA; ++u) {
+      const int e = threadIdx.x + u * kThreads;
+      T x[4];
+      a[u].widen4(x);
+      store4(as + (e / (kTileK / 4)) * a_ld<T>() + 4 * (e % (kTileK / 4)), x);
+    }
+#pragma unroll
+    for (int u = 0; u < kQB; ++u) {
+      const int e = threadIdx.x + u * kThreads;
+      T x[4];
+      b[u].widen4(x);
+      store4(bs + (e / (kTileN / 4)) * kTileN + 4 * (e % (kTileN / 4)), x);
+    }
+  }
+};
+
+// Fold the round's block products into the slice [lo, hi) of the tile's
+// cells: K-block r * split + jj lies in the shared memory of rank jj.
+template <int S, typename T>
+__device__ __forceinline__ void fold_slice(T* s_sh, T* c_sh, T* p_sh, int lo,
+                                           int hi, int live, long long g0) {
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  for (int e = lo + threadIdx.x; e < hi; e += kThreads) {
+    T s = s_sh[e - lo], c = c_sh[e - lo];
+    for (int jj = 0; jj < live; ++jj)
+      update<S>(s, c, cluster.map_shared_rank(p_sh, jj)[e], g0 + jj);
+    s_sh[e - lo] = s;
+    c_sh[e - lo] = c;
+  }
+}
+
+template <int S, typename T, int RM>
+__device__ __forceinline__ void fold_own(T* s_sh, T* c_sh,
+                                         const T (&p)[RM][kRegN], int ty,
+                                         int tx, long long g) {
+#pragma unroll
+  for (int i = 0; i < RM; ++i)
+#pragma unroll
+    for (int j = 0; j < kRegN; ++j) {
+      const int e = (ty + 16 * i) * kTileN + tx * kRegN + j;
+      update<S>(s_sh[e], c_sh[e], p[i][j], g);
+    }
+}
+
+// bytes of dynamic shared memory: two stages of A and B in the compute
+// dtype, p of the tile (split > 1), and s and c of the CTA's slice of the
+// tile's cells
+template <typename T, int TM>
+size_t grid_smem(int split) {
+  const int cells = TM * kTileN;
+  const int slice = (cells + split - 1) / split;
+  return 2 * (size_t)(TM * a_ld<T>() + kTileK * kTileN) * sizeof(T)
+         + (split > 1 ? (size_t)cells * sizeof(T) : 0)
+         + 2 * (size_t)slice * sizeof(T);
+}
+
+template <typename T, typename TA, typename TB, int TM>
+__global__ void __launch_bounds__(kThreads, 2)
 kahan_matmul_grid(const TA* __restrict__ a, const TB* __restrict__ b,
                   T* __restrict__ s_out, T* __restrict__ c_out, int m, int n,
-                  int k, int block_k) {
-  constexpr int TX = TN / RN;
-  constexpr int TY = TM / RM;
-  static_assert(TX * TY == kThreads, "the thread grid must cover the tile");
-  // +1: the A staging writes run along k, a column of this array
-  __shared__ T a_sh[kTileK][TM + 1];
-  __shared__ T b_sh[kTileK][TN];
+                  int k, int block_k, int scheme, int split, int vec_a,
+                  int vec_b) {
+  constexpr int RM = TM / 16;
+  constexpr int LDA = a_ld<T>();
+  constexpr int kStageElems = TM * LDA + kTileK * kTileN;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* stages = reinterpret_cast<T*>(smem);   // [2][A stage, B stage]
+  T* p_sh = stages + 2 * kStageElems;
+  constexpr int cells = TM * kTileN;
+  T* s_sh = p_sh + (split > 1 ? cells : 0);
+  const int slice = (cells + split - 1) / split;
+  T* c_sh = s_sh + slice;
 
-  const int tx = threadIdx.x % TX;
-  const int ty = threadIdx.x / TX;
-  const int m0 = blockIdx.y * TM;
-  const int n0 = blockIdx.x * TN;
-  const long long batch = blockIdx.z;
+  const int tx = threadIdx.x % 16;
+  const int ty = threadIdx.x / 16;
+  GridWalk w;
+  w.m = m; w.n = n; w.k = k; w.block_k = block_k;
+  w.steps = k / block_k;
+  w.split = split;
+  w.rank = blockIdx.z % split;   // the cluster is (1, 1, split)
+  w.tiles_per_block = (block_k + kTileK - 1) / kTileK;
+  w.n_tiles = (w.steps + split - 1) / split * w.tiles_per_block;
+  w.m0 = blockIdx.y * TM;
+  w.n0 = blockIdx.x * kTileN;
+  w.vec_a = vec_a; w.vec_b = vec_b;
+  const long long batch = blockIdx.z / split;
   a += batch * m * (long long)k;
   b += batch * k * (long long)n;
   s_out += batch * m * (long long)n;
   c_out += batch * m * (long long)n;
 
-  T p[RM][RN], s[RM][RN], c[RM][RN];
+  const int lo = w.rank * slice;
+  const int hi = min(cells, lo + slice);
+  for (int e = lo + threadIdx.x; e < hi; e += kThreads) {
+    s_sh[e - lo] = T(0);
+    c_sh[e - lo] = T(0);
+  }
+  T p[RM][kRegN];
 #pragma unroll
   for (int i = 0; i < RM; ++i)
 #pragma unroll
-    for (int j = 0; j < RN; ++j) { s[i][j] = T(0); c[i][j] = T(0); }
+    for (int j = 0; j < kRegN; ++j) p[i][j] = T(0);
 
-  const int steps = k / block_k;
-  for (int g = 0; g < steps; ++g) {
+  // stage t lives in buffer t % 2; the registers carry stage t + 1 while
+  // stage t is multiplied, so its loads from device memory overlap the chain
+  StageRegs<TM, TA, TB> regs;
+  regs.fetch(a, b, 0, w);
+  regs.store(stages, stages + TM * LDA);
+  regs.fetch(a, b, 1, w);
+  for (int t = 0; t < w.n_tiles; ++t) {
+    __syncthreads();   // stage t stored; stage t - 1's buffer consumed
+    const int r = t / w.tiles_per_block;
+    const long long g = (long long)r * split + w.rank;
+    if (g < w.steps) {
+      // a thread's rows ty + 16 * i and columns tx * 4 + j, four k at a time
+      const T* as = stages + (t % 2) * kStageElems + ty * LDA;
+      const T* bs = stages + (t % 2) * kStageElems + TM * LDA + tx * kRegN;
 #pragma unroll
-    for (int i = 0; i < RM; ++i)
+      for (int k4 = 0; k4 < kTileK; k4 += 4) {
+        Quad<T> af[RM], bf[4];
 #pragma unroll
-      for (int j = 0; j < RN; ++j) p[i][j] = T(0);
-    const int k_end = (g + 1) * block_k;
-    for (int k0 = g * block_k; k0 < k_end; k0 += kTileK) {
-      const int kt = min(kTileK, k_end - k0);
-      // stage A [TM rows x kt cols] (row-major: threads along k) and
-      // B [kt rows x TN cols] (threads along n), widened, zero past M / N
-      for (int e = threadIdx.x; e < TM * kTileK; e += kThreads) {
-        const int r = e / kTileK, kk = e % kTileK;
-        const int row = m0 + r;
-        a_sh[kk][r] = (row < m && kk < kt)
-                        ? widen<T>(a[(long long)row * k + k0 + kk]) : T(0);
+        for (int i = 0; i < RM; ++i) af[i].load(as + 16 * i * LDA + k4);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) bf[kk].load(bs + (k4 + kk) * kTileN);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+          for (int i = 0; i < RM; ++i)
+#pragma unroll
+            for (int j = 0; j < kRegN; ++j)
+              p[i][j] = p[i][j] + af[i][kk] * bf[kk][j];
       }
-      for (int e = threadIdx.x; e < kTileK * TN; e += kThreads) {
-        const int kk = e / TN, col = e % TN;
-        b_sh[kk][col] = (n0 + col < n && kk < kt)
-                          ? widen<T>(b[(long long)(k0 + kk) * n + n0 + col])
-                          : T(0);
+    }
+    if (t + 1 < w.n_tiles) {
+      T* next = stages + ((t + 1) % 2) * kStageElems;
+      regs.store(next, next + TM * LDA);
+      regs.fetch(a, b, t + 2, w);
+    }
+    if (t - r * w.tiles_per_block < w.tiles_per_block - 1) continue;
+    // the round's block products are formed: fold them in K-block order
+    if (split == 1) {
+      switch (scheme) {
+        case NAIVE: fold_own<NAIVE>(s_sh, c_sh, p, ty, tx, g); break;
+        case KAHAN: fold_own<KAHAN>(s_sh, c_sh, p, ty, tx, g); break;
+        case PAIRWISE: fold_own<PAIRWISE>(s_sh, c_sh, p, ty, tx, g); break;
+        default: fold_own<DOT2>(s_sh, c_sh, p, ty, tx, g); break;
       }
-      __syncthreads();
-      for (int kk = 0; kk < kt; ++kk) {
-        T av[RM], bv[RN];
-#pragma unroll
-        for (int i = 0; i < RM; ++i) av[i] = a_sh[kk][ty + TY * i];
-#pragma unroll
-        for (int j = 0; j < RN; ++j) bv[j] = b_sh[kk][tx + TX * j];
+    } else {
+      if (r > 0) cluster_wait();    // the last round's readers are done
+      if (g < w.steps) {
 #pragma unroll
         for (int i = 0; i < RM; ++i)
 #pragma unroll
-          for (int j = 0; j < RN; ++j) p[i][j] = p[i][j] + av[i] * bv[j];
+          for (int j = 0; j < kRegN; ++j)
+            p_sh[(ty + 16 * i) * kTileN + tx * kRegN + j] = p[i][j];
       }
-      __syncthreads();
+      cluster_arrive();
+      cluster_wait();               // every live rank's p is written
+      const int live = min(split, w.steps - r * split);
+      const long long g0 = (long long)r * split;
+#define REPRO_FOLD_SLICE(S) fold_slice<S>(s_sh, c_sh, p_sh, lo, hi, live, g0)
+      switch (scheme) {
+        case NAIVE: REPRO_FOLD_SLICE(NAIVE); break;
+        case KAHAN: REPRO_FOLD_SLICE(KAHAN); break;
+        case PAIRWISE: REPRO_FOLD_SLICE(PAIRWISE); break;
+        default: REPRO_FOLD_SLICE(DOT2); break;
+      }
+#undef REPRO_FOLD_SLICE
+      cluster_arrive();             // this CTA's reads are done
     }
 #pragma unroll
     for (int i = 0; i < RM; ++i)
 #pragma unroll
-      for (int j = 0; j < RN; ++j) update<S>(s[i][j], c[i][j], p[i][j], g);
+      for (int j = 0; j < kRegN; ++j) p[i][j] = T(0);
   }
-
-#pragma unroll
-  for (int i = 0; i < RM; ++i) {
-    const int row = m0 + ty + TY * i;
-    if (row >= m) continue;
-#pragma unroll
-    for (int j = 0; j < RN; ++j) {
-      const int col = n0 + tx + TX * j;
-      if (col >= n) continue;
-      s_out[(long long)row * n + col] = s[i][j];
-      c_out[(long long)row * n + col] = c[i][j];
+  if (split == 1)
+    __syncthreads();                // the slice is every thread's cells
+  else
+    cluster_wait();                 // no rank reads this p_sh any more
+  for (int e = lo + threadIdx.x; e < hi; e += kThreads) {
+    const int row = w.m0 + e / kTileN, col = w.n0 + e % kTileN;
+    if (row < m && col < n) {
+      s_out[(long long)row * n + col] = s_sh[e - lo];
+      c_out[(long long)row * n + col] = c_sh[e - lo];
     }
   }
 }
@@ -195,6 +491,12 @@ constexpr int kRowMaxGroups = 16;     // K-blocks formed at once per CTA
 constexpr int kRowStages = 4;         // cp.async ring depth
 constexpr int kRowStageBytes = 16384; // B bytes a stage aims at
 constexpr int kRowWideCtas = 256;     // 32 columns per CTA from this many
+
+template <typename T> __device__ __forceinline__ T widen(float x) { return T(x); }
+template <typename T> __device__ __forceinline__ T widen(double x) { return T(x); }
+template <typename T> __device__ __forceinline__ T widen(__nv_bfloat16 x) {
+  return T(__bfloat162float(x));
+}
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
@@ -372,26 +674,84 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <typename T, typename TA, typename TB, int TM, int TN, int RM, int RN>
-int launch_tile(int scheme, const Args& x) {
-  const dim3 grid((x.n + TN - 1) / TN, (x.m + TM - 1) / TM, x.batch);
-  auto ta = static_cast<const TA*>(x.a);
-  auto tb = static_cast<const TB*>(x.b);
-  auto ts = static_cast<T*>(x.s);
-  auto tc = static_cast<T*>(x.c);
-#define REPRO_MATMUL_LAUNCH(S)                                              \
-  kahan_matmul_grid<S, T, TA, TB, TM, TN, RM, RN>                           \
-      <<<grid, kThreads, 0, x.stream>>>(ta, tb, ts, tc, x.m, x.n, x.k,      \
-                                        x.block_k)
-  switch (scheme) {
-    case NAIVE: REPRO_MATMUL_LAUNCH(NAIVE); break;
-    case KAHAN: REPRO_MATMUL_LAUNCH(KAHAN); break;
-    case PAIRWISE: REPRO_MATMUL_LAUNCH(PAIRWISE); break;
-    case DOT2: REPRO_MATMUL_LAUNCH(DOT2); break;
-    default: return (int)cudaErrorInvalidValue;
+// The M > 8 path's plan: TM rows a tile (32 up to M 32, 128 from M 256,
+// else 64; float64 always 32) and the cluster size `split` (K-blocks
+// formed at once per tile): min(steps, kMaxSplit), lowered until tiles *
+// split is at most twice the SM count (and batch * split fits grid z).
+struct GridPlan {
+  int tm, split;
+};
+
+template <typename T>
+GridPlan grid_plan(int batch, int m, int n, int k, int block_k) {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)
+            != cudaSuccess)
+      sms = 132;
   }
-#undef REPRO_MATMUL_LAUNCH
+  GridPlan plan;
+  plan.tm = sizeof(T) == 8 ? 32 : m <= 32 ? 32 : m >= 256 ? 128 : 64;
+  const long long tiles = (long long)((n + kTileN - 1) / kTileN)
+                          * ((m + plan.tm - 1) / plan.tm) * batch;
+  const int steps = k / block_k;
+  plan.split = steps < kMaxSplit ? steps : kMaxSplit;
+  while (plan.split > 1 && (tiles * plan.split > 2LL * sms
+                            || (long long)batch * plan.split > 65535))
+    --plan.split;
+  return plan;
+}
+
+template <typename T, typename TA, typename TB, int TM>
+int launch_tile(int scheme, int split, const Args& x) {
+  // a quad is four elements; its vector load wants them aligned
+  const int vec_a = reinterpret_cast<uintptr_t>(x.a) % (4 * sizeof(TA)) == 0
+                    && x.k % 4 == 0 && x.block_k % 4 == 0;
+  const int vec_b = reinterpret_cast<uintptr_t>(x.b) % (4 * sizeof(TB)) == 0
+                    && x.n % 4 == 0;
+  const size_t smem = grid_smem<T, TM>(split);
+  auto kern = kahan_matmul_grid<T, TA, TB, TM>;
+  static size_t smem_set = 48 * 1024;
+  if (smem > smem_set) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    smem_set = smem;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((x.n + kTileN - 1) / kTileN, (x.m + TM - 1) / TM,
+                     x.batch * split);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = x.stream;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = 1;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = split;
+  cfg.attrs = &attr;
+  cfg.numAttrs = split > 1 ? 1 : 0;
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, kern, static_cast<const TA*>(x.a), static_cast<const TB*>(x.b),
+      static_cast<T*>(x.s), static_cast<T*>(x.c), x.m, x.n, x.k, x.block_k,
+      scheme, split, vec_a, vec_b);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+template <typename T, typename TA, typename TB>
+int launch_grid(int scheme, const Args& x) {
+  if (scheme < NAIVE || scheme > DOT2) return (int)cudaErrorInvalidValue;
+  const GridPlan plan = grid_plan<T>(x.batch, x.m, x.n, x.k, x.block_k);
+  if constexpr (sizeof(T) == 8) {
+    return launch_tile<T, TA, TB, 32>(scheme, plan.split, x);
+  } else {
+    if (plan.tm == 32) return launch_tile<T, TA, TB, 32>(scheme, plan.split, x);
+    if (plan.tm == 64) return launch_tile<T, TA, TB, 64>(scheme, plan.split, x);
+    return launch_tile<T, TA, TB, 128>(scheme, plan.split, x);
+  }
 }
 
 // The M <= 8 path: 32 columns per CTA where that still gives
@@ -458,7 +818,7 @@ int launch_types(int scheme, const Args& x) {
   if (x.m == 2) return launch_rows<T, TA, TB, 2>(scheme, x);
   if (x.m <= 4) return launch_rows<T, TA, TB, 4>(scheme, x);
   if (x.m <= 8) return launch_rows<T, TA, TB, 8>(scheme, x);
-  return launch_tile<T, TA, TB, 64, 64, 4, 4>(scheme, x);
+  return launch_grid<T, TA, TB>(scheme, x);
 }
 
 }  // namespace
@@ -487,4 +847,23 @@ extern "C" int kahan_matmul_launch(int scheme, int dtype, int a_dtype,
     return launch_types<double, double, double>(scheme, x);
   }
   return (int)cudaErrorInvalidValue;
+}
+
+// The plan the M > 8 path takes for a call (dtype 0 = float32, 1 =
+// float64): rows a tile, columns a tile and the cluster size. M <= 8
+// runs kahan_matmul_rows and has no such plan (all three are 0).
+extern "C" int kahan_matmul_plan(int dtype, int batch, int m, int n, int k,
+                                 int block_k, int* tm, int* tn, int* split) {
+  *tm = *tn = *split = 0;
+  if (batch < 1 || m < 1 || n < 1 || k < 1 || block_k < 1 ||
+      k % block_k != 0 || (dtype != 0 && dtype != 1))
+    return (int)cudaErrorInvalidValue;
+  if (m <= 8) return 0;
+  const GridPlan plan = dtype == 1
+                            ? grid_plan<double>(batch, m, n, k, block_k)
+                            : grid_plan<float>(batch, m, n, k, block_k);
+  *tm = plan.tm;
+  *tn = kTileN;
+  *split = plan.split;
+  return 0;
 }

@@ -32,6 +32,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
 
 _V, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_P = ctypes.POINTER(ctypes.c_int)
 #: C entry points of each library, with their argument types.
 _SIGNATURES = {
     "kahan_reduce": {
@@ -52,6 +53,8 @@ _SIGNATURES = {
         #  block_k, stream)
         "kahan_matmul_launch": (_I, _I, _I, _I, _V, _V, _V, _V, _I, _I, _I,
                                 _I, _I, _V),
+        # (dtype, batch, m, n, k, block_k, *tm, *tn, *split)
+        "kahan_matmul_plan": (_I, _I, _I, _I, _I, _I, _P, _P, _P),
     },
 }
 

@@ -130,6 +130,24 @@ def _launch(a: Tensor, b: Tensor, *, scheme: CompensationScheme,
     return s, c
 
 
+def grid_plan(batch: int, m: int, n: int, k: int, block_k: int,
+              compute_dtype: torch.dtype = torch.float32
+              ) -> Tuple[int, int, int]:
+    """``(rows, columns, split)`` of the tile that the kernel's M > 8 path
+    takes for a ``[batch, M, K] x [batch, K, N]`` call: ``split`` CTAs of
+    a thread-block cluster form a tile's K-blocks at once. ``(0, 0, 0)``
+    at M <= 8 (the rows path). Asks the built library, so it needs the
+    card."""
+    import ctypes
+
+    lib = _build.library("kahan_matmul")
+    out = [ctypes.c_int() for _ in range(3)]
+    err = lib.kahan_matmul_plan(_build.DTYPE_CODE[compute_dtype], batch, m,
+                                n, k, block_k, *(ctypes.byref(x) for x in out))
+    _build.check(err, "kahan_matmul_plan")
+    return tuple(x.value for x in out)
+
+
 def check_device_call(scheme: CompensationScheme,
                       compute_dtype: torch.dtype) -> None:
     """What the kernel refuses before it launches on the card: a scheme

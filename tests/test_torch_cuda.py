@@ -219,24 +219,31 @@ def _matmul_operands(gen, dev, m, k, n, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 8, 9, 32, 37, 64, 100, 300])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-def test_cuda_matmul_kernel_matches_plain(cuda_device, dtype):
+def test_cuda_matmul_kernel_matches_plain(cuda_device, dtype, m):
     """Tier 2 on the card: B5's grids equal the plain version bit for bit,
-    every built-in scheme, ragged M, N and K padded by the engine, a K of
-    16 blocks, operands in the compute dtype and (float32) in bf16."""
+    every built-in scheme, operands in the compute dtype and (float32) in
+    bf16: N and K padded by the engine (K 1100, N 200; at M 8 a K of 16
+    blocks), and 1, 3, 4, 16 and 17 K-blocks of 128 at a ragged N 200
+    (M > 8: every tile height, cluster splits that do and do not divide
+    the K-blocks, more rounds than cluster ranks)."""
     from repro_torch.kernels import engine
     from repro_torch.kernels import kahan_matmul as km
 
     gen = torch.Generator(device=cuda_device).manual_seed(2)
     operand_dtypes = ((dtype, torch.bfloat16) if dtype == torch.float32
                       else (dtype,))
+    padded = [(m, 8192, 256)] if m == 8 else [(m, 1100, 200)]
     for scheme in SCHEMES:
-        for m, k, n in ((1, 1100, 200), (37, 1100, 200), (8, 8192, 256)):
-            for odt in operand_dtypes:
-                eng = engine.CompensatedReduction(scheme=scheme,
-                                                  compute_dtype=dtype)
+        eng = engine.CompensatedReduction(scheme=scheme, compute_dtype=dtype)
+        for odt in operand_dtypes:
+            cases = [(k, n, eng._matmul_blocks(m, n, k, None, None, None))
+                     for _, k, n in padded]
+            cases += [(steps * 128, 200, (8, 200, 128))
+                      for steps in (1, 3, 4, 16, 17)]
+            for k, n, blocks in cases:
                 a, b = _matmul_operands(gen, cuda_device, m, k, n, odt)
-                blocks = eng._matmul_blocks(m, n, k, None, None, None)
                 ap, bp = eng._prep_matmul(a, b, blocks)
                 assert ap.dtype == bp.dtype == odt
                 before = engine.launch_counts()["matmul_accumulators"]
@@ -270,27 +277,37 @@ def test_cuda_matmul_bf16_operands_equal_promoted_first(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("m", [9, 64, 300])
 @pytest.mark.parametrize("scheme", SCHEMES)
-def test_cuda_batched_matmul_equals_loop_and_rows(cuda_device, scheme):
-    """Tier 2 on the card: B6 equals a loop of B5 launches, and the rows
-    of an M = 64 call equal M = 1 calls of the same rows, bitwise."""
+def test_cuda_batched_matmul_equals_loop_and_rows(cuda_device, scheme, m):
+    """Tier 2 on the card: B6 at batch 3 equals a loop of B5 launches, and
+    rows 0, 8, 31 and M - 1 of an M-row call equal M = 1 calls of the same
+    rows, bitwise (M = 1 runs the rows path, M > 8 the tiles), in float32
+    (float32 and bf16 operands) and float64."""
     from repro_torch.kernels import engine, ops
 
     gen = torch.Generator(device=cuda_device).manual_seed(4)
-    a = torch.randn((3, 64, 1024), generator=gen, device=cuda_device)
-    b = torch.randn((3, 1024, 384), generator=gen, device=cuda_device)
-    before = engine.launch_counts()
-    batched = ops.batched_matmul(a, b, scheme=scheme)
-    loop = [ops.matmul(a[i], b[i], scheme=scheme) for i in range(3)]
-    after = engine.launch_counts()
-    assert after["matmul_accumulators_batched"] == (
-        before["matmul_accumulators_batched"] + 1)
-    assert after["matmul_accumulators"] == before["matmul_accumulators"] + 3
-    for i in range(3):
-        assert torch.equal(batched[i], loop[i])
-    for r in (0, 17, 63):
-        assert torch.equal(ops.matmul(a[0, r:r + 1], b[0], scheme=scheme),
-                           loop[0][r:r + 1])
+    for dtype, odt in ((torch.float32, torch.float32),
+                       (torch.float32, torch.bfloat16),
+                       (torch.float64, torch.float64)):
+        a = torch.randn((3, m, 1024), generator=gen,
+                        device=cuda_device).to(odt)
+        b = torch.randn((3, 1024, 384), generator=gen,
+                        device=cuda_device).to(odt)
+        kw = dict(scheme=scheme, compute_dtype=dtype)
+        before = engine.launch_counts()
+        batched = ops.batched_matmul(a, b, **kw)
+        loop = [ops.matmul(a[i], b[i], **kw) for i in range(3)]
+        after = engine.launch_counts()
+        assert after["matmul_accumulators_batched"] == (
+            before["matmul_accumulators_batched"] + 1)
+        assert after["matmul_accumulators"] == (
+            before["matmul_accumulators"] + 3)
+        for i in range(3):
+            assert torch.equal(batched[i], loop[i]), (dtype, odt, i)
+        for r in sorted({0, 8, 31, m - 1} & set(range(m))):
+            assert torch.equal(ops.matmul(a[0, r:r + 1], b[0], **kw),
+                               loop[0][r:r + 1]), (dtype, odt, r)
 
 
 @pytest.mark.cuda
