@@ -352,6 +352,8 @@ size_t grid_smem(int split) {
          + 2 * (size_t)slice * sizeof(T);
 }
 
+// At most 128 registers a thread, so that two CTAs fit an SM where the
+// grid has them (gate/up, B6 and down at M 64 do).
 template <typename T, typename TA, typename TB, int TM>
 __global__ void __launch_bounds__(kThreads, 2)
 kahan_matmul_grid(const TA* __restrict__ a, const TB* __restrict__ b,
