@@ -65,7 +65,7 @@
 //   multiplied, then widened and stored into the other of two shared
 //   buffers; one barrier a stage. This replaces a ring of cp.async copies
 //   that kept bf16 in shared memory and widened it where it was read: at
-//   M 64 the widening then took a fifth of the chain's issue slots, and
+//   M 64 the widening then took a fifth of the chain's instructions, and
 //   that ring measured slower on every shape.
 // - masked rows: the tile has TM = 32, 64 or 128 rows by M (128 from M =
 //   256; float64 always 32), so a 32-token chunk computes no masked half.
