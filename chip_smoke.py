@@ -459,24 +459,35 @@ class Kernels:
         sync(torch, self.dev)
         plain_ms = (time.perf_counter() - t0) * 1e3
         self.compare(name, got, want, f"kahan at {label} {tuple(q.shape)}")
-        ms = cuda_ms(torch, kernel, reps)
+        del got, want
+        # device time (launches captured in a CUDA graph: a 64-row B8
+        # launch is about as short as its wrapper's host enqueue) and,
+        # beside it, back-to-back launches timed with events
+        ms = graph_ms(torch, kernel, reps)
+        events_ms = cuda_ms(torch, kernel, reps)
         mask = ((q_off + torch.arange(sq, device=self.dev))[:, None]
                 >= torch.arange(skv, device=self.dev)[None, :])
-        library_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+        library_ms = graph_ms(torch, lambda: F.scaled_dot_product_attention(
             q[None], k[None], v[None], attn_mask=mask), reps)
         sq_pad, skv_pad = qp.shape[1], kp.shape[1]
         flops = 4 * bh * sq_pad * skv_pad * dh
         n_bytes = 4 * (qp.numel() + kp.numel() + vp.numel()
                        + 2 * (bh * sq_pad + qp.numel()))
         least, by = bound_ms(n_bytes, flops)
-        row = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-               "bound_ms": least, "bound_by": by, "shape": [bh, sq, dh],
-               "skv": skv, "scheme": "kahan",
+        # the fixed chains' own ceiling: a separate rounded multiply and
+        # add per term, at half the fma rate
+        ceiling = flops / (FP32_FLOPS_PER_S / 2) * 1e3
+        row = {"ms": ms, "events_ms": events_ms, "plain_ms": plain_ms,
+               "library_ms": library_ms, "bound_ms": least, "bound_by": by,
+               "mul_add_ceiling_ms": ceiling, "ceiling_share": ceiling / ms,
+               "shape": [bh, sq, dh], "skv": skv, "scheme": "kahan",
                "tflops": flops / ms / 1e9}
         self.timing[(name, label)] = row
         log(f"# {name} {label} q {[bh, sq, dh]} kv {skv}: kernel {ms:.4f} ms "
-            f"({row['tflops']:.2f} TFLOP/s fp32), {by} bound {least:.4f} ms, "
-            f"plain {plain_ms:.1f} ms, library (sdpa f32) {library_ms:.4f} ms")
+            f"device ({events_ms:.4f} back to back; {row['tflops']:.2f} "
+            f"TFLOP/s fp32), {by} bound {least:.4f} ms, mul+add ceiling "
+            f"{ceiling:.4f} ms ({100 * ceiling / ms:.1f}%), plain "
+            f"{plain_ms:.1f} ms, library (sdpa f32) {library_ms:.4f} ms")
 
     def flash_times(self, cfg, prefill_len, serve_len, long_len):
         """B7 at the entry path's shape (every head of a 2048-token
