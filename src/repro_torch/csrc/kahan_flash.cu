@@ -32,31 +32,67 @@
 // and rounded adds, which the plain version in kernels/flash_attention.py
 // repeats op for op. expf is the accurate one (no __expf, no fast-math),
 // as torch.exp on the card. float32 only (the default compute dtype);
-// the wrappers raise TypeError for other dtypes on the card.
+// the wrappers raise TypeError for other dtypes on the card. A row's bits
+// depend on nothing but its own chains, so they do not depend on the tile
+// height: a B8 chunk and a B7 grid give the same rows.
 //
-// Layout: one CTA = kRows query rows of one head-row (grid: ceil(Sq /
-// kRows) x BH); the q tile stays in shared memory. Per k-block, K then V
-// stream through one shared sub-tile of kKeys keys (row stride dh + 4, or
-// dh + 1 when dh is not a multiple of 4: the score loop reads one key per
-// lane without bank conflicts); the kRows x block_k score/probability
-// block and its rowsum tree stay in shared memory; m, l_s, l_c per row in
-// shared memory, and each thread keeps its acc_s, acc_c and pv outputs in
-// registers.
+// What bounds it on the H100: the fixed chains. Each term is a rounded
+// product and a rounded add in a set order, so neither fma nor the tensor
+// cores may form it, and the ceiling is half the fp32 fma rate: 4 * BH *
+// Sq_pad * Skv_pad * dh FLOPs (both contractions, masked blocks included)
+// at 33.5 TFLOP/s, 1.026 ms for OLMo-1B's 2048-token prefill ([16, 2048,
+// 128]). q, k, v and the four outputs cross HBM once each, far less time
+// at 3.35 TB/s. So the design feeds the multiply and add units and hides
+// every load behind them.
 //
-// What bounds it on the H100: fp32 CUDA-core operations, 4 * BH * Sq_pad
-// * Skv_pad * dh FLOPs (both contractions, masked blocks included) at
-// 67 TFLOP/s; q, k, v and the four outputs cross HBM once each, far less
-// time at 3.35 TB/s. Fixed-order chains forbid tensor cores and split-k,
-// so the design keeps each product's operands in shared memory and cuts
-// shared-memory reads per multiply-add: the score loop reads q and k as
-// float4 along dh and reuses each key across 4 score rows of a thread;
-// the PV loop, when dh divides the block (every thread's outputs in one
-// column), reads each V value once for all its rows and p as float4 along
-// the keys. Every index is computed outside the inner loops (dh is a
-// runtime value, and an integer division costs tens of instructions).
-// The chains keep their order: float4 reads only batch the loads of 4
-// consecutive terms. Deeper register blocking and overlapping the tile
-// loads with compute (cp.async / TMA) are later work.
+// Layout: one CTA of 256 threads = TQ query rows of one head-row (grid:
+// ceil(Sq / TQ) x BH), TQ 64 or 16, chosen on the host by
+// kernels/flash_attention.py::flash_plan: 64 where the grid still has two
+// CTAs per SM (B7: 512 CTAs), else 16 (a 64-row B8 chunk: 64 CTAs), and
+// 64 only for dh <= 128 (a thread's acc registers). Per k-block, K then V
+// stream through a ring of 2 or 3 stages of 64-key sub-tiles (row stride
+// ld = dh + 4, or dh + 1 when dh % 4 != 0). Shared memory, in floats, all
+// regions 16-byte aligned:
+//   TQ * ld                      the q tile, rows padded like K's
+//   TQ * (round4(block_k) + 4)   the score / probability block
+//   stages * round4(min(64, block_k) * ld)    the K/V ring
+//   4 * TQ                       m, corr, l_s, l_c per row
+// At dh 128, block_k 256: TQ 64 with 3 stages 202752 bytes (one CTA an
+// SM), TQ 16 with 3 stages 126720; at dh 256, block_k 1024 only TQ 16 with
+// 2 stages fits (215808 of 232448). The plan takes 3 stages where they
+// fit, else 2; the C entry recomputes the bytes and refuses a plan that
+// disagrees or does not fit.
+//
+// The four causes of PR 12's kernel's speed (7.3 ms at B7, 14% of the
+// ceiling), and what answers each:
+// 1. K and V were read by 16-row CTAs, 2048 of them at B7: TQ 64 cuts the
+//    K/V traffic through L2 four times.
+// 2. Staging was synchronous (scalar loads, then a barrier): the ring
+//    streams K0..Kn, V0..Vn of each k-block, and the next k-block's, with
+//    16-byte cp.async.cg copies issued stages - 1 sub-tiles ahead, one
+//    barrier a sub-tile; the V sub-tiles are in flight during the softmax.
+//    Rows that are not 16-byte aligned (the C entry checks the k and v
+//    pointers; dh % 4 != 0) take plain loads into the same ring.
+// 3. Little register reuse: each thread forms a register tile. Scores: 4
+//    rows x 4 keys at TQ 64 (1 x 4 at TQ 16), q and k read as float4
+//    along dh, 8 LDS.128 per 64 multiply-add pairs; keys tx + 16 c and the
+//    ld = dh + 4 stride put the 8 keys of a quarter-warp on 8 different
+//    16-byte bank groups when dh % 8 == 0, and the q rows a warp reads are
+//    two, each broadcast. PV: rows rg + RG r x 4 adjacent columns (8 rows
+//    at TQ 64, dh 128), p read as float4 along the keys (one row a warp,
+//    broadcast) and v as float4 along dh (a warp's 32 quads contiguous),
+//    12 LDS.128 per 128 pairs; pv runs across the whole k-block, the
+//    sub-tiles in order and j in order within each.
+// 4. The rowsum tree lived in shared memory with a __syncwarp a level:
+//    one warp a row holds p[j] for j = lane + 32 m in registers; levels
+//    with h >= 32 add a lane's own registers, levels below use
+//    __shfl_down_sync, each pairing t[j] + t[j + h] as rowsum_tree does.
+// dh % 4 != 0 and a block_k tail that is not a multiple of 4 take scalar
+// forms of the same loops. The scheme is a runtime switch at the two
+// folds (once per cell and k-block), so there are two instantiations,
+// one per TQ.
+
+#include <cstdint>
 
 #include <cuda_runtime.h>
 
@@ -67,13 +103,13 @@ namespace {
 using namespace repro_schemes;
 
 constexpr int kThreads = 256;
-constexpr int kRows = 16;                       // query rows per CTA
-constexpr int kKeys = 64;                       // keys per K/V sub-tile
-constexpr int kRowGroups = kThreads / kKeys;    // score rows per thread step
+constexpr int kWarps = kThreads / 32;
+constexpr int kKeys = 64;                 // keys per K/V sub-tile (a stage)
 constexpr int kMaxDh = 256;
-constexpr int kMaxOut = kRows * kMaxDh / kThreads;
-constexpr float kNegInf = -1e30f;               // NEG_INF of the reference
-static_assert(kRows % kRowGroups == 0, "score rows must tile kRows");
+constexpr int kMaxBk = 1024;
+constexpr int kMaxTileOut = 8192;         // TQ * round4(dh): 32 acc a thread
+constexpr int kSmemLimit = 232448;
+constexpr float kNegInf = -1e30f;         // NEG_INF of the reference
 
 __host__ __device__ inline int pow2_at_least(int n) {
   int p = 1;
@@ -83,276 +119,556 @@ __host__ __device__ inline int pow2_at_least(int n) {
 
 __host__ __device__ inline int round4(int n) { return (n + 3) / 4 * 4; }
 
-// row stride of the K/V sub-tile: dh + 4 keeps rows 16-byte aligned for
-// float4 reads (and conflict-free: row j starts 16 * j bytes into a bank
-// line); dh + 1 otherwise
+__host__ __device__ constexpr int min_c(int a, int b) { return a < b ? a : b; }
+
+// row stride of the q tile and the K/V sub-tiles: dh + 4 keeps rows
+// 16-byte aligned for float4 reads and cp.async; dh + 1 otherwise
 __host__ __device__ inline int tile_ld(int dh) {
   return dh % 4 == 0 ? dh + 4 : dh + 1;
 }
 
-// floats of dynamic shared memory for (dh, block_k); every region starts
-// 16-byte aligned
-__host__ __device__ inline long long smem_floats(int dh, int bk) {
-  const int half = pow2_at_least(bk) / 2;
-  return (long long)round4(kRows * dh) + round4(kRows * bk) +
-         round4(kRows * (half > 0 ? half : 1)) +
-         round4(kKeys * tile_ld(dh)) + 4LL * kRows;
+// row stride of the score block: float4 reads of p at any key multiple of
+// 4, whatever block_k
+__host__ __device__ inline int score_ld(int bk) { return round4(bk) + 4; }
+
+__host__ __device__ inline int stage_floats(int dh, int bk) {
+  return round4((bk < kKeys ? bk : kKeys) * tile_ld(dh));
 }
 
-// one K or V sub-tile [nk, dh] -> shared [nk][ld]. Element e =
-// tid + n * kThreads sits at (j, d) = divmod(e, dh); the walk steps (j, d)
-// with a carry instead of dividing per element (dh is a runtime value,
-// and an integer division costs tens of instructions).
-__device__ __forceinline__ void load_tile(float* tile, const float* src,
-                                          int nk, int dh, int ld, int j0,
-                                          int d0) {
-  const int sj = kThreads / dh, sd = kThreads - (kThreads / dh) * dh;
-  for (int j = j0, d = d0; j < nk;) {
-    tile[j * ld + d] = src[j * dh + d];
-    j += sj;
-    d += sd;
-    if (d >= dh) { d -= dh; ++j; }
+// dynamic shared memory of one CTA (the layout in the note above)
+__host__ __device__ inline long long smem_bytes(int rows, int stages, int dh,
+                                                int bk) {
+  return 4LL * ((long long)rows * tile_ld(dh) + (long long)rows * score_ld(bk) +
+                (long long)stages * stage_floats(dh, bk) + 4LL * rows);
+}
+
+struct Args {
+  const float* q;
+  const float* k;
+  const float* v;
+  float* ls_out;
+  float* lc_out;
+  float* as_out;
+  float* ac_out;
+  int q_groups, sq, skv, dh, bk, kv_len, q_off, causal;
+  float scale;
+  int scheme;
+  int stages;       // ring depth, 2 or 3
+  int async_copy;   // rows 16-byte aligned: cp.async, else plain loads
+};
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+               :: "r"(d), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// one fold of a compensated pair, the scheme chosen at run time
+__device__ __forceinline__ void fold(int scheme, float& s, float& c, float x,
+                                     long long kb) {
+  switch (scheme) {
+    case NAIVE: update<NAIVE>(s, c, x, kb); break;
+    case KAHAN: update<KAHAN>(s, c, x, kb); break;
+    case PAIRWISE: update<PAIRWISE>(s, c, x, kb); break;
+    default: update<DOT2>(s, c, x, kb); break;
   }
 }
 
-template <int S>
-__global__ void __launch_bounds__(kThreads)
-kahan_flash_grid(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, float* __restrict__ ls_out,
-                 float* __restrict__ lc_out, float* __restrict__ as_out,
-                 float* __restrict__ ac_out, int q_groups, int sq, int skv,
-                 int dh, int bk, int kv_len, int q_off, int causal,
-                 float scale) {
+// A thread's walk over the 16-byte chunks (cp.async) or the elements
+// (plain loads) of a [nk, dh] sub-tile: element e = tid + n * kThreads
+// sits at (row, col) = divmod(e, width); the walk steps with a carry
+// instead of dividing per element (width is a runtime value).
+struct Walk {
+  int row, col, step_row, step_col, width;
+  __device__ Walk(int tid, int w)
+      : row(tid / w), col(tid % w), step_row(kThreads / w),
+        step_col(kThreads % w), width(w) {}
+};
+
+// Stage item `item` of the CTA's walk into `slot`: k-block item / per_kb,
+// its K sub-tiles first, then its V sub-tiles. Always commits one
+// cp.async group (empty past the walk or for plain loads), so that
+// wait_group counts items.
+__device__ __forceinline__ void stage_item(float* slot, const Args& a,
+                                           long long kvbase, int item,
+                                           int n_items, int n_sub, int ld,
+                                           const Walk& w) {
+  if (item < n_items) {
+    const int per_kb = 2 * n_sub;
+    const int kb = item / per_kb;
+    int t = item - kb * per_kb;
+    const bool is_v = t >= n_sub;
+    if (is_v) t -= n_sub;
+    const int key0 = kb * a.bk + t * kKeys;
+    const int nk = min(kKeys, a.bk - t * kKeys);
+    const float* src = (is_v ? a.v : a.k) + kvbase + (long long)key0 * a.dh;
+    if (a.async_copy) {
+      for (int j = w.row, c = w.col; j < nk;) {
+        cp_async16(slot + j * ld + 4 * c, src + (long long)j * a.dh + 4 * c);
+        j += w.step_row;
+        c += w.step_col;
+        if (c >= w.width) { c -= w.width; ++j; }
+      }
+    } else {
+      for (int j = w.row, d = w.col; j < nk;) {
+        slot[j * ld + d] = src[(long long)j * a.dh + d];
+        j += w.step_row;
+        d += w.step_col;
+        if (d >= w.width) { d -= w.width; ++j; }
+      }
+    }
+  }
+  cp_async_commit();
+}
+
+// Scores of one K sub-tile: this thread's cells are rows ty + 16 r (r <
+// TQ / 16) x keys tx + 16 c (c < 4), each one ascending chain over d.
+template <int TQ, bool VEC>
+__device__ __forceinline__ void score_tile(float* sc, int lds,
+                                           const float* qs, const float* ks,
+                                           int ld, int dh, int kt, int nk,
+                                           int tid) {
+  constexpr int R = TQ / 16;
+  const int ty = tid >> 4, tx = tid & 15;
+  const float* qr[R];
+  const float* kr[4];
+#pragma unroll
+  for (int r = 0; r < R; ++r) qr[r] = qs + (ty + 16 * r) * ld;
+#pragma unroll
+  for (int c = 0; c < 4; ++c) kr[c] = ks + min(tx + 16 * c, nk - 1) * ld;
+  float s[R][4];
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) s[r][c] = 0.0f;
+  if (VEC) {
+#pragma unroll 2
+    for (int d = 0; d < dh; d += 4) {
+      float4 qv[R], kv[4];
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+        qv[r] = *reinterpret_cast<const float4*>(qr[r] + d);
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        kv[c] = *reinterpret_cast<const float4*>(kr[c] + d);
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) s[r][c] = s[r][c] + qv[r].x * kv[c].x;
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) s[r][c] = s[r][c] + qv[r].y * kv[c].y;
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) s[r][c] = s[r][c] + qv[r].z * kv[c].z;
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) s[r][c] = s[r][c] + qv[r].w * kv[c].w;
+    }
+  } else {
+    for (int d = 0; d < dh; ++d) {
+      float qv[R], kv[4];
+#pragma unroll
+      for (int r = 0; r < R; ++r) qv[r] = qr[r][d];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) kv[c] = kr[c][d];
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) s[r][c] = s[r][c] + qv[r] * kv[c];
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    if (tx + 16 * c < nk) {
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+        sc[(ty + 16 * r) * lds + kt + tx + 16 * c] = s[r][c];
+    }
+  }
+}
+
+// This thread's acc cells: column quad `quad` (columns 4 quad .. + 3) of
+// rows rg + RG r, r < n_rows; col[e] is column 4 quad + e clamped to dh - 1
+// (the scalar loads of dh % 4 != 0 read no padding).
+struct PvMap {
+  int quad, rg, RG, n_rows;
+  int col[4];
+};
+
+// pv[r][u] += p[row r][kt + j] * v[j][col u] over the sub-tile's keys j
+// in order, for NR rows (NR >= n_rows; rows past n_rows read row rg and
+// are never folded): float4 p along the keys, v as float4 (VEC) or 4
+// scalars. Each step of 4 keys runs key by key over every cell, so a
+// cell's adds are 4 * NR apart and none waits on the one before.
+template <int P, int NR, bool VEC>
+__device__ __forceinline__ void pv_tile(float (&pv)[P][4], const float* vs,
+                                        const float* sc, int ld, int lds,
+                                        int kt, int nk, const PvMap& m) {
+  const float* pr[NR];
+#pragma unroll
+  for (int r = 0; r < NR; ++r)
+    pr[r] = sc + (r < m.n_rows ? m.rg + r * m.RG : m.rg) * lds + kt;
+  int j = 0;
+#pragma unroll 2
+  for (; j + 4 <= nk; j += 4) {
+    float vv[4][4], pe[NR][4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float* vj = vs + (j + e) * ld;
+      if (VEC) {
+        const float4 x = *reinterpret_cast<const float4*>(vj + 4 * m.quad);
+        vv[e][0] = x.x;
+        vv[e][1] = x.y;
+        vv[e][2] = x.z;
+        vv[e][3] = x.w;
+      } else {
+#pragma unroll
+        for (int u = 0; u < 4; ++u) vv[e][u] = vj[m.col[u]];
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < NR; ++r) {
+      const float4 p4 = *reinterpret_cast<const float4*>(pr[r] + j);
+      pe[r][0] = p4.x;
+      pe[r][1] = p4.y;
+      pe[r][2] = p4.z;
+      pe[r][3] = p4.w;
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+#pragma unroll
+      for (int r = 0; r < NR; ++r)
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          pv[r][u] = pv[r][u] + pe[r][e] * vv[e][u];
+  }
+  for (; j < nk; ++j) {
+    float vv[4];
+    const float* vj = vs + j * ld;
+#pragma unroll
+    for (int u = 0; u < 4; ++u) vv[u] = vj[VEC ? 4 * m.quad + u : m.col[u]];
+#pragma unroll
+    for (int r = 0; r < NR; ++r) {
+      const float p = pr[r][j];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) pv[r][u] = pv[r][u] + p * vv[u];
+    }
+  }
+}
+
+// pv_tile with NR the least of P, P / 2, P / 4 that covers n_rows.
+template <int P, bool VEC>
+__device__ __forceinline__ void pv_rows(float (&pv)[P][4], const float* vs,
+                                        const float* sc, int ld, int lds,
+                                        int kt, int nk, const PvMap& m) {
+  if (m.n_rows > P / 2)
+    pv_tile<P, P, VEC>(pv, vs, sc, ld, lds, kt, nk, m);
+  else if (m.n_rows > P / 4)
+    pv_tile<P, P / 2, VEC>(pv, vs, sc, ld, lds, kt, nk, m);
+  else
+    pv_tile<P, P / 4, VEC>(pv, vs, sc, ld, lds, kt, nk, m);
+}
+
+// The acc fold at the end of k-block kb, then pv back to 0.
+template <int S, int P>
+__device__ __forceinline__ void fold_acc(float (&as)[P][4], float (&ac)[P][4],
+                                         float (&pv)[P][4],
+                                         const float* row_corr,
+                                         const PvMap& m, long long kb) {
+#pragma unroll
+  for (int r = 0; r < P; ++r) {
+    if (r < m.n_rows) {
+      const float corr = row_corr[m.rg + r * m.RG];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        float s = as[r][u] * corr;
+        float c = ac[r][u] * corr;
+        update<S>(s, c, pv[r][u], kb);
+        as[r][u] = s;
+        ac[r][u] = c;
+        pv[r][u] = 0.0f;
+      }
+    }
+  }
+}
+
+// The rowsum tree's levels h = H, H / 2, .., 32 below 32 * M (= the row's
+// power of two p2): adds between a lane's own registers (t[m] holds j =
+// lane + 32 m), every index a constant so that t stays in registers.
+template <int H, int M>
+__device__ __forceinline__ void tree_levels(float (&t)[M]) {
+  if constexpr (H >= 32) {
+    if constexpr (H < 32 * M) {
+#pragma unroll
+      for (int m = 0; m < H / 32; ++m) t[m] = t[m] + t[m + H / 32];
+    }
+    tree_levels<H / 2>(t);
+  }
+}
+
+// Per row (one warp a row, RR rows of a warp at once): scale, mask, max,
+// exp, the rowsum tree in registers, and the l fold; p is written back
+// over the row's scores. A lane holds keys j = lane + 32 m, m < M, with M
+// = max(1, p2 / 32) a constant, so no branch splits the loops: keys past
+// block_k read key 0, are masked to NEG_INF (which leaves the maximum
+// alone, since it starts there) and give p = 0, rowsum_tree's padding.
+template <int TQ, int M, int RR>
+__device__ __forceinline__ void softmax_rows(float* sc, int lds, float* row_m,
+                                             float* row_corr, float* row_ls,
+                                             float* row_lc, const Args& a,
+                                             int q0, int kb, int warp,
+                                             int lane) {
+  const int bk = a.bk;
+  const int key0 = kb * bk;
+  const int p2 = pow2_at_least(bk);
+  for (int i0 = warp; i0 < TQ; i0 += kWarps * RR) {
+    float t[RR][M], mx[RR], m_new[RR], corr[RR];
+#pragma unroll
+    for (int rr = 0; rr < RR; ++rr) {
+      const int i = i0 + rr * kWarps;
+      const float* si = sc + i * lds;
+      const long long qpos = (long long)a.q_off + q0 + i;
+      // (m_old >= NEG_INF, so starting the row maximum there gives the
+      // reference's max(m_old, rowmax(s)))
+      mx[rr] = kNegInf;
+#pragma unroll
+      for (int m = 0; m < M; ++m) {
+        const int j = lane + 32 * m;
+        const int kpos = key0 + j;
+        float s = si[j < bk ? j : 0] * a.scale;
+        bool valid = j < bk && kpos < a.kv_len;
+        if (a.causal) valid = valid && qpos >= kpos;
+        s = valid ? s : kNegInf;
+        t[rr][m] = s;
+        mx[rr] = fmaxf(mx[rr], s);
+      }
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+#pragma unroll
+      for (int rr = 0; rr < RR; ++rr)
+        mx[rr] = fmaxf(mx[rr], __shfl_xor_sync(0xffffffffu, mx[rr], o));
+#pragma unroll
+    for (int rr = 0; rr < RR; ++rr) {
+      const int i = i0 + rr * kWarps;
+      const float m_old = row_m[i];
+      m_new[rr] = fmaxf(m_old, mx[rr]);
+      corr[rr] = expf(m_old - m_new[rr]);
+      float* si = sc + i * lds;
+#pragma unroll
+      for (int m = 0; m < M; ++m) {
+        const int j = lane + 32 * m;
+        const float p = j < bk ? expf(t[rr][m] - m_new[rr]) : 0.0f;
+        if (j < bk) si[j] = p;
+        t[rr][m] = p;
+      }
+      // rowsum_tree: t[j] = t[j] + t[j + h] for j < h, h = p2 / 2 .. 1
+      tree_levels<kMaxBk / 2>(t[rr]);
+    }
+#pragma unroll
+    for (int h = 16; h >= 1; h >>= 1) {
+      if (h < p2) {
+#pragma unroll
+        for (int rr = 0; rr < RR; ++rr)
+          t[rr][0] = t[rr][0] + __shfl_down_sync(0xffffffffu, t[rr][0], h);
+      }
+    }
+    __syncwarp();   // every lane has read row_m
+    if (lane == 0) {
+#pragma unroll
+      for (int rr = 0; rr < RR; ++rr) {
+        const int i = i0 + rr * kWarps;
+        float ls = row_ls[i] * corr[rr];
+        float lc = row_lc[i] * corr[rr];
+        fold(a.scheme, ls, lc, t[rr][0], kb);
+        row_ls[i] = ls;
+        row_lc[i] = lc;
+        row_m[i] = m_new[rr];
+        row_corr[i] = corr[rr];
+      }
+    }
+  }
+}
+
+// softmax_rows with M = max(1, p2 / 32) for this block_k; two rows of a
+// warp at once up to 8 registers a row
+template <int TQ>
+__device__ __forceinline__ void softmax(float* sc, int lds, float* row_m,
+                                        float* row_corr, float* row_ls,
+                                        float* row_lc, const Args& a, int q0,
+                                        int kb, int warp, int lane) {
+#define REPRO_SOFTMAX(M, RR)                                                \
+  softmax_rows<TQ, M, RR>(sc, lds, row_m, row_corr, row_ls, row_lc, a, q0, \
+                          kb, warp, lane)
+  const int p2 = pow2_at_least(a.bk);
+  if (p2 <= 32) REPRO_SOFTMAX(1, 2);
+  else if (p2 == 64) REPRO_SOFTMAX(2, 2);
+  else if (p2 == 128) REPRO_SOFTMAX(4, 2);
+  else if (p2 == 256) REPRO_SOFTMAX(8, 2);
+  else if (p2 == 512) REPRO_SOFTMAX(16, 1);
+  else REPRO_SOFTMAX(32, 1);
+#undef REPRO_SOFTMAX
+}
+
+template <int TQ>
+__global__ void __launch_bounds__(kThreads, 1)
+kahan_flash_grid(const Args a) {
+  static_assert(TQ == 16 || TQ == 64, "TQ is 16 or 64");
+  // acc rows a thread holds, at most: the widest dh this TQ takes (TQ *
+  // round4(dh) <= kMaxTileOut) has nq column quads, so RG = kThreads / nq
+  // row groups, TQ / RG rows each (8 at TQ 64, 4 at TQ 16)
+  constexpr int P = TQ * (min_c(kMaxDh, kMaxTileOut / TQ) / 4) / kThreads;
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const int bh = blockIdx.y;
-  const int q0 = blockIdx.x * kRows;
-  const int rows = min(kRows, sq - q0);
-  const int half = pow2_at_least(bk) / 2;
+  const int q0 = blockIdx.x * TQ;
+  const int rows = min(TQ, a.sq - q0);
+  const int dh = a.dh, bk = a.bk;
+  const bool vec_d = dh % 4 == 0;
 
   const int ld = tile_ld(dh);
-  const bool vec_d = dh % 4 == 0;              // float4 reads along dh
-  const bool vec_j = bk % 4 == 0;              // float4 reads along keys
-  float* qs = smem;                              // [kRows][dh]
-  float* sc = qs + round4(kRows * dh);           // [kRows][bk]
-  float* tr = sc + round4(kRows * bk);           // [kRows][max(half, 1)]
-  float* kv = tr + round4(kRows * (half > 0 ? half : 1));  // [kKeys][ld]
-  float* row_m = kv + round4(kKeys * ld);
-  float* row_corr = row_m + kRows;
-  float* row_ls = row_corr + kRows;
-  float* row_lc = row_ls + kRows;
+  const int lds = score_ld(bk);
+  const int stage = stage_floats(dh, bk);
+  float* qs = smem;                          // [TQ][ld]
+  float* sc = qs + TQ * ld;                  // [TQ][lds]
+  float* ring = sc + TQ * lds;               // stages x [min(64, bk)][ld]
+  float* row_m = ring + a.stages * stage;
+  float* row_corr = row_m + TQ;
+  float* row_ls = row_corr + TQ;
+  float* row_lc = row_ls + TQ;
 
-  const long long qrow0 = (long long)bh * sq + q0;
-  const long long kvbase = (long long)(bh / q_groups) * skv * dh;
+  const long long qrow0 = (long long)bh * a.sq + q0;
+  const long long kvbase = (long long)(bh / a.q_groups) * a.skv * dh;
+  const int n_sub = (bk + kKeys - 1) / kKeys;
+  const int n_items = a.skv / bk * 2 * n_sub;
 
-  for (int e = tid; e < kRows * dh; e += kThreads)
-    qs[e] = e / dh < rows ? q[qrow0 * dh + e] : 0.0f;
-  if (tid < kRows) {
+  // the ring's first stages - 1 sub-tiles, then the q tile behind them
+  const Walk walk(tid, a.async_copy ? dh / 4 : dh);
+  for (int s = 0; s < a.stages - 1; ++s)
+    stage_item(ring + s * stage, a, kvbase, s, n_items, n_sub, ld, walk);
+  for (int e = tid; e < TQ * dh; e += kThreads) {
+    const int i = e / dh, d = e - (e / dh) * dh;
+    qs[i * ld + d] = i < rows ? a.q[qrow0 * dh + e] : 0.0f;
+  }
+  if (tid < TQ) {
     row_m[tid] = kNegInf;
     row_ls[tid] = 0.0f;
     row_lc[tid] = 0.0f;
   }
-  // this thread's outputs: elements e = tid + r * kThreads of the
-  // [kRows, dh] acc block, r < n_out, at row o_row[r] and column o_col[r]
-  const int n_out = tid < kRows * dh
-                        ? (kRows * dh - tid + kThreads - 1) / kThreads : 0;
-  int o_row[kMaxOut], o_col[kMaxOut];
-  float a_s[kMaxOut], a_c[kMaxOut], pv[kMaxOut];
+
+  PvMap pm;
+  {
+    const int nq = (dh + 3) / 4;
+    pm.quad = tid % nq;
+    pm.rg = tid / nq;
+    pm.RG = kThreads / nq;
+    pm.n_rows = pm.rg < pm.RG ? (TQ - pm.rg + pm.RG - 1) / pm.RG : 0;
 #pragma unroll
-  for (int r = 0; r < kMaxOut; ++r) {
-    o_row[r] = (tid + r * kThreads) / dh;
-    o_col[r] = tid + r * kThreads - o_row[r] * dh;
-    a_s[r] = 0.0f;
-    a_c[r] = 0.0f;
+    for (int u = 0; u < 4; ++u) pm.col[u] = min(4 * pm.quad + u, dh - 1);
   }
-  const int t_j = tid / dh, t_d = tid - (tid / dh) * dh;   // load_tile start
-  // when dh divides kThreads every output of this thread sits in one
-  // column, so the PV loop reads each V value once for all its rows
-  const bool one_col = kThreads % dh == 0;
-  __syncthreads();
+  float a_s[P][4], a_c[P][4], pv[P][4];
+#pragma unroll
+  for (int r = 0; r < P; ++r)
+#pragma unroll
+    for (int u = 0; u < 4; ++u) a_s[r][u] = a_c[r][u] = pv[r][u] = 0.0f;
 
-  const int n_kb = skv / bk;
-  for (int kb = 0; kb < n_kb; ++kb) {
-    const int key0 = kb * bk;
-
-    // 1. scores s[i][j] = sum_d q[i][d] * k[j][d], ascending d
-    for (int kt = 0; kt < bk; kt += kKeys) {
-      const int nk = min(kKeys, bk - kt);
-      load_tile(kv, k + kvbase + (long long)(key0 + kt) * dh, nk, dh, ld,
-                t_j, t_d);
-      __syncthreads();
-      // this thread: key j of the sub-tile, rows i0 + r * kRowGroups
-      const int j = tid % kKeys;
-      const int i0 = tid / kKeys;
-      if (j < nk) {
-        const float* kj = kv + j * ld;
-        float s[kRows / kRowGroups];
-#pragma unroll
-        for (int r = 0; r < kRows / kRowGroups; ++r) s[r] = 0.0f;
-        if (vec_d) {
-          for (int d = 0; d < dh; d += 4) {
-            const float4 kd = *reinterpret_cast<const float4*>(kj + d);
-#pragma unroll
-            for (int r = 0; r < kRows / kRowGroups; ++r) {
-              const float4 qd = *reinterpret_cast<const float4*>(
-                  qs + (i0 + r * kRowGroups) * dh + d);
-              s[r] = s[r] + qd.x * kd.x;
-              s[r] = s[r] + qd.y * kd.y;
-              s[r] = s[r] + qd.z * kd.z;
-              s[r] = s[r] + qd.w * kd.w;
-            }
-          }
-        } else {
-          for (int d = 0; d < dh; ++d) {
-            const float kd = kj[d];
-#pragma unroll
-            for (int r = 0; r < kRows / kRowGroups; ++r)
-              s[r] = s[r] + qs[(i0 + r * kRowGroups) * dh + d] * kd;
-          }
-        }
-#pragma unroll
-        for (int r = 0; r < kRows / kRowGroups; ++r)
-          sc[(i0 + r * kRowGroups) * bk + kt + j] = s[r];
-      }
-      __syncthreads();
-    }
-
-    // 2. per row (one warp each): scale, mask, max, exp, rowsum tree, and
-    //    the l fold
-    for (int i = warp; i < kRows; i += kThreads / 32) {
-      float* si = sc + i * bk;
-      const long long qpos = (long long)q_off + q0 + i;
-      // (m_old >= NEG_INF, so starting the row maximum there gives the
-      // reference's max(m_old, rowmax(s)))
-      float mx = kNegInf;
-      for (int j = lane; j < bk; j += 32) {
-        const int kpos = key0 + j;
-        float s = si[j] * scale;
-        bool valid = kpos < kv_len;
-        if (causal) valid = valid && qpos >= kpos;
-        s = valid ? s : kNegInf;
-        si[j] = s;
-        mx = fmaxf(mx, s);
-      }
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-      const float m_old = row_m[i];
-      const float m_new = fmaxf(m_old, mx);
-      const float corr = expf(m_old - m_new);
-      for (int j = lane; j < bk; j += 32) si[j] = expf(si[j] - m_new);
-      __syncwarp();
-      float p_sum;
-      if (half == 0) {
-        p_sum = si[0];
-      } else {
-        // rowsum_tree: zero-pad to a power of two, add halves
-        float* ti = tr + i * half;
-        for (int j = lane; j < half; j += 32)
-          ti[j] = si[j] + (j + half < bk ? si[j + half] : 0.0f);
-        __syncwarp();
-        for (int h = half / 2; h >= 1; h /= 2) {
-          for (int j = lane; j < h; j += 32) ti[j] = ti[j] + ti[j + h];
-          __syncwarp();
-        }
-        p_sum = ti[0];
-      }
-      if (lane == 0) {
-        float ls = row_ls[i] * corr;
-        float lc = row_lc[i] * corr;
-        update<S>(ls, lc, p_sum, kb);
-        row_ls[i] = ls;
-        row_lc[i] = lc;
-        row_m[i] = m_new;
-        row_corr[i] = corr;
-      }
-    }
+  int slot = 0;                  // ring slot of item g
+  int fill = a.stages - 1;       // ring slot of item g + stages - 1
+  for (int g = 0; g < n_items; ++g) {
+    // item g has landed (this thread's copies), then everyone's are
+    // visible and item g - 1's slot is free
+    if (a.stages == 3) cp_async_wait<1>(); else cp_async_wait<0>();
     __syncthreads();
-
-    // 3. pv[i][d] = sum_j p[i][j] * v[j][d], ascending j, then the acc fold
-#pragma unroll
-    for (int r = 0; r < kMaxOut; ++r) pv[r] = 0.0f;
-    for (int kt = 0; kt < bk; kt += kKeys) {
+    stage_item(ring + fill * stage, a, kvbase, g + a.stages - 1, n_items,
+               n_sub, ld, walk);
+    fill = fill + 1 == a.stages ? 0 : fill + 1;
+    const float* tile = ring + slot * stage;
+    slot = slot + 1 == a.stages ? 0 : slot + 1;
+    const int kb = g / (2 * n_sub);
+    const int t = g - kb * 2 * n_sub;
+    if (t < n_sub) {
+      // 1. scores s[i][j] = sum_d q[i][d] * k[j][d], ascending d
+      const int kt = t * kKeys;
       const int nk = min(kKeys, bk - kt);
-      load_tile(kv, v + kvbase + (long long)(key0 + kt) * dh, nk, dh, ld,
-                t_j, t_d);
-      __syncthreads();
-      int j = 0;
-      if (one_col && vec_j) {
-        const int col = o_col[0];
-        for (; j + 4 <= nk; j += 4) {
-          const float v0 = kv[j * ld + col], v1 = kv[(j + 1) * ld + col];
-          const float v2 = kv[(j + 2) * ld + col];
-          const float v3 = kv[(j + 3) * ld + col];
-#pragma unroll
-          for (int r = 0; r < kMaxOut; ++r) {
-            if (r < n_out) {
-              const float4 p4 = *reinterpret_cast<const float4*>(
-                  sc + o_row[r] * bk + kt + j);
-              pv[r] = pv[r] + p4.x * v0;
-              pv[r] = pv[r] + p4.y * v1;
-              pv[r] = pv[r] + p4.z * v2;
-              pv[r] = pv[r] + p4.w * v3;
-            }
-          }
+      if (vec_d)
+        score_tile<TQ, true>(sc, lds, qs, tile, ld, dh, kt, nk, tid);
+      else
+        score_tile<TQ, false>(sc, lds, qs, tile, ld, dh, kt, nk, tid);
+      if (t == n_sub - 1) {
+        // 2. the k-block's scores are formed: softmax and the l fold
+        __syncthreads();
+        softmax<TQ>(sc, lds, row_m, row_corr, row_ls, row_lc, a, q0, kb,
+                    warp, lane);
+      }
+    } else if (pm.n_rows > 0) {
+      // 3. pv[i][d] = sum_j p[i][j] * v[j][d], ascending j over the
+      //    k-block, then the acc fold
+      const int kt = (t - n_sub) * kKeys;
+      const int nk = min(kKeys, bk - kt);
+      if (vec_d)
+        pv_rows<P, true>(pv, tile, sc, ld, lds, kt, nk, pm);
+      else
+        pv_rows<P, false>(pv, tile, sc, ld, lds, kt, nk, pm);
+      if (t == 2 * n_sub - 1) {
+        switch (a.scheme) {
+          case NAIVE: fold_acc<NAIVE>(a_s, a_c, pv, row_corr, pm, kb); break;
+          case KAHAN: fold_acc<KAHAN>(a_s, a_c, pv, row_corr, pm, kb); break;
+          case PAIRWISE:
+            fold_acc<PAIRWISE>(a_s, a_c, pv, row_corr, pm, kb);
+            break;
+          default: fold_acc<DOT2>(a_s, a_c, pv, row_corr, pm, kb); break;
         }
-      }
-      for (; j < nk; ++j) {
-        const float* vj = kv + j * ld;
-        const float* pj = sc + kt + j;
-#pragma unroll
-        for (int r = 0; r < kMaxOut; ++r)
-          if (r < n_out) pv[r] = pv[r] + pj[o_row[r] * bk] * vj[o_col[r]];
-      }
-      __syncthreads();
-    }
-#pragma unroll
-    for (int r = 0; r < kMaxOut; ++r) {
-      if (r < n_out) {
-        const float corr = row_corr[o_row[r]];
-        float as = a_s[r] * corr;
-        float ac = a_c[r] * corr;
-        update<S>(as, ac, pv[r], kb);
-        a_s[r] = as;
-        a_c[r] = ac;
       }
     }
   }
+  cp_async_wait<0>();
 
 #pragma unroll
-  for (int r = 0; r < kMaxOut; ++r) {
-    if (r < n_out && o_row[r] < rows) {
-      as_out[qrow0 * dh + tid + r * kThreads] = a_s[r];
-      ac_out[qrow0 * dh + tid + r * kThreads] = a_c[r];
+  for (int r = 0; r < P; ++r) {
+    const int i = pm.rg + r * pm.RG;
+    if (r < pm.n_rows && i < rows) {
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int d = 4 * pm.quad + u;
+        if (d < dh) {
+          a.as_out[(qrow0 + i) * dh + d] = a_s[r][u];
+          a.ac_out[(qrow0 + i) * dh + d] = a_c[r][u];
+        }
+      }
     }
   }
   if (tid < rows) {
-    ls_out[qrow0 + tid] = row_ls[tid];
-    lc_out[qrow0 + tid] = row_lc[tid];
+    a.ls_out[qrow0 + tid] = row_ls[tid];
+    a.lc_out[qrow0 + tid] = row_lc[tid];
   }
 }
 
-template <int S>
-int launch(const float* q, const float* k, const float* v, float* ls,
-           float* lc, float* as, float* ac, int bh, int q_groups, int sq,
-           int skv, int dh, int bk, int kv_len, int q_off, int causal,
-           float scale, size_t smem, cudaStream_t st) {
-  // opt in to more than 48 KB of dynamic shared memory, once per scheme
+template <int TQ>
+int launch(const Args& a, int bh, size_t smem, cudaStream_t st) {
+  // opt in to more than 48 KB of dynamic shared memory, once per tile
   static bool attr_set = false;
   if (!attr_set) {
     const cudaError_t err = cudaFuncSetAttribute(
-        kahan_flash_grid<S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        232448);
+        kahan_flash_grid<TQ>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kSmemLimit);
     if (err != cudaSuccess) return (int)err;
     attr_set = true;
   }
-  const dim3 grid((sq + kRows - 1) / kRows, bh);
-  kahan_flash_grid<S><<<grid, kThreads, smem, st>>>(
-      q, k, v, ls, lc, as, ac, q_groups, sq, skv, dh, bk, kv_len, q_off,
-      causal, scale);
+  const dim3 grid((a.sq + TQ - 1) / TQ, bh);
+  kahan_flash_grid<TQ><<<grid, kThreads, smem, st>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -360,37 +676,51 @@ int launch(const float* q, const float* k, const float* v, float* ls,
 
 // C entry point. dtype: 0 = float32 (the only instantiation). q: [bh, sq,
 // dh]; k, v: [bh / q_groups, skv, dh]; l_s, l_c: [bh, sq]; a_s, a_c: [bh,
-// sq, dh]; all contiguous, skv a multiple of block_k. Returns
-// cudaGetLastError() after the launch (0 = launched).
+// sq, dh]; all contiguous, skv a multiple of block_k. The plan (rows a
+// CTA, ring stages, shared bytes) comes from the host's flash_plan; a
+// plan that is not one of the kernel's (rows 16 or 64, rows * round4(dh)
+// <= 8192, stages 2 or 3) or whose bytes disagree with the layout or
+// exceed 232448 is refused. Returns cudaGetLastError() after the launch
+// (0 = launched).
 extern "C" int kahan_flash_launch(int scheme, int dtype, const void* q,
                                   const void* k, const void* v, void* l_s,
                                   void* l_c, void* a_s, void* a_c, int bh,
                                   int q_groups, int sq, int skv, int dh,
                                   int block_k, int kv_len, int q_off,
-                                  int causal, float scale, void* stream) {
-  if (dtype != 0 || dh < 1 || dh > kMaxDh || block_k < 1 || skv < block_k ||
+                                  int causal, float scale, int rows,
+                                  int stages, long long smem, void* stream) {
+  if (dtype != 0 || scheme < NAIVE || scheme > DOT2 || dh < 1 ||
+      dh > kMaxDh || block_k < 1 || block_k > kMaxBk || skv < block_k ||
       skv % block_k != 0 || q_groups < 1 || bh < 1 || bh % q_groups != 0 ||
       bh > 65535 || sq < 1)
     return (int)cudaErrorInvalidValue;
-  const long long bytes = smem_floats(dh, block_k) * (long long)sizeof(float);
-  if (bytes > 232448) return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)bytes;
+  if ((rows != 16 && rows != 64) || rows * round4(dh) > kMaxTileOut ||
+      (stages != 2 && stages != 3) ||
+      smem != smem_bytes(rows, stages, dh, block_k) || smem > kSmemLimit)
+    return (int)cudaErrorInvalidValue;
+  Args a;
+  a.q = static_cast<const float*>(q);
+  a.k = static_cast<const float*>(k);
+  a.v = static_cast<const float*>(v);
+  a.ls_out = static_cast<float*>(l_s);
+  a.lc_out = static_cast<float*>(l_c);
+  a.as_out = static_cast<float*>(a_s);
+  a.ac_out = static_cast<float*>(a_c);
+  a.q_groups = q_groups;
+  a.sq = sq;
+  a.skv = skv;
+  a.dh = dh;
+  a.bk = block_k;
+  a.kv_len = kv_len;
+  a.q_off = q_off;
+  a.causal = causal;
+  a.scale = scale;
+  a.scheme = scheme;
+  a.stages = stages;
+  a.async_copy = dh % 4 == 0 &&
+                 ((reinterpret_cast<std::uintptr_t>(k) |
+                   reinterpret_cast<std::uintptr_t>(v)) % 16) == 0;
   auto st = static_cast<cudaStream_t>(stream);
-  auto tq = static_cast<const float*>(q);
-  auto tk = static_cast<const float*>(k);
-  auto tv = static_cast<const float*>(v);
-  auto ls = static_cast<float*>(l_s);
-  auto lc = static_cast<float*>(l_c);
-  auto as = static_cast<float*>(a_s);
-  auto ac = static_cast<float*>(a_c);
-#define REPRO_FLASH_ARGS tq, tk, tv, ls, lc, as, ac, bh, q_groups, sq, skv, \
-    dh, block_k, kv_len, q_off, causal, scale, smem, st
-  switch (scheme) {
-    case NAIVE: return launch<NAIVE>(REPRO_FLASH_ARGS);
-    case KAHAN: return launch<KAHAN>(REPRO_FLASH_ARGS);
-    case PAIRWISE: return launch<PAIRWISE>(REPRO_FLASH_ARGS);
-    case DOT2: return launch<DOT2>(REPRO_FLASH_ARGS);
-    default: return (int)cudaErrorInvalidValue;
-  }
-#undef REPRO_FLASH_ARGS
+  return rows == 64 ? launch<64>(a, bh, (size_t)smem, st)
+                    : launch<16>(a, bh, (size_t)smem, st);
 }

@@ -31,6 +31,7 @@ card.
 
 from __future__ import annotations
 
+import functools
 from typing import Tuple, Union
 
 import torch
@@ -43,16 +44,78 @@ Grids = Tuple[Tensor, Tensor, Tensor, Tensor]
 
 NEG_INF = -1e30
 
-#: limits of the CUDA kernel: its shared memory holds a [16, block_k]
-#: score block and a [64, dh + 1] K/V sub-tile
+#: limits of the CUDA kernel: a lane holds block_k / 32 probabilities of
+#: its row in registers for the rowsum tree, and a 16-row CTA's shared
+#: memory (``flash_smem_bytes``) fits every dh and block_k up to these
 MAX_HEAD_DIM = 256
 MAX_BLOCK_K = 1024
 
+#: the kernel's tile heights (query rows a CTA), largest first; its K/V
+#: ring depths (64-key sub-tiles), deepest first; at most TILE_OUTPUTS =
+#: rows * round4(dh) acc cells a CTA (32 a thread); its shared memory limit
+TILE_ROWS = (64, 16)
+RING_STAGES = (3, 2)
+SUB_TILE_KEYS = 64
+TILE_OUTPUTS = 8192
+SMEM_LIMIT = 232448
 
+
+@functools.lru_cache(maxsize=None)
 def softmax_scale(dh: int) -> float:
     """``dh ** -0.5`` rounded to float32 (the reference multiplies float32
-    scores by it; the kernel takes it as a float)."""
+    scores by it; the kernel takes it as a float). Cached: the wrapper
+    asks at every launch."""
     return float(torch.tensor(dh ** -0.5, dtype=torch.float32))
+
+
+def _round4(n: int) -> int:
+    return -(-n // 4) * 4
+
+
+def flash_smem_bytes(rows: int, stages: int, dh: int, block_k: int) -> int:
+    """Dynamic shared memory of one CTA of ``kahan_flash_grid`` (the
+    layout in the source note), in bytes: the q tile ``[rows][ld]``, the
+    score block ``[rows][round4(block_k) + 4]``, ``stages`` K/V sub-tiles
+    of ``round4(min(64, block_k) * ld)`` floats and 4 statistics a row,
+    with ``ld = dh + 4`` when ``dh % 4 == 0``, else ``dh + 1``."""
+    ld = dh + 4 if dh % 4 == 0 else dh + 1
+    stage = _round4(min(SUB_TILE_KEYS, block_k) * ld)
+    return 4 * (rows * ld + rows * (_round4(block_k) + 4) + stages * stage
+                + 4 * rows)
+
+
+def flash_plan(bh: int, sq: int, dh: int, block_k: int,
+               sms: int = 132) -> Tuple[int, int, int]:
+    """``(rows, stages, smem_bytes)`` of a launch on ``BH`` head-rows of
+    ``Sq`` queries: the tallest tile of ``TILE_ROWS`` that leaves at least
+    two CTAs per SM (``ceil(Sq / rows) * BH >= 2 * sms``) and fits, else
+    the shortest that fits; for that tile the deepest ring that fits. A
+    tile fits when ``rows * round4(dh) <= TILE_OUTPUTS`` and its shared
+    memory is at most ``SMEM_LIMIT``; 16 rows with 2 stages fit every dh
+    and block_k within the kernel's limits. The row bits do not depend on
+    the plan."""
+    plan = None
+    for rows in TILE_ROWS:
+        if rows * _round4(dh) > TILE_OUTPUTS:
+            continue
+        for stages in RING_STAGES:
+            smem = flash_smem_bytes(rows, stages, dh, block_k)
+            if smem <= SMEM_LIMIT:
+                plan = (rows, stages, smem)
+                break
+        else:
+            continue
+        if -(-sq // rows) * bh >= 2 * sms:
+            return plan
+    if plan is None:
+        raise ValueError(f"flash kernel: no tile fits dh={dh}, "
+                         f"block_k={block_k}")
+    return plan
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def rowsum_tree(p: Tensor) -> Tensor:
@@ -196,13 +259,15 @@ def _launch(q: Tensor, k: Tensor, v: Tensor, *, block_q: int, block_k: int,
     l_c = torch.empty_like(l_s)
     a_s = torch.empty_like(q)
     a_c = torch.empty_like(q)
+    plan = flash_plan(bh, sq, dh, block_k, sms=_sm_count(q.device))
     lib = _build.library("kahan_flash")
     counter.launches += 1
+    counter.plan = plan
     err = lib.kahan_flash_launch(
         scheme.device_id, _build.DTYPE_CODE[q.dtype], q.data_ptr(),
         k.data_ptr(), v.data_ptr(), l_s.data_ptr(), l_c.data_ptr(),
         a_s.data_ptr(), a_c.data_ptr(), bh, q_groups, sq, skv, dh, block_k,
-        kv_len, q_off, int(causal), softmax_scale(dh),
+        kv_len, q_off, int(causal), softmax_scale(dh), *plan,
         _build.stream_ptr(q.device))
     _build.check(err, "kahan_flash_grid")
     return l_s, l_c, a_s, a_c
@@ -237,9 +302,11 @@ def flash_chunk_accumulators(q: Tensor, k: Tensor, v: Tensor, q_off: int, *,
 
 
 #: kernel launches made by each wrapper (chip_smoke.py reads and resets
-#: them to show which path ran)
+#: them to show which path ran), and the plan of each one's last launch
 flash_accumulators.launches = 0
 flash_chunk_accumulators.launches = 0
+flash_accumulators.plan = None
+flash_chunk_accumulators.plan = None
 
 
 def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, block_q: int = 256,

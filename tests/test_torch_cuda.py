@@ -119,32 +119,56 @@ def _ulps(a, b):
     return int((ia - ib).abs().max())
 
 
+#: (BH, Sq, Skv, dh, block_q, block_k, offset of k/v in their storage):
+#: Sq and Skv off their blocks and over several k-blocks; dh 18 (scalar
+#: loads), 128 and 256; block_k 128, 256 and 1024; BH 48 and Sq 512 pick
+#: the 64-row tile for B7 while a 64-row B8 chunk takes 16 rows; an
+#: offset of 1 float leaves k and v off 16 bytes (plain loads in the ring)
+FLASH_CASES = [
+    (4, 150, 300, 16, 64, 128, 0),
+    (4, 150, 300, 128, 64, 128, 0),
+    (4, 150, 300, 18, 64, 128, 0),
+    (48, 512, 600, 128, 64, 256, 0),
+    (48, 512, 600, 128, 64, 256, 1),
+    (4, 200, 1500, 256, 64, 1024, 0),
+    (4, 100, 700, 18, 64, 256, 1),
+]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("dh", [16, 128])
-def test_cuda_flash_kernels_match_plain(cuda_device, dh):
+@pytest.mark.parametrize("case", FLASH_CASES,
+                         ids=lambda c: "bh{}-sq{}-skv{}-dh{}-bk{}-off{}".format(
+                             c[0], c[1], c[2], c[3], c[5], c[6]))
+def test_cuda_flash_kernels_match_plain(cuda_device, case):
     """Tier 2 on the card: the flash grids (B7 and B8) equal their plain
     version bit for bit, every built-in scheme, causal and not, GQA with
-    G in {1, 2}, Sq and Skv off their blocks and Skv over 3 k-blocks."""
+    G in {1, 2}; B8 rows at block-aligned offsets equal the B7 grid's
+    rows, across tile heights where the plans differ."""
     from repro_torch.kernels import engine
     from repro_torch.kernels import flash_attention as fa
 
+    bh, sq, skv, dh, bq, bk, offset = case
     gen = torch.Generator(device=cuda_device).manual_seed(0)
-    bh, sq, skv, bq, bk = 4, 150, 300, 64, 128
-    sq_pad, skv_pad = 192, 384
+    sq_pad, skv_pad = -(-sq // bq) * bq, -(-skv // bk) * bk
 
-    def data(rows, n):
+    def data(rows, n, pad, off=0):
         x = torch.randn((rows, n, dh), generator=gen, device=cuda_device)
-        return torch.cat([x, x.new_zeros((rows, (sq_pad if n == sq else
-                                                 skv_pad) - n, dh))], 1)
+        x = torch.cat([x, x.new_zeros((rows, pad - n, dh))], 1)
+        # a contiguous view `off` floats into its storage
+        buf = x.new_empty(x.numel() + off)
+        buf[off:] = x.reshape(-1)
+        return buf[off:].view(x.shape)
 
     for groups in (1, 2):
-        q = data(bh, sq)
-        k, v = data(bh // groups, skv), data(bh // groups, skv)
+        q = data(bh, sq, sq_pad)
+        k = data(bh // groups, skv, skv_pad, offset)
+        v = data(bh // groups, skv, skv_pad, offset)
+        assert (k.data_ptr() % 16 == 0) == (offset == 0)
         for scheme in SCHEMES:
             sch = tschemes.get(scheme)
+            kw = dict(block_q=bq, block_k=bk, scheme=sch, kv_len=skv,
+                      q_groups=groups)
             for causal in (True, False):
-                kw = dict(block_q=bq, block_k=bk, scheme=sch, kv_len=skv,
-                          q_groups=groups)
                 before = engine.launch_counts()["flash_accumulators"]
                 got = fa.flash_accumulators(q, k, v, causal=causal, **kw)
                 assert (engine.launch_counts()["flash_accumulators"]
@@ -160,11 +184,39 @@ def test_cuda_flash_kernels_match_plain(cuda_device, dh):
                         f"{_ulps(g, w)} ulp")
             # B8 at block-aligned offsets: the rows of the B7 grid
             full = fa.flash_accumulators(q, k, v, causal=True, **kw)
-            for off in (0, 64, 128):
+            full_rows = fa.flash_accumulators.plan[0]
+            for off in range(0, min(sq_pad, 3 * bq), bq):
                 chunk = fa.flash_chunk_accumulators(
                     q[:, off:off + bq].contiguous(), k, v, off, **kw)
                 for g, w in zip(chunk, full):
                     assert torch.equal(g, w[:, off:off + bq]), (scheme, off)
+            if bh == 48:
+                assert (full_rows, fa.flash_chunk_accumulators.plan[0]) == (
+                    64, 16)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_refuses_a_wrong_plan(cuda_device):
+    """The C entry recomputes the plan's shared memory: a byte count that
+    disagrees, or a tile height or ring depth the kernel does not have, is
+    refused (error 1, cudaErrorInvalidValue) and nothing launches."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as fa
+
+    bh, sq, skv, dh, bk = 2, 64, 256, 128, 256
+    q = torch.zeros((bh, sq, dh), device=cuda_device)
+    k = torch.zeros((bh, skv, dh), device=cuda_device)
+    outs = [torch.empty((bh, sq, 1), device=cuda_device) for _ in range(2)]
+    outs += [torch.empty_like(q) for _ in range(2)]
+    lib = _build.library("kahan_flash")
+    rows, stages, smem = fa.flash_plan(bh, sq, dh, bk)
+    for plan in ((rows, stages, smem + 16), (32, stages, smem),
+                 (16, 4, fa.flash_smem_bytes(16, 4, dh, bk))):
+        err = lib.kahan_flash_launch(
+            1, 0, q.data_ptr(), k.data_ptr(), k.data_ptr(),
+            *[o.data_ptr() for o in outs], bh, 1, sq, skv, dh, bk, skv, 0,
+            1, fa.softmax_scale(dh), *plan, _build.stream_ptr(cuda_device))
+        assert err == 1, plan
 
 
 @pytest.mark.cuda
