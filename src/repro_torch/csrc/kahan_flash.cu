@@ -154,7 +154,8 @@ struct Args {
   float scale;
   int scheme;
   int stages;       // ring depth, 2 or 3
-  int async_copy;   // rows 16-byte aligned: cp.async, else plain loads
+  int async_copy;   // k, v rows 16-byte aligned: cp.async, else plain
+  int q_aligned;    // q rows 16-byte aligned too
 };
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
@@ -248,7 +249,7 @@ __device__ __forceinline__ void score_tile(float* sc, int lds,
 #pragma unroll
     for (int c = 0; c < 4; ++c) s[r][c] = 0.0f;
   if (VEC) {
-#pragma unroll 2
+#pragma unroll 4
     for (int d = 0; d < dh; d += 4) {
       float4 qv[R], kv[4];
 #pragma unroll
@@ -555,14 +556,28 @@ kahan_flash_grid(const Args a) {
   const int n_sub = (bk + kKeys - 1) / kKeys;
   const int n_items = a.skv / bk * 2 * n_sub;
 
-  // the ring's first stages - 1 sub-tiles, then the q tile behind them
+  // the q tile (with item 0's cp.async group, or plain loads; rows past
+  // sq are zero), then the ring's first stages - 1 sub-tiles
   const Walk walk(tid, a.async_copy ? dh / 4 : dh);
+  if (a.async_copy && a.q_aligned) {
+    for (int i = walk.row, c = walk.col; i < TQ;) {
+      if (i < rows)
+        cp_async16(qs + i * ld + 4 * c, a.q + (qrow0 + i) * dh + 4 * c);
+      else
+        *reinterpret_cast<float4*>(qs + i * ld + 4 * c) =
+            make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      i += walk.step_row;
+      c += walk.step_col;
+      if (c >= walk.width) { c -= walk.width; ++i; }
+    }
+  } else {
+    for (int e = tid; e < TQ * dh; e += kThreads) {
+      const int i = e / dh, d = e - (e / dh) * dh;
+      qs[i * ld + d] = i < rows ? a.q[qrow0 * dh + e] : 0.0f;
+    }
+  }
   for (int s = 0; s < a.stages - 1; ++s)
     stage_item(ring + s * stage, a, kvbase, s, n_items, n_sub, ld, walk);
-  for (int e = tid; e < TQ * dh; e += kThreads) {
-    const int i = e / dh, d = e - (e / dh) * dh;
-    qs[i * ld + d] = i < rows ? a.q[qrow0 * dh + e] : 0.0f;
-  }
   if (tid < TQ) {
     row_m[tid] = kNegInf;
     row_ls[tid] = 0.0f;
@@ -720,6 +735,7 @@ extern "C" int kahan_flash_launch(int scheme, int dtype, const void* q,
   a.async_copy = dh % 4 == 0 &&
                  ((reinterpret_cast<std::uintptr_t>(k) |
                    reinterpret_cast<std::uintptr_t>(v)) % 16) == 0;
+  a.q_aligned = reinterpret_cast<std::uintptr_t>(q) % 16 == 0;
   auto st = static_cast<cudaStream_t>(stream);
   return rows == 64 ? launch<64>(a, bh, (size_t)smem, st)
                     : launch<16>(a, bh, (size_t)smem, st);
