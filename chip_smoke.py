@@ -16,10 +16,11 @@ there is no CUDA device or no ``src/repro_torch`` beside it.
    PyTorch versions bit for bit, and a batched launch equals a loop of
    single ones. Flash: for every built-in scheme x causal / not (B7) x
    q_groups in {1, 2}, at OLMo-1B's head dim with Sq and Skv off their
-   blocks and Skv over 3 k-blocks, the raw (l, acc) grids of
-   ``flash_accumulators`` (B7) and ``flash_chunk_accumulators`` (B8)
-   equal their plain version bit for bit, and B8 rows at block-aligned
-   offsets equal B7's rows bit for bit. Matmul: for every built-in scheme
+   blocks and Skv over 3 k-blocks, at 4 and 48 head-rows, the raw (l,
+   acc) grids of ``flash_accumulators`` (B7) and
+   ``flash_chunk_accumulators`` (B8) equal their plain version bit for
+   bit, and B8 rows at block-aligned offsets equal B7's rows bit for bit,
+   also where B7 runs 64-row tiles and B8 16-row ones. Matmul: for every built-in scheme
    x {float32, float64}, with M, N and K padded by the engine (M 1 and 37,
    N 200, K 1100; and a K of 16 blocks), operands in bf16 and float32, the
    (s, c) grids of ``matmul_accumulators`` (B5) equal ``matmul_plain``
@@ -45,10 +46,13 @@ there is no CUDA device or no ``src/repro_torch`` beside it.
    lengths, B5 at OLMo-1B's projection shapes at decode (M 1, the served
    shape, and M 8 for comparison with the padded rows of earlier runs)
    and in a 64- and a 32-token chunk plus the up projection of a
-   2048-token prefill, B6 at 4 chunk-sized q projections; each with the
-   tile and cluster size the kernel chose and its share of the mul+add
-   ceiling, 2·M·N·K over half the float32 fma rate), with CUDA
-   events after warm-up, beside its bound (bytes or float32 operations),
+   2048-token prefill, B6 at 4 chunk-sized q projections; each matmul
+   and flash row with the tile (and cluster size or ring depth) the
+   kernel chose and its share of the mul+add ceiling, 2·M·N·K or
+   4·BH·Sq·Skv·dh over half the float32 fma rate; the flash rows also
+   with the time of the 16-row kernel they replace), with CUDA events
+   after warm-up (matmul and flash: launches captured in a CUDA graph),
+   beside its bound (bytes or float32 operations),
    its plain version's time and one PyTorch call computing the same
    function (``library_ms``, a yardstick the port never calls:
    ``scaled_dot_product_attention`` in float32 with the same mask for the
@@ -117,6 +121,13 @@ LIBRARIES = ("kahan_reduce", "kahan_flash", "kahan_matmul")
 #: dense projections per layer with kahan_matmul (q, k, v, o, gate, up,
 #: down), each one B5 launch per prefill chunk and per decode position
 PROJECTIONS = 7
+
+
+#: device ms of the flash rows (B7 entry, B8 serve, B8 serve-long) for
+#: the kernel before its register-tiled redesign (16 query rows a CTA,
+#: scalar synchronous staging), taken by this script's graph timing on an
+#: NVIDIA H100 80GB HBM3 at 700 W; logged beside each new time
+FLASH_BEFORE_MS = {"entry": 7.2962, "serve": 0.0952, "serve-long": 0.8863}
 
 
 def check(ok: bool, what: str) -> None:
@@ -325,11 +336,14 @@ class Kernels:
     def flash_parity(self, dh: int):
         """B7 and B8 against their plain version, bitwise: Sq = 300 and
         Skv = 600 (blocks 256: Sq padded to 512, Skv to 768 = 3 k-blocks,
-        60 padded keys masked), every built-in scheme, q_groups 1 and 2."""
+        60 padded keys masked), every built-in scheme, q_groups 1 and 2,
+        at BH 4 (B7 in 16-row tiles) and BH 48 (B7 in 64-row tiles, B8's
+        64-row chunks in 16-row tiles: rows equal across tile heights)."""
         torch, fa = self.torch, self.fa
-        bh, sq, skv, bk = 4, 300, 600, 256
+        sq, skv, bk = 300, 600, 256
         cases = 0
-        for groups in (1, 2):
+        plans = set()
+        for bh, groups in ((4, 1), (4, 2), (48, 1), (48, 2)):
             eng = self.engine.CompensatedReduction(scheme="kahan")
             q, k, v, bq, bk, _, _ = eng._flash_prep(
                 "flash_parity", self.normal((bh, sq, dh)),
@@ -348,6 +362,7 @@ class Kernels:
                     self.compare("flash_accumulators", got, want, what)
                     cases += 1
                 full = fa.flash_accumulators(q, k, v, causal=True, **kw)
+                full_rows = fa.flash_accumulators.plan[0]
                 for off in (0, 64, 256):
                     w = 64
                     qc = q[:, off:off + w].contiguous()
@@ -362,11 +377,17 @@ class Kernels:
                               for g, f in zip(got, full)),
                           f"B8 rows at q_off={off} != B7 rows ({name}, "
                           f"G={groups})")
+                    plans.add((bh, full_rows,
+                               fa.flash_chunk_accumulators.plan[0]))
                     cases += 1
         sync(torch, self.dev)
+        check((48, 64, 16) in plans, f"no parity case ran B7 in 64-row "
+              f"tiles beside B8 in 16-row tiles: (BH, B7 rows, B8 rows) "
+              f"{sorted(plans)}")
         log(f"# phase 2: {cases} flash parity cases (dh={dh}, Sq={sq}, "
-            f"Skv={skv}, block_k={bk}) bitwise equal to the plain version; "
-            f"B8 rows at aligned offsets == B7 rows, bitwise")
+            f"Skv={skv}, block_k={bk}, BH 4 and 48) bitwise equal to the "
+            f"plain version; B8 rows at aligned offsets == B7 rows, bitwise "
+            f"((BH, B7 tile rows, B8 tile rows): {sorted(plans)})")
 
     # -- 3. times -------------------------------------------------------------
     def time_one(self, name, scheme, args, plain_fn, library_fn, reps=20,
@@ -477,16 +498,21 @@ class Kernels:
         # the fixed chains' own ceiling: a separate rounded multiply and
         # add per term, at half the fma rate
         ceiling = flops / (FP32_FLOPS_PER_S / 2) * 1e3
+        rows, stages, smem = getattr(fa, name).plan
         row = {"ms": ms, "events_ms": events_ms, "plain_ms": plain_ms,
                "library_ms": library_ms, "bound_ms": least, "bound_by": by,
                "mul_add_ceiling_ms": ceiling, "ceiling_share": ceiling / ms,
+               "tile_rows": rows, "ring_stages": stages, "smem_bytes": smem,
+               "before_ms": FLASH_BEFORE_MS[label],
                "shape": [bh, sq, dh], "skv": skv, "scheme": "kahan",
                "tflops": flops / ms / 1e9}
         self.timing[(name, label)] = row
         log(f"# {name} {label} q {[bh, sq, dh]} kv {skv}: kernel {ms:.4f} ms "
             f"device ({events_ms:.4f} back to back; {row['tflops']:.2f} "
-            f"TFLOP/s fp32), {by} bound {least:.4f} ms, mul+add ceiling "
-            f"{ceiling:.4f} ms ({100 * ceiling / ms:.1f}%), plain "
+            f"TFLOP/s fp32; 16-row kernel before the redesign "
+            f"{FLASH_BEFORE_MS[label]:.4f}), {by} bound {least:.4f} ms, "
+            f"mul+add ceiling {ceiling:.4f} ms ({100 * ceiling / ms:.1f}%), "
+            f"tile {rows} rows, {stages}-stage ring, {smem} B shared, plain "
             f"{plain_ms:.1f} ms, library (sdpa f32) {library_ms:.4f} ms")
 
     def flash_times(self, cfg, prefill_len, serve_len, long_len):

@@ -63,30 +63,46 @@
 // fit, else 2; the C entry recomputes the bytes and refuses a plan that
 // disagrees or does not fit.
 //
-// The four causes of PR 12's kernel's speed (7.3 ms at B7, 14% of the
-// ceiling), and what answers each:
+// Why this tile (scripts/flash_tiles.py times every plan; PERF.md has the
+// numbers): 64 rows of 8 warps, one CTA an SM, beat 16-row tiles at B7
+// even when those ran two CTAs (16 warps) an SM under a 128-register cap,
+// since a 16-row CTA reads K and V four times as often and its 1 x 4
+// score tiles wait on shared memory; both tiles are now built for one
+// CTA an SM (up to 255 registers, no spill). 2 and 3 stages time the
+// same at B7; 3 are kept where they fit for B8, whose 64 CTAs leave each
+// SM one CTA to hide the loads.
+//
+// The four causes of the earlier 16-row kernel's speed (7.3 ms at B7,
+// 14% of the ceiling), and what answers each:
 // 1. K and V were read by 16-row CTAs, 2048 of them at B7: TQ 64 cuts the
 //    K/V traffic through L2 four times.
 // 2. Staging was synchronous (scalar loads, then a barrier): the ring
 //    streams K0..Kn, V0..Vn of each k-block, and the next k-block's, with
 //    16-byte cp.async.cg copies issued stages - 1 sub-tiles ahead, one
-//    barrier a sub-tile; the V sub-tiles are in flight during the softmax.
-//    Rows that are not 16-byte aligned (the C entry checks the k and v
-//    pointers; dh % 4 != 0) take plain loads into the same ring.
+//    barrier a sub-tile; the V sub-tiles are in flight during the softmax
+//    and the q tile rides in the first group. Rows that are not 16-byte
+//    aligned (the C entry checks the q, k and v pointers; dh % 4 != 0)
+//    take plain loads into the same ring.
 // 3. Little register reuse: each thread forms a register tile. Scores: 4
 //    rows x 4 keys at TQ 64 (1 x 4 at TQ 16), q and k read as float4
-//    along dh, 8 LDS.128 per 64 multiply-add pairs; keys tx + 16 c and the
-//    ld = dh + 4 stride put the 8 keys of a quarter-warp on 8 different
-//    16-byte bank groups when dh % 8 == 0, and the q rows a warp reads are
-//    two, each broadcast. PV: rows rg + RG r x 4 adjacent columns (8 rows
-//    at TQ 64, dh 128), p read as float4 along the keys (one row a warp,
+//    along dh (the loop unrolled by 4 so the next loads issue early), 8
+//    LDS.128 per 64 multiply-add pairs; keys tx + 16 c and the ld = dh + 4
+//    stride put the 8 keys of a quarter-warp on 8 different 16-byte bank
+//    groups when dh % 8 == 0, and the q rows a warp reads are two, each
+//    broadcast. PV: rows rg + RG r x 4 adjacent columns (8 rows at TQ 64,
+//    dh 128; the row count a compile-time constant, so no guard splits
+//    the loop), p read as float4 along the keys (one row a warp,
 //    broadcast) and v as float4 along dh (a warp's 32 quads contiguous),
-//    12 LDS.128 per 128 pairs; pv runs across the whole k-block, the
+//    12 LDS.128 per 128 pairs, run key by key over every cell so that no
+//    add waits on the one before; pv runs across the whole k-block, the
 //    sub-tiles in order and j in order within each.
 // 4. The rowsum tree lived in shared memory with a __syncwarp a level:
 //    one warp a row holds p[j] for j = lane + 32 m in registers; levels
 //    with h >= 32 add a lane's own registers, levels below use
 //    __shfl_down_sync, each pairing t[j] + t[j + h] as rowsum_tree does.
+//    The number of registers a lane holds is a constant for each power of
+//    two of block_k, and a warp takes two rows at once up to 256 keys, so
+//    no branch serialises the loads and exps of a row.
 // dh % 4 != 0 and a block_k tail that is not a multiple of 4 take scalar
 // forms of the same loops. The scheme is a runtime switch at the two
 // folds (once per cell and k-block), so there are two instantiations,
