@@ -26,34 +26,13 @@ from pathlib import Path
 
 import torch
 
-sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
+ROOT = Path(__file__).resolve().parents[1]
+sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
 
+from chip_smoke import FP32_FLOPS_PER_S, graph_ms  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import schemes  # noqa: E402
-
-FP32_MUL_ADD_PER_S = 67e12 / 2     # half the float32 fma rate of an H100
-
-
-def graph_ms(fn, launches: int = 20, replays: int = 3) -> float:
-    """Mean device ms of ``fn()`` over ``launches`` calls captured in one
-    CUDA graph, replayed ``replays`` times between CUDA events."""
-    for _ in range(2):
-        fn()
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(launches):
-            fn()
-    graph.replay()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(replays):
-        graph.replay()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / (replays * launches)
 
 
 def off_storage(x: torch.Tensor, floats: int) -> torch.Tensor:
@@ -113,8 +92,8 @@ def main() -> int:
                                kv_len=kv_len, causal=True, q_off=q_off)
         if not all(torch.equal(a, b) for a, b in zip(want, plain)):
             raise RuntimeError(f"{label}: kernel != plain version")
-        flops = 4 * bh * sq * skv * dh
-        ceiling = flops / FP32_MUL_ADD_PER_S * 1e3
+        # the fixed chains' ceiling: a rounded multiply and add per term
+        ceiling = 4 * bh * sq * skv * dh / (FP32_FLOPS_PER_S / 2) * 1e3
         ku, vu = off_storage(k, 1), off_storage(v, 1)
         for rows in fa.TILE_ROWS:
             for stages in fa.RING_STAGES:
@@ -128,7 +107,8 @@ def main() -> int:
                     if not all(torch.equal(a, b) for a, b in zip(got, want)):
                         raise RuntimeError(f"{label} {plan} aligned="
                                            f"{aligned}: bits differ")
-                    ms = graph_ms(lambda: launch(q, kk, vv, plan, **kw))
+                    ms = graph_ms(torch,
+                                  lambda: launch(q, kk, vv, plan, **kw))
                     row = {"shape": label, "q": [bh, sq, dh], "skv": skv,
                            "rows": rows, "stages": stages,
                            "smem_bytes": smem,

@@ -135,7 +135,6 @@ __host__ __device__ inline int pow2_at_least(int n) {
 
 __host__ __device__ inline int round4(int n) { return (n + 3) / 4 * 4; }
 
-__host__ __device__ constexpr int min_c(int a, int b) { return a < b ? a : b; }
 
 // row stride of the q tile and the K/V sub-tiles: dh + 4 keeps rows
 // 16-byte aligned for float4 reads and cp.async; dh + 1 otherwise
@@ -541,10 +540,10 @@ template <int TQ>
 __global__ void __launch_bounds__(kThreads, 1)
 kahan_flash_grid(const Args a) {
   static_assert(TQ == 16 || TQ == 64, "TQ is 16 or 64");
-  // acc rows a thread holds, at most: the widest dh this TQ takes (TQ *
-  // round4(dh) <= kMaxTileOut) has nq column quads, so RG = kThreads / nq
-  // row groups, TQ / RG rows each (8 at TQ 64, 4 at TQ 16)
-  constexpr int P = TQ * (min_c(kMaxDh, kMaxTileOut / TQ) / 4) / kThreads;
+  // acc rows a thread holds, at most: the widest dh this TQ takes (128 at
+  // TQ 64 by kMaxTileOut, 256 at TQ 16) has nq = 32 or 64 column quads,
+  // so RG = kThreads / nq = 8 or 4 row groups of TQ / RG rows
+  constexpr int P = TQ == 64 ? 8 : 4;
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int tid = threadIdx.x;
