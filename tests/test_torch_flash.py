@@ -205,7 +205,8 @@ def test_flash_plan_tiles_entry_and_chunk():
 
 def test_flash_plan_bytes_match_the_layout():
     """``flash_smem_bytes`` is the source note's layout for every tile and
-    ring the kernel has, and the issue's budget at dh 128, block_k 256."""
+    ring the kernel has, and the 64-row, 3-stage budget at dh 128, block_k
+    256."""
     for rows in tfa.TILE_ROWS:
         for stages in tfa.RING_STAGES:
             for dh in (1, 3, 18, 128, 256):
