@@ -498,11 +498,12 @@ class Kernels:
         # the fixed chains' own ceiling: a separate rounded multiply and
         # add per term, at half the fma rate
         ceiling = flops / (FP32_FLOPS_PER_S / 2) * 1e3
-        rows, stages, smem = getattr(fa, name).plan
+        rows, smem = getattr(fa, name).plan
         row = {"ms": ms, "events_ms": events_ms, "plain_ms": plain_ms,
                "library_ms": library_ms, "bound_ms": least, "bound_by": by,
                "mul_add_ceiling_ms": ceiling, "ceiling_share": ceiling / ms,
-               "tile_rows": rows, "ring_stages": stages, "smem_bytes": smem,
+               "tile_rows": rows, "ring_stages": fa.RING_STAGES,
+               "smem_bytes": smem,
                "before_ms": FLASH_BEFORE_MS[label],
                "shape": [bh, sq, dh], "skv": skv, "scheme": "kahan",
                "tflops": flops / ms / 1e9}
@@ -512,8 +513,9 @@ class Kernels:
             f"TFLOP/s fp32; 16-row kernel before the redesign "
             f"{FLASH_BEFORE_MS[label]:.4f}), {by} bound {least:.4f} ms, "
             f"mul+add ceiling {ceiling:.4f} ms ({100 * ceiling / ms:.1f}%), "
-            f"tile {rows} rows, {stages}-stage ring, {smem} B shared, plain "
-            f"{plain_ms:.1f} ms, library (sdpa f32) {library_ms:.4f} ms")
+            f"tile {rows} rows, {fa.RING_STAGES}-stage ring, {smem} B "
+            f"shared, plain {plain_ms:.1f} ms, library (sdpa f32) "
+            f"{library_ms:.4f} ms")
 
     def flash_times(self, cfg, prefill_len, serve_len, long_len):
         """B7 at the entry path's shape (every head of a 2048-token

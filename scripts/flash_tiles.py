@@ -1,14 +1,14 @@
 #!/usr/bin/env python3
-"""Time the compensated flash kernel (B7, B8) under every tile plan it
-takes, on one CUDA card.
+"""Time the compensated flash kernel (B7, B8) under both tile heights it
+has, on one CUDA card.
 
     PYTHONPATH=src python3 scripts/flash_tiles.py [--out FILE.jsonl]
 
 At OLMo-1B's head shapes (B7: q, k, v [16, 2048, 128], causal; B8: a
 64-row chunk at the last full chunk of a 144- and a 1984-token cache;
-block_k 256, scheme kahan) it launches ``kahan_flash_grid`` through its C
-entry with each (tile rows, ring stages) the kernel has, once with k and
-v 16-byte aligned (the cp.async ring) and once with both one float off in
+block_k 256, scheme kahan) it launches ``kahan_flash_grid`` through the
+wrapper's launch with each tile height that fits, once with k and v
+16-byte aligned (the cp.async ring) and once with both one float off in
 their storage (plain loads into the same ring). Every launch's grids must
 equal those of the plan ``flash_plan`` picks bit for bit, and that plan's
 must equal the plain version's. Device times come from launches captured
@@ -23,6 +23,7 @@ import json
 import subprocess
 import sys
 from pathlib import Path
+from types import SimpleNamespace
 
 import torch
 
@@ -30,7 +31,6 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
 
 from chip_smoke import FP32_FLOPS_PER_S, graph_ms  # noqa: E402
-from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import schemes  # noqa: E402
 
@@ -44,18 +44,12 @@ def off_storage(x: torch.Tensor, floats: int) -> torch.Tensor:
 
 
 def launch(q, k, v, plan, *, block_k, q_off, kv_len, scheme):
-    """One launch of the kernel with the given (rows, stages, bytes)."""
-    bh, sq, dh = q.shape
-    out = (torch.empty((bh, sq, 1), device=q.device),
-           torch.empty((bh, sq, 1), device=q.device),
-           torch.empty_like(q), torch.empty_like(q))
-    err = _build.library("kahan_flash").kahan_flash_launch(
-        scheme.device_id, 0, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        *[o.data_ptr() for o in out], bh, bh // k.shape[0], sq, k.shape[1],
-        dh, block_k, kv_len, q_off, 1, fa.softmax_scale(dh), *plan,
-        _build.stream_ptr(q.device))
-    _build.check(err, "kahan_flash_grid")
-    return out
+    """One causal launch of the kernel with the given (rows, bytes)."""
+    return fa._launch(q, k, v, block_q=q.shape[1], block_k=block_k,
+                      scheme=scheme, kv_len=kv_len, causal=True,
+                      q_off=q_off, q_groups=q.shape[0] // k.shape[0],
+                      counter=SimpleNamespace(launches=0, plan=None),
+                      plan=plan)
 
 
 def main() -> int:
@@ -96,29 +90,25 @@ def main() -> int:
         ceiling = 4 * bh * sq * skv * dh / (FP32_FLOPS_PER_S / 2) * 1e3
         ku, vu = off_storage(k, 1), off_storage(v, 1)
         for rows in fa.TILE_ROWS:
-            for stages in fa.RING_STAGES:
-                smem = fa.flash_smem_bytes(rows, stages, dh, bk)
-                if (smem > fa.SMEM_LIMIT
-                        or rows * dh > fa.TILE_OUTPUTS):
-                    continue
-                plan = (rows, stages, smem)
-                for aligned, (kk, vv) in ((True, (k, v)), (False, (ku, vu))):
-                    got = launch(q, kk, vv, plan, **kw)
-                    if not all(torch.equal(a, b) for a, b in zip(got, want)):
-                        raise RuntimeError(f"{label} {plan} aligned="
-                                           f"{aligned}: bits differ")
-                    ms = graph_ms(torch,
-                                  lambda: launch(q, kk, vv, plan, **kw))
-                    row = {"shape": label, "q": [bh, sq, dh], "skv": skv,
-                           "rows": rows, "stages": stages,
-                           "smem_bytes": smem,
-                           "ctas": -(-sq // rows) * bh,
-                           "copy": "cp.async" if aligned else "plain",
-                           "chosen": plan == chosen and aligned,
-                           "ms": ms, "mul_add_ceiling_ms": ceiling,
-                           "ceiling_share": ceiling / ms}
-                    lines.append(row)
-                    print(json.dumps(row), flush=True)
+            smem = fa.flash_smem_bytes(rows, dh, bk)
+            if smem > fa.SMEM_LIMIT or rows * dh > fa.TILE_OUTPUTS:
+                continue
+            plan = (rows, smem)
+            for aligned, (kk, vv) in ((True, (k, v)), (False, (ku, vu))):
+                got = launch(q, kk, vv, plan, **kw)
+                if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                    raise RuntimeError(f"{label} {plan} aligned={aligned}: "
+                                       f"bits differ")
+                ms = graph_ms(torch, lambda: launch(q, kk, vv, plan, **kw))
+                row = {"shape": label, "q": [bh, sq, dh], "skv": skv,
+                       "rows": rows, "ring_stages": fa.RING_STAGES,
+                       "smem_bytes": smem, "ctas": -(-sq // rows) * bh,
+                       "copy": "cp.async" if aligned else "plain",
+                       "chosen": plan == chosen and aligned,
+                       "ms": ms, "mul_add_ceiling_ms": ceiling,
+                       "ceiling_share": ceiling / ms}
+                lines.append(row)
+                print(json.dumps(row), flush=True)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text("".join(json.dumps(x) + "\n"

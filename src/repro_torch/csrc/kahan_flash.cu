@@ -50,27 +50,25 @@
 // kernels/flash_attention.py::flash_plan: 64 where the grid still has two
 // CTAs per SM (B7: 512 CTAs), else 16 (a 64-row B8 chunk: 64 CTAs), and
 // 64 only for dh <= 128 (a thread's acc registers). Per k-block, K then V
-// stream through a ring of 2 or 3 stages of 64-key sub-tiles (row stride
-// ld = dh + 4, or dh + 1 when dh % 4 != 0). Shared memory, in floats, all
+// stream through a ring of 2 stages of 64-key sub-tiles (row stride ld =
+// dh + 4, or dh + 1 when dh % 4 != 0). Shared memory, in floats, all
 // regions 16-byte aligned:
 //   TQ * ld                      the q tile, rows padded like K's
 //   TQ * (round4(block_k) + 4)   the score / probability block
-//   stages * round4(min(64, block_k) * ld)    the K/V ring
+//   2 * round4(min(64, block_k) * ld)    the K/V ring
 //   4 * TQ                       m, corr, l_s, l_c per row
-// At dh 128, block_k 256: TQ 64 with 3 stages 202752 bytes (one CTA an
-// SM), TQ 16 with 3 stages 126720; at dh 256, block_k 1024 only TQ 16 with
-// 2 stages fits (215808 of 232448). The plan takes 3 stages where they
-// fit, else 2; the C entry recomputes the bytes and refuses a plan that
-// disagrees or does not fit.
+// At dh 128, block_k 256: TQ 64 168960 bytes (one CTA an SM), TQ 16
+// 92928; at dh 256, block_k 1024 only TQ 16 fits (215808 of 232448). The
+// C entry recomputes the bytes and refuses a plan that disagrees or does
+// not fit.
 //
-// Why this tile (scripts/flash_tiles.py times every plan; PERF.md has the
-// numbers): 64 rows of 8 warps, one CTA an SM, beat 16-row tiles at B7
-// even when those ran two CTAs (16 warps) an SM under a 128-register cap,
-// since a 16-row CTA reads K and V four times as often and its 1 x 4
-// score tiles wait on shared memory; both tiles are now built for one
-// CTA an SM (up to 255 registers, no spill). 2 and 3 stages time the
-// same at B7; 3 are kept where they fit for B8, whose 64 CTAs leave each
-// SM one CTA to hide the loads.
+// Why this tile (scripts/flash_tiles.py times both heights; PERF.md has
+// the numbers): 64 rows of 8 warps, one CTA an SM, beat 16-row tiles at
+// B7 even when those ran two CTAs (16 warps) an SM under a 128-register
+// cap, since a 16-row CTA reads K and V four times as often and its 1 x 4
+// score tiles wait on shared memory; both tiles are built for one CTA an
+// SM (up to 255 registers, no spill). The ring is 2 stages deep: a third
+// timed the same at B7, and 2 fit every dh and block_k.
 //
 // The four causes of the earlier 16-row kernel's speed (7.3 ms at B7,
 // 14% of the ceiling), and what answers each:
@@ -78,7 +76,7 @@
 //    K/V traffic through L2 four times.
 // 2. Staging was synchronous (scalar loads, then a barrier): the ring
 //    streams K0..Kn, V0..Vn of each k-block, and the next k-block's, with
-//    16-byte cp.async.cg copies issued stages - 1 sub-tiles ahead, one
+//    16-byte cp.async.cg copies issued one sub-tile ahead, one
 //    barrier a sub-tile; the V sub-tiles are in flight during the softmax
 //    and the q tile rides in the first group. Rows that are not 16-byte
 //    aligned (the C entry checks the q, k and v pointers; dh % 4 != 0)
@@ -121,6 +119,7 @@ using namespace repro_schemes;
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kKeys = 64;                 // keys per K/V sub-tile (a stage)
+constexpr int kStages = 2;                // K/V ring depth
 constexpr int kMaxDh = 256;
 constexpr int kMaxBk = 1024;
 constexpr int kMaxTileOut = 8192;         // TQ * round4(dh): 32 acc a thread
@@ -151,10 +150,9 @@ __host__ __device__ inline int stage_floats(int dh, int bk) {
 }
 
 // dynamic shared memory of one CTA (the layout in the note above)
-__host__ __device__ inline long long smem_bytes(int rows, int stages, int dh,
-                                                int bk) {
+__host__ __device__ inline long long smem_bytes(int rows, int dh, int bk) {
   return 4LL * ((long long)rows * tile_ld(dh) + (long long)rows * score_ld(bk) +
-                (long long)stages * stage_floats(dh, bk) + 4LL * rows);
+                (long long)kStages * stage_floats(dh, bk) + 4LL * rows);
 }
 
 struct Args {
@@ -168,7 +166,6 @@ struct Args {
   int q_groups, sq, skv, dh, bk, kv_len, q_off, causal;
   float scale;
   int scheme;
-  int stages;       // ring depth, 2 or 3
   int async_copy;   // k, v rows 16-byte aligned: cp.async, else plain
   int q_aligned;    // q rows 16-byte aligned too
 };
@@ -181,8 +178,8 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
-template <int N> __device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
 // one fold of a compensated pair, the scheme chosen at run time
@@ -208,9 +205,8 @@ struct Walk {
 };
 
 // Stage item `item` of the CTA's walk into `slot`: k-block item / per_kb,
-// its K sub-tiles first, then its V sub-tiles. Always commits one
-// cp.async group (empty past the walk or for plain loads), so that
-// wait_group counts items.
+// its K sub-tiles first, then its V sub-tiles, as one cp.async group
+// (nothing past the walk; plain loads land before it returns).
 __device__ __forceinline__ void stage_item(float* slot, const Args& a,
                                            long long kvbase, int item,
                                            int n_items, int n_sub, int ld,
@@ -560,8 +556,8 @@ kahan_flash_grid(const Args a) {
   const int stage = stage_floats(dh, bk);
   float* qs = smem;                          // [TQ][ld]
   float* sc = qs + TQ * ld;                  // [TQ][lds]
-  float* ring = sc + TQ * lds;               // stages x [min(64, bk)][ld]
-  float* row_m = ring + a.stages * stage;
+  float* ring = sc + TQ * lds;               // kStages x [min(64, bk)][ld]
+  float* row_m = ring + kStages * stage;
   float* row_corr = row_m + TQ;
   float* row_ls = row_corr + TQ;
   float* row_lc = row_ls + TQ;
@@ -572,7 +568,7 @@ kahan_flash_grid(const Args a) {
   const int n_items = a.skv / bk * 2 * n_sub;
 
   // the q tile (with item 0's cp.async group, or plain loads; rows past
-  // sq are zero), then the ring's first stages - 1 sub-tiles
+  // sq are zero), then the ring's first sub-tile
   const Walk walk(tid, a.async_copy ? dh / 4 : dh);
   if (a.async_copy && a.q_aligned) {
     for (int i = walk.row, c = walk.col; i < TQ;) {
@@ -591,8 +587,7 @@ kahan_flash_grid(const Args a) {
       qs[i * ld + d] = i < rows ? a.q[qrow0 * dh + e] : 0.0f;
     }
   }
-  for (int s = 0; s < a.stages - 1; ++s)
-    stage_item(ring + s * stage, a, kvbase, s, n_items, n_sub, ld, walk);
+  stage_item(ring, a, kvbase, 0, n_items, n_sub, ld, walk);
   if (tid < TQ) {
     row_m[tid] = kNegInf;
     row_ls[tid] = 0.0f;
@@ -615,18 +610,14 @@ kahan_flash_grid(const Args a) {
 #pragma unroll
     for (int u = 0; u < 4; ++u) a_s[r][u] = a_c[r][u] = pv[r][u] = 0.0f;
 
-  int slot = 0;                  // ring slot of item g
-  int fill = a.stages - 1;       // ring slot of item g + stages - 1
   for (int g = 0; g < n_items; ++g) {
     // item g has landed (this thread's copies), then everyone's are
-    // visible and item g - 1's slot is free
-    if (a.stages == 3) cp_async_wait<1>(); else cp_async_wait<0>();
+    // visible and item g - 1's slot is free for item g + 1
+    cp_async_wait_all();
     __syncthreads();
-    stage_item(ring + fill * stage, a, kvbase, g + a.stages - 1, n_items,
+    stage_item(ring + ((g + 1) & 1) * stage, a, kvbase, g + 1, n_items,
                n_sub, ld, walk);
-    fill = fill + 1 == a.stages ? 0 : fill + 1;
-    const float* tile = ring + slot * stage;
-    slot = slot + 1 == a.stages ? 0 : slot + 1;
+    const float* tile = ring + (g & 1) * stage;
     const int kb = g / (2 * n_sub);
     const int t = g - kb * 2 * n_sub;
     if (t < n_sub) {
@@ -664,7 +655,7 @@ kahan_flash_grid(const Args a) {
       }
     }
   }
-  cp_async_wait<0>();
+  cp_async_wait_all();
 
 #pragma unroll
   for (int r = 0; r < P; ++r) {
@@ -707,10 +698,9 @@ int launch(const Args& a, int bh, size_t smem, cudaStream_t st) {
 // C entry point. dtype: 0 = float32 (the only instantiation). q: [bh, sq,
 // dh]; k, v: [bh / q_groups, skv, dh]; l_s, l_c: [bh, sq]; a_s, a_c: [bh,
 // sq, dh]; all contiguous, skv a multiple of block_k. The plan (rows a
-// CTA, ring stages, shared bytes) comes from the host's flash_plan; a
-// plan that is not one of the kernel's (rows 16 or 64, rows * round4(dh)
-// <= 8192, stages 2 or 3) or whose bytes disagree with the layout or
-// exceed 232448 is refused. Returns cudaGetLastError() after the launch
+// CTA, shared bytes) comes from the host's flash_plan; a plan that is not
+// one of the kernel's (rows 16 or 64, rows * round4(dh) <= 8192) or whose
+// bytes disagree with the layout or exceed 232448 is refused. Returns cudaGetLastError() after the launch
 // (0 = launched).
 extern "C" int kahan_flash_launch(int scheme, int dtype, const void* q,
                                   const void* k, const void* v, void* l_s,
@@ -718,15 +708,14 @@ extern "C" int kahan_flash_launch(int scheme, int dtype, const void* q,
                                   int q_groups, int sq, int skv, int dh,
                                   int block_k, int kv_len, int q_off,
                                   int causal, float scale, int rows,
-                                  int stages, long long smem, void* stream) {
+                                  long long smem, void* stream) {
   if (dtype != 0 || scheme < NAIVE || scheme > DOT2 || dh < 1 ||
       dh > kMaxDh || block_k < 1 || block_k > kMaxBk || skv < block_k ||
       skv % block_k != 0 || q_groups < 1 || bh < 1 || bh % q_groups != 0 ||
       bh > 65535 || sq < 1)
     return (int)cudaErrorInvalidValue;
   if ((rows != 16 && rows != 64) || rows * round4(dh) > kMaxTileOut ||
-      (stages != 2 && stages != 3) ||
-      smem != smem_bytes(rows, stages, dh, block_k) || smem > kSmemLimit)
+      smem != smem_bytes(rows, dh, block_k) || smem > kSmemLimit)
     return (int)cudaErrorInvalidValue;
   Args a;
   a.q = static_cast<const float*>(q);
@@ -746,7 +735,6 @@ extern "C" int kahan_flash_launch(int scheme, int dtype, const void* q,
   a.causal = causal;
   a.scale = scale;
   a.scheme = scheme;
-  a.stages = stages;
   a.async_copy = dh % 4 == 0 &&
                  ((reinterpret_cast<std::uintptr_t>(k) |
                    reinterpret_cast<std::uintptr_t>(v)) % 16) == 0;

@@ -43,11 +43,11 @@ _SIGNATURES = {
     },
     "kahan_flash": {
         # (scheme, dtype, q, k, v, l_s, l_c, a_s, a_c, bh, q_groups, sq,
-        #  skv, dh, block_k, kv_len, q_off, causal, scale, rows, stages,
+        #  skv, dh, block_k, kv_len, q_off, causal, scale, rows,
         #  smem_bytes, stream)
         "kahan_flash_launch": (_I, _I, _V, _V, _V, _V, _V, _V, _V, _I, _I,
                                _I, _I, _I, _I, _I, _I, _I, ctypes.c_float,
-                               _I, _I, _LL, _V),
+                               _I, _LL, _V),
     },
     "kahan_matmul": {
         # (scheme, dtype, a_dtype, b_dtype, a, b, s, c, batch, m, n, k,

@@ -32,7 +32,7 @@ card.
 from __future__ import annotations
 
 import functools
-from typing import Tuple, Union
+from typing import Optional, Tuple, Union
 
 import torch
 
@@ -50,11 +50,11 @@ NEG_INF = -1e30
 MAX_HEAD_DIM = 256
 MAX_BLOCK_K = 1024
 
-#: the kernel's tile heights (query rows a CTA), largest first; its K/V
-#: ring depths (64-key sub-tiles), deepest first; at most TILE_OUTPUTS =
-#: rows * round4(dh) acc cells a CTA (32 a thread); its shared memory limit
+#: the kernel's tile heights (query rows a CTA), largest first; the depth
+#: of its K/V ring (64-key sub-tiles); at most TILE_OUTPUTS = rows *
+#: round4(dh) acc cells a CTA (32 a thread); its shared memory limit
 TILE_ROWS = (64, 16)
-RING_STAGES = (3, 2)
+RING_STAGES = 2
 SUB_TILE_KEYS = 64
 TILE_OUTPUTS = 8192
 SMEM_LIMIT = 232448
@@ -72,39 +72,36 @@ def _round4(n: int) -> int:
     return -(-n // 4) * 4
 
 
-def flash_smem_bytes(rows: int, stages: int, dh: int, block_k: int) -> int:
+def flash_smem_bytes(rows: int, dh: int, block_k: int) -> int:
     """Dynamic shared memory of one CTA of ``kahan_flash_grid`` (the
     layout in the source note), in bytes: the q tile ``[rows][ld]``, the
-    score block ``[rows][round4(block_k) + 4]``, ``stages`` K/V sub-tiles
-    of ``round4(min(64, block_k) * ld)`` floats and 4 statistics a row,
-    with ``ld = dh + 4`` when ``dh % 4 == 0``, else ``dh + 1``."""
+    score block ``[rows][round4(block_k) + 4]``, ``RING_STAGES`` K/V
+    sub-tiles of ``round4(min(64, block_k) * ld)`` floats and 4
+    statistics a row, with ``ld = dh + 4`` when ``dh % 4 == 0``, else
+    ``dh + 1``."""
     ld = dh + 4 if dh % 4 == 0 else dh + 1
     stage = _round4(min(SUB_TILE_KEYS, block_k) * ld)
-    return 4 * (rows * ld + rows * (_round4(block_k) + 4) + stages * stage
-                + 4 * rows)
+    return 4 * (rows * ld + rows * (_round4(block_k) + 4)
+                + RING_STAGES * stage + 4 * rows)
 
 
+@functools.lru_cache(maxsize=None)
 def flash_plan(bh: int, sq: int, dh: int, block_k: int,
-               sms: int = 132) -> Tuple[int, int, int]:
-    """``(rows, stages, smem_bytes)`` of a launch on ``BH`` head-rows of
-    ``Sq`` queries: the tallest tile of ``TILE_ROWS`` that leaves at least
-    two CTAs per SM (``ceil(Sq / rows) * BH >= 2 * sms``) and fits, else
-    the shortest that fits; for that tile the deepest ring that fits. A
-    tile fits when ``rows * round4(dh) <= TILE_OUTPUTS`` and its shared
-    memory is at most ``SMEM_LIMIT``; 16 rows with 2 stages fit every dh
-    and block_k within the kernel's limits. The row bits do not depend on
-    the plan."""
+               sms: int = 132) -> Tuple[int, int]:
+    """``(rows, smem_bytes)`` of a launch on ``BH`` head-rows of ``Sq``
+    queries: the tallest tile of ``TILE_ROWS`` that leaves at least two
+    CTAs per SM (``ceil(Sq / rows) * BH >= 2 * sms``) and fits, else the
+    shortest that fits. A tile fits when ``rows * round4(dh) <=
+    TILE_OUTPUTS`` and its shared memory is at most ``SMEM_LIMIT``; 16
+    rows fit every dh and block_k within the kernel's limits. The row bits
+    do not depend on the plan. Cached: the wrapper asks at every
+    launch."""
     plan = None
     for rows in TILE_ROWS:
-        if rows * _round4(dh) > TILE_OUTPUTS:
+        smem = flash_smem_bytes(rows, dh, block_k)
+        if rows * _round4(dh) > TILE_OUTPUTS or smem > SMEM_LIMIT:
             continue
-        for stages in RING_STAGES:
-            smem = flash_smem_bytes(rows, stages, dh, block_k)
-            if smem <= SMEM_LIMIT:
-                plan = (rows, stages, smem)
-                break
-        else:
-            continue
+        plan = (rows, smem)
         if -(-sq // rows) * bh >= 2 * sms:
             return plan
     if plan is None:
@@ -210,7 +207,11 @@ def flash_plain(q: Tensor, k: Tensor, v: Tensor, *,
 
 def _launch(q: Tensor, k: Tensor, v: Tensor, *, block_q: int, block_k: int,
             scheme: CompensationScheme, kv_len: int, causal: bool,
-            q_off: int, q_groups: int, counter) -> Grids:
+            q_off: int, q_groups: int, counter,
+            plan: Optional[Tuple[int, int]] = None) -> Grids:
+    """One wrapper call: the plain version on CPU tensors, else one
+    counted launch of the kernel under ``plan`` (``flash_plan``'s unless
+    given; ``scripts/flash_tiles.py`` times the others)."""
     if q.dim() != 3 or k.dim() != 3 or k.shape != v.shape:
         raise ValueError(
             f"flash kernel: want q [BH, Sq, dh] and equal k/v [BH_kv, Skv, "
@@ -259,7 +260,8 @@ def _launch(q: Tensor, k: Tensor, v: Tensor, *, block_q: int, block_k: int,
     l_c = torch.empty_like(l_s)
     a_s = torch.empty_like(q)
     a_c = torch.empty_like(q)
-    plan = flash_plan(bh, sq, dh, block_k, sms=_sm_count(q.device))
+    if plan is None:
+        plan = flash_plan(bh, sq, dh, block_k, sms=_sm_count(q.device))
     lib = _build.library("kahan_flash")
     counter.launches += 1
     counter.plan = plan

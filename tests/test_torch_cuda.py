@@ -198,20 +198,21 @@ def test_cuda_flash_kernels_match_plain(cuda_device, case):
 @pytest.mark.cuda
 def test_cuda_flash_refuses_a_wrong_plan(cuda_device):
     """The C entry recomputes the plan's shared memory: a byte count that
-    disagrees, or a tile height or ring depth the kernel does not have, is
-    refused (error 1, cudaErrorInvalidValue) and nothing launches."""
+    disagrees, a tile height the kernel does not have, or 64 rows at dh
+    256 (64 acc cells a thread), is refused (error 1,
+    cudaErrorInvalidValue) and nothing launches."""
     from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as fa
 
-    bh, sq, skv, dh, bk = 2, 64, 256, 128, 256
+    bh, sq, skv, dh, bk = 2, 64, 256, 256, 256
     q = torch.zeros((bh, sq, dh), device=cuda_device)
     k = torch.zeros((bh, skv, dh), device=cuda_device)
     outs = [torch.empty((bh, sq, 1), device=cuda_device) for _ in range(2)]
     outs += [torch.empty_like(q) for _ in range(2)]
     lib = _build.library("kahan_flash")
-    rows, stages, smem = fa.flash_plan(bh, sq, dh, bk)
-    for plan in ((rows, stages, smem + 16), (32, stages, smem),
-                 (16, 4, fa.flash_smem_bytes(16, 4, dh, bk))):
+    rows, smem = fa.flash_plan(bh, sq, dh, bk)
+    for plan in ((rows, smem + 16), (32, fa.flash_smem_bytes(32, dh, bk)),
+                 (64, fa.flash_smem_bytes(64, dh, bk))):
         err = lib.kahan_flash_launch(
             1, 0, q.data_ptr(), k.data_ptr(), k.data_ptr(),
             *[o.data_ptr() for o in outs], bh, 1, sq, skv, dh, bk, skv, 0,

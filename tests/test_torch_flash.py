@@ -166,37 +166,26 @@ def test_flash_block_body_and_tree_match_reference():
 # The CUDA kernel's tile plan (host side; the card is not needed)
 # ---------------------------------------------------------------------------
 
-def _layout_bytes(rows, stages, dh, block_k):
-    """The shared-memory layout of the source note of csrc/kahan_flash.cu,
-    in bytes: q tile, score block, K/V ring, row statistics."""
-    ld = dh + 4 if dh % 4 == 0 else dh + 1
-    round4 = lambda n: (n + 3) // 4 * 4  # noqa: E731
-    return 4 * (rows * ld + rows * (round4(block_k) + 4)
-                + stages * round4(min(64, block_k) * ld) + 4 * rows)
-
-
 @pytest.mark.parametrize("block_k", [1, 8, 128, 256, 1024])
 @pytest.mark.parametrize("dh", [1, 3, 16, 64, 128, 255, 256])
 def test_flash_plan_fits_every_shape(dh, block_k):
     """Every dh and block_k the kernel accepts gets a plan: a tile height
-    and ring depth the kernel has, at most 32 acc cells a thread, and
-    shared memory within the H100's 232448 bytes, for grids small and
-    large."""
+    the kernel has, at most 32 acc cells a thread, and shared memory
+    within the H100's 232448 bytes, for grids small and large."""
     for bh, sq in ((1, 1), (16, 64), (16, 2048), (64, 4096)):
-        rows, stages, smem = tfa.flash_plan(bh, sq, dh, block_k)
-        assert rows in tfa.TILE_ROWS and stages in tfa.RING_STAGES
+        rows, smem = tfa.flash_plan(bh, sq, dh, block_k)
+        assert rows in tfa.TILE_ROWS
         assert rows * ((dh + 3) // 4 * 4) <= tfa.TILE_OUTPUTS
-        assert smem == _layout_bytes(rows, stages, dh, block_k) <= 232448
+        assert smem == tfa.flash_smem_bytes(rows, dh, block_k) <= 232448
 
 
 def test_flash_plan_tiles_entry_and_chunk():
     """OLMo-1B's shapes: the 2048-token prefill (B7, 512 CTAs) takes the
-    64-row tile with a 3-stage ring; a 64-row serving chunk (B8) keeps 16
-    rows (64 CTAs); dh 256 with block_k 1024 fits only 16 rows and 2
-    stages."""
-    assert tfa.flash_plan(16, 2048, 128, 256) == (64, 3, 202752)
-    assert tfa.flash_plan(16, 64, 128, 256) == (16, 3, 126720)
-    assert tfa.flash_plan(16, 2048, 256, 1024) == (16, 2, 215808)
+    64-row tile; a 64-row serving chunk (B8) keeps 16 rows (64 CTAs); dh
+    256 with block_k 1024 fits only 16 rows."""
+    assert tfa.flash_plan(16, 2048, 128, 256) == (64, 168960)
+    assert tfa.flash_plan(16, 64, 128, 256) == (16, 92928)
+    assert tfa.flash_plan(16, 2048, 256, 1024) == (16, 215808)
     # two CTAs an SM decide the height: 1088 rows of 16 head-rows do
     assert tfa.flash_plan(16, 1088, 128, 256)[0] == 64
     assert tfa.flash_plan(16, 1024, 128, 256)[0] == 16
@@ -204,17 +193,24 @@ def test_flash_plan_tiles_entry_and_chunk():
 
 
 def test_flash_plan_bytes_match_the_layout():
-    """``flash_smem_bytes`` is the source note's layout for every tile and
-    ring the kernel has, and the 64-row, 3-stage budget at dh 128, block_k
-    256."""
-    for rows in tfa.TILE_ROWS:
-        for stages in tfa.RING_STAGES:
-            for dh in (1, 3, 18, 128, 256):
-                for block_k in (1, 10, 64, 100, 1024):
-                    assert tfa.flash_smem_bytes(rows, stages, dh, block_k) \
-                        == _layout_bytes(rows, stages, dh, block_k)
-    # q tile 33792 + scores 66560 + 3 stages 101376 + statistics 1024
-    assert tfa.flash_smem_bytes(64, 3, 128, 256) == 202752
+    """``flash_smem_bytes`` is the source note's layout, worked by hand:
+    q tile ``rows * ld`` + scores ``rows * (round4(block_k) + 4)`` + 2
+    ring stages of ``round4(min(64, block_k) * ld)`` + 4 statistics a
+    row, in floats, with ld = dh + 4, or dh + 1 when dh % 4 != 0."""
+    # 64 * 132 + 64 * 260 + 2 * 64 * 132 + 4 * 64 = 42240 floats
+    assert tfa.flash_smem_bytes(64, 128, 256) == 168960
+    # 16 * 132 + 16 * 260 + 2 * 64 * 132 + 4 * 16 = 23232 floats
+    assert tfa.flash_smem_bytes(16, 128, 256) == 92928
+    # 16 * 260 + 16 * 1028 + 2 * 64 * 260 + 4 * 16 = 53952 floats
+    assert tfa.flash_smem_bytes(16, 256, 1024) == 215808
+    # ld 19: 16 * 19 + 16 * 104 + 2 * 64 * 19 + 4 * 16 = 4464 floats
+    assert tfa.flash_smem_bytes(16, 18, 100) == 17856
+    # 64 * 19 + 64 * 104 + 2 * 64 * 19 + 4 * 64 = 10560 floats
+    assert tfa.flash_smem_bytes(64, 18, 100) == 42240
+    # ld 4, 10 keys a stage: 16 * 4 + 16 * 16 + 2 * 40 + 4 * 16 = 464
+    assert tfa.flash_smem_bytes(16, 3, 10) == 1856
+    # ld 2, one key, a stage rounded up to 4: 32 + 128 + 8 + 64 = 232
+    assert tfa.flash_smem_bytes(16, 1, 1) == 928
 
 
 # ---------------------------------------------------------------------------
