@@ -14,13 +14,19 @@ there is no CUDA device or no ``src/repro_torch`` beside it.
    {float32, float64, bfloat16}, the (s, c) grids of ``kahan_dot_grid``
    and ``kahan_sum_grid`` -- single and batched -- equal their plain
    PyTorch versions bit for bit, and a batched launch equals a loop of
-   single ones. Flash: for every built-in scheme x causal / not (B7) x
-   q_groups in {1, 2}, at OLMo-1B's head dim with Sq and Skv off their
-   blocks and Skv over 3 k-blocks, at 4 and 48 head-rows, the raw (l,
-   acc) grids of ``flash_accumulators`` (B7) and
-   ``flash_chunk_accumulators`` (B8) equal their plain version bit for
-   bit, and B8 rows at block-aligned offsets equal B7's rows bit for bit,
-   also where B7 runs 64-row tiles and B8 16-row ones. Matmul: for every built-in scheme
+   single ones: [3, n] for n up to 5 steps and for n spanning two full
+   load rings of the one-row plan and a partial stage; at U = 8 batch 8
+   over two of its rings and the serving shape [4, 57344]; the deep case
+   again on operands one element off 16 bytes (the element-copy path).
+   Both copy paths and the two-rings case are checked to have run in
+   every wrapper; the plans covered are logged. Flash: for every
+   built-in scheme x causal / not (B7) x q_groups in {1, 2}, at
+   OLMo-1B's head dim with Sq and Skv off their blocks and Skv over 3
+   k-blocks, at 4 and 48 head-rows, the raw (l, acc) grids of
+   ``flash_accumulators`` (B7) and ``flash_chunk_accumulators`` (B8)
+   equal their plain version bit for bit, and B8 rows at block-aligned
+   offsets equal B7's rows bit for bit, also where B7 runs 64-row tiles
+   and B8 16-row ones. Matmul: for every built-in scheme
    x {float32, float64}, with M, N and K padded by the engine (M 1 and 37,
    N 200, K 1100; and a K of 16 blocks), operands in bf16 and float32, the
    (s, c) grids of ``matmul_accumulators`` (B5) equal ``matmul_plain``
@@ -39,19 +45,22 @@ there is no CUDA device or no ``src/repro_torch`` beside it.
    ``matmul_plain`` bit for bit; B6 at batch 3 equal to a loop of B5; rows
    0, 8, 31 and M - 1 of M in {9, 64, 300} equal M = 1 products.
 3. Kernel times: each kernel at the shape its main path gives it (dot and
-   sum at the paper's in-memory size n = 2^27 for kahan and naive,
-   batched dot and sum at [8, 2^24], the serving telemetry at
-   [max_slots, 57344], B7 at OLMo-1B's head shape [16, 2048, 128] causal,
-   B8 at the serving chunk [16, 64, 128] against both serve runs' cache
-   lengths, B5 at OLMo-1B's projection shapes at decode (M 1, the served
-   shape, and M 8 for comparison with the padded rows of earlier runs)
-   and in a 64- and a 32-token chunk plus the up projection of a
+   sum at the paper's in-memory size n = 2^27 for every scheme, with each
+   scheme's time over naive's, the paper's metric; batched dot and sum
+   at [8, 2^24], the serving telemetry at [max_slots, 57344]; each with
+   its plan, copy path, share of the bytes bound and the time of the
+   kernel before its load ring), B7 at OLMo-1B's head shape [16, 2048,
+   128] causal, B8 at the serving chunk [16, 64, 128] against both serve
+   runs' cache lengths, B5 at OLMo-1B's projection shapes at decode (M
+   1, the served shape, and M 8 for comparison with the padded rows of
+   earlier runs) and in a 64- and a 32-token chunk plus the up projection of a
    2048-token prefill, B6 at 4 chunk-sized q projections; each matmul
    and flash row with the tile (and cluster size or ring depth) the
    kernel chose and its share of the mul+add ceiling, 2·M·N·K or
    4·BH·Sq·Skv·dh over half the float32 fma rate; the flash rows also
-   with the time of the 16-row kernel they replace), with CUDA events
-   after warm-up (matmul and flash: launches captured in a CUDA graph),
+   with the time of the 16-row kernel they replace), device time of
+   launches captured in a CUDA graph (back-to-back launches timed with
+   CUDA events beside the reductions and flash),
    beside its bound (bytes or float32 operations),
    its plain version's time and one PyTorch call computing the same
    function (``library_ms``, a yardstick the port never calls:
@@ -122,6 +131,30 @@ LIBRARIES = ("kahan_reduce", "kahan_flash", "kahan_matmul")
 #: down), each one B5 launch per prefill chunk and per decode position
 PROJECTIONS = 7
 
+
+#: the schemes with a device function, and the reduction wrappers
+SCHEMES = ("naive", "kahan", "pairwise", "dot2")
+REDUCTIONS = ("dot_accumulators", "dot_accumulators_batched",
+              "sum_accumulators", "sum_accumulators_batched")
+
+#: device ms of the reduction rows (phase 3, graph-timed) for the kernel
+#: before its load ring (one 128-thread CTA a row of cells, 8 steps of
+#: loads drained before each chain burst), keyed (wrapper, scheme or
+#: label), taken by this script's phase 3 on an NVIDIA H100 80GB HBM3 at
+#: 700 W; logged beside each new time
+REDUCE_BEFORE_MS = {
+    ("dot_accumulators", "naive"): 1.4104,
+    ("dot_accumulators", "kahan"): 1.4400,
+    ("dot_accumulators", "pairwise"): 1.3799,
+    ("dot_accumulators", "dot2"): 1.9964,
+    ("sum_accumulators", "naive"): 0.5636,
+    ("sum_accumulators", "kahan"): 0.6671,
+    ("sum_accumulators", "pairwise"): 0.5691,
+    ("sum_accumulators", "dot2"): 1.0572,
+    ("dot_accumulators_batched", "kahan"): 0.3664,
+    ("sum_accumulators_batched", "kahan"): 0.1794,
+    ("sum_accumulators_batched", "serve"): 0.0022,
+}
 
 #: device ms of the flash rows (B7 entry, B8 serve, B8 serve-long) for
 #: the kernel before its register-tiled redesign (16 query rows a CTA,
@@ -243,6 +276,25 @@ def graph_ms(torch, fn, launches: int = 20, replays: int = 5) -> float:
     return start.elapsed_time(end) / (replays * launches)
 
 
+def clock_under_load(torch, fn, launches: int = 20, replays: int = 300):
+    """The card's SM clock (MHz) and power draw (W), as ``nvidia-smi``
+    reads them while ``replays`` replays of ``launches`` captured calls of
+    ``fn()`` run (enqueued first, so the sample falls inside them)."""
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    for _ in range(replays):
+        graph.replay()
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.splitlines()[0]
+    torch.cuda.synchronize()
+    mhz, watts = (float(v) for v in out.split(","))
+    return mhz, watts
+
+
 def bound_ms(n_bytes: float, n_ops: float):
     """(least time in ms, what bounds it) for ``n_bytes`` moved once and
     ``n_ops`` float32 operations on the H100."""
@@ -288,50 +340,121 @@ class Kernels:
 
     # -- 2. parity ------------------------------------------------------------
     def parity(self):
+        """The four reduction wrappers against their plain versions,
+        bitwise, for every built-in scheme x U in {1, 8} x {float32,
+        float64, bfloat16}: [3, n] for n in 1, 8192 + 5, 3 * 8192 + 37, 5 *
+        8192 (padded by the engine) and n spanning two full load rings of
+        the one-row plan and a partial stage; at U = 8 also batch 8 over
+        two of its rings and the serving shape [4, 57344] (7 steps, one
+        partial stage); the deep [3, n] case again on operands one element
+        off 16 bytes (views of a larger buffer: the element-copy path). Every
+        row of a batched launch equals a single launch of that row, which
+        is the batch-1 case."""
         torch = self.torch
         kd, ks = self.kd, self.ks
+        seen = {name: set() for name in REDUCTIONS}
         cases = 0
         for dtype in (torch.float32, torch.float64, torch.bfloat16):
-            for name in ("naive", "kahan", "pairwise", "dot2"):
+            for name in SCHEMES:
                 sch = self.schemes.get(name)
                 for unroll in (1, 8):
                     eng = self.engine.CompensatedReduction(
                         scheme=sch, unroll=unroll, compute_dtype=dtype)
-                    for n in (1, 8192 + 5, 3 * 8192 + 37, 5 * 8192):
-                        what = f"{name} U={unroll} {dtype} n={n}"
-                        a, b = self.data((3, n), dtype), self.data((3, n), dtype)
+                    cells = 1024 * unroll
+                    deep = self.ring_n(1, cells, dtype)
+                    shapes = [(3, n) for n in (1, 8192 + 5, 3 * 8192 + 37,
+                                               5 * 8192, deep)]
+                    if unroll == 8:
+                        shapes += [(8, self.ring_n(8, cells, dtype)),
+                                   (4, 57344)]
+                    for batch, n in shapes:
+                        what = f"{name} U={unroll} {dtype} [{batch}, {n}]"
+                        a = self.data((batch, n), dtype)
+                        b = self.data((batch, n), dtype)
                         ap, bp = eng._prep2d(a), eng._prep2d(b)
                         kw = dict(scheme=sch, unroll=unroll)
-                        single = [kd.dot_accumulators(ap[i], bp[i], **kw)
-                                  for i in range(3)]
-                        plain = kd.dot_plain(ap, bp, **kw)
-                        for i in range(3):
-                            self.compare("dot_accumulators", single[i],
-                                         (plain[0][i], plain[1][i]), what)
-                        batched = kd.dot_accumulators_batched(ap, bp, **kw)
-                        self.compare("dot_accumulators_batched", batched,
-                                     plain, what)
-                        check(all(torch.equal(batched[0][i], single[i][0])
-                                  and torch.equal(batched[1][i], single[i][1])
-                                  for i in range(3)),
-                              f"batched dot != loop of single dots ({what})")
-                        single = [ks.sum_accumulators(ap[i], **kw)
-                                  for i in range(3)]
-                        plain = ks.sum_plain(ap, **kw)
-                        for i in range(3):
-                            self.compare("sum_accumulators", single[i],
-                                         (plain[0][i], plain[1][i]), what)
-                        batched = ks.sum_accumulators_batched(ap, **kw)
-                        self.compare("sum_accumulators_batched", batched,
-                                     plain, what)
-                        check(all(torch.equal(batched[0][i], single[i][0])
-                                  and torch.equal(batched[1][i], single[i][1])
-                                  for i in range(3)),
-                              f"batched sum != loop of single sums ({what})")
+                        plain = (kd.dot_plain(ap, bp, **kw),
+                                 ks.sum_plain(ap, **kw))
+                        self.reduction_case(ap, bp, plain, kw, what, seen)
                         cases += 1
+                        if n == deep:
+                            self.reduction_case(
+                                self.off16(ap), self.off16(bp), plain, kw,
+                                f"{what}, one element off 16 bytes", seen)
+                            cases += 1
         sync(torch, self.dev)
-        log(f"# phase 2: {cases} parity cases x 4 wrappers bitwise equal to "
-            f"their plain versions; batched == loop of single launches")
+        for wrapper, runs in seen.items():
+            paths = {copy for _, copy, _ in runs}
+            check(paths == {"cp.async", "element"},
+                  f"{wrapper}: the cp.async and the element-copy paths did "
+                  f"not both run ({sorted(paths)})")
+            check(any(rings for _, _, rings in runs),
+                  f"{wrapper}: no case spanned two full rings and a partial "
+                  f"stage")
+        plans = sorted({plan for runs in seen.values()
+                        for plan, _, _ in runs})
+        log(f"# phase 2: {cases} reduction parity cases x 4 wrappers bitwise "
+            f"equal to their plain versions; batched == loop of single "
+            f"launches; 16-byte and element copies both ran in every "
+            f"wrapper, and each spanned two full rings and a partial stage; "
+            f"{len(plans)} plans (chains, depth, stages, shared bytes): "
+            f"{plans}")
+
+    def ring_n(self, batch, cells, dtype):
+        """A row length spanning two full load rings and a partial stage of
+        the sum kernel's plan for ``batch`` rows (the dot's ring holds no
+        more steps)."""
+        itemsize = self.torch.empty((), dtype=dtype).element_size()
+        sms = (self.torch.cuda.get_device_properties(
+            self.dev).multi_processor_count if self.dev.type == "cuda"
+            else 132)
+        _, depth, stages, _ = self.kd.reduce_plan(batch, cells, 1 << 30,
+                                                  itemsize, 1, sms)
+        return (2 * stages * depth + 3) * cells
+
+    def off16(self, x):
+        """A copy of ``x`` as a view one element into a larger buffer: the
+        same values, not 16-byte aligned."""
+        buf = self.torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+        view = buf[1:].view(x.shape)
+        view.copy_(x)
+        return view
+
+    def reduction_case(self, ap, bp, plain, kw, what, seen):
+        """Single launches of every row and one batched launch of the dot
+        and the sum against ``plain`` (the plain versions' grids), and
+        batched == the loop; notes each launch's plan, copy path and
+        whether it spanned two full rings and a partial stage."""
+        torch = self.torch
+        kd, ks = self.kd, self.ks
+        batch, n = ap.shape
+        steps = n // (1024 * kw["unroll"])
+        kernels = (
+            ("dot_accumulators", "dot_accumulators_batched",
+             lambda i: kd.dot_accumulators(ap[i], bp[i], **kw),
+             lambda: kd.dot_accumulators_batched(ap, bp, **kw), plain[0]),
+            ("sum_accumulators", "sum_accumulators_batched",
+             lambda i: ks.sum_accumulators(ap[i], **kw),
+             lambda: ks.sum_accumulators_batched(ap, **kw), plain[1]))
+        for one, many, single_fn, batched_fn, want in kernels:
+            single = []
+            for i in range(batch):
+                single.append(single_fn(i))
+                self.note_plan(one, steps, seen)
+                self.compare(one, single[i], (want[0][i], want[1][i]), what)
+            batched = batched_fn()
+            self.note_plan(many, steps, seen)
+            self.compare(many, batched, want, what)
+            check(all(torch.equal(batched[0][i], single[i][0])
+                      and torch.equal(batched[1][i], single[i][1])
+                      for i in range(batch)),
+                  f"batched {one} != loop of single launches ({what})")
+
+    def note_plan(self, name, steps, seen):
+        fn = self.engine.WRAPPERS[name]
+        _, depth, stages, _ = fn.plan
+        rings = steps > 2 * stages * depth and steps % depth != 0
+        seen[name].add((fn.plan, fn.copy, rings))
 
     def flash_parity(self, dh: int):
         """B7 and B8 against their plain version, bitwise: Sq = 300 and
@@ -393,42 +516,61 @@ class Kernels:
     def time_one(self, name, scheme, args, plain_fn, library_fn, reps=20,
                  label=None):
         """Kernel / plain / library times of one wrapper on padded
-        float32 inputs, plus the kernel-vs-plain check at this shape."""
+        float32 inputs, plus the kernel-vs-plain check at this shape. The
+        kernel and library times are device times of launches captured in
+        a CUDA graph; back-to-back launches timed with events beside
+        them."""
         torch = self.torch
         sch = self.schemes.get(scheme)
         wrapper = self.engine.WRAPPERS[name]
         kernel = lambda: wrapper(*args, scheme=sch, unroll=8)  # noqa: E731
         got = kernel()
+        sync(torch, self.dev)
         t0 = time.perf_counter()
         want = plain_fn(sch)
         sync(torch, self.dev)
         plain_ms = (time.perf_counter() - t0) * 1e3
         self.compare(name, got, want, f"{scheme} at {tuple(args[0].shape)}")
-        ms = cuda_ms(torch, kernel, reps)
-        library_ms = cuda_ms(torch, library_fn, reps)
+        grid_bytes = 2 * got[0].numel() * got[0].element_size()
+        del got, want
+        ms = graph_ms(torch, kernel, reps)
+        events_ms = cuda_ms(torch, kernel, reps)
+        library_ms = graph_ms(torch, library_fn, reps)
         numel = sum(a.numel() for a in args)
         n_elem = args[0].numel()
-        grid_bytes = 2 * got[0].numel() * got[0].element_size()
         in_bytes = numel * args[0].element_size()
         mix = sch.instruction_mix
         ops = n_elem * (mix.flops if name.startswith("dot") else mix.adds)
         least, by = bound_ms(in_bytes + grid_bytes, ops)
-        row = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-               "bound_ms": least, "bound_by": by,
+        key = (name, label or scheme)
+        before = REDUCE_BEFORE_MS.get(key)
+        row = {"ms": ms, "events_ms": events_ms, "plain_ms": plain_ms,
+               "library_ms": library_ms, "bound_ms": least, "bound_by": by,
+               "bound_share": least / ms, "before_ms": before,
+               "plan": getattr(wrapper, "plan", None),
+               "copy": getattr(wrapper, "copy", None),
                "shape": list(args[0].shape), "scheme": scheme,
                "gbytes_per_s": (in_bytes + grid_bytes) / ms / 1e6}
-        self.timing[(name, label or scheme)] = row
+        self.timing[key] = row
+        was = f"; before the ring {before:.4f}" if before else ""
         log(f"# {name} {label or scheme} {row['shape']}: kernel {ms:.4f} ms "
-            f"({row['gbytes_per_s']:.0f} GB/s), {by} bound {least:.4f} ms, "
-            f"plain {plain_ms:.1f} ms, library {library_ms:.4f} ms")
+            f"device ({events_ms:.4f} back to back{was}; "
+            f"{row['gbytes_per_s']:.0f} GB/s), {by} bound {least:.4f} ms "
+            f"({100 * least / ms:.1f}%), plan {row['plan']} "
+            f"{row['copy']}, plain "
+            f"{plain_ms:.1f} ms, library {library_ms:.4f} ms "
+            f"(events {cuda_ms(torch, library_fn, reps):.4f})")
 
     def times(self, paper_n):
+        """Dot and sum at ``paper_n`` for every scheme, with the kahan /
+        naive ratio (the paper's metric); the batched wrappers at [8,
+        paper_n / 8]; the serving telemetry's launch."""
         torch = self.torch
         kd, ks = self.kd, self.ks
         f32 = torch.float32
         a = self.data((paper_n,), f32)
         b = self.data((paper_n,), f32)
-        for scheme in ("kahan", "naive"):
+        for scheme in SCHEMES:
             self.time_one(
                 "dot_accumulators", scheme, (a, b),
                 lambda s: [t[0] for t in kd.dot_plain(a[None], b[None],
@@ -438,6 +580,22 @@ class Kernels:
                 "sum_accumulators", scheme, (a,),
                 lambda s: [t[0] for t in ks.sum_plain(a[None], scheme=s)],
                 lambda: torch.sum(a))
+        # the chain floor depends on the clock: sample it under the sum
+        sch = self.schemes.get("kahan")
+        mhz, watts = clock_under_load(
+            torch, lambda: ks.sum_accumulators(a, scheme=sch))
+        self.reduce_clock = {"sm_mhz": mhz, "power_w": watts}
+        steps = paper_n // 8192
+        for name in ("dot_accumulators", "sum_accumulators"):
+            ms = {sch: self.timing[(name, sch)]["ms"] for sch in SCHEMES}
+            log(f"# {name} [{paper_n}] over naive: "
+                + ", ".join(f"{sch} {ms[sch] / ms['naive']:.3f}"
+                            for sch in SCHEMES)
+                + "; cycles a chain step at the sampled clock: "
+                + ", ".join(f"{sch} {ms[sch] * mhz * 1e3 / steps:.1f}"
+                            for sch in SCHEMES))
+        log(f"# reductions: SM clock {mhz:.0f} MHz, {watts:.1f} W under the "
+            f"kahan sum at [{paper_n}]")
         a2, b2 = a.view(8, -1), b.view(8, -1)
         self.time_one("dot_accumulators_batched", "kahan", (a2, b2),
                       lambda s: kd.dot_plain(a2, b2, scheme=s),
@@ -1229,14 +1387,20 @@ def main_path(torch, kernels: Kernels, cfg, paper_n):
             [req0])[req0.request_id]
         check(solo.tokens == out[req0.request_id].tokens,
               f"request 0: tokens differ solo vs interleaved ({what})")
-        check(solo.telemetry == out[req0.request_id].telemetry,
-              f"request 0: telemetry differs solo vs interleaved ({what})")
+        both = out[req0.request_id].telemetry
+        differ = [(i, x, y) for i, (x, y) in enumerate(zip(solo.telemetry,
+                                                          both)) if x != y]
+        check(solo.telemetry == both,
+              f"request 0: telemetry differs solo vs interleaved ({what}): "
+              f"(position, solo, interleaved) {differ[:4]}, "
+              f"{len(solo.telemetry)} and {len(both)} values")
         log(f"# phase 5 [{what}]: request 0 alone == interleaved, bitwise "
             f"({len(solo.tokens)} tokens and telemetry values)")
     return {"scan": scan, "flash": flash, "matmul": mm, "flash_long": long,
             "entry_prefill_ms": prefill_ms, "entry_logits_rel_l2": rel,
             "entry_matmul_ms": matmul_ms, "entry_matmul_err": up_err,
-            "b5_totals": kernels.matmul_totals}
+            "b5_totals": kernels.matmul_totals,
+            "reduce_clock": kernels.reduce_clock}
 
 
 def dense_enqueue_cost(torch, kernels, cfg, calls=200):

@@ -11,6 +11,7 @@ back: a missing ``nvcc``, a failed build or a refused launch raises.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -36,10 +37,14 @@ _P = ctypes.POINTER(ctypes.c_int)
 #: C entry points of each library, with their argument types.
 _SIGNATURES = {
     "kahan_reduce": {
-        # (scheme, dtype, a, b, s, c, batch, n, cells, stream)
-        "kahan_dot_launch": (_I, _I, _V, _V, _V, _V, _LL, _LL, _I, _V),
-        # (scheme, dtype, x, s, c, batch, n, cells, stream)
-        "kahan_sum_launch": (_I, _I, _V, _V, _V, _LL, _LL, _I, _V),
+        # (scheme, dtype, a, b, s, c, batch, n, cells, chains, depth,
+        #  stages, smem_bytes, copy, stream)
+        "kahan_dot_launch": (_I, _I, _V, _V, _V, _V, _LL, _LL, _I, _I, _I,
+                             _I, _LL, _I, _V),
+        # (scheme, dtype, x, s, c, batch, n, cells, chains, depth, stages,
+        #  smem_bytes, copy, stream)
+        "kahan_sum_launch": (_I, _I, _V, _V, _V, _LL, _LL, _I, _I, _I, _I,
+                             _LL, _I, _V),
     },
     "kahan_flash": {
         # (scheme, dtype, q, k, v, l_s, l_c, a_s, a_c, bh, q_groups, sq,
@@ -122,3 +127,9 @@ def check(err: int, what: str) -> None:
 
 def stream_ptr(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of the card ``device`` (a plan's input)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count

@@ -8,6 +8,8 @@ block per step; cell ``(r, l)`` folds element ``g*8U*128 + r*128 + l`` by
 ``scheme.mul_update`` at step ``g``. Here one CUDA launch serves both
 calls (``blockIdx.y`` is the batch row); the layout and the rounding
 sequence are the reference's, so the ``(s, c)`` grids are bitwise equal.
+How the launch is cut into CTAs and how deep its shared-memory load ring
+runs is planned here, on the host (``reduce_plan``), and changes no bit.
 
 Which path runs depends only on where the tensors lie: on the CPU the
 plain version (``dot_plain``), on a CUDA tensor the kernel. A scheme
@@ -18,7 +20,8 @@ back to the plain version on the card.
 
 from __future__ import annotations
 
-from typing import Tuple
+import functools
+from typing import Optional, Tuple
 
 import torch
 
@@ -28,6 +31,83 @@ from repro_torch.kernels.schemes import CompensationScheme
 Tensor = torch.Tensor
 LANES = 128
 SUBLANES = 8
+
+#: the kernel's CTA widths (chains, one consumer thread each), widest
+#: first; the steps a ring stage may hold, deepest first; the shared
+#: memory a plan gives the rings of one SM's resident CTAs, and a stage at
+#: most; a CTA's shared memory limit
+CTA_CHAINS = (128, 64, 32)
+STAGE_DEPTHS = (64, 32, 16, 8)
+RING_BYTES = 64 * 1024
+STAGE_BYTES = 16 * 1024
+SMEM_LIMIT = 232448
+
+Plan = Tuple[int, int, int, int]
+
+
+def reduce_smem_bytes(chains: int, depth: int, stages: int, itemsize: int,
+                      operands: int) -> int:
+    """Dynamic shared memory of one CTA of ``kahan_dot_grid`` (``operands``
+    2) or ``kahan_sum_grid`` (1), in bytes: ``stages`` stages of ``depth``
+    steps of ``chains`` lanes of each operand, then a full and an empty
+    mbarrier (8 bytes each) a stage."""
+    return stages * (operands * depth * chains * itemsize + 16)
+
+
+@functools.lru_cache(maxsize=None)
+def reduce_plan(batch: int, cells: int, steps: int, itemsize: int,
+                operands: int, sms: int = 132) -> Plan:
+    """``(chains, depth, stages, smem_bytes)`` of a launch on ``batch``
+    rows of ``steps`` steps of ``cells`` accumulator cells, ``operands``
+    streams (2 for the dot, 1 for the sum) of ``itemsize``-byte elements:
+
+    - chains a CTA: the widest of ``CTA_CHAINS`` that divides ``cells``
+      and puts the fewest chains on the busiest of ``sms`` SMs (all CTAs
+      resident): 64 at U = 8 for one row (128 CTAs), 32 at U = 1, 128 for
+      the batched shapes;
+    - the ring: ``RING_BYTES`` shared by the CTAs an SM holds, in stages
+      of at most ``STAGE_BYTES`` and half the CTA's ring, as deep as that
+      allows (16 KB: 32 steps of the dot at 64 float32 chains, 64 of the
+      sum) but no deeper than the steps round up to; at least 2 stages,
+      and no more than the steps fill.
+
+    The bits do not depend on the plan. Cached: the wrappers ask at every
+    launch."""
+    if batch < 1 or steps < 1 or operands not in (1, 2):
+        raise ValueError(f"reduce plan: batch={batch}, steps={steps}, "
+                         f"operands={operands}")
+    widths = [c for c in CTA_CHAINS if cells % c == 0]
+    if not widths:
+        raise ValueError(f"reduce plan: cells={cells} is not a multiple of "
+                         f"{CTA_CHAINS[-1]}")
+
+    def ctas_per_sm(chains: int) -> int:
+        return -(-(batch * cells // chains) // sms)
+
+    chains = min(widths, key=lambda c: (ctas_per_sm(c) * c, -c))
+    step_bytes = operands * chains * itemsize
+    ring = RING_BYTES // ctas_per_sm(chains)
+    stage = min(STAGE_BYTES, ring // 2)
+    shallowest = STAGE_DEPTHS[-1]
+    depth = next((d for d in STAGE_DEPTHS if d * step_bytes <= stage),
+                 shallowest)
+    depth = min(depth, max(shallowest, 1 << (steps - 1).bit_length()))
+    stages = min(max(2, ring // (depth * step_bytes)), -(-steps // depth))
+    return (chains, depth, stages,
+            reduce_smem_bytes(chains, depth, stages, itemsize, operands))
+
+
+#: how the kernel's producer warps fill the ring (the C entries' codes):
+#: one element a copy (operands off 16 bytes), or 16-byte cp.async
+COPY = {"element": 0, "cp.async": 1}
+
+
+def copy_path(*tensors: Tensor) -> str:
+    """The ring's copy path for these operands: 16-byte copies when every
+    one starts on 16 bytes, else one element a copy."""
+    return ("cp.async" if all(t.data_ptr() % 16 == 0 for t in tensors)
+            else "element")
+
 
 def dot_plain(a: Tensor, b: Tensor, *, scheme: CompensationScheme,
               unroll: int = 8) -> Tuple[Tensor, Tensor]:
@@ -47,7 +127,11 @@ def dot_plain(a: Tensor, b: Tensor, *, scheme: CompensationScheme,
 
 
 def _launch(a: Tensor, b: Tensor, scheme: CompensationScheme, unroll: int,
-            counter) -> Tuple[Tensor, Tensor]:
+            counter, plan: Optional[Plan] = None,
+            copy: Optional[str] = None) -> Tuple[Tensor, Tensor]:
+    """One wrapper call: the plain version on CPU tensors, else one counted
+    launch of the kernel under ``plan`` (``reduce_plan``'s unless given)
+    on the copy path ``copy`` (``copy_path``'s unless given)."""
     rows = SUBLANES * unroll
     cells = rows * LANES
     if a.dim() != 2 or a.shape != b.shape:
@@ -78,12 +162,18 @@ def _launch(a: Tensor, b: Tensor, scheme: CompensationScheme, unroll: int,
         raise ValueError(f"dot kernel: batch={batch} outside [1, 65535]")
     s = torch.empty((batch, rows, LANES), dtype=a.dtype, device=a.device)
     c = torch.empty_like(s)
+    if plan is None:
+        plan = reduce_plan(batch, cells, n // cells, a.element_size(), 2,
+                           sms=_build.sm_count(a.device))
+    if copy is None:
+        copy = copy_path(a, b)
     lib = _build.library("kahan_reduce")
     counter.launches += 1
+    counter.plan, counter.copy = plan, copy
     err = lib.kahan_dot_launch(
         scheme.device_id, _build.DTYPE_CODE[a.dtype], a.data_ptr(),
-        b.data_ptr(), s.data_ptr(), c.data_ptr(), batch, n, cells,
-        _build.stream_ptr(a.device))
+        b.data_ptr(), s.data_ptr(), c.data_ptr(), batch, n, cells, *plan,
+        COPY[copy], _build.stream_ptr(a.device))
     _build.check(err, "kahan_dot_grid")
     return s, c
 
@@ -107,6 +197,9 @@ def dot_accumulators_batched(a: Tensor, b: Tensor, *,
 
 
 #: kernel launches made by each wrapper (chip_smoke.py reads and resets
-#: them to show which path ran)
+#: them to show which path ran), and the plan and copy path of each one's
+#: last launch
 dot_accumulators.launches = 0
 dot_accumulators_batched.launches = 0
+dot_accumulators.plan = dot_accumulators_batched.plan = None
+dot_accumulators.copy = dot_accumulators_batched.copy = None

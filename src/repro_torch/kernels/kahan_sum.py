@@ -5,17 +5,25 @@ Counterpart of ``repro/kernels/kahan_sum.py``: the same accumulator
 layout as ``kahan_dot`` with one input stream, folded by
 ``scheme.update`` (no fused multiply-add anywhere). This is the kernel the
 serving engine's per-request telemetry launches on every decode tick.
-See ``kahan_dot`` for the paths and the layout.
+See ``kahan_dot`` for the paths, the layout and the plan
+(``reduce_plan`` with one operand).
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.kahan_dot import LANES, SUBLANES
+from repro_torch.kernels.kahan_dot import (
+    LANES,
+    SUBLANES,
+    COPY,
+    Plan,
+    copy_path,
+    reduce_plan,
+)
 from repro_torch.kernels.schemes import CompensationScheme
 
 Tensor = torch.Tensor
@@ -35,7 +43,9 @@ def sum_plain(x: Tensor, *, scheme: CompensationScheme,
 
 
 def _launch(x: Tensor, scheme: CompensationScheme, unroll: int, counter,
+            plan: Optional[Plan] = None, copy: Optional[str] = None,
             ) -> Tuple[Tensor, Tensor]:
+    """One wrapper call, as ``kahan_dot._launch`` with one operand."""
     rows = SUBLANES * unroll
     cells = rows * LANES
     if x.dim() != 2:
@@ -61,11 +71,17 @@ def _launch(x: Tensor, scheme: CompensationScheme, unroll: int, counter,
         raise ValueError(f"sum kernel: batch={batch} outside [1, 65535]")
     s = torch.empty((batch, rows, LANES), dtype=x.dtype, device=x.device)
     c = torch.empty_like(s)
+    if plan is None:
+        plan = reduce_plan(batch, cells, n // cells, x.element_size(), 1,
+                           sms=_build.sm_count(x.device))
+    if copy is None:
+        copy = copy_path(x)
     lib = _build.library("kahan_reduce")
     counter.launches += 1
+    counter.plan, counter.copy = plan, copy
     err = lib.kahan_sum_launch(
         scheme.device_id, _build.DTYPE_CODE[x.dtype], x.data_ptr(),
-        s.data_ptr(), c.data_ptr(), batch, n, cells,
+        s.data_ptr(), c.data_ptr(), batch, n, cells, *plan, COPY[copy],
         _build.stream_ptr(x.device))
     _build.check(err, "kahan_sum_grid")
     return s, c
@@ -88,6 +104,9 @@ def sum_accumulators_batched(x: Tensor, *, scheme: CompensationScheme,
     return _launch(x, scheme, unroll, sum_accumulators_batched)
 
 
-#: kernel launches made by each wrapper
+#: kernel launches made by each wrapper, and the plan and copy path of
+#: each one's last launch
 sum_accumulators.launches = 0
 sum_accumulators_batched.launches = 0
+sum_accumulators.plan = sum_accumulators_batched.plan = None
+sum_accumulators.copy = sum_accumulators_batched.copy = None

@@ -50,6 +50,132 @@ def test_cuda_kernels_match_plain(cuda_device, dtype):
             assert after["sum_accumulators"] == before["sum_accumulators"] + 1
 
 
+def _ring_n(batch, cells, dtype, device):
+    """A row length spanning two full load rings and a partial stage of
+    the sum kernel's plan for ``batch`` rows (the dot's ring is no
+    deeper)."""
+    from repro_torch.kernels import _build, kahan_dot
+
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    _, depth, stages, _ = kahan_dot.reduce_plan(
+        batch, cells, 1 << 30, itemsize, 1, _build.sm_count(device))
+    return (2 * stages * depth + 3) * cells
+
+
+def _off16(x):
+    """The values of ``x`` in a view one element into a larger buffer
+    (contiguous, not 16-byte aligned)."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    view = buf[1:].view(x.shape)
+    view.copy_(x)
+    return view
+
+
+#: (batch, unroll, row length or "ring", operands one element off 16 bytes)
+REDUCE_CASES = {
+    "ring-U1": (3, 1, "ring", False),
+    "ring-U8": (3, 8, "ring", False),
+    "batch1": (1, 8, "ring", False),
+    "batch8": (8, 8, "ring", False),
+    "serve": (4, 8, 57344, False),
+    "misaligned-U8": (3, 8, "ring", True),
+    "misaligned-U1": (3, 1, 5 * 1024, True),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(REDUCE_CASES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64,
+                                   torch.bfloat16])
+def test_cuda_reduce_ring_matches_plain(cuda_device, dtype, case):
+    """Tier 2 on the card, the load ring: for every built-in scheme the
+    dot and sum grids equal their plain versions bit for bit over rows
+    that span two full rings and a partial stage (U 1 and 8, batch 1, 3
+    and 8), at the serving shape [4, 57344] (7 steps), and on operands one
+    element off 16 bytes, which take the plain-load path; every batched
+    row equals a single launch of it."""
+    from repro_torch.kernels import kahan_dot, kahan_sum
+
+    batch, unroll, n, misaligned = REDUCE_CASES[case]
+    cells = 1024 * unroll
+    deep = n == "ring"
+    if deep:
+        n = _ring_n(batch, cells, dtype, cuda_device)
+    steps = n // cells
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    for scheme in SCHEMES:
+        sch = tschemes.get(scheme)
+        kw = dict(scheme=sch, unroll=unroll)
+        a, b = torch.randn((2, batch, n), generator=gen,
+                           device=cuda_device).to(dtype)
+        want_dot = kahan_dot.dot_plain(a, b, **kw)
+        want_sum = kahan_sum.sum_plain(a, **kw)
+        if misaligned:
+            a, b = _off16(a), _off16(b)
+        for fn, got, want in (
+                (kahan_dot.dot_accumulators_batched,
+                 kahan_dot.dot_accumulators_batched(a, b, **kw), want_dot),
+                (kahan_sum.sum_accumulators_batched,
+                 kahan_sum.sum_accumulators_batched(a, **kw), want_sum)):
+            assert all(torch.equal(g, w) for g, w in zip(got, want)), (
+                scheme, fn.__name__)
+            assert fn.copy == ("element" if misaligned else "cp.async")
+            _, depth, stages, _ = fn.plan
+            if deep:
+                assert steps > 2 * stages * depth and steps % depth
+            if case == "serve":
+                assert stages == 1 and steps < depth
+        for i in range(batch):
+            one = kahan_dot.dot_accumulators(a[i], b[i], **kw)
+            assert all(torch.equal(o, w[i]) for o, w in zip(one, want_dot))
+            one = kahan_sum.sum_accumulators(a[i], **kw)
+            assert all(torch.equal(o, w[i]) for o, w in zip(one, want_sum))
+            assert kahan_sum.sum_accumulators.copy == fn.copy
+
+
+@pytest.mark.cuda
+def test_cuda_reduce_refuses_a_wrong_plan(cuda_device):
+    """The C entries recompute a plan's shared memory and check it: a byte
+    count that disagrees, a CTA width, stage depth (4, 0, 128) or stage
+    count (0) the kernel does not have, a width that does not divide the
+    cells, an unknown copy path, or 16-byte copies from an operand off 16
+    bytes is refused (error 1, cudaErrorInvalidValue); element copies take
+    any operand."""
+    from repro_torch.kernels import _build, kahan_dot
+
+    cells, n = 8192, 4 * 8192
+    x = torch.zeros(n + 1, device=cuda_device)
+    out = [torch.empty(cells, device=cuda_device) for _ in range(2)]
+    lib = _build.library("kahan_reduce")
+    smem = kahan_dot.reduce_smem_bytes
+    copy = kahan_dot.COPY
+    good = kahan_dot.reduce_plan(1, cells, 4, 4, 1)
+
+    def launch(ptr, plan, path):
+        return lib.kahan_sum_launch(1, 0, ptr, out[0].data_ptr(),
+                                    out[1].data_ptr(), 1, n, cells, *plan,
+                                    path, _build.stream_ptr(cuda_device))
+
+    for plan in ((*good[:3], good[3] + 16),
+                 (48, 16, 1, smem(48, 16, 1, 4, 1)),
+                 (64, 4, 1, smem(64, 4, 1, 4, 1)), (64, 0, 1, 16),
+                 (64, 128, 1, smem(64, 128, 1, 4, 1)), (64, 16, 0, 0)):
+        assert launch(x.data_ptr(), plan, copy["cp.async"]) == 1, plan
+    assert launch(x.data_ptr(), good, len(copy)) == 1
+    assert launch(x[1:].data_ptr(), good, copy["cp.async"]) == 1
+    # a width that does not divide the cells: 64 chains of 1056
+    err = lib.kahan_dot_launch(1, 0, x.data_ptr(), x.data_ptr(),
+                               out[0].data_ptr(), out[1].data_ptr(), 1,
+                               1056 * 4, 1056, 64, 16, 1,
+                               smem(64, 16, 1, 4, 2), copy["cp.async"],
+                               _build.stream_ptr(cuda_device))
+    assert err == 1
+    for path, ptr in (("cp.async", x.data_ptr()), ("element", x.data_ptr()),
+                      ("element", x[1:].data_ptr())):
+        assert launch(ptr, good, copy[path]) == 0, path
+    torch.cuda.synchronize()
+
+
 @pytest.mark.cuda
 def test_runtime_scheme_on_card_raises(cuda_device):
     """A scheme registered at runtime has no device function: on a CUDA
