@@ -43,7 +43,10 @@ there is no CUDA device or no ``src/repro_torch`` beside it.
    32, 37, 64, 100, 300} x 1, 3, 4, 16 and 17 K-blocks x N 200, every
    scheme, float32 (bf16 and float32 operands) and float64, equal to
    ``matmul_plain`` bit for bit; B6 at batch 3 equal to a loop of B5; rows
-   0, 8, 31 and M - 1 of M in {9, 64, 300} equal M = 1 products.
+   0, 8, 31 and M - 1 of M in {9, 64, 300} equal M = 1 products. The
+   column scan of the compensated global norm (``kahan_sq_columns``)
+   against its plain loop, bit for bit, on float32 and bf16 leaves
+   (tall, one row, ragged rows and columns).
 3. Kernel times: each kernel at the shape its main path gives it (dot and
    sum at the paper's in-memory size n = 2^27 for every scheme, with each
    scheme's time over naive's, the paper's metric; batched dot and sum
@@ -66,7 +69,14 @@ there is no CUDA device or no ``src/repro_torch`` beside it.
    function (``library_ms``, a yardstick the port never calls:
    ``scaled_dot_product_attention`` in float32 with the same mask for the
    flash kernels, ``torch.matmul`` / ``bmm`` on the operands promoted to
-   float32, TF32 off, for the matmul kernels).
+   float32, TF32 off, for the matmul kernels). The training rows: B5 at
+   every shape and operand pair a train step gives it (forward and
+   recompute bf16 x bf16, dA = g @ W^T float32 x bf16, dB = a^T @ g bf16
+   x float32, 1024 tokens a microbatch; the engine copies and widens
+   none), with the B5 time a step they add up to; B3 at the largest
+   parameter leaf (2^28 float32); the column scan at the embedding's
+   [51200, 2048] gradient and a [16, 2048, 8192] one
+   (``torch.linalg.vecdot(x, x, dim=0)`` as its library call).
 4. The main path's paths, each with every launch count set to 0 just
    before it and read just after it. Serving OLMo-1B at its published
    width (random bf16 weights from a seeded generator, dense KV,
@@ -93,22 +103,46 @@ there is no CUDA device or no ``src/repro_torch`` beside it.
 5. Solo vs interleaved: request 0 replayed alone emits bitwise the same
    tokens and telemetry, under scan, under flash and with
    ``kahan_matmul``.
+6. Training: OLMo-1B at its published width and depth trained by the
+   port's ``Trainer`` (random bf16 weights from seed 0, the synthetic
+   Markov stream at seq 256 and global batch 8 in 2 microbatches, 4
+   steps, warmup 1, KahanAdamW at lr ``TRAIN_LR``), twice, each with the
+   launch counts reset just before it: run A (cuBLAS projections, the
+   compensated tree norm through the column scan) and run B
+   (``kahan_matmul``: every projection, its recompute and its backward
+   on B5; ``kahan_norm=False``: B3 once a leaf). Checked: every loss and
+   grad norm finite, the step-4 loss below the step-1 loss in both runs,
+   run B's step-1 loss and grad norm within ``STEP1_LOSS_RTOL`` and
+   ``STEP1_GRAD_NORM_RTOL`` of run A's, B5
+   launched 4 * 7 * 16 * 2 = 896 times a step and B3 once a parameter
+   leaf in run B, the column scan once a leaf in run A, nothing else;
+   the tree norm as the kernel and as the plain loop on a tree of the
+   gradients' shapes, every leaf's (s, c) bitwise equal; and at the
+   smoke config, a run that crashes after step 2 resumes to step 4 with
+   params and optimizer state bitwise equal to the uninterrupted run.
+   Logged per run: wall ms a step after the first, tokens/s, device-busy
+   ms of one more profiled step, peak memory, losses and grad norms, the
+   port's kernels' ms and launches a step.
 
 The last three lines are the card (``nvidia-smi`` name and power
 limit), one JSON object ``{"kernels": [...]}`` and
 ``{"ok": true, "device": {...}}``. The kernels line has one row per
 kernel and path it runs on (``"path"``: "entry", "serve" for the scan
 trace, "serve-flash" for the same trace under flash, "serve-matmul" for
-it with ``kahan_matmul`` too, "serve-long" for the long request): its
-``launches`` are that path's count and its times were taken at that
-path's shape (B5 on "serve-matmul": the decode q/k/v/o shape at M 1,
-the one launched most).
+it with ``kahan_matmul`` too, "serve-long" for the long request,
+"train-a" and "train-b" for the two training runs): its ``launches``
+are that path's count and its times were taken at that path's shape (B5
+on "serve-matmul": the decode q/k/v/o shape at M 1, the one launched
+most; on "train-b" the up projection's forward at 1024 tokens; B3 on
+"train-b" the largest leaf; the column scan on "train-a" the
+embedding's gradient).
 """
 
 from __future__ import annotations
 
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -131,6 +165,30 @@ LIBRARIES = ("kahan_reduce", "kahan_flash", "kahan_matmul")
 #: down), each one B5 launch per prefill chunk and per decode position
 PROJECTIONS = 7
 
+
+#: phase 6: OLMo-1B trained at the reference launcher's defaults (seq
+#: 256, global batch 8) in 2 microbatches, 4 steps, warmup 1
+TRAIN_STEPS = 4
+TRAIN_SEQ = 256
+TRAIN_BATCH = 8
+TRAIN_MICRO = 2
+#: the learning rate of both runs. With warmup 1 the first update runs
+#: at rate 0 (warmup_cosine(0, warmup=1) is 0) and the next three at the
+#: full rate, cosine-decayed; the launcher's 3e-4 there makes the second
+#: update, the first that moves, a step of about the rate on every weight
+#: (Adam's first ratios are near +-1), and the loss jumps: in the JAX
+#: reference too, which the port follows step for step at full width
+#: (tests/test_torch_train.py::test_full_width_at_lr_3e4_follows_the_reference).
+#: The launcher's own warmup of 20 steps runs steps 2-4 at 1.5e-5 to
+#: 4.5e-5; this rate is of that order
+TRAIN_LR = 1e-5
+#: run B's (kahan_matmul) step-1 loss and grad norm against run A's, same
+#: params and batch, relative: bf16 activations rounded from two float32
+#: products (cuBLAS's and B5's) of 16 layers, and two compensated norms
+#: (the tree norm and B3's fold). Measured on an H100 at 700 W: 1.29e-5
+#: and 7.2e-5; the grad norm is where B5's backward (dA, dB) shows
+STEP1_LOSS_RTOL = 1e-4
+STEP1_GRAD_NORM_RTOL = 5e-4
 
 #: the schemes with a device function, and the reduction wrappers
 SCHEMES = ("naive", "kahan", "pairwise", "dot2")
@@ -220,8 +278,13 @@ def main() -> int:
                         serve_max_len(LONG_TRACE))
     kernels.matmul_parity()
     kernels.matmul_times(cfg, PREFILL_LEN)
+    kernels.column_parity()
+    kernels.train_times(cfg, TRAIN_BATCH // TRAIN_MICRO * TRAIN_SEQ)
     serve_stats = main_path(torch, kernels, cfg, PAPER_N)
     log(json.dumps({"serve": serve_stats}))
+    train_stats = train_path(torch, kernels, cfg)
+    train_stats["b5_rows_per_step"] = kernels.train_b5
+    log(json.dumps({"train": train_stats}))
     log(card)
     log(json.dumps({"kernels": kernels.rows()}))
     log(json.dumps({"ok": True, "device": {
@@ -884,10 +947,13 @@ class Kernels:
               "matmul backward != B5 on (g, bT) and (aT, g)")
         return 1
 
-    def time_matmul(self, label, m, k, n, batch=None, reps=20):
+    def time_matmul(self, label, m, k, n, batch=None, reps=20,
+                    dtypes=None):
         """B5 (or B6 with ``batch``) at ``[M, K] x [K, N]`` with bf16
-        operands, as the projections give it (the engine pads nothing at
-        these widths): kernel, plain and library (``torch.matmul``
+        operands (or ``dtypes``: the backward's float32 gradient against
+        bf16 weights and activations), as the projections give it (the
+        engine pads, copies and widens nothing at these widths, which is
+        checked): kernel, plain and library (``torch.matmul``
         / ``bmm`` on the operands promoted to float32, TF32 off) times,
         and the parity check. The timed launches cycle through copies of
         the operands that together exceed the 50 MB L2 cache twice, as a
@@ -900,12 +966,16 @@ class Kernels:
                 else "matmul_accumulators_batched")
         wrapper = self.engine.WRAPPERS[name]
         eng = self.engine.CompensatedReduction(scheme="kahan")
-        a = self.normal((*lead, m, k)).bfloat16()
-        b = self.normal((*lead, k, n)).bfloat16()
+        a_dt, b_dt = dtypes or (torch.bfloat16, torch.bfloat16)
+        a = self.normal((*lead, m, k)).to(a_dt)
+        b = self.normal((*lead, k, n)).to(b_dt)
         blocks = eng._matmul_blocks(m, n, k, None, None, None)
         ap, bp = eng._prep_matmul(a, b, blocks)
         check(ap.shape == a.shape and bp.data_ptr() == b.data_ptr(),
               f"the engine padded or copied operands at {label}")
+        check(ap.data_ptr() == a.data_ptr() and ap.dtype == a_dt
+              and bp.dtype == b_dt,
+              f"the engine copied or widened operands at {label}")
         kw = dict(scheme=eng.scheme, block_m=blocks[0], block_n=blocks[1],
                   block_k=blocks[2], compute_dtype=torch.float32)
         got = wrapper(ap, bp, **kw)
@@ -938,6 +1008,7 @@ class Kernels:
         row = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
                "bound_ms": least, "bound_by": by,
                "shape": [*lead, m, k, n], "scheme": "kahan",
+               "operands": [str(a_dt)[6:], str(b_dt)[6:]],
                "block_k": blocks[2], "tflops": flops / ms / 1e9,
                "gbytes_per_s": n_bytes / ms / 1e6,
                "mul_add_ceiling_ms": ceiling,
@@ -986,6 +1057,116 @@ class Kernels:
             f"{t['chunk_library_ms']:.3f} ms; per 32-token chunk "
             f"{t['chunk32_ms']:.3f} ms")
 
+    def column_parity(self):
+        """The column-scan kernel (``kahan_columns``) against its plain
+        loop, bitwise, on float32 and bf16 leaves: tall, wide, one row,
+        rows off its 16-row batch, trailing sizes off its 128-thread
+        CTA."""
+        torch = self.torch
+        from repro_torch.core.kahan import column_sq_plain
+        from repro_torch.kernels import kahan_columns
+
+        cases = 0
+        for rows, trail in ((300, (37, 5)), (2, (65,)), (1, (7,)),
+                            (41, (1,)), (17, (129,)), (1000, (2048,))):
+            for dtype in (torch.float32, torch.bfloat16):
+                x = self.data((rows, *trail), dtype)
+                got = kahan_columns.column_sq_accumulators(x)
+                want = column_sq_plain(x.float())
+                self.compare("column_sq_accumulators", got, want,
+                             f"[{rows}, {trail}] {dtype}")
+                cases += 1
+        log(f"# phase 2: {cases} column-scan cases bitwise equal to the "
+            f"plain loop (float32 and bf16 leaves, ragged rows and columns)")
+
+    def train_times(self, cfg, tokens):
+        """Phase 3's training rows: B5 at every (shape, operand pair) a
+        train step of ``tokens`` tokens a microbatch gives it with
+        ``kahan_matmul`` (forward and recompute bf16 x bf16; dA = g @ W^T
+        float32 x bf16; dB = a^T @ g bf16 x float32), with the totals a
+        step predicts; B3 at the largest parameter leaf (2^28 float32
+        squares); the column scan at the embedding's [V_pad, d] gradient
+        and at a [16, d, d_ff] one."""
+        torch = self.torch
+        f32, bf16 = torch.float32, torch.bfloat16
+        d, f = cfg.d_model, cfg.d_ff
+        hd = cfg.n_heads * cfg.head_dim
+        t = tokens
+        # (label, M, K, N, operand dtypes, launches a layer and microbatch)
+        shapes = (
+            ("train-qkvo", t, d, hd, (bf16, bf16), 8),
+            ("train-up", t, d, f, (bf16, bf16), 4),
+            ("train-down", t, f, d, (bf16, bf16), 2),
+            ("train-dA-qkvo", t, hd, d, (f32, bf16), 4),
+            ("train-dA-up", t, f, d, (f32, bf16), 2),
+            ("train-dA-down", t, d, f, (f32, bf16), 1),
+            ("train-dB-qkvo", d, t, hd, (bf16, f32), 4),
+            ("train-dB-up", d, t, f, (bf16, f32), 2),
+            ("train-dB-down", f, t, d, (bf16, f32), 1))
+        for label, m, k, n, dts, _ in shapes:
+            self.time_matmul(label, m, k, n, reps=3, dtypes=dts)
+        per = cfg.n_layers * TRAIN_MICRO
+        keys = ("ms", "bound_ms", "library_ms", "mul_add_ceiling_ms")
+        self.train_b5 = {
+            key: per * sum(self.timing[("matmul_accumulators", lab)][key] * c
+                           for lab, *_, c in shapes)
+            for key in keys}
+        self.train_b5["launches"] = per * sum(c for *_, c in shapes)
+        t5 = self.train_b5
+        log(f"# B5 per train step ({t5['launches']} launches at {tokens} "
+            f"tokens a microbatch, from the rows above): {t5['ms']:.1f} ms, "
+            f"operations bound {t5['bound_ms']:.1f} ms, mul+add ceiling "
+            f"{t5['mul_add_ceiling_ms']:.1f} ms, f32 matmul "
+            f"{t5['library_ms']:.1f} ms")
+        x = self.data((1 << 28,), f32)
+        self.time_one("sum_accumulators", "kahan", (x,),
+                      lambda s: [v[0] for v in self.ks.sum_plain(
+                          x[None], scheme=s)],
+                      lambda: torch.sum(x), reps=5, label="train")
+        del x
+        self.time_columns("train", (cfg.padded_vocab, d), plain=False)
+        self.time_columns("train-wide", (cfg.n_layers, d, f))
+
+    def time_columns(self, label, shape, plain=True):
+        """The column scan on a float32 ``shape`` leaf: kernel (graph-
+        timed), its plain loop (host clock, once) bitwise equal, and
+        ``torch.linalg.vecdot(x, x, dim=0)`` as the library call. Without
+        ``plain`` the loop is left to phase 6, which runs it on the same
+        shape (the embedding's gradient) and fills in its time."""
+        torch = self.torch
+        from repro_torch.core.kahan import column_sq_plain
+        from repro_torch.kernels import kahan_columns
+
+        wrapper = kahan_columns.column_sq_accumulators
+        x = self.data(shape, torch.float32)
+        plain_ms = None
+        if plain:
+            got = wrapper(x)
+            sync(torch, self.dev)
+            t0 = time.perf_counter()
+            want = column_sq_plain(x)
+            sync(torch, self.dev)
+            plain_ms = (time.perf_counter() - t0) * 1e3
+            self.compare("column_sq_accumulators", got, want,
+                         f"{label} {shape}")
+            del got, want
+        ms = graph_ms(torch, lambda: wrapper(x), 5, 3)
+        library_ms = graph_ms(torch, lambda: torch.linalg.vecdot(x, x, dim=0),
+                              5, 3)
+        cols = x.numel() // shape[0]
+        n_bytes = x.numel() * 4 + 2 * cols * 4
+        least, by = bound_ms(n_bytes, 5 * x.numel())
+        row = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+               "bound_ms": least, "bound_by": by, "shape": list(shape),
+               "gbytes_per_s": n_bytes / ms / 1e6}
+        self.timing[("column_sq_accumulators", label)] = row
+        loop = (f"plain loop {plain_ms:.1f} ms (bitwise equal)" if plain
+                else "plain loop in phase 6")
+        log(f"# column_sq_accumulators {label} {list(shape)}: kernel "
+            f"{ms:.4f} ms ({row['gbytes_per_s']:.0f} GB/s), {by} bound "
+            f"{least:.4f} ms, {loop}, library (vecdot) {library_ms:.4f} ms")
+        del x
+
     def rows(self):
         """One JSON row per wrapper and path that launches it, with that
         path's launch count, timed at that path's shape."""
@@ -1002,6 +1183,8 @@ class Kernels:
             "matmul_accumulators": "src/repro/kernels/kahan_matmul.py:101",
             "matmul_accumulators_batched":
                 "src/repro/kernels/kahan_matmul.py:153",
+            # no pallas_call: the lax.scan of tree_kahan_sq_norm
+            "column_sq_accumulators": "src/repro/core/kahan.py:403",
         }
         # every (kernel, path) pair that launched, timed at that path's
         # shape: the reductions at the phase-3 sizes, B4 on every serving
@@ -1012,7 +1195,10 @@ class Kernels:
         special = {("flash_chunk_accumulators", "serve-long"): "serve-long",
                    ("matmul_accumulators", "entry"): "prefill-up",
                    ("matmul_accumulators", "serve-matmul"): "decode-qkvo",
-                   ("matmul_accumulators_batched", "entry"): "batched"}
+                   ("matmul_accumulators_batched", "entry"): "batched",
+                   ("matmul_accumulators", "train-b"): "train-up",
+                   ("sum_accumulators", "train-b"): "train",
+                   ("column_sq_accumulators", "train-a"): "train"}
         rows = []
         for path, counts in self.launches.items():
             for name in replaces:
@@ -1403,6 +1589,294 @@ def main_path(torch, kernels: Kernels, cfg, paper_n):
             "reduce_clock": kernels.reduce_clock}
 
 
+def train_path(torch, kernels, cfg):
+    """Phase 6: OLMo-1B trained by the port's ``Trainer`` at full width
+    and depth, run A (cuBLAS projections, KahanAdamW with the compensated
+    tree norm: the column-scan kernel) and run B (``kahan_matmul``: every
+    projection, its recompute and its backward on B5; the engine-folded
+    norm: B3 once a leaf), each with the launch counts reset just before
+    it; then the norm as a loop and as a kernel, and a crash-restart at
+    the smoke config."""
+    from repro_torch.optim import AdamWConfig
+
+    dev = kernels.dev
+    a = train_run(torch, kernels, cfg, AdamWConfig(lr=TRAIN_LR), "A")
+    b = train_run(torch, kernels, cfg.replace(kahan_matmul=True),
+                  AdamWConfig(lr=TRAIN_LR, kahan_norm=False), "B")
+    leaves, tall = a.pop("leaves"), a.pop("tall_leaves")
+    b.pop("leaves"), b.pop("tall_leaves")
+    for run in (a, b):
+        losses = run["loss"]
+        check(all(math.isfinite(x) for x in losses + run["grad_norm"]),
+              f"run {run['name']}: a loss or grad norm is not finite")
+        check(losses[-1] < losses[0],
+              f"run {run['name']}: the step-{TRAIN_STEPS} loss "
+              f"{losses[-1]:.4f} is not below the step-1 loss "
+              f"{losses[0]:.4f}")
+    rel = abs(b["loss"][0] - a["loss"][0]) / a["loss"][0]
+    check(rel < STEP1_LOSS_RTOL,
+          f"run B's step-1 loss {b['loss'][0]:.6f} differs from run A's "
+          f"{a['loss'][0]:.6f} by {rel:.2e} (relative)")
+    rel_g = abs(b["grad_norm"][0] - a["grad_norm"][0]) / a["grad_norm"][0]
+    check(rel_g < STEP1_GRAD_NORM_RTOL,
+          f"run B's step-1 grad norm {b['grad_norm'][0]:.6f} differs from "
+          f"run A's {a['grad_norm'][0]:.6f} by {rel_g:.2e} (relative)")
+    b5 = 4 * PROJECTIONS * cfg.n_layers * TRAIN_MICRO
+    ca, cb = a["launches"], b["launches"]
+    check(cb["matmul_accumulators"] == TRAIN_STEPS * b5,
+          f"run B launched B5 {cb['matmul_accumulators']} times in "
+          f"{TRAIN_STEPS} steps, not {TRAIN_STEPS} x {b5}")
+    check(cb["sum_accumulators"] == TRAIN_STEPS * leaves,
+          f"run B launched B3 {cb['sum_accumulators']} times in "
+          f"{TRAIN_STEPS} steps, not {TRAIN_STEPS} x {leaves} leaves")
+    check(ca["column_sq_accumulators"] == TRAIN_STEPS * tall,
+          f"run A launched the column scan {ca['column_sq_accumulators']} "
+          f"times in {TRAIN_STEPS} steps, not {TRAIN_STEPS} x {tall}")
+    for run, allowed in ((a, {"column_sq_accumulators"}),
+                         (b, {"matmul_accumulators", "sum_accumulators"})):
+        for name, n in run["launches"].items():
+            check(n == 0 or name in allowed,
+                  f"run {run['name']}: {name} launched {n} times")
+    log(f"# phase 6: run B's step-1 loss within {rel:.2e} of run A's "
+        f"(limit {STEP1_LOSS_RTOL}), its grad norm within {rel_g:.2e} "
+        f"(limit {STEP1_GRAD_NORM_RTOL}); B5 {b5} and B3 {leaves} launches a "
+        f"step, the column scan {tall}; losses fall in both runs")
+    kernels.launches["train-a"] = ca
+    kernels.launches["train-b"] = cb
+    resume = resume_check(torch, dev)
+    return {"A": a, "B": b, "step1_loss_rel": rel,
+            "step1_grad_norm_rel": rel_g, "resume": resume,
+            "b5_launches_per_step": b5, "b3_launches_per_step": leaves}
+
+
+def train_run(torch, kernels, cfg, opt, name):
+    """One training run of ``TRAIN_STEPS`` steps through ``Trainer.run``,
+    launch counts reset just before and read just after; its
+    ``failure_hook`` synchronises and marks each step's start. Then one
+    more step under the profiler (device-busy time, kernel time by name)
+    and, for run A, the norm as a loop and as a kernel."""
+    import gc
+
+    from repro_torch.core import tree as T
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.kernels.engine import launch_counts, reset_launch_counts
+    from repro_torch.optim import apply_update
+    from repro_torch.train import TrainConfig, Trainer
+    from repro_torch.train.trainer import batch_to_device
+
+    dev = kernels.dev
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    tc = TrainConfig(steps=TRAIN_STEPS, microbatches=TRAIN_MICRO, warmup=1,
+                     log_every=1, ckpt_every=10 ** 9, opt=opt)
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
+                                  seq_len=TRAIN_SEQ,
+                                  global_batch=TRAIN_BATCH))
+    marks = []
+
+    def mark(step):
+        sync(torch, dev)
+        marks.append(time.perf_counter())
+
+    trainer = Trainer(cfg, tc, data, failure_hook=mark, seed=0, device=dev)
+    sync(torch, dev)
+    reset_launch_counts()
+    trainer.run()
+    sync(torch, dev)
+    marks.append(time.perf_counter())
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    total = torch.cuda.get_device_properties(dev).total_memory
+    step_ms = [(y - x) * 1e3 for x, y in zip(marks, marks[1:])]
+    hist = trainer.metrics_history
+    t0 = time.perf_counter()
+    batch = batch_to_device(data.batch_at(TRAIN_STEPS), dev)
+    data_ms = (time.perf_counter() - t0) * 1e3
+    prof = profile_once(torch, dev, lambda: trainer.step_fn(
+        trainer.params, trainer.opt_state, batch))
+    # the optimizer step alone, on a tree of the gradients' shapes (the
+    # first moments' copy)
+    grads = T.tree_map(torch.clone, trainer.opt_state.m)
+    opt_prof = profile_once(torch, dev, lambda: apply_update(
+        opt, trainer.params, grads, trainer.opt_state))
+    del grads
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    steady = step_ms[1:]
+    wall = sum(steady) / len(steady)
+    leaves = T.leaves(trainer.params)
+    out = {"name": name, "kahan_matmul": cfg.kahan_matmul,
+           "kahan_norm": opt.kahan_norm,
+           "loss": [m["loss"] for m in hist],
+           "grad_norm": [m["grad_norm"] for m in hist],
+           "step_ms": step_ms, "wall_ms_per_step": wall,
+           "tokens_per_s": tokens / wall * 1e3,
+           "batch_host_ms": data_ms,
+           "device_busy_ms_per_step": prof["busy_ms"],
+           "device_busy_share": prof["busy_ms"] / wall,
+           "profiled_step_ms": prof["host_ms"],
+           "kernel_ms_per_step": prof["by_kernel"],
+           "top_kernels_ms": prof["top"],
+           "optimizer_ms": opt_prof["host_ms"],
+           "optimizer_device_ms": opt_prof["busy_ms"],
+           "optimizer_top_kernels_ms": opt_prof["top"],
+           "peak_bytes": peak, "peak_share": peak / total,
+           "launches": counts,
+           "leaves": len(leaves),
+           "tall_leaves": sum(x.dim() >= 2 and x.shape[0] > 1
+                              for x in leaves)}
+    log(f"# phase 6 run {name} (kahan_matmul={cfg.kahan_matmul}, "
+        f"kahan_norm={opt.kahan_norm}): {wall:.1f} ms a step after the "
+        f"first ({step_ms[0]:.1f} the first; batch made on the host in "
+        f"{data_ms:.1f} ms), {out['tokens_per_s']:.0f} tokens/s, device "
+        f"busy {prof['busy_ms']:.1f} ms a step ({100 * out['device_busy_share']:.1f}%), "
+        f"peak {peak / 2 ** 30:.2f} GiB ({100 * peak / total:.1f}% of the "
+        f"card); loss {[round(x, 4) for x in out['loss']]}, grad norm "
+        f"{[round(x, 4) for x in out['grad_norm']]}")
+    log(f"# phase 6 run {name}: kernels in the profiled step "
+        f"{prof['by_kernel']}; top {prof['top']}; the optimizer step alone "
+        f"{opt_prof['host_ms']:.1f} ms, {opt_prof['busy_ms']:.1f} ms of it "
+        f"on the device, top {opt_prof['top']}")
+    if name == "A":
+        out["norm"] = norm_loop_vs_kernel(torch, kernels, trainer.opt_state.m)
+    del trainer, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+#: kernel names of the port's wrappers in a profiler trace
+PORT_KERNELS = {"kahan_matmul": "B5", "kahan_sum_grid": "B3",
+                "kahan_sq_columns": "column scan"}
+
+
+def device_events(torch, dev, fn):
+    """One call of ``fn`` under ``torch.profiler``: its host ms and the
+    device kernels it ran, ``[(ms, name, count)]`` (none on the CPU)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if dev.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    sync(torch, dev)
+    with profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        fn()
+        sync(torch, dev)
+        host_ms = (time.perf_counter() - t0) * 1e3
+    return host_ms, [(e.self_device_time_total / 1e3, e.key, e.count)
+                     for e in prof.key_averages()
+                     if e.device_type == DeviceType.CUDA]
+
+
+def profile_once(torch, dev, fn):
+    """One call of ``fn`` under ``torch.profiler``: host ms, device-busy
+    ms (the sum of device kernel times) and the port's kernels' ms and
+    counts by name."""
+    host_ms, events = device_events(torch, dev, fn)
+    by_kernel = {}
+    for ms, key, n in events:
+        for part, label in PORT_KERNELS.items():
+            if part in key:
+                got = by_kernel.setdefault(label, [0.0, 0])
+                got[0] += ms
+                got[1] += n
+    top = [[key[:60], ms, n] for ms, key, n in sorted(events,
+                                                       reverse=True)[:6]]
+    return {"host_ms": host_ms, "busy_ms": sum(e[0] for e in events),
+            "by_kernel": by_kernel, "top": top}
+
+
+def norm_loop_vs_kernel(torch, kernels, tree):
+    """The compensated tree norm of a float32 tree of the gradients'
+    shapes (run A's first moments) as the kernel runs it
+    (``tree_kahan_sq_norm``: one column-scan launch a leaf) and as the
+    plain loop over each leaf's rows; the (s, c) vectors bitwise equal.
+    Fills in the plain time of the [V_pad, d] column row (phase 3)."""
+    from repro_torch.core import tree as T
+    from repro_torch.core.kahan import column_sq_plain, tree_kahan_sq_norm
+    from repro_torch.kernels.kahan_columns import column_sq_accumulators
+
+    dev = kernels.dev
+    tree_kahan_sq_norm(tree)
+    sync(torch, dev)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    norm = tree_kahan_sq_norm(tree)
+    end.record()
+    sync(torch, dev)
+    kernel_ms = start.elapsed_time(end)
+    loop_ms = 0.0
+    for leaf in T.leaves(tree):
+        if not (leaf.dim() >= 2 and leaf.shape[0] > 1):
+            continue
+        want = column_sq_accumulators(leaf)
+        sync(torch, dev)
+        t0 = time.perf_counter()
+        got = column_sq_plain(leaf)
+        sync(torch, dev)
+        ms = (time.perf_counter() - t0) * 1e3
+        loop_ms += ms
+        kernels.compare("column_sq_accumulators", want, got,
+                        f"run A's {list(leaf.shape)} leaf")
+        if tuple(leaf.shape) == tuple(kernels.timing[
+                ("column_sq_accumulators", "train")]["shape"]):
+            kernels.timing[("column_sq_accumulators", "train")][
+                "plain_ms"] = ms
+    log(f"# phase 6: the compensated tree norm ({float(norm):.6e}) "
+        f"{kernel_ms:.3f} ms a step through the column-scan kernel, "
+        f"{loop_ms:.1f} ms as the plain loop over the rows; every leaf's "
+        f"(s, c) bitwise equal")
+    return {"kernel_ms": kernel_ms, "loop_ms": loop_ms}
+
+
+def resume_check(torch, dev):
+    """At the smoke config on the card: a run that crashes after step 2
+    (``FailureInjector``) and resumes from its checkpoint under
+    ``run_with_restarts`` reaches step 4 with params and optimizer state
+    bitwise equal to the uninterrupted run's (``kahan_matmul`` on, so B5
+    and the one-hot embedding backward are in the step)."""
+    import tempfile
+
+    from repro_torch.configs import get_smoke
+    from repro_torch.core import tree as T
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.ft import FailureInjector, run_with_restarts
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import TrainConfig, Trainer
+
+    cfg = get_smoke("olmo-1b").replace(kahan_matmul=True)
+
+    def make(ckpt_dir, hook=None):
+        tc = TrainConfig(steps=4, microbatches=2, warmup=1, log_every=1,
+                         ckpt_every=2, ckpt_dir=ckpt_dir,
+                         opt=AdamWConfig(lr=1e-3))
+        data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=64,
+                                      global_batch=8))
+        return Trainer(cfg, tc, data, failure_hook=hook, seed=0, device=dev)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ref = make(os.path.join(tmp, "ref"))
+        ref.run()
+        injector = FailureInjector(fail_at=[2])
+        resumed, restarts = run_with_restarts(
+            lambda: make(os.path.join(tmp, "ft"), injector), max_restarts=2)
+    check(restarts == 1 and resumed.step == 4,
+          f"crash-restart: {restarts} restarts, step {resumed.step}")
+    pairs = list(zip(T.leaves((ref.params, ref.opt_state)),
+                     T.leaves((resumed.params, resumed.opt_state))))
+    same = sum(torch.equal(x, y) for x, y in pairs)
+    check(same == len(pairs),
+          f"crash-restart: {len(pairs) - same} of {len(pairs)} param / "
+          f"optimizer leaves differ from the uninterrupted run")
+    log(f"# phase 6: a smoke-config run crashed after step 2 resumed to step "
+        f"4 with all {len(pairs)} param and optimizer leaves bitwise equal "
+        f"to the uninterrupted run's")
+    return {"leaves": len(pairs), "restarts": restarts}
+
+
 def dense_enqueue_cost(torch, kernels, cfg, calls=200):
     """Host microseconds to enqueue one decode q projection (``dense`` on
     [1, 1, d] bf16 against [d, H, dh] bf16), plain (cuBLAS) and
@@ -1465,9 +1939,6 @@ def profile_step(torch, dev, step, what, reps=5):
     of ``reps`` unprofiled calls after one warm-up; device-busy time sums
     the device kernels ``torch.profiler`` records in one more call (None
     when it records no device time)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     step(0)                                             # warm-up
     sync(torch, dev)
     t0 = time.perf_counter()
@@ -1475,15 +1946,7 @@ def profile_step(torch, dev, step, what, reps=5):
         step(i)
     sync(torch, dev)
     host_ms = (time.perf_counter() - t0) * 1e3 / reps
-    activities = [ProfilerActivity.CPU]
-    if dev.type == "cuda":
-        activities.append(ProfilerActivity.CUDA)
-    with profile(activities=activities) as prof:
-        step(reps + 1)
-        sync(torch, dev)
-    kernels = [(e.self_device_time_total / 1e3, e.key, e.count)
-               for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
+    _, kernels = device_events(torch, dev, lambda: step(reps + 1))
     busy_ms = sum(k[0] for k in kernels)
     top = sorted(kernels, reverse=True)[:6]
     out = {"host_ms": host_ms,

@@ -1,4 +1,5 @@
-// Compensated dot and sum on Hopper: the paper's two kernel bodies.
+// Compensated dot and sum on Hopper: the paper's two kernel bodies, and
+// the column scan of the compensated global norm (at the end of the file).
 //
 // Replaces the four Pallas calls of the JAX package:
 //   kahan_dot_grid  <- repro/kernels/kahan_dot.py  dot_accumulators (:89)
@@ -482,6 +483,90 @@ int sum_dispatch(int scheme, const void* x, void* s, void* c, const Ring& r,
   }
 }
 
+// ---------------------------------------------------------------------------
+// The column scan: tree_kahan_sq_norm's per-leaf lax.scan
+// ---------------------------------------------------------------------------
+//
+// Carries repro/core/kahan.py:398-404 (tree_kahan_sq_norm), a lax.scan and
+// no Pallas kernel: a leaf x [rows, cols...] (float32, or bfloat16 widened
+// on load, as the reference casts every leaf to float32 first) folds its
+// rows in ascending order into one Kahan chain per trailing element:
+//     y = fma(v, v, c); t = s + y; c = y - (t - s); s = t
+// with v the element of the row. The fma is the one site where XLA on the
+// CPU contracts the reference's body (row * row + c; checked against the
+// compiled scan, as for the dot); everything else is a separate rounded
+// op (-fmad=false). One thread a column, so the (s, c) vectors equal the
+// plain loop's (core/kahan.py::column_sq_plain) bit for bit; the scalar
+// sums of the two vectors stay in torch.
+//
+// What bounds it on the H100: bytes for the wide leaves (16 rows of 2^24
+// columns: one read of 1 GiB), the chain for the tall one (the [51200,
+// 2048] embedding's gradient: 2048 chains of 51200 dependent steps, 4
+// float32 ops each, about 16-20 cycles a step, 0.4-0.5 ms at 1.98 GHz, on
+// 16 SMs). So a thread keeps the next kColBatch rows of its column in
+// registers while it folds the current ones, and neighbouring threads
+// read neighbouring columns. A batch's fold (64 steps, about 1200
+// cycles) outlasts a load's latency; with 16 rows a batch the loads did
+// not hide and the tall leaf took 2.17 ms (84 cycles a step) on an H100.
+
+constexpr int kColThreads = 128;
+constexpr int kColBatch = 64;
+
+__device__ __forceinline__ float widen(float x) { return x; }
+__device__ __forceinline__ float widen(Bf16 x) { return x.f(); }
+
+__device__ __forceinline__ void column_step(float v, float& s, float& c) {
+  const float y = __fmaf_rn(v, v, c);
+  const float t = s + y;
+  c = y - (t - s);
+  s = t;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kColThreads)
+kahan_sq_columns(const T* __restrict__ x, float* __restrict__ s_out,
+                 float* __restrict__ c_out, long long rows, long long cols) {
+  const long long j = (long long)blockIdx.x * kColThreads + threadIdx.x;
+  if (j >= cols) return;
+  const T* __restrict__ p = x + j;
+  float s = 0.0f, c = 0.0f;
+  const long long full = rows / kColBatch * kColBatch;
+  float cur[kColBatch], nxt[kColBatch];
+  if (full > 0) {
+#pragma unroll
+    for (int u = 0; u < kColBatch; ++u) cur[u] = widen(p[u * cols]);
+  }
+  for (long long r = 0; r < full; r += kColBatch) {
+    const bool more = r + kColBatch < full;
+    if (more) {
+#pragma unroll
+      for (int u = 0; u < kColBatch; ++u)
+        nxt[u] = widen(p[(r + kColBatch + u) * cols]);
+    }
+#pragma unroll
+    for (int u = 0; u < kColBatch; ++u) column_step(cur[u], s, c);
+    if (more) {
+#pragma unroll
+      for (int u = 0; u < kColBatch; ++u) cur[u] = nxt[u];
+    }
+  }
+  for (long long r = full; r < rows; ++r) column_step(widen(p[r * cols]), s, c);
+  s_out[j] = s;
+  c_out[j] = c;
+}
+
+template <typename T>
+int sq_columns_one(const void* x, void* s, void* c, long long rows,
+                   long long cols, cudaStream_t st) {
+  const long long blocks = (cols + kColThreads - 1) / kColThreads;
+  if (rows < 1 || cols < 1 || blocks > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  kahan_sq_columns<T><<<(unsigned)blocks, kColThreads, 0, st>>>(
+      static_cast<const T*>(x), static_cast<float*>(s),
+      static_cast<float*>(c), rows, cols);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // C entry points. dtype: 0 = float32, 1 = float64, 2 = bfloat16. The plan
@@ -514,5 +599,17 @@ extern "C" int kahan_sum_launch(int scheme, int dtype, const void* x, void* s,
   if (dtype == 0) return sum_dispatch<float>(scheme, x, s, c, r, batch, smem, st);
   if (dtype == 1) return sum_dispatch<double>(scheme, x, s, c, r, batch, smem, st);
   if (dtype == 2) return sum_dispatch<Bf16>(scheme, x, s, c, r, batch, smem, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The column scan: x [rows, cols] contiguous (dtype 0 = float32, 2 =
+// bfloat16), s and c [cols] float32. Returns cudaGetLastError() after the
+// launch (0 = launched); another dtype or an empty leaf is refused.
+extern "C" int kahan_sq_columns_launch(int dtype, const void* x, void* s,
+                                       void* c, long long rows,
+                                       long long cols, void* stream) {
+  auto st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return sq_columns_one<float>(x, s, c, rows, cols, st);
+  if (dtype == 2) return sq_columns_one<Bf16>(x, s, c, rows, cols, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -45,6 +45,8 @@ _SIGNATURES = {
         #  smem_bytes, copy, stream)
         "kahan_sum_launch": (_I, _I, _V, _V, _V, _LL, _LL, _I, _I, _I, _I,
                              _LL, _I, _V),
+        # (dtype, x, s, c, rows, cols, stream)
+        "kahan_sq_columns_launch": (_I, _V, _V, _V, _LL, _LL, _V),
     },
     "kahan_flash": {
         # (scheme, dtype, q, k, v, l_s, l_c, a_s, a_c, bh, q_groups, sq,

@@ -41,6 +41,7 @@ import torch.nn.functional as F
 
 from repro_torch.core import kahan as K
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import kahan_columns as _kc
 from repro_torch.kernels import kahan_dot as _kd
 from repro_torch.kernels import kahan_matmul as _km
 from repro_torch.kernels import kahan_sum as _ks
@@ -63,6 +64,7 @@ WRAPPERS = {
     "flash_chunk_accumulators": _fa.flash_chunk_accumulators,
     "matmul_accumulators": _km.matmul_accumulators,
     "matmul_accumulators_batched": _km.matmul_accumulators_batched,
+    "column_sq_accumulators": _kc.column_sq_accumulators,
 }
 
 
@@ -473,12 +475,18 @@ class _CompensatedMatmul(torch.autograd.Function):
     def backward(ctx, g: Tensor):
         a, b = ctx.saved_tensors
         eng, (bm, bn, bk) = ctx.eng, ctx.blocks
+        # the kernel reads row-major operands: the transposes are
+        # materialized here, in the operands' own dtypes, as XLA
+        # materializes them for the reference's kernel; nothing else is
+        # copied or widened on the way (a float32 g against bf16 weights
+        # is one of the kernel's operand pairs)
+        g = g.contiguous()
         da = db = None
         if ctx.needs_input_grad[0]:
-            da = eng.matmul(g, b.T, block_m=bm, block_n=bn,
+            da = eng.matmul(g, b.T.contiguous(), block_m=bm, block_n=bn,
                             block_k=bk).to(a.dtype)
         if ctx.needs_input_grad[1]:
-            db = eng.matmul(a.T, g, block_m=bm, block_n=bn,
+            db = eng.matmul(a.T.contiguous(), g, block_m=bm, block_n=bn,
                             block_k=bk).to(b.dtype)
         return da, db, None, None
 

@@ -1,6 +1,7 @@
 """Shared model-assembly pieces of the port (counterpart of
 ``repro/models/common.py``): chunked scan prefill, the decode and
-parallel-chunk logits and the embedding/head initialisation.
+parallel-chunk logits, the compensated chunked cross-entropy of training
+and the embedding/head initialisation.
 """
 
 from __future__ import annotations
@@ -9,7 +10,10 @@ from typing import Any, Callable, Dict, Tuple
 
 import torch
 
+from torch.utils.checkpoint import checkpoint
+
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core.kahan import kahan_step
 from repro_torch.models.layers import dtype_of
 
 Params = Dict[str, Any]
@@ -43,6 +47,54 @@ def prefill_chunk_scan(step_fn: Callable, tokens: Tensor, cache: Any,
     for i in range(nvalid):
         logits = step_fn(cache, tokens[:, i], offset + i)
     return logits, cache
+
+
+# ---------------------------------------------------------------------------
+# Compensated chunked cross-entropy
+# ---------------------------------------------------------------------------
+
+def chunked_ce_loss(x: Tensor, head_w: Tensor, labels: Tensor, mask: Tensor,
+                    cfg: ArchConfig) -> Tuple[Tensor, Tensor]:
+    """Cross-entropy chunked over the sequence
+    (``repro/models/common.py:242-305``): x [B,S,D] final hidden states,
+    head_w [D, V_pad], labels [B,S] int, mask [B,S] {0,1}. Returns
+    float32 (sum_loss, sum_count); the caller divides.
+
+    Each chunk's float32 logits [B, chunk, V_pad] exist only inside a
+    ``torch.utils.checkpoint`` region, recomputed in the backward pass
+    (the reference's ``jax.checkpoint``). The logits are the product of
+    the compute-dtype operands summed in float32 (the reference's
+    ``preferred_element_type``), padded vocabulary rows at -1e30. Chunk
+    partial losses fold by ``kahan_step`` when ``cfg.kahan_loss``."""
+    b, s, d = x.shape
+    chunk = min(cfg.loss_chunk, s)
+    pad = (-s) % chunk
+    if pad:
+        x = torch.nn.functional.pad(x, (0, 0, 0, pad))
+        labels = torch.nn.functional.pad(labels, (0, pad))
+        mask = torch.nn.functional.pad(mask, (0, pad))
+    bias = vocab_bias(cfg, x.device)
+
+    def chunk_loss(xc, lc, mc):
+        logits = torch.matmul(xc.float(), head_w.to(xc.dtype).float()) + bias
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, lc[..., None].long())[..., 0]
+        mcf = mc.float()
+        return torch.sum((lse - gold) * mcf), torch.sum(mcf)
+
+    s_acc = torch.zeros((), dtype=torch.float32, device=x.device)
+    c_acc = torch.zeros_like(s_acc)
+    cnt = torch.zeros_like(s_acc)
+    for i in range(0, x.shape[1], chunk):
+        part, n = checkpoint(chunk_loss, x[:, i:i + chunk],
+                             labels[:, i:i + chunk], mask[:, i:i + chunk],
+                             use_reentrant=False, preserve_rng_state=False)
+        if cfg.kahan_loss:
+            s_acc, c_acc = kahan_step(s_acc, c_acc, part)
+        else:
+            s_acc = s_acc + part
+        cnt = cnt + n
+    return s_acc + c_acc, cnt
 
 
 # ---------------------------------------------------------------------------

@@ -16,10 +16,11 @@ prefill (one prompt chunk at an offset, attending the whole cache). With
 ``kahan_attention`` the two prefill modes run the compensated flash
 kernels (``_flash_core``: B7, ``_flash_chunk_core``: B8); otherwise, and
 always in decode, the materialized ``_attn_core`` (plain matmuls and an
-explicit softmax, q-chunked at ``ATTN_Q_CHUNK``). With ``kahan_matmul``
+explicit softmax, q-chunked at ``ATTN_Q_CHUNK``). Without a cache
+(training) attention is that core, unchunked. With ``kahan_matmul``
 every dense projection (q, k, v, o, gate, up, down) runs the engine's
-compensated matmul (B5); the tied head stays a plain matmul, as the
-reference computes it outside any kernel.
+compensated matmul (B5, its backward too); the tied head stays a plain
+matmul, as the reference computes it outside any kernel.
 """
 
 from __future__ import annotations
@@ -86,7 +87,36 @@ def norm_apply(p: Params, x: Tensor, kind: str) -> Tensor:
 
 
 def embed_lookup(p: Params, tokens: Tensor, compute_dtype) -> Tensor:
-    return p["table"][tokens].to(compute_dtype)
+    """Rows ``tokens`` of the table in the compute dtype. Differentiable
+    with a deterministic backward (``_Lookup``)."""
+    table = p["table"]
+    if torch.is_grad_enabled() and table.requires_grad:
+        return _Lookup.apply(table, tokens).to(compute_dtype)
+    return table[tokens].to(compute_dtype)
+
+
+class _Lookup(torch.autograd.Function):
+    """``table[tokens]`` whose backward is a one-hot product: ``onehot(
+    tokens)ᵀ @ g`` in the gradient's dtype. Indexing's own backward
+    accumulates repeated tokens with atomic adds on CUDA, in an order that
+    changes from run to run; a matrix product sums each row in a fixed
+    order, so a step's gradient, and a resumed run, repeat bit for bit.
+    The reference's gather transposes to a scatter-add in token order;
+    the two differ by rounding only."""
+
+    @staticmethod
+    def forward(ctx, table: Tensor, tokens: Tensor) -> Tensor:
+        ctx.save_for_backward(tokens)
+        ctx.rows = table.shape[0]
+        return table[tokens]
+
+    @staticmethod
+    def backward(ctx, g: Tensor):
+        (tokens,) = ctx.saved_tensors
+        flat = tokens.reshape(-1, 1).long()
+        onehot = torch.zeros((flat.shape[0], ctx.rows), dtype=g.dtype,
+                             device=g.device).scatter_(1, flat, 1.0)
+        return onehot.T @ g.reshape(flat.shape[0], -1), None
 
 
 # ---------------------------------------------------------------------------
@@ -182,13 +212,14 @@ def _flash_chunk_core(qg: Tensor, k: Tensor, v: Tensor, q_off: int,
 
 
 def _attn_core(q: Tensor, k: Tensor, v: Tensor, q_pos: Tensor,
-               k_pos: Tensor, compute_dtype) -> Tensor:
+               k_pos: Tensor, compute_dtype, chunked: bool = True) -> Tensor:
     """Causal grouped-query attention, q-chunked at ``ATTN_Q_CHUNK``
+    unless ``chunked`` is False (training, as in the reference)
     (``repro/models/layers.py:252-303``). q: [B,Sq,KV,G,dh]; k/v:
     [B,Skv,KV,dh]. Scores in float32, masked by absolute positions,
     softmax with the reference's guards (``m >= -1e30``, ``l >= 1e-30``).
     Returns [B,Sq,KV,G,dh] in the compute dtype."""
-    if q.shape[1] > ATTN_Q_CHUNK:
+    if chunked and q.shape[1] > ATTN_Q_CHUNK:
         return torch.cat([
             _attn_core(q[:, i:i + ATTN_Q_CHUNK], k, v,
                        q_pos[i:i + ATTN_Q_CHUNK], k_pos, compute_dtype)
@@ -206,11 +237,16 @@ def _attn_core(q: Tensor, k: Tensor, v: Tensor, q_pos: Tensor,
 
 
 def attention(p: Params, st: AttnStatic, x: Tensor, *,
-              cache: Tuple[Tensor, Tensor], pos: Optional[int] = None,
+              cache: Optional[Tuple[Tensor, Tensor]] = None,
+              pos: Optional[int] = None,
               chunk_valid: Optional[int] = None) -> Tensor:
-    """Attention against a KV cache ([B,S,KV,dh] each), in one of three
-    modes. The cache is written IN PLACE (the reference returns an
-    updated copy; PyTorch eager saves copying the whole cache).
+    """Attention in one of four modes. With no ``cache`` (training) x
+    [B,S,D] at positions 0..S-1 attends itself causally through the
+    materialized ``_attn_core``, unchunked, never through flash (the
+    reference's flash kernel has no backward), and writes nothing.
+    Against a KV cache ([B,S,KV,dh] each) the other three; the cache is
+    written IN PLACE (the reference returns an updated copy; PyTorch
+    eager saves copying the whole cache).
 
     decode          ``pos`` given, x [B,1,D]: write position ``pos``,
                     attend every cache row, keys past ``pos`` masked.
@@ -239,10 +275,16 @@ def attention(p: Params, st: AttnStatic, x: Tensor, *,
     k = rope_apply(dense(p["k"], x, cd, compensated=cmp), q_pos,
                    st.freqs)                                # [B,S,KV,dh]
     v = dense(p["v"], x, cd, compensated=cmp)
-    ck, cv = cache
-    s_kv = ck.shape[1]
     groups = st.n_heads // st.n_kv
     qg = q.reshape(b, s, st.n_kv, groups, st.d_head)
+    if cache is None:                                       # training
+        if pos is not None:
+            raise ValueError("attention: training mode (no cache) runs "
+                             "positions 0..S-1; pos must be None")
+        out = _attn_core(qg, k, v, q_pos, q_pos, cd, chunked=False)
+        return dense(p["o"], out.reshape(b, s, -1), cd, compensated=cmp)
+    ck, cv = cache
+    s_kv = ck.shape[1]
     if pos is None:                                         # prefill
         ck[:, :s] = k.to(ck.dtype)
         cv[:, :s] = v.to(cv.dtype)

@@ -8,6 +8,7 @@ compute dtype, as the reference's ``init_cache`` builds it; the request
 axis is 1. Where the reference scans over layers, the port loops.
 
     init(generator)                               -> params
+    loss(params, batch)                           -> (loss, metrics)
     init_cache(batch_size, max_len)               -> cache
     prefill(params, tokens, cache)                -> (logits [B, V_pad], cache)
     decode_step(params, cache, tokens, pos)       -> logits [B, V_pad]
@@ -16,7 +17,10 @@ axis is 1. Where the reference scans over layers, the port loops.
     prefill_chunk_parallel(params, tokens, cache, offset, nvalid)
                                                   -> (logits [1, V_pad], cache)
 
-Every step writes the cache in place. ``prefill_chunk`` is the
+``loss`` is the training forward: every block recomputed in the backward
+pass (the reference's ``remat=True``), attention unchunked through the
+materialized core, the compensated chunked cross-entropy. The serving
+steps write the cache in place. ``prefill_chunk`` is the
 per-position scan (the oracle); ``prefill_chunk_parallel`` runs the whole
 chunk in ONE forward pass, its attention through the chunk flash kernel
 when ``kahan_attention``.
@@ -29,12 +33,16 @@ from typing import Any, Dict, Tuple
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from torch.utils.checkpoint import checkpoint
+
 from repro_torch.models.common import (
     Params,
+    chunked_ce_loss,
     decode_logits,
     embed_and_head_spec,
     init_embed_and_head,
     init_params,
+    lm_head_weight,
     norm_shapes,
     parallel_chunk_logits,
     prefill_chunk_scan,
@@ -124,6 +132,43 @@ class TransformerLM:
                                  device=self.device)
         return {"blocks": (mk(), mk())}
 
+    # ------------------------------------------------------------------ loss
+    def _train_block(self, p: Params, x: Tensor) -> Tensor:
+        """One block of the training forward (no cache)."""
+        cfg = self.cfg
+        a_in = norm_apply(p["ln1"], x, cfg.norm)
+        x = x + attention(p["attn"], self.st, a_in)
+        m_in = norm_apply(p["ln2"], x, cfg.norm)
+        return x + mlp_apply(p["ffn"], m_in, self.compute_dtype,
+                             compensated=cfg.kahan_matmul)
+
+    def loss(self, params: Params, batch: Dict[str, Tensor],
+             ) -> Tuple[Tensor, Dict[str, Tensor]]:
+        """Mean masked next-token cross-entropy of ``batch`` (``tokens``,
+        ``labels`` [B,S] int, ``loss_mask`` [B,S]) and its metrics
+        (``repro/models/transformer.py:240-261``): ``ce_loss`` and
+        ``tokens``; ``aux_loss`` and ``dropped_frac`` are 0 for a dense
+        model. Each block runs under ``torch.utils.checkpoint`` and is
+        recomputed in the backward pass, as the reference's ``remat``."""
+        cfg = self.cfg
+        x = embed_lookup(params["embed"], batch["tokens"],
+                         self.compute_dtype)
+        # one view per layer: the stacked leaves' gradient is ONE stack of
+        # the layers' (unbind's backward), not a full-size sum per layer
+        layers = _unbind(params["blocks"], cfg.n_layers)
+        for p in layers:
+            x = checkpoint(self._train_block, p, x, use_reentrant=False,
+                           preserve_rng_state=False)
+        x = norm_apply(params["final_norm"], x, cfg.norm)
+        sum_loss, cnt = chunked_ce_loss(x, lm_head_weight(params, cfg),
+                                        batch["labels"], batch["loss_mask"],
+                                        cfg)
+        loss = sum_loss / torch.clamp_min(cnt, 1.0)
+        zero = torch.zeros((), dtype=torch.float32, device=loss.device)
+        metrics = {"ce_loss": loss.detach(), "aux_loss": zero,
+                   "dropped_frac": zero, "tokens": cnt.detach()}
+        return loss, metrics
+
     # --------------------------------------------------------------- forward
     def _run_blocks(self, params: Params, cache, x: Tensor, *, pos=None,
                     chunk_valid=None) -> Tensor:
@@ -131,10 +176,8 @@ class TransformerLM:
         ``chunk_valid`` select the attention mode (``layers.attention``).
         Returns the final-normed hidden states."""
         cfg = self.cfg
-        blocks = params["blocks"]
         ck_all, cv_all = cache["blocks"]
-        for layer in range(cfg.n_layers):
-            p = _index(blocks, layer)
+        for layer, p in enumerate(_unbind(params["blocks"], cfg.n_layers)):
             a_in = norm_apply(p["ln1"], x, cfg.norm)
             x = x + attention(p["attn"], self.st, a_in,
                               cache=(ck_all[layer], cv_all[layer]), pos=pos,
@@ -193,8 +236,11 @@ class TransformerLM:
         return parallel_chunk_logits(x, params, self.cfg, nvalid), cache
 
 
-def _index(tree, i: int):
-    """Layer ``i`` of a stacked parameter tree (views, no copies)."""
+def _unbind(tree, n: int):
+    """The ``n`` layers of a stacked parameter tree, as a list of trees
+    of views."""
     if isinstance(tree, dict):
-        return {k: _index(v, i) for k, v in tree.items()}
-    return tree[i]
+        per_key = {k: _unbind(v, n) for k, v in tree.items()}
+        return [{k: v[i] for k, v in per_key.items()} for i in range(n)]
+    return list(torch.unbind(tree, 0))
+

@@ -1,0 +1,179 @@
+"""AdamW and Kahan-compensated AdamW, in PyTorch (counterpart of
+``repro/optim/adamw.py``).
+
+With bf16 parameters a step's update is about 1e-3 of a parameter's
+magnitude, below bf16's 2^-8 relative resolution, so ``p += update``
+drops most of it. KahanAdamW keeps a bf16 compensation buffer (2 bytes a
+parameter, against fp32 master weights' 4) that carries the dropped bits
+across steps: the paper's compensated accumulation applied over time.
+
+States:
+  AdamW      : m, v (fp32), params in their own dtype
+  KahanAdamW : m, v (fp32), params + comp in the param dtype
+
+The step updates params, m, v and comp IN PLACE: the reference's train
+step donates them, so XLA reuses their buffers; eager PyTorch says so
+explicitly. The arithmetic follows the reference op for op, and the
+sites where XLA on the CPU fuses a product into the following add take
+an exact fused multiply-add (``_fused``).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, NamedTuple, Optional, Tuple
+
+import torch
+
+from repro_torch.core import tree as _tree
+from repro_torch.core.kahan import fma, kahan_step, tree_kahan_sq_norm
+from repro_torch.kernels.engine import CompensatedReduction, merge_accumulators
+
+Tensor = torch.Tensor
+
+
+@dataclasses.dataclass(frozen=True)
+class AdamWConfig:
+    lr: float = 3e-4
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
+    kahan: bool = True               # compensated bf16 parameter updates
+    kahan_norm: bool = True          # compensated global-norm computation
+
+
+class OptState(NamedTuple):
+    step: Tensor                     # int32 scalar
+    m: Any
+    v: Any
+    comp: Optional[Any]              # Kahan compensation buffer (or None)
+
+
+def init(cfg: AdamWConfig, params: Any) -> OptState:
+    zeros = lambda: _tree.tree_map(  # noqa: E731
+        lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device),
+        params)
+    comp = None
+    if cfg.kahan:
+        comp = _tree.tree_map(lambda p: torch.zeros_like(p,
+                                                         requires_grad=False),
+                              params)
+    device = _tree.leaves(params)[0].device
+    return OptState(step=torch.zeros((), dtype=torch.int32, device=device),
+                    m=zeros(), v=zeros(), comp=comp)
+
+
+def engine_sq_norm(grads: Any) -> Tensor:
+    """Sum of squares of every leaf through the engine's compensated fold
+    (``repro/optim/adamw.py:71-85``): each leaf's squares go through
+    ``sum_accumulators`` (B3, one launch a leaf on the card), the
+    per-leaf ``(s, c)`` grids concatenate in leaf order, and ONE
+    ``merge_accumulators`` tree collapses them."""
+    eng = CompensatedReduction()
+    accs = [eng.sum_accumulators(torch.square(g.float()))
+            for g in _tree.leaves(grads)]
+    s = torch.cat([a.s.reshape(-1) for a in accs])
+    c = torch.cat([a.c.reshape(-1) for a in accs])
+    return merge_accumulators(s, c)
+
+
+def global_norm(cfg: AdamWConfig, grads: Any) -> Tensor:
+    if cfg.kahan_norm:
+        return torch.sqrt(tree_kahan_sq_norm(grads))
+    return torch.sqrt(engine_sq_norm(grads))
+
+
+def global_norm_ref(grads: Any) -> Tensor:
+    """Uncompensated oracle for the engine-folded global norm."""
+    return torch.sqrt(sum(torch.sum(torch.square(g.float()))
+                          for g in _tree.leaves(grads)))
+
+
+#: elements a fused site handles at a time: the exact fma works in
+#: float64 temporaries, so a [16, 2048, 8192] leaf goes in slices
+_FMA_CHUNK = 1 << 22
+
+
+def _fused(a, b, c: Tensor) -> Tensor:
+    """``a * b + c`` with one rounding, at a site where XLA on the CPU
+    fuses the product into the add in the compiled step: the two moment
+    updates (``m * b1 + ...``, ``v * b2 + ...``) and, where the update
+    needs no cast (float32 params), ``-lr * dir`` into the add that
+    applies it. Found by comparing the jitted reference with each
+    candidate set: bf16 params, m, v and comp then match bit for bit;
+    float32 params still differ by a few ulps (cause not found; the
+    parity tests hold them to a tolerance). ``a`` or ``b`` may be a
+    scalar; tensors share ``c``'s shape."""
+    a, b = (x if isinstance(x, Tensor)
+            else torch.tensor(x, dtype=c.dtype, device=c.device)
+            for x in (a, b))
+    if c.dim() == 0 or c.numel() <= _FMA_CHUNK:
+        return fma(a, b, c)
+    rows = max(1, _FMA_CHUNK * c.shape[0] // c.numel())
+    cut = lambda x, i: x[i:i + rows] if x.dim() else x  # noqa: E731
+    out = torch.empty_like(c)
+    for i in range(0, c.shape[0], rows):
+        out[i:i + rows] = fma(cut(a, i), cut(b, i), c[i:i + rows])
+    return out
+
+
+@torch.no_grad()
+def apply_update(cfg: AdamWConfig, params: Any, grads: Any, state: OptState,
+                 lr_scale=1.0) -> Tuple[Any, OptState, dict]:
+    """One optimizer step (``repro/optim/adamw.py:95-159``). ``grads`` may
+    be any float dtype (upcast to fp32 for the moment math). Updates
+    ``params`` and the state's tensors in place and returns (params, the
+    new state, metrics)."""
+    step = state.step + 1
+    gnorm = global_norm(cfg, grads)
+    clip_scale = 1.0
+    if cfg.grad_clip > 0:
+        clip_scale = torch.minimum(
+            gnorm.new_tensor(1.0),
+            gnorm.new_tensor(cfg.grad_clip) / (gnorm + 1e-12))
+    b1, b2 = cfg.b1, cfg.b2
+    c1 = 1.0 - b1 ** step.to(torch.float32)
+    c2 = 1.0 - b2 ** step.to(torch.float32)
+    lr = cfg.lr * lr_scale
+
+    flat_p = _tree.leaves(params)
+    flat_g = _tree.leaves(grads)
+    flat_m = _tree.leaves(state.m)
+    flat_v = _tree.leaves(state.v)
+    flat_c = _tree.leaves(state.comp) if cfg.kahan else [None] * len(flat_p)
+    for p, g, m, v, c in zip(flat_p, flat_g, flat_m, flat_v, flat_c):
+        gf = g.float() * clip_scale
+        m32 = _fused(m.float(), b1, gf * (1 - b1))
+        v32 = _fused(v.float(), b2, torch.square(gf) * (1 - b2))
+        mhat = m32 / c1
+        vhat = v32 / c2
+        ratio = mhat / (torch.sqrt(vhat) + cfg.eps)
+        step_dir = ratio + cfg.weight_decay * p.float()
+        m.copy_(m32)
+        v.copy_(v32)
+        if p.dtype == torch.float32:
+            # no cast between the update and its add: XLA fuses -lr * dir
+            # into it (into y = delta + c of the Kahan step)
+            if cfg.kahan:
+                y = _fused(-lr, step_dir, c)
+                t = p + y
+                c.copy_(y - (t - p))
+                p.copy_(t)
+            else:
+                p.copy_(_fused(-lr, step_dir, p))
+            continue
+        delta = -lr * step_dir
+        if cfg.kahan:
+            # compensated p += delta in the PARAM dtype (bf16-safe)
+            s, c2_ = kahan_step(p, c, delta.to(p.dtype))
+            p.copy_(s)
+            c.copy_(c2_)
+        else:
+            p.copy_((p.float() + delta).to(p.dtype))
+    new_state = OptState(step=step, m=state.m, v=state.v,
+                         comp=state.comp if cfg.kahan else None)
+    lr_out = torch.as_tensor(lr, dtype=torch.float32, device=gnorm.device)
+    metrics = {"grad_norm": gnorm, "lr": lr_out}
+    return params, new_state, metrics

@@ -573,3 +573,105 @@ def test_cuda_matmul_rows_path_matches_plain(cuda_device, scheme):
         for i in range(4):
             one = km.matmul_accumulators(a[i], b[i], **kw)
             assert all(torch.equal(g[i], o) for g, o in zip(batched, one))
+
+
+# ---------------------------------------------------------------------------
+# Training: the column scan of the global norm, a train step on the card
+# ---------------------------------------------------------------------------
+
+#: (rows, trailing shape): tall, wide, one row, rows off the 16-row batch,
+#: trailing sizes off the 128-thread CTA
+COLUMN_CASES = [(300, (37, 5)), (2, (65,)), (1, (7,)), (41, (1,)),
+                (17, (129,)), (16, (256,)), (1000, (3,))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,trail", COLUMN_CASES)
+def test_cuda_column_scan_matches_loop(cuda_device, rows, trail, dtype):
+    """Tier 2 on the card: the column-scan kernel's (s, c) vectors equal
+    its plain loop's (``core.kahan.column_sq_plain``) bit for bit."""
+    from repro_torch.core.kahan import column_sq_plain
+    from repro_torch.kernels import kahan_columns
+
+    gen = torch.Generator(device=cuda_device).manual_seed(rows)
+    x = torch.randn((rows, *trail), generator=gen, device=cuda_device,
+                    dtype=torch.float64)
+    e = torch.randint(-8, 8, x.shape, generator=gen, device=cuda_device)
+    x = (x * torch.exp2(e.double())).to(dtype)
+    before = kahan_columns.column_sq_accumulators.launches
+    got = kahan_columns.column_sq_accumulators(x)
+    assert kahan_columns.column_sq_accumulators.launches == before + 1
+    want = column_sq_plain(x.float())
+    for g, w in zip(got, want):
+        assert g.shape == trail and g.dtype == torch.float32
+        assert torch.equal(g, w)
+
+
+def _smoke_step(device, kahan_matmul, kahan_norm, steps=2):
+    """``steps`` train steps (2 microbatches each) of the OLMo-1B smoke
+    config on ``device`` from the same params (made on the CPU) and
+    batches; returns (params, opt state, metrics)."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.core import tree as T
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamWConfig, init
+    from repro_torch.train import TrainConfig, make_train_step
+    from repro_torch.train.trainer import batch_to_device
+
+    cfg = get_smoke("olmo-1b").replace(loss_chunk=16,
+                                      kahan_matmul=kahan_matmul)
+    params = build_model(cfg, torch.device("cpu")).init(
+        torch.Generator().manual_seed(0))
+    params = T.tree_map(lambda p: p.to(device).requires_grad_(), params)
+    tc = TrainConfig(steps=steps, microbatches=2, warmup=0,
+                     opt=AdamWConfig(lr=1e-3, kahan_norm=kahan_norm))
+    model = build_model(cfg, device)
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=32,
+                                  global_batch=4))
+    step = make_train_step(model, cfg, tc)
+    opt = init(tc.opt, params)
+    for i in range(steps):
+        params, opt, m = step(params, opt,
+                              batch_to_device(data.batch_at(i), device))
+    return params, opt, m
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kahan_matmul", [False, True])
+def test_cuda_train_step_matches_cpu(cuda_device, kahan_matmul):
+    """Tier 3: two smoke-config train steps on the card within rtol 1e-5
+    (loss, grad norm) and 1e-5 absolute (params) of the same steps on the
+    CPU: float32 matmuls sum in other orders there."""
+    from repro_torch.core import tree as T
+
+    out = [_smoke_step(d, kahan_matmul, True)
+           for d in (cuda_device, torch.device("cpu"))]
+    (pc, _, mc), (pp, _, mp) = out
+    for k in ("loss", "grad_norm"):
+        torch.testing.assert_close(float(mc[k]), float(mp[k]), rtol=1e-5,
+                                   atol=0)
+    for a, b in zip(T.leaves(pc), T.leaves(pp)):
+        torch.testing.assert_close(a.detach().cpu(), b.detach(), rtol=0,
+                                   atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kahan_norm", [False, True])
+def test_cuda_train_step_launch_counts(cuda_device, kahan_norm):
+    """With ``kahan_matmul`` one step of 2 microbatches launches B5 4 * 7 *
+    n_layers * 2 times (forward, recompute, dA, dB); the norm launches B3
+    (``kahan_norm=False``) or the column scan once a parameter leaf."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.kernels.engine import launch_counts, reset_launch_counts
+
+    n_layers = get_smoke("olmo-1b").n_layers
+    reset_launch_counts()
+    _smoke_step(cuda_device, True, kahan_norm, steps=1)
+    counts = launch_counts()
+    leaves = 8          # embed table + q, k, v, o, gate, up, down
+    assert counts["matmul_accumulators"] == 4 * 7 * n_layers * 2
+    norm = "column_sq_accumulators" if kahan_norm else "sum_accumulators"
+    other = "sum_accumulators" if kahan_norm else "column_sq_accumulators"
+    assert counts[norm] == leaves and counts[other] == 0
