@@ -52,12 +52,13 @@ there is no CUDA device or no ``src/repro_torch`` beside it.
    scheme's time over naive's, the paper's metric; batched dot and sum
    at [8, 2^24], the serving telemetry at [max_slots, 57344]; each with
    its plan, copy path, share of the bytes bound and the time of the
-   kernel before its load ring), B7 at OLMo-1B's head shape [16, 2048,
-   128] causal, B8 at the serving chunk [16, 64, 128] against both serve
-   runs' cache lengths, B5 at OLMo-1B's projection shapes at decode (M
-   1, the served shape, and M 8 for comparison with the padded rows of
-   earlier runs) and in a 64- and a 32-token chunk plus the up projection of a
-   2048-token prefill, B6 at 4 chunk-sized q projections; each matmul
+   kernel before its load ring; phase 7 prints the machine model beside
+   each), B7 at
+   OLMo-1B's head shape [16, 2048, 128] causal, B8 at the serving chunk
+   [16, 64, 128] against both serve runs' cache lengths, B5 at OLMo-1B's
+   projection shapes at decode (M 1, the served shape, and M 8 for
+   comparison with the padded rows of earlier runs) and in a 64- and a
+   32-token chunk plus the up projection of a 2048-token prefill, B6 at 4 chunk-sized q projections; each matmul
    and flash row with the tile (and cluster size or ring depth) the
    kernel chose and its share of the mul+add ceiling, 2·M·N·K or
    4·BH·Sq·Skv·dh over half the float32 fma rate; the flash rows also
@@ -123,6 +124,25 @@ there is no CUDA device or no ``src/repro_torch`` beside it.
    Logged per run: wall ms a step after the first, tokens/s, device-busy
    ms of one more profiled step, peak memory, losses and grad norms, the
    port's kernels' ms and launches a step.
+7. The paper on the card: B1 (dot) and B3 (sum) for every built-in
+   scheme x U in {1, 2, 4, 8, 16}, each grid bitwise equal to its plain
+   version at n = 2^22; each timed at n = 2^27 float32 (graph time)
+   beside its bytes bound, its CTAs and SMs, its time over naive's at the
+   same U, and the machine model's prediction and bounding term
+   (``repro_torch.core.ecm``) on this card's load-only bandwidth
+   (``torch.sum`` over 2^28 float32, a yardstick of the machine, not on
+   the port's path) and clock under load, with one SM's load rate fitted
+   on the naive dot at U = 1 alone; the saturation U predicted and
+   measured (the least U within 5% of U = 16). Then the reference's
+   accuracy ladder (GenDot at n = 2^20, conditions 1 and 10 and the
+   reference's 1e4 to 1e12) through ``ops.dot`` on the card: every
+   a-priori bound at every condition, kahan <= naive and pairwise <=
+   1.01 naive where the achieved condition is below 1/eps (only the
+   conditions 1 and 10 at this n), dot2 two digits below kahan at 1e10.
+   Phase 3's B1-B4 rows beside the model of this run's machine. The
+   model's error is printed, not gated. One JSON line ``{"ecm": [...],
+   "phase3": [...], "ladder": [...]}``, a row per (op, scheme, U), per
+   phase-3 row and per condition.
 
 The last three lines are the card (``nvidia-smi`` name and power
 limit), one JSON object ``{"kernels": [...]}`` and
@@ -140,6 +160,7 @@ embedding's gradient).
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -150,11 +171,6 @@ from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-
-#: H100 SXM published peaks (NVIDIA data sheet): HBM3 bandwidth and
-#: float32 rate outside the tensor cores.
-HBM_BYTES_PER_S = 3.35e12
-FP32_FLOPS_PER_S = 67e12
 
 TRACE = "0:64:16,0:128:16,2:32:16,5:96:16"
 LONG_TRACE = "0:1920:64"
@@ -189,6 +205,21 @@ TRAIN_LR = 1e-5
 #: and 7.2e-5; the grad norm is where B5's backward (dA, dB) shows
 STEP1_LOSS_RTOL = 1e-4
 STEP1_GRAD_NORM_RTOL = 5e-4
+
+#: phase 7: the sweep's parity length (the plain loop at U = 1 and the
+#: paper's n would take minutes), a row's time "within" its time at the
+#: largest U (the measured saturation U), the load-only bandwidth's length,
+#: and the accuracy ladder at the largest power of two whose GenDot draws
+#: take at most about 20 s on the host: 2^20 (2^21 takes about twice as
+#: long). The ladder is the reference's conditions (tests/test_schemes.py,
+#: 1e4 to 1e12) below two more, 1 and 10: GenDot's achieved condition
+#: grows with n, and at 2^20 only these two stay below 1/eps (about 3e6
+#: and 7e6; 1e4 achieves 2e9), where the orderings can be gated
+SWEEP_PARITY_N = 1 << 22
+SATURATED_WITHIN = 0.05
+LOAD_ONLY_N = 1 << 28
+LADDER_N = 1 << 20
+LADDER_CONDS = (1e0, 1e1, 1e4, 1e6, 1e8, 1e10, 1e12)
 
 #: the schemes with a device function, and the reduction wrappers
 SCHEMES = ("naive", "kahan", "pairwise", "dot2")
@@ -285,6 +316,7 @@ def main() -> int:
     train_stats = train_path(torch, kernels, cfg)
     train_stats["b5_rows_per_step"] = kernels.train_b5
     log(json.dumps({"train": train_stats}))
+    log(json.dumps(paper_path(torch, kernels, card)))
     log(card)
     log(json.dumps({"kernels": kernels.rows()}))
     log(json.dumps({"ok": True, "device": {
@@ -360,11 +392,23 @@ def clock_under_load(torch, fn, launches: int = 20, replays: int = 300):
 
 def bound_ms(n_bytes: float, n_ops: float):
     """(least time in ms, what bounds it) for ``n_bytes`` moved once and
-    ``n_ops`` float32 operations on the H100."""
-    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = n_ops / FP32_FLOPS_PER_S * 1e3
+    ``n_ops`` float32 operations on the H100: its published HBM rate and
+    float32 peak, as the machine model (``repro_torch.core.ecm.H100``)
+    holds them."""
+    from repro_torch.core.ecm import H100
+
+    bytes_ms = n_bytes / (H100.hbm_gbs * 1e6)
+    ops_ms = n_ops / (H100.fp32_tflops * 1e9)
     return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms
                                    else "operations")
+
+
+def fma_ceiling_ms(flops: float) -> float:
+    """``flops`` at half the float32 peak: the mul+add ceiling of a chain
+    that may not fuse its products (no fma, no tensor cores)."""
+    from repro_torch.core.ecm import H100
+
+    return flops / (H100.fp32_tflops / 2 * 1e9)
 
 
 class Kernels:
@@ -718,7 +762,7 @@ class Kernels:
         least, by = bound_ms(n_bytes, flops)
         # the fixed chains' own ceiling: a separate rounded multiply and
         # add per term, at half the fma rate
-        ceiling = flops / (FP32_FLOPS_PER_S / 2) * 1e3
+        ceiling = fma_ceiling_ms(flops)
         rows, smem = getattr(fa, name).plan
         row = {"ms": ms, "events_ms": events_ms, "plain_ms": plain_ms,
                "library_ms": library_ms, "bound_ms": least, "bound_by": by,
@@ -1003,7 +1047,7 @@ class Kernels:
         least, by = bound_ms(n_bytes, flops)
         # the fixed chain's own ceiling: a separate multiply and add per
         # term, at half the fma rate
-        ceiling = flops / (FP32_FLOPS_PER_S / 2) * 1e3
+        ceiling = fma_ceiling_ms(flops)
         tm, tn, split = km.grid_plan(nb, m, n, k, blocks[2])
         row = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
                "bound_ms": least, "bound_by": by,
@@ -1224,6 +1268,206 @@ class Kernels:
                 "bound_by": t["bound_by"], "library_ms": t["library_ms"],
                 "shape": t["shape"]})
         return out
+
+
+def paper_path(torch, kernels, card):
+    """Phase 7: the paper's question on the card. B1 (dot) and B3 (sum)
+    for every built-in scheme at U in ``ecm.UNROLLS``: each (s, c) grid
+    bitwise equal to its plain version at ``SWEEP_PARITY_N``; each timed at
+    the paper's n = 2^27 float32 (graph time) beside its bytes bound and
+    the machine model's prediction (``repro_torch.core.ecm``) on this
+    card's measured clock and load-only bandwidth, with one SM's load rate
+    fitted on the naive dot at U = 1 and no other row; the saturation U
+    predicted and measured; phase 3's B1-B4 rows beside the same model.
+    Then the accuracy ladder (``LADDER_CONDS``) through ``ops.dot`` on the
+    card. Raises on a parity, bound or ordering failure and on a
+    prediction that is not finite; the model's error is recorded, not
+    gated. Returns the JSON object ``{"ecm": [...], "phase3": [...],
+    "ladder": [...]}``."""
+    from repro_torch.core import ecm, numerics
+    from repro_torch.kernels import ops
+
+    t0 = time.perf_counter()
+    dev, kd, ks = kernels.dev, kernels.kd, kernels.ks
+    f32 = torch.float32
+    wrappers = {"dot": kd.dot_accumulators, "sum": ks.sum_accumulators}
+    plains = {"dot": lambda a, b, **kw: kd.dot_plain(a[None], b[None], **kw),
+              "sum": lambda a, b, **kw: ks.sum_plain(a[None], **kw)}
+    cases = 0
+    a = kernels.data((SWEEP_PARITY_N,), f32)
+    b = kernels.data((SWEEP_PARITY_N,), f32)
+    for op, fn in wrappers.items():
+        for name in SCHEMES:
+            sch = kernels.schemes.get(name)
+            for unroll in ecm.UNROLLS:
+                args = (a, b) if op == "dot" else (a,)
+                got = fn(*args, scheme=sch, unroll=unroll)
+                want = plains[op](a, b, scheme=sch, unroll=unroll)
+                kernels.compare(fn.__name__, got, (want[0][0], want[1][0]),
+                                f"{name} U={unroll} [{SWEEP_PARITY_N}]")
+                cases += 1
+    sync(torch, dev)
+    log(f"# phase 7: {cases} grids (dot and sum x {len(SCHEMES)} schemes x "
+        f"U {list(ecm.UNROLLS)}) at n = {SWEEP_PARITY_N} bitwise equal to "
+        f"their plain versions")
+
+    # the machine: load-only bandwidth b_S, and the clock under load
+    x = kernels.normal((LOAD_ONLY_N,))
+    load_ms = graph_ms(torch, lambda: torch.sum(x))
+    load_gbs = x.numel() * x.element_size() / load_ms / 1e6
+    del x
+    a = kernels.data((PAPER_N,), f32)
+    b = kernels.data((PAPER_N,), f32)
+    kahan = kernels.schemes.get("kahan")
+    mhz, watts = clock_under_load(
+        torch, lambda: ks.sum_accumulators(a, scheme=kahan))
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    machine = dataclasses.replace(ecm.H100, sms=sms, clock_mhz=mhz,
+                                  load_gbs=load_gbs, sm_load_gbs=None)
+    log(f"# phase 7 machine: b_S {load_gbs:.1f} GB/s (torch.sum over "
+        f"{LOAD_ONLY_N} float32, {load_ms:.4f} ms), SM clock {mhz:.0f} MHz "
+        f"and {watts:.1f} W under the kahan sum, {sms} SMs; {card}")
+
+    measured = {}
+    for op, fn in wrappers.items():
+        args = (a, b) if op == "dot" else (a,)
+        for name in SCHEMES:
+            sch = kernels.schemes.get(name)
+            for unroll in ecm.UNROLLS:
+                call = lambda: fn(*args, scheme=sch, unroll=unroll)  # noqa: E731,B023
+                ms = graph_ms(torch, call)
+                measured[(op, name, unroll)] = (ms, fn.plan, fn.copy)
+    fit = ecm.fit_sm_load_gbs(machine, ecm.gpu_kernel_for_scheme(
+        "naive", op="dot"), PAPER_N, 1, measured[("dot", "naive", 1)][0])
+    machine = dataclasses.replace(machine, sm_load_gbs=fit)
+    log(f"# phase 7 model: one SM's load rate fitted on the naive dot at U "
+        f"= 1: {fit if fit is None else round(fit, 2)} GB/s (None: no limit "
+        f"beyond the other terms)")
+
+    rows = []
+    for op in wrappers:
+        streams = 2 if op == "dot" else 1
+        for name in SCHEMES:
+            kern = ecm.gpu_kernel_for_scheme(name, op=op)
+            mix = kernels.schemes.get(name).instruction_mix
+            top = measured[(op, name, ecm.UNROLLS[-1])][0]
+            u_meas = next(u for u in ecm.UNROLLS if measured[(op, name, u)][0]
+                          <= (1 + SATURATED_WITHIN) * top)
+            for unroll in ecm.UNROLLS:
+                ms, plan, copy = measured[(op, name, unroll)]
+                r = ecm.ecm_gpu(machine, kern, PAPER_N, unroll)
+                check(math.isfinite(r.pred_ms) and r.pred_ms > 0,
+                      f"model: no finite prediction for {op} {name} "
+                      f"U={unroll}")
+                ctas = 1024 * unroll // plan[0]
+                check(r.ctas == ctas and r.chains == plan[0],
+                      f"model: {op} {name} U={unroll} plans {r.ctas} CTAs of "
+                      f"{r.chains} chains, the wrapper launched {ctas} of "
+                      f"{plan[0]}")
+                cells = 1024 * unroll
+                least, by = bound_ms(
+                    (PAPER_N * streams + 2 * cells) * 4,
+                    PAPER_N * (mix.flops if op == "dot" else mix.adds))
+                err = ecm.model_relative_error(r.pred_ms, ms)
+                over = ms / measured[(op, "naive", unroll)][0]
+                rows.append({
+                    "op": op, "scheme": name, "unroll": unroll,
+                    "ctas": ctas, "sms": min(ctas, sms), "ms": ms,
+                    "bound_ms": least, "model_ms": r.pred_ms,
+                    "model_bound": r.bound, "model_error": err,
+                    "over_naive": over,
+                    "cycles_a_step": ms * mhz * 1e3 / r.steps,
+                    "terms_ms": {"hbm": r.t_hbm_ms, "chain": r.t_chain_ms,
+                                 "issue": r.t_issue_ms, "sm": r.t_sm_ms},
+                    "u_s_model": r.u_s, "u_s_measured": u_meas})
+                log(f"# phase 7 {op} {name} U={unroll}: {ctas} CTAs on "
+                    f"{min(ctas, sms)} SMs (plan {plan} {copy}), {ms:.4f} "
+                    f"ms ({by} bound {least:.4f}, "
+                    f"{100 * least / ms:.1f}%), model "
+                    f"{r.pred_ms:.4f} ({r.bound}; {r.shorthand()}), error "
+                    f"{100 * err:.1f}%, over naive {over:.3f}, "
+                    f"{ms * mhz * 1e3 / r.steps:.1f} cycles a step")
+            log(f"# phase 7 {op} {name}: u_s model {r.u_s}, measured "
+                f"{u_meas} (the least U within {100 * SATURATED_WITHIN:.0f}% "
+                f"of U={ecm.UNROLLS[-1]})")
+    del a, b
+    beside = []
+    for (kname, label), t in kernels.timing.items():
+        if not kname.startswith(("dot_accumulators", "sum_accumulators")):
+            continue
+        shape = t["shape"]
+        r = ecm.ecm_gpu_for_scheme(
+            machine, t["scheme"], shape[-1], 8,
+            op="dot" if kname.startswith("dot") else "sum",
+            batch=shape[0] if len(shape) == 2 else 1)
+        check(math.isfinite(r.pred_ms) and r.pred_ms > 0,
+              f"model: no finite prediction for {kname} {label}")
+        err = ecm.model_relative_error(r.pred_ms, t["ms"])
+        beside.append({"name": kname, "label": label, "shape": shape,
+                       "unroll": 8, "ms": t["ms"], "model_ms": r.pred_ms,
+                       "model_bound": r.bound, "model_error": err})
+        log(f"# phase 7 model beside phase 3: {kname} {label} {shape} U=8: "
+            f"{t['ms']:.4f} ms, model {r.pred_ms:.4f} ({r.bound}), error "
+            f"{100 * err:.1f}%")
+
+    # the reference's accuracy ladder on GenDot data, through ops.dot
+    t1 = time.perf_counter()
+    errs, achieved, bounds = {}, {}, {}
+    for cond in LADDER_CONDS:
+        x, y, exact, achieved[cond] = numerics.gen_dot(
+            LADDER_N, cond, seed=int(math.log10(cond)))
+        xt, yt = (torch.from_numpy(v).to(dev) for v in (x, y))
+        errs[cond] = {name: numerics.relative_error(
+            float(ops.dot(xt, yt, scheme=name, unroll=1)), exact)
+            for name in SCHEMES}
+        bounds[cond] = {name: kernels.schemes.get(name).error_bound(
+            LADDER_N, achieved[cond]) for name in SCHEMES}
+    gen_s = time.perf_counter() - t1
+    saturation = 1.0 / kernels.schemes.EPS32
+    live = [c for c in LADDER_CONDS if achieved[c] < saturation]
+    check(len(live) >= 2, f"ladder: only {live} of the conditions "
+          f"achieved below 1/eps = {saturation:.3e} at n = {LADDER_N}; "
+          f"the ordering gates would not run")
+    for cond in LADDER_CONDS:
+        e, ach = errs[cond], achieved[cond]
+        what = f"ladder cond {cond:.0e} (achieved {ach:.3e}): {e}"
+        check(e["dot2"] <= 1e-2 * e["kahan"]
+              and e["dot2"] <= 1e-2 * e["naive"], what)
+        if cond in live:
+            check(e["kahan"] <= e["naive"]
+                  and e["pairwise"] <= e["naive"] * 1.01, what)
+        else:
+            check(e["kahan"] <= e["naive"] * 3.0, what)
+        for name in SCHEMES:
+            bound = bounds[cond][name]
+            check(math.isfinite(bound) and e[name] <= bound,
+                  f"{name}: error {e[name]:.3e} above its a-priori bound "
+                  f"{bound:.3e} at cond {cond:.0e} (achieved {ach:.3e})")
+    check(errs[1e10]["kahan"] >= 100.0 * errs[1e10]["dot2"],
+          f"dot2 not 2 digits below kahan at cond 1e10: {errs[1e10]}")
+    for cond in LADDER_CONDS:
+        log(f"# phase 7 ladder n={LADDER_N} cond {cond:.0e} (achieved "
+            f"{achieved[cond]:.3e}{'' if cond in live else ', above 1/eps'}"
+            f"): " + ", ".join(
+                f"{k} {v:.3e} (bound {bounds[cond][k]:.2e})"
+                for k, v in errs[cond].items()))
+    tight = sorted({(c, k) for c in LADDER_CONDS for k in SCHEMES
+                    if bounds[c][k] < 1.0})
+    log(f"# phase 7: every a-priori bound holds at every condition; a bound "
+        f"below 1 (one that an answer of the right magnitude could break) "
+        f"only for {tight}, the others at or above 1 hold by any such "
+        f"answer (GenDot's achieved condition grows with n: at least "
+        f"{min(achieved.values()):.2e} at n = {LADDER_N}); the orderings "
+        f"kahan <= naive and pairwise <= 1.01 naive gated at the "
+        f"{len(live)} conditions achieved below 1/eps {live}, kahan <= 3 "
+        f"naive above it; dot2 "
+        f"{errs[1e10]['kahan'] / errs[1e10]['dot2']:.0f}x below kahan at "
+        f"1e10 (GenDot {gen_s:.1f} s on the host); phase 7 took "
+        f"{time.perf_counter() - t0:.1f} s")
+    return {"ecm": rows, "phase3": beside,
+            "ladder": [{"cond": c, "achieved": achieved[c],
+                        "errors": errs[c], "bounds": bounds[c]}
+                       for c in LADDER_CONDS]}
 
 
 L2_BYTES = 50e6

@@ -30,7 +30,7 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
 
-from chip_smoke import FP32_FLOPS_PER_S, graph_ms  # noqa: E402
+from chip_smoke import fma_ceiling_ms, graph_ms  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import schemes  # noqa: E402
 
@@ -87,7 +87,7 @@ def main() -> int:
         if not all(torch.equal(a, b) for a, b in zip(want, plain)):
             raise RuntimeError(f"{label}: kernel != plain version")
         # the fixed chains' ceiling: a rounded multiply and add per term
-        ceiling = 4 * bh * sq * skv * dh / (FP32_FLOPS_PER_S / 2) * 1e3
+        ceiling = fma_ceiling_ms(4 * bh * sq * skv * dh)
         ku, vu = off_storage(k, 1), off_storage(v, 1)
         for rows in fa.TILE_ROWS:
             smem = fa.flash_smem_bytes(rows, dh, bk)

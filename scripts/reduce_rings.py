@@ -31,7 +31,7 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
 
-from chip_smoke import HBM_BYTES_PER_S, graph_ms  # noqa: E402
+from chip_smoke import bound_ms, graph_ms  # noqa: E402
 from repro_torch.kernels import kahan_dot as kd  # noqa: E402
 from repro_torch.kernels import kahan_sum as ks  # noqa: E402
 from repro_torch.kernels import schemes  # noqa: E402
@@ -98,7 +98,7 @@ def main() -> int:
                      else ks.sum_plain(x[0], scheme=sch))
             if not all(torch.equal(g, w) for g, w in zip(want, plain)):
                 raise RuntimeError(f"[{batch}] {scheme}: kernel != plain")
-            bound = operands * N * 4 / HBM_BYTES_PER_S * 1e3
+            bound = bound_ms(operands * N * 4, 0)[0]
             for plan in plans(batch, steps, operands, sms):
                 for copy in kd.COPY:
                     got = launch(x, operands, sch, plan, copy)

@@ -4,8 +4,10 @@ Counterpart of ``repro/kernels/schemes.py``. A ``CompensationScheme``
 bundles one variant of the compensated reduction loop: the torch
 callables ``update(s, c, x, step)`` and ``mul_update(s, c, a, b, step)``
 that fold one term into the ``(s, c)`` accumulator pair (``total = s +
-c``) and its instruction mix. (The reference's a-priori ``error_bound``
-comes with the accuracy benchmark.)
+c``), its a-priori ``error_bound`` for a length-``n`` dot of condition
+``cond`` and its instruction mix (canonical and traced counts, which
+``repro_torch.core.ecm`` builds its kernel tables from), validated at
+construction and at ``register()``.
 
 The plain (CPU) versions of the kernels and the oracles in ``ref`` call
 these callables. The CUDA kernels cannot call Python, so every built-in
@@ -31,6 +33,7 @@ from __future__ import annotations
 import contextlib
 import contextvars
 import dataclasses
+import math
 from typing import Any, Callable, Dict, Optional, Tuple, Union
 
 import torch
@@ -42,11 +45,21 @@ UpdateFn = Callable[[Tensor, Tensor, Tensor, int], Tuple[Tensor, Tensor]]
 MulUpdateFn = Callable[[Tensor, Tensor, Tensor, Tensor, int],
                        Tuple[Tensor, Tensor]]
 
+#: fp32 unit roundoff, the default for ``error_bound``.
+EPS32 = 2.0 ** -24
+#: f64 unit roundoff (``compute_dtype="float64"``).
+EPS64 = 2.0 ** -53
+#: bf16 unit roundoff (``compute_dtype="bfloat16"``).
+EPS_BF16 = 2.0 ** -8
+
 #: accumulate dtypes the kernels support; anything else fails fast at the
 #: Policy / engine boundary.
 SUPPORTED_COMPUTE_DTYPES = {"bfloat16": torch.bfloat16,
                             "float32": torch.float32,
                             "float64": torch.float64}
+
+_EPS_BY_DTYPE = {torch.bfloat16: EPS_BF16, torch.float32: EPS32,
+                 torch.float64: EPS64}
 
 #: pairwise cascade interval: the primary accumulator folds into the
 #: secondary every FOLD sequential steps.
@@ -75,17 +88,91 @@ def resolve_compute_dtype(spec) -> torch.dtype:
     return SUPPORTED_COMPUTE_DTYPES[name]
 
 
+def unit_roundoff(compute_dtype) -> float:
+    """Unit roundoff of a supported accumulate dtype (for ``error_bound``)."""
+    return _EPS_BY_DTYPE[resolve_compute_dtype(compute_dtype)]
+
+
 @dataclasses.dataclass(frozen=True)
 class InstructionMix:
     """Adds and muls per scalar iteration of the scheme's dot loop (the
-    paper's accounting unit)."""
+    paper's accounting unit; useful flops per update is always 2).
+
+    ``adds`` / ``muls`` are the CANONICAL counts, the figures the paper's
+    accounting and the ECM tables use. Where the kernel body executes a
+    different raw count (dot2's split TwoProd, where the canonical
+    accounting assumes an fma), the ``traced_*`` overrides declare it;
+    left None they default to the canonical counts.
+
+    * ``traced_adds`` / ``traced_muls``: adds / muls an element of the
+      product path (``mul_update``; the dot kernel).
+    * ``traced_sum_adds``: adds an element of the sum path (``update``;
+      the sum kernel and the matmul / flash fold sites), which has no
+      muls.
+    """
 
     adds: int
     muls: int
+    traced_adds: Optional[int] = None
+    traced_muls: Optional[int] = None
+    traced_sum_adds: Optional[int] = None
 
     @property
     def flops(self) -> int:
         return self.adds + self.muls
+
+    @property
+    def traced_dot(self) -> Tuple[int, int]:
+        """(adds, muls) the ``mul_update`` body executes an element."""
+        return (self.adds if self.traced_adds is None else self.traced_adds,
+                self.muls if self.traced_muls is None else self.traced_muls)
+
+    @property
+    def traced_sum(self) -> Tuple[int, int]:
+        """(adds, muls) the ``update`` body (sum path) executes an
+        element."""
+        return (self.adds if self.traced_sum_adds is None
+                else self.traced_sum_adds, 0)
+
+
+#: keys accepted when coercing a mapping into an ``InstructionMix``
+_MIX_KEYS = ("adds", "muls", "traced_adds", "traced_muls", "traced_sum_adds")
+_MIX_REQUIRED = ("adds", "muls")
+
+
+def validate_instruction_mix(mix, *, scheme_name: str = "?",
+                             ) -> InstructionMix:
+    """Coerce and validate an ``instruction_mix`` declaration, failing
+    fast: an ``InstructionMix`` or a mapping with keys from ``_MIX_KEYS``
+    (``adds`` and ``muls`` required); every count a non-negative int.
+    Unknown or missing keys and bad counts raise ``ValueError``, any other
+    type ``TypeError``."""
+    if isinstance(mix, InstructionMix):
+        fields = {k: getattr(mix, k) for k in _MIX_KEYS}
+    elif isinstance(mix, dict):
+        unknown = sorted(set(mix) - set(_MIX_KEYS))
+        missing = sorted(set(_MIX_REQUIRED) - set(mix))
+        if unknown or missing:
+            raise ValueError(
+                f"scheme {scheme_name!r}: instruction_mix keys must come "
+                f"from {list(_MIX_KEYS)} with {list(_MIX_REQUIRED)} "
+                f"required; unknown={unknown} missing={missing}")
+        fields = {k: mix.get(k) for k in _MIX_KEYS}
+    else:
+        raise TypeError(
+            f"scheme {scheme_name!r}: instruction_mix must be an "
+            f"InstructionMix or a mapping with keys from {list(_MIX_KEYS)}; "
+            f"got {type(mix).__name__}")
+    for key, val in fields.items():
+        required = key in _MIX_REQUIRED
+        if val is None and not required:
+            continue
+        if not isinstance(val, int) or isinstance(val, bool) or val < 0:
+            raise ValueError(
+                f"scheme {scheme_name!r}: instruction_mix.{key} must be a "
+                f"non-negative int{'' if required else ' or None'}; "
+                f"got {val!r}")
+    return mix if isinstance(mix, InstructionMix) else InstructionMix(**fields)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -93,23 +180,26 @@ class CompensationScheme:
     """One variant of the compensated reduction loop.
 
     ``update`` / ``mul_update`` are elementwise torch callables; ``step``
-    is the sequential step index (a Python int). ``device_id`` selects the
-    CUDA kernels' instantiation of the same update; None means the scheme
-    has no device function and runs on CPU tensors only.
+    is the sequential step index (a Python int). ``error_bound(n, cond,
+    eps=EPS32)`` is the a-priori relative-error bound of a length-``n``
+    dot. ``device_id`` selects the CUDA kernels' instantiation of the same
+    update; None means the scheme has no device function and runs on CPU
+    tensors only.
     """
 
     name: str
     update: UpdateFn
     instruction_mix: InstructionMix
+    error_bound: Callable[..., float]
     mul_update: Optional[MulUpdateFn] = None
     device_id: Optional[int] = None
     description: str = ""
 
     def __post_init__(self):
-        if not isinstance(self.instruction_mix, InstructionMix):
-            raise TypeError(
-                f"scheme {self.name!r}: instruction_mix must be an "
-                f"InstructionMix, got {type(self.instruction_mix).__name__}")
+        object.__setattr__(
+            self, "instruction_mix",
+            validate_instruction_mix(self.instruction_mix,
+                                     scheme_name=self.name))
         if self.mul_update is None:
             upd = self.update
             object.__setattr__(
@@ -173,28 +263,57 @@ def _dot2_mul_update(s, c, a, b, step):
     return s, c + (ep + es)
 
 
+def _naive_bound(n: int, cond: float, eps: float = EPS32) -> float:
+    # gamma_{n-1} * cond / 2: recursive summation of rounded products.
+    return 0.5 * n * eps * cond
+
+
+def _kahan_bound(n: int, cond: float, eps: float = EPS32) -> float:
+    # the compensated sum kills the O(n) term; the rounded products leave
+    # the eps * cond / 2 floor (Kahan compensates the sum, not products).
+    return (eps + 2.0 * n * eps * eps) * cond
+
+
+def _pairwise_bound(n: int, cond: float, eps: float = EPS32) -> float:
+    # two-level cascade: effective chain length FOLD + n / FOLD.
+    eff = PAIRWISE_FOLD + math.ceil(n / PAIRWISE_FOLD)
+    return 0.5 * eff * eps * cond
+
+
+def _dot2_bound(n: int, cond: float, eps: float = EPS32) -> float:
+    # twice working precision: eps + gamma^2 * cond (Ogita et al., Prop.
+    # 5.4's shape); the cond term surfaces only past cond ~ 1 / eps.
+    g = 2.0 * n * eps
+    return eps + 0.5 * g * g * cond
+
+
 NAIVE = CompensationScheme(
     name="naive", update=_naive_update, mul_update=_naive_mul_update,
     instruction_mix=InstructionMix(adds=1, muls=1),
-    device_id=NAIVE_ID,
+    error_bound=_naive_bound, device_id=NAIVE_ID,
     description="s += a*b (paper Fig. 1a); error grows O(n)")
 
 KAHAN = CompensationScheme(
     name="kahan", update=_kahan_update, mul_update=_kahan_mul_update,
     instruction_mix=InstructionMix(adds=4, muls=1),
-    device_id=KAHAN_ID,
+    error_bound=_kahan_bound, device_id=KAHAN_ID,
     description="compensated accumulation (paper Fig. 1b); O(eps) sum error")
 
 PAIRWISE = CompensationScheme(
     name="pairwise", update=_pairwise_update, mul_update=_pairwise_mul_update,
     instruction_mix=InstructionMix(adds=2, muls=1),
-    device_id=PAIRWISE_ID,
+    error_bound=_pairwise_bound, device_id=PAIRWISE_ID,
     description="two-level cascaded accumulation (streaming pairwise)")
 
 DOT2 = CompensationScheme(
     name="dot2", update=_dot2_update, mul_update=_dot2_mul_update,
-    instruction_mix=InstructionMix(adds=13, muls=4),
-    device_id=DOT2_ID,
+    # canonical fma-based Ogita accounting (17 flops an element), the
+    # figure the ECM tables use; the split TwoProd executes 18 adds and 7
+    # muls an element on the product path, TwoSum alone 7 adds on the sum
+    # path (the traced counts)
+    instruction_mix=InstructionMix(adds=13, muls=4, traced_adds=18,
+                                   traced_muls=7, traced_sum_adds=7),
+    error_bound=_dot2_bound, device_id=DOT2_ID,
     description="TwoProd+TwoSum (Ogita-Rump-Oishi Dot2); twice-precision")
 
 
@@ -210,6 +329,10 @@ def register(scheme: CompensationScheme, *, override: bool = False,
     """Add a scheme to the registry; ``override=True`` replaces a name."""
     if not isinstance(scheme, CompensationScheme):
         raise TypeError(f"expected CompensationScheme, got {type(scheme)!r}")
+    # again at the registry boundary: dataclasses.replace or
+    # object.__setattr__ between construction and registration must not
+    # slip a malformed mix into the ECM tables
+    validate_instruction_mix(scheme.instruction_mix, scheme_name=scheme.name)
     if scheme.name in _REGISTRY and not override:
         raise ValueError(
             f"scheme {scheme.name!r} already registered "
@@ -224,6 +347,11 @@ def unregister(name: str) -> None:
 
 def names() -> Tuple[str, ...]:
     return tuple(_REGISTRY)
+
+
+def registered() -> Dict[str, CompensationScheme]:
+    """A copy of the registry (safe to iterate while registering)."""
+    return dict(_REGISTRY)
 
 
 def get(name: str) -> CompensationScheme:

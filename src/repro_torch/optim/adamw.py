@@ -99,13 +99,12 @@ _FMA_CHUNK = 1 << 22
 def _fused(a, b, c: Tensor) -> Tensor:
     """``a * b + c`` with one rounding, at a site where XLA on the CPU
     fuses the product into the add in the compiled step: the two moment
-    updates (``m * b1 + ...``, ``v * b2 + ...``) and, where the update
-    needs no cast (float32 params), ``-lr * dir`` into the add that
-    applies it. Found by comparing the jitted reference with each
-    candidate set: bf16 params, m, v and comp then match bit for bit;
-    float32 params still differ by a few ulps (cause not found; the
-    parity tests hold them to a tolerance). ``a`` or ``b`` may be a
-    scalar; tensors share ``c``'s shape."""
+    updates (``m * b1 + ...``, ``v * b2 + ...``), the weight decay into
+    the direction (``ratio + wd * p``) and, where the update needs no
+    cast (float32 params), ``-lr * dir`` into the add that applies it.
+    Found by comparing the jitted reference with each candidate set: bf16
+    and float32 params, m, v and comp then match bit for bit. ``a`` or
+    ``b`` may be a scalar; tensors share ``c``'s shape."""
     a, b = (x if isinstance(x, Tensor)
             else torch.tensor(x, dtype=c.dtype, device=c.device)
             for x in (a, b))
@@ -117,6 +116,16 @@ def _fused(a, b, c: Tensor) -> Tensor:
     for i in range(0, c.shape[0], rows):
         out[i:i + rows] = fma(cut(a, i), cut(b, i), c[i:i + rows])
     return out
+
+
+def _sqrt(x: Tensor) -> Tensor:
+    """The correctly rounded float32 square root. torch's float32 ``sqrt``
+    on the CPU is not always (it differs from XLA's in the last bit on a
+    few inputs); the float64 root of a float32 value, rounded once to
+    float32, is. On the card ``torch.sqrt`` is already correctly rounded."""
+    if x.device.type == "cpu" and x.dtype == torch.float32:
+        return torch.sqrt(x.double()).float()
+    return torch.sqrt(x)
 
 
 @torch.no_grad()
@@ -147,10 +156,11 @@ def apply_update(cfg: AdamWConfig, params: Any, grads: Any, state: OptState,
         gf = g.float() * clip_scale
         m32 = _fused(m.float(), b1, gf * (1 - b1))
         v32 = _fused(v.float(), b2, torch.square(gf) * (1 - b2))
-        mhat = m32 / c1
-        vhat = v32 / c2
-        ratio = mhat / (torch.sqrt(vhat) + cfg.eps)
-        step_dir = ratio + cfg.weight_decay * p.float()
+        # XLA rewrites mhat / (sqrt(vhat) + eps), mhat = m32 / c1, into
+        # one division by a product (the compiled step's HLO:
+        # divide(m32, multiply(1 - b1^t, sqrt(v32 / c2) + eps)))
+        ratio = m32 / (c1 * (_sqrt(v32 / c2) + cfg.eps))
+        step_dir = _fused(cfg.weight_decay, p.float(), ratio)
         m.copy_(m32)
         v.copy_(v32)
         if p.dtype == torch.float32:

@@ -134,6 +134,103 @@ def test_cuda_reduce_ring_matches_plain(cuda_device, dtype, case):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("unroll", [2, 4, 16])
+def test_cuda_reduce_sweep_unrolls_match_plain(cuda_device, unroll):
+    """Tier 2 on the card, the unroll sweep of chip_smoke's phase 7 (U 1
+    and 8 are above): for every built-in scheme the single-row float32 dot
+    and sum grids at U 2, 4 and 16 equal their plain versions bit for bit,
+    over 37 steps, and each launch ran the CTAs the machine model
+    (``ecm.ecm_gpu``) counts."""
+    import dataclasses
+
+    from repro_torch.core import ecm
+    from repro_torch.kernels import _build, kahan_dot, kahan_sum
+
+    cells = 1024 * unroll
+    machine = dataclasses.replace(ecm.H100, sms=_build.sm_count(cuda_device))
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+    a, b = torch.randn((2, 37 * cells), generator=gen, device=cuda_device)
+    for scheme in SCHEMES:
+        sch = tschemes.get(scheme)
+        kw = dict(scheme=sch, unroll=unroll)
+        for op, fn, got, want in (
+                ("dot", kahan_dot.dot_accumulators,
+                 kahan_dot.dot_accumulators(a, b, **kw),
+                 kahan_dot.dot_plain(a[None], b[None], **kw)),
+                ("sum", kahan_sum.sum_accumulators,
+                 kahan_sum.sum_accumulators(a, **kw),
+                 kahan_sum.sum_plain(a[None], **kw))):
+            assert all(torch.equal(g, w[0]) for g, w in zip(got, want)), (
+                scheme, op)
+            model = ecm.ecm_gpu_for_scheme(machine, sch, a.numel(), unroll,
+                                           op=op)
+            assert model.ctas * fn.plan[0] == cells, (scheme, op)
+
+
+@pytest.mark.cuda
+def test_cuda_sqrt_is_correctly_rounded(cuda_device):
+    """Tier 2 on the card: the optimizer's ``_sqrt`` takes ``torch.sqrt``
+    on a CUDA tensor, which must equal the float64 root rounded once to
+    float32 (what it computes on the CPU), over normal float32 values of
+    every exponent."""
+    from repro_torch.optim import adamw
+
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    m = torch.rand(1 << 22, generator=gen, device=cuda_device) + 1.0
+    e = torch.randint(-120, 120, (1 << 22,), generator=gen,
+                      device=cuda_device)
+    x = (m * torch.exp2(e.float())).float()
+    want = torch.sqrt(x.double()).float()
+    assert torch.equal(adamw._sqrt(x), want)
+    assert torch.equal(adamw._sqrt(x.cpu()), want.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kahan", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_apply_update_equals_cpu(cuda_device, dtype, kahan):
+    """Tier 1 on the card: three ``apply_update`` steps with the
+    engine-folded norm leave params, m, v, comp and the grad norm equal to
+    the same steps on the CPU, bit for bit. On the CPU they equal the
+    jitted reference's (tests/test_torch_optim.py); the exact fmas and the
+    correctly rounded square root carry that to the card."""
+    import numpy as np
+
+    from repro_torch.core import tree as T
+    from repro_torch.optim import AdamWConfig, apply_update, init
+
+    rng = np.random.default_rng(8)
+    shapes = {"a": (37, 19), "b": (5, 7, 3), "c": (11,), "d": (1, 6)}
+
+    def tree(lo, hi, dt):
+        return {k: torch.from_numpy((rng.standard_normal(s) * np.exp2(
+            rng.integers(lo, hi, s))).astype(np.float32)).to(dt)
+            for k, s in shapes.items()}
+
+    cfg = AdamWConfig(kahan=kahan, kahan_norm=False)
+    params = {"cpu": tree(-4, 1, dtype)}
+    params["card"] = T.tree_map(lambda p: p.to(cuda_device, copy=True),
+                                params["cpu"])
+    state = {k: init(cfg, p) for k, p in params.items()}
+    for i in range(3):
+        g = tree(-6, 0, torch.float32)
+        scale = torch.tensor(0.5 + 0.25 * i)
+        out = {}
+        for k, dev in (("cpu", "cpu"), ("card", cuda_device)):
+            params[k], state[k], m = apply_update(
+                cfg, params[k], T.tree_map(lambda x: x.to(dev), g),
+                state[k], scale.to(dev))
+            out[k] = m["grad_norm"].cpu()
+        assert torch.equal(out["card"], out["cpu"]), i
+        for name in ("m", "v") + (("comp",) if kahan else ()):
+            for a, b in zip(T.leaves(getattr(state["card"], name)),
+                            T.leaves(getattr(state["cpu"], name))):
+                assert torch.equal(a.cpu(), b), (i, name)
+        for a, b in zip(T.leaves(params["card"]), T.leaves(params["cpu"])):
+            assert a.dtype == b.dtype and torch.equal(a.cpu(), b), i
+
+
+@pytest.mark.cuda
 def test_cuda_reduce_refuses_a_wrong_plan(cuda_device):
     """The C entries recompute a plan's shared memory and check it: a byte
     count that disagrees, a CTA width, stage depth (4, 0, 128) or stage
@@ -186,7 +283,8 @@ def test_runtime_scheme_on_card_raises(cuda_device):
     mine = tschemes.CompensationScheme(
         name="test_torch_cuda_plain",
         update=lambda s, c, x, step: (s + x, c),
-        instruction_mix=tschemes.InstructionMix(adds=1, muls=1))
+        instruction_mix=tschemes.InstructionMix(adds=1, muls=1),
+        error_bound=tschemes.NAIVE.error_bound)
     tschemes.register(mine)
     try:
         x = torch.arange(10000, dtype=torch.float32, device=cuda_device)
@@ -385,7 +483,8 @@ def test_cuda_flash_rejects_what_it_does_not_take(cuda_device):
                               scheme=tschemes.KAHAN, **kw)
     mine = tschemes.CompensationScheme(
         name="test_torch_cuda_flash", update=lambda s, c, x, step: (s + x, c),
-        instruction_mix=tschemes.InstructionMix(adds=1, muls=1))
+        instruction_mix=tschemes.InstructionMix(adds=1, muls=1),
+        error_bound=tschemes.NAIVE.error_bound)
     with pytest.raises(NotImplementedError, match="test_torch_cuda_flash"):
         fa.flash_accumulators(x, x, x, scheme=mine, **kw)
     assert engine.launch_counts() == before
@@ -529,7 +628,8 @@ def test_cuda_matmul_rejects_what_it_does_not_take(cuda_device):
                                compute_dtype=torch.bfloat16, **kw)
     mine = tschemes.CompensationScheme(
         name="test_torch_cuda_matmul", update=lambda s, c, x, step: (s + x, c),
-        instruction_mix=tschemes.InstructionMix(adds=1, muls=1))
+        instruction_mix=tschemes.InstructionMix(adds=1, muls=1),
+        error_bound=tschemes.NAIVE.error_bound)
     with pytest.raises(NotImplementedError, match="test_torch_cuda_matmul"):
         km.matmul_accumulators(x, w, scheme=mine, **kw)
     assert engine.launch_counts() == before

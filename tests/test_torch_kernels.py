@@ -197,7 +197,8 @@ def test_policy_and_runtime_scheme():
     mine = tschemes.CompensationScheme(
         name="test_torch_plain_sum",
         update=lambda s, c, x, step: (s + x, c),
-        instruction_mix=tschemes.InstructionMix(adds=1, muls=1))
+        instruction_mix=tschemes.InstructionMix(adds=1, muls=1),
+        error_bound=tschemes.NAIVE.error_bound)
     tschemes.register(mine)
     try:
         assert mine.device_id is None

@@ -416,7 +416,8 @@ def test_decode_tick_runs_under_engine_policy(matmul_engine):
 
     mine = tschemes.register(tschemes.CompensationScheme(
         name="test_torch_matmul_counting", update=counting_update,
-        instruction_mix=tschemes.InstructionMix(adds=1, muls=1)))
+        instruction_mix=tschemes.InstructionMix(adds=1, muls=1),
+        error_bound=tschemes.NAIVE.error_bound))
     cfg = matmul_engine["cfg"]
     try:
         reqs = _requests(cfg)[:1]

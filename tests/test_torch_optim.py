@@ -9,16 +9,15 @@ Parity tiers:
   ``tree_kahan_sq_norm`` (its (s, c) vectors, the loop that the column
   kernel reproduces) against the reference's compiled ``lax.scan`` body,
   with the fma XLA contracts; ``engine_sq_norm`` (tier-1 grids and the
-  same merge tree); ``apply_update`` over three steps with bf16
-  parameters and the engine-folded norm, AdamW and KahanAdamW, against
-  the jitted reference, with an exact fma at the two moment updates
-  where XLA fuses them.
+  same merge tree); ``apply_update`` over three steps with bf16 and
+  float32 parameters and the engine-folded norm, AdamW and KahanAdamW,
+  against the jitted reference, with an exact fma wherever XLA fuses a
+  product into an add and a correctly rounded square root.
 * tier 3 (tolerance): ``tree_kahan_sq_norm``'s scalar within rtol 1e-6
   (its final sums of the column vectors are XLA's order there, torch's
   here), and so ``apply_update`` under it (bf16 params within one bf16
-  ulp, rtol 2^-7); ``apply_update`` with float32 parameters within rtol
-  1e-6 (a few ulps differ, cause not found); ``warmup_cosine`` within
-  1e-6 (XLA's and torch's ``cos``).
+  ulp, rtol 2^-7), and with float32 parameters within rtol 1e-6;
+  ``warmup_cosine`` within 1e-6 (XLA's and torch's ``cos``).
 """
 
 import jax
@@ -271,8 +270,18 @@ def test_apply_update_bf16_kahan_norm_within_tolerance(kahan):
 
 @pytest.mark.parametrize("kahan", [True, False])
 def test_apply_update_f32_within_tolerance(kahan):
-    """Tier 3: float32 params within rtol 1e-6; the moments stay
-    bitwise."""
+    """Float32 params. Tier 1 with the engine-folded norm: params, m, v,
+    comp and grad_norm equal the jitted reference's after each of three
+    steps (the tolerance is zero: the port divides by ``c1 * (sqrt(vhat)
+    + eps)`` as XLA rewrites it, fuses the weight decay's product into its
+    add, and takes a correctly rounded square root). Tier 3 under the
+    compensated tree norm, whose scalar differs within rtol 1e-6: params
+    within rtol 1e-6, the moments bitwise."""
+    for jp, js, jm, tp, ts, tm in _run_both("float32", kahan, False):
+        assert _same_tree(jp, tp)
+        assert _same_tree(js.m, ts.m) and _same_tree(js.v, ts.v)
+        assert _same_tree(js.comp, ts.comp) if kahan else ts.comp is None
+        assert float(jm["grad_norm"]) == float(tm["grad_norm"])
     for jp, js, jm, tp, ts, tm in _run_both("float32", kahan, True):
         for a, b in zip(jax.tree.leaves(jp), T.leaves(tp)):
             np.testing.assert_allclose(b.numpy(), np.asarray(a), rtol=1e-6,
