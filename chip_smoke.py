@@ -46,7 +46,14 @@ there is no CUDA device or no ``src/repro_torch`` beside it.
    0, 8, 31 and M - 1 of M in {9, 64, 300} equal M = 1 products. The
    column scan of the compensated global norm (``kahan_sq_columns``)
    against its plain loop, bit for bit, on float32 and bf16 leaves
-   (tall, one row, ragged rows and columns).
+   (tall, one row, ragged rows and columns). Subnormals (the kernels
+   are built with ``-ftz=true``; the plain versions flush op for op as
+   XLA does on the CPU): every reduction wrapper for every scheme in
+   float32 and bf16 on products and sums that underflow, on products a
+   few ulps either side of ``tiny`` (x86 flushes (1 - 2^-24) tiny and
+   keeps (1 - 2^-23) tiny (1 + 2^-23), and so must the card), and on
+   bf16 subnormal operands into a float32 accumulate; B5 at M 3 and 37;
+   B7 and B8 where ``exp`` underflows; the column scan; bit for bit.
 3. Kernel times: each kernel at the shape its main path gives it (dot and
    sum at the paper's in-memory size n = 2^27 for every scheme, with each
    scheme's time over naive's, the paper's metric; batched dot and sum
@@ -143,6 +150,25 @@ there is no CUDA device or no ``src/repro_torch`` beside it.
    model's error is printed, not gated. One JSON line ``{"ecm": [...],
    "phase3": [...], "ladder": [...]}``, a row per (op, scheme, U), per
    phase-3 row and per condition.
+8. The distributed slice: two ranks share the card over gloo (NCCL
+   refuses two ranks on one device), spawned with
+   ``torch.multiprocessing`` over a ``FileStore`` under ``build/``.
+   Each runs ``sharded_asum`` and ``sharded_dot`` at n = 2^27 (B3, B1 on
+   its 2^26 block), ``sharded_matmul`` [1024, 2048] x [2048, 8192] with
+   K split 2 (B5), ``activation_sq_norm`` at [4, 57344] on the
+   batch-sharded mesh (B4, 2 requests a rank), ``deterministic_mean``
+   and ``compressed_psum`` on a [2048, 8192] leaf, twice, then OLMo-1B
+   at full width and depth on ``make_local_mesh()`` (phase 6's run A,
+   2 steps, twice), its loss folded through ``sharded_asum``. Checked:
+   every result the same bits on both ranks and in both runs, equal to
+   the same kernels' per-shard grids folded here by
+   ``merge_accumulators`` / ``merge_accumulator_grids`` and to the plain
+   versions' sharded fold; B1, B3, B4 and B5 twice a rank; the
+   trainer's loss the same bits on both ranks and run to run, equal to
+   the sharded fold of its microbatch losses recomputed here, within
+   1e-6 (relative) of their local Kahan fold, B3 once a step. Logged:
+   the gather's µs a call, the sharded sum's ms beside B3's alone, each
+   rank's peak memory, the phase's seconds.
 
 The last three lines are the card (``nvidia-smi`` name and power
 limit), one JSON object ``{"kernels": [...]}`` and
@@ -150,12 +176,15 @@ limit), one JSON object ``{"kernels": [...]}`` and
 kernel and path it runs on (``"path"``: "entry", "serve" for the scan
 trace, "serve-flash" for the same trace under flash, "serve-matmul" for
 it with ``kahan_matmul`` too, "serve-long" for the long request,
-"train-a" and "train-b" for the two training runs): its ``launches``
-are that path's count and its times were taken at that path's shape (B5
-on "serve-matmul": the decode q/k/v/o shape at M 1, the one launched
-most; on "train-b" the up projection's forward at 1024 tokens; B3 on
-"train-b" the largest leaf; the column scan on "train-a" the
-embedding's gradient).
+"train-a" and "train-b" for the two training runs, "sharded" for phase
+8's sharded calls and "sharded-train" for its trainer, both rank 0's
+counts): its ``launches`` are that path's count and its times were
+taken at that path's shape (B5 on "serve-matmul": the decode q/k/v/o
+shape at M 1, the one launched most; on "train-b" the up projection's
+forward at 1024 tokens; B3 on "train-b" the largest leaf; the column
+scan on "train-a" and "sharded-train" the embedding's gradient; on
+"sharded" one rank's block, requests or K-slice; B3 on "sharded-train"
+the loss fold's one element a rank, padded to one block).
 """
 
 from __future__ import annotations
@@ -220,6 +249,18 @@ SATURATED_WITHIN = 0.05
 LOAD_ONLY_N = 1 << 28
 LADDER_N = 1 << 20
 LADDER_CONDS = (1e0, 1e1, 1e4, 1e6, 1e8, 1e10, 1e12)
+
+#: phase 8: the sharded slice on two gloo ranks sharing the one card:
+#: asum and dot at the paper's n (2^26 a rank), a matmul with K split 2,
+#: the serving telemetry's shape (2 requests a rank), a [2048, 8192]
+#: leaf through the compressed all-reduce, and OLMo-1B trained on the
+#: mesh (phase 6's run A, 2 steps, twice)
+DIST_RANKS = 2
+DIST_N = 1 << 27
+DIST_MATMUL = (1024, 2048, 8192)
+DIST_ACT = (4, 57344)
+DIST_LEAF = (2048, 8192)
+DIST_TRAIN_STEPS = 2
 
 #: the schemes with a device function, and the reduction wrappers
 SCHEMES = ("naive", "kahan", "pairwise", "dot2")
@@ -310,6 +351,7 @@ def main() -> int:
     kernels.matmul_parity()
     kernels.matmul_times(cfg, PREFILL_LEN)
     kernels.column_parity()
+    kernels.subnormal_parity()
     kernels.train_times(cfg, TRAIN_BATCH // TRAIN_MICRO * TRAIN_SEQ)
     serve_stats = main_path(torch, kernels, cfg, PAPER_N)
     log(json.dumps({"serve": serve_stats}))
@@ -317,6 +359,7 @@ def main() -> int:
     train_stats["b5_rows_per_step"] = kernels.train_b5
     log(json.dumps({"train": train_stats}))
     log(json.dumps(paper_path(torch, kernels, card)))
+    log(json.dumps({"dist": dist_path(torch, kernels, dist_spec(cfg))}))
     log(card)
     log(json.dumps({"kernels": kernels.rows()}))
     log(json.dumps({"ok": True, "device": {
@@ -1123,6 +1166,193 @@ class Kernels:
         log(f"# phase 2: {cases} column-scan cases bitwise equal to the "
             f"plain loop (float32 and bf16 leaves, ragged rows and columns)")
 
+    # -- 2. subnormal-reaching data (C2) --------------------------------------
+    def sub_data(self, shape, dtype, lo, hi):
+        """Normal values scaled by 2^e, e in [lo, hi), a fifth of them
+        scaled into float32's subnormal range and a twentieth signed
+        zeros, as ``dtype`` (a bfloat16 subnormal stays one)."""
+        torch, gen, dev = self.torch, self.gen, self.dev
+        x = torch.randn(shape, generator=gen, device=dev, dtype=torch.float64)
+        e = torch.randint(lo, hi, shape, generator=gen, device=dev)
+        sub = torch.rand(shape, generator=gen, device=dev) < 0.2
+        e = torch.where(sub, torch.randint(-149, -127, shape, generator=gen,
+                                           device=dev), e)
+        x = x * torch.exp2(e.double())
+        zero = torch.rand(shape, generator=gen, device=dev) < 0.05
+        return torch.where(zero, x * 0, x).to(dtype)
+
+    def boundary_pair(self, shape, dtype):
+        """(a, b) whose float32 products lie a few units of the last place
+        on either side of ``tiny`` = 2^-126: a = +-(1 - j 2^-24) 2^k, b =
+        +-tiny (1 + i 2^-23) 2^-k, i, j in 0..3, k in -3..3 (x86, and so
+        the reference, flushes (1 - 2^-24) tiny and keeps (1 - 2^-23) tiny
+        (1 + 2^-23))."""
+        torch, gen, dev = self.torch, self.gen, self.dev
+
+        def ints(lo, hi):
+            return torch.randint(lo, hi, shape, generator=gen,
+                                 device=dev).double()
+
+        def sign():
+            return ints(0, 2) * 2 - 1
+
+        k = ints(-3, 4)
+        a = sign() * (1 - ints(0, 4) * 2.0 ** -24) * torch.exp2(k)
+        b = sign() * 2.0 ** -126 * (1 + ints(0, 4) * 2.0 ** -23)
+        return a.to(dtype), (b * torch.exp2(-k)).to(dtype)
+
+    def subnormal_parity(self):
+        """Every kernel against its flushing plain version, bitwise, on
+        data that reaches float32's subnormal range: subnormal inputs,
+        products and sums that underflow, the products at the ``tiny``
+        boundary, bf16 subnormal operands (the kernels are built with
+        ``-ftz=true``; the plain versions flush op for op as XLA does on
+        the CPU). Returns the number of cases."""
+        torch = self.torch
+        kd, ks, km, fa = self.kd, self.ks, self.km, self.fa
+        f32, bf16 = torch.float32, torch.bfloat16
+        cases = 0
+        seen = {name: set() for name in REDUCTIONS}
+        n = 3 * 8192 + 37
+        for dtype in (f32, bf16):
+            for name in SCHEMES:
+                sch = self.schemes.get(name)
+                for unroll in (1, 8):
+                    eng = self.engine.CompensatedReduction(
+                        scheme=sch, unroll=unroll, compute_dtype=dtype)
+                    kw = dict(scheme=sch, unroll=unroll)
+                    data = {
+                        "products underflow": (
+                            self.sub_data((3, n), dtype, -75, -52),
+                            self.sub_data((3, n), dtype, -75, -52)),
+                        "sums underflow": (
+                            self.sub_data((3, n), dtype, -135, -110),
+                            self.sub_data((3, n), dtype, -135, -110)),
+                        "tiny boundary": self.boundary_pair((3, n), dtype)}
+                    for label, (a, b) in data.items():
+                        ap, bp = eng._prep2d(a), eng._prep2d(b)
+                        plain = (kd.dot_plain(ap, bp, **kw),
+                                 ks.sum_plain(ap, **kw))
+                        self.reduction_case(
+                            ap, bp, plain, kw,
+                            f"{name} U={unroll} {dtype} {label}", seen)
+                        cases += 1
+                # bf16 subnormal operands into a float32 accumulate
+                if dtype == bf16:
+                    eng = self.engine.CompensatedReduction(scheme=sch,
+                                                           unroll=8)
+                    a = self.sub_data((3, n), bf16, -75, -52)
+                    b = self.sub_data((3, n), bf16, -75, -52)
+                    ap, bp = eng._prep2d(a), eng._prep2d(b)
+                    kw = dict(scheme=sch, unroll=8)
+                    self.reduction_case(
+                        ap, bp, (kd.dot_plain(ap, bp, **kw),
+                                 ks.sum_plain(ap, **kw)), kw,
+                        f"{name} bf16 subnormal operands, float32", seen)
+                    cases += 1
+        # matmul: both tile paths (M 3 and 37), float32 and bf16 operands
+        for name in SCHEMES:
+            eng = self.engine.CompensatedReduction(scheme=name)
+            for m in (3, 37):
+                for odt in (f32, bf16):
+                    a = self.sub_data((m, 1100), odt, -75, -52)
+                    b = self.sub_data((1100, 200), odt, -75, -52)
+                    if odt == f32:
+                        a[0], b[:, 0] = self.boundary_pair((1100,), f32)
+                    blocks = eng._matmul_blocks(m, 200, 1100, None, None,
+                                                None)
+                    ap, bp = eng._prep_matmul(a, b, blocks)
+                    kw = dict(scheme=eng.scheme, block_m=blocks[0],
+                              block_n=blocks[1], block_k=blocks[2],
+                              compute_dtype=f32)
+                    got = km.matmul_accumulators(ap, bp, **kw)
+                    want = km.matmul_plain(ap[None], bp[None],
+                                           scheme=eng.scheme,
+                                           block_k=blocks[2],
+                                           compute_dtype=f32)
+                    self.compare("matmul_accumulators", got,
+                                 (want[0][0], want[1][0]),
+                                 f"{name} {odt} operands M={m}, subnormal")
+                    cases += 1
+        # flash: scores whose exp underflows, subnormal v
+        eng = self.engine.CompensatedReduction(scheme="kahan")
+        sq, skv, bh, dh = 300, 600, 4, 128
+        q, k, v, bq, bk, _, _ = eng._flash_prep(
+            "subnormal_parity", self.normal((bh, sq, dh)) * 6,
+            self.normal((bh, skv, dh)) * 6,
+            self.sub_data((bh, skv, dh), f32, -130, -100), 256, 256, 1)
+        for name in SCHEMES:
+            sch = self.schemes.get(name)
+            got = fa.flash_accumulators(q, k, v, block_q=bq, block_k=bk,
+                                        scheme=sch, kv_len=skv, causal=True,
+                                        q_groups=1)
+            want = fa.flash_plain(q, k, v, scheme=sch, block_k=bk,
+                                  kv_len=skv, causal=True)
+            self.compare("flash_accumulators", got, want,
+                         f"{name}, exp underflows, subnormal v")
+            qc = q[:, 64:128].contiguous()
+            got = fa.flash_chunk_accumulators(qc, k, v, 64, block_q=64,
+                                              block_k=bk, scheme=sch,
+                                              kv_len=skv, q_groups=1)
+            want = fa.flash_plain(qc, k, v, scheme=sch, block_k=bk,
+                                  kv_len=skv, causal=True, q_off=64)
+            self.compare("flash_chunk_accumulators", got, want,
+                         f"{name}, exp underflows, subnormal v")
+            cases += 2
+        # column scan: squares that underflow, subnormal entries
+        from repro_torch.core.kahan import column_sq_plain
+        from repro_torch.kernels import kahan_columns
+
+        for dtype in (f32, bf16):
+            for lo, hi in ((-75, -52), (-140, -100)):
+                x = self.sub_data((300, 37, 5), dtype, lo, hi)
+                got = kahan_columns.column_sq_accumulators(x)
+                self.compare("column_sq_accumulators", got,
+                             column_sq_plain(x.float()),
+                             f"{dtype} subnormal, e in [{lo}, {hi})")
+                cases += 1
+        sync(torch, self.dev)
+        log(f"# phase 2: {cases} subnormal-reaching cases bitwise equal to "
+            f"the flushing plain versions (every reduction x scheme x "
+            f"float32 / bf16, products and sums that underflow, products at "
+            f"the tiny boundary, bf16 subnormal operands; B5 at M 3 and 37; "
+            f"B7 and B8 with exp underflowing; the column scan)")
+        return cases
+
+    def dist_times(self, spec):
+        """Phase 8's rows, at one rank's shapes: B3 and B1 on its block of
+        the sharded sum and dot, B4 on its two requests, B5 on its
+        K-slice (float32 operands), and B3 on the trainer's loss fold (one
+        microbatch loss a rank, padded to one block)."""
+        torch, kd, ks = self.torch, self.kd, self.ks
+        f32 = torch.float32
+        half = spec["n"] // DIST_RANKS
+        x, y = self.data((half,), f32), self.data((half,), f32)
+        self.time_one("sum_accumulators", "kahan", (x,),
+                      lambda s: [t[0] for t in ks.sum_plain(x[None],
+                                                            scheme=s)],
+                      lambda: torch.sum(x), label="sharded")
+        self.time_one("dot_accumulators", "kahan", (x, y),
+                      lambda s: [t[0] for t in kd.dot_plain(
+                          x[None], y[None], scheme=s)],
+                      lambda: torch.dot(x, y), label="sharded")
+        del x, y
+        rows, cols = spec["act"]
+        sq = self.data((rows // DIST_RANKS, cols), f32)
+        self.time_one("sum_accumulators_batched", "kahan", (sq,),
+                      lambda s: ks.sum_plain(sq, scheme=s),
+                      lambda: torch.sum(sq, dim=1), reps=200,
+                      label="sharded")
+        one = torch.zeros(8192, device=self.dev)
+        one[0] = 2.5
+        self.time_one("sum_accumulators", "kahan", (one,),
+                      lambda s: [t[0] for t in ks.sum_plain(one[None],
+                                                            scheme=s)],
+                      lambda: torch.sum(one), reps=200, label="sharded-loss")
+        m, k, n = spec["matmul"]
+        self.time_matmul("sharded", m, k // DIST_RANKS, n,
+                         dtypes=(f32, f32))
+
     def train_times(self, cfg, tokens):
         """Phase 3's training rows: B5 at every (shape, operand pair) a
         train step of ``tokens`` tokens a microbatch gives it with
@@ -1242,7 +1472,13 @@ class Kernels:
                    ("matmul_accumulators_batched", "entry"): "batched",
                    ("matmul_accumulators", "train-b"): "train-up",
                    ("sum_accumulators", "train-b"): "train",
-                   ("column_sq_accumulators", "train-a"): "train"}
+                   ("column_sq_accumulators", "train-a"): "train",
+                   ("sum_accumulators", "sharded"): "sharded",
+                   ("dot_accumulators", "sharded"): "sharded",
+                   ("sum_accumulators_batched", "sharded"): "sharded",
+                   ("matmul_accumulators", "sharded"): "sharded",
+                   ("sum_accumulators", "sharded-train"): "sharded-loss",
+                   ("column_sq_accumulators", "sharded-train"): "train"}
         rows = []
         for path, counts in self.launches.items():
             for name in replaces:
@@ -2243,6 +2479,391 @@ def _leaves(tree):
             yield from _leaves(v)
     else:
         yield tree
+
+
+# -- 8. the sharded slice on two ranks ----------------------------------------
+
+def dist_spec(cfg, device="cuda"):
+    """What phase 8's ranks run, passed to each (its sizes, the model)."""
+    return {"device": device, "n": DIST_N, "matmul": DIST_MATMUL,
+            "act": DIST_ACT, "leaf": DIST_LEAF, "cfg": cfg,
+            "steps": DIST_TRAIN_STEPS, "micro": TRAIN_MICRO,
+            "seq": TRAIN_SEQ, "batch": TRAIN_BATCH, "lr": TRAIN_LR}
+
+
+def dist_inputs(torch, dev, rank, spec):
+    """Phase 8's inputs, made on ``dev`` from seeds: the same tensors on
+    every rank (each passes the whole tensor and reduces its block), but
+    the compressed leaf, which is each rank's own."""
+    gen = torch.Generator(device=dev).manual_seed(8)
+
+    def wide(*shape):
+        x = torch.randn(shape, generator=gen, device=dev)
+        e = torch.randint(-8, 8, shape, generator=gen, device=dev)
+        return x * torch.exp2(e.float())
+
+    m, k, n = spec["matmul"]
+    out = {"x": wide(spec["n"]), "y": wide(spec["n"]), "a": wide(m, k),
+           "b": wide(k, n), "act": wide(*spec["act"]),
+           "values": torch.tensor([1.25, -3.5e-3], device=dev)}
+    leaf = torch.Generator(device=dev).manual_seed(80 + rank)
+    out["leaf"] = torch.randn(spec["leaf"], generator=leaf, device=dev)
+    return out
+
+
+def dist_cases(torch, mesh, d):
+    """The sharded entry points once each (``repro_torch.distributed``)."""
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.distributed.compression import compressed_psum
+    from repro_torch.models.layers import activation_sq_norm
+
+    return {"asum": coll.sharded_asum(mesh, d["x"]),
+            "dot": coll.sharded_dot(mesh, d["x"], d["y"]),
+            "matmul": coll.sharded_matmul(mesh, d["a"], d["b"]),
+            "act": activation_sq_norm(d["act"], mesh=mesh),
+            "mean": coll.deterministic_mean(mesh, d["values"]),
+            "compressed": compressed_psum(d["leaf"], mesh.get_group("data"))}
+
+
+def dist_rank(rank, store, out, spec):
+    """One rank of phase 8, in its own process on the one card: a gloo
+    group over a ``FileStore``, the local mesh, the sharded entry points
+    twice (launch counts reset just before, read just after), the
+    gather's and the sharded sum's times, then OLMo-1B trained at full
+    width and depth on the 2-rank mesh, twice. Writes its results to
+    ``out`` (``torch.save``). ``spec``: ``dist_spec``."""
+    import gc
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.core import kahan as K
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.kernels import engine
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import TrainConfig, Trainer
+    from repro_torch.train.trainer import batch_to_device
+
+    dev = torch.device(spec["device"])
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(store, DIST_RANKS),
+                            rank=rank, world_size=DIST_RANKS)
+    mesh = make_local_mesh(device=dev)
+    group = mesh.get_group("data")
+    d = dist_inputs(torch, dev, rank, spec)
+    res = {"runs": []}
+    engine.reset_launch_counts()
+    for _ in range(2):
+        res["runs"].append(dist_cases(torch, mesh, d))
+    sync(torch, dev)
+    res["launches"] = engine.launch_counts()
+    # the gather of one U = 8 grid, host clock a call; the sharded sum,
+    # device time between events (gloo's host round trip included)
+    grid = torch.zeros((64, 128), device=dev)
+    for _ in range(3):
+        K.gather_ranks(grid, group)
+    sync(torch, dev)
+    t0 = time.perf_counter()
+    for _ in range(50):
+        K.gather_ranks(grid, group)
+    sync(torch, dev)
+    res["gather_us"] = (time.perf_counter() - t0) / 50 * 1e6
+    from repro_torch.distributed import collectives as coll
+
+    res["sharded_sum_ms"] = cuda_ms(
+        torch, lambda: coll.sharded_asum(mesh, d["x"]), reps=10) if cuda \
+        else None
+    res["runs"] = [{k: v.cpu() for k, v in run.items()}
+                   for run in res["runs"]]
+    del d, grid
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # OLMo-1B on the mesh: run A's settings (cuBLAS projections, the
+    # column-scan norm), the loss folded through the sharded sum
+    cfg = spec["cfg"]
+    tc = TrainConfig(steps=spec["steps"], microbatches=spec["micro"],
+                     warmup=1, log_every=1, ckpt_every=10 ** 9,
+                     opt=AdamWConfig(lr=spec["lr"]))
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
+                                  seq_len=spec["seq"],
+                                  global_batch=spec["batch"]))
+    res["train"] = []
+    for _ in range(2):
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(dev)
+        trainer = Trainer(cfg, tc, data, seed=0, device=dev, mesh=mesh)
+        micro = []
+        loss_fn = trainer.model.loss
+
+        def recording(params, batch, _f=loss_fn):
+            loss, metrics = _f(params, batch)
+            micro.append(loss.detach().float().clone())
+            return loss, metrics
+
+        trainer.model.loss = recording
+        losses = []
+        engine.reset_launch_counts()
+        sync(torch, dev)
+        t0 = time.perf_counter()
+        for step in range(spec["steps"]):
+            batch = batch_to_device(data.batch_at(step), dev)
+            trainer.params, trainer.opt_state, m = trainer.step_fn(
+                trainer.params, trainer.opt_state, batch)
+            losses.append(m["loss"].detach().clone())
+        sync(torch, dev)
+        res["train"].append({
+            "loss": torch.stack(losses).cpu(),
+            "micro": torch.stack(micro).cpu(),
+            "launches": engine.launch_counts(),
+            "seconds": time.perf_counter() - t0,
+            "peak_bytes": torch.cuda.max_memory_allocated(dev) if cuda
+            else 0})
+        del trainer, m, batch
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+    res["total_bytes"] = (torch.cuda.get_device_properties(dev).total_memory
+                          if cuda else 1)
+    torch.save(res, out)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def dist_path(torch, kernels, spec):
+    """Phase 8: the sharded compensated reductions over
+    ``torch.distributed`` and the trainer's sharded loss fold, on two
+    ranks sharing the one card (gloo: NCCL refuses two ranks on one
+    device), started with ``torch.multiprocessing`` over a ``FileStore``.
+    Gates: every result the same bits on both ranks and in both runs;
+    equal to ``merge_accumulators`` / ``merge_accumulator_grids`` over the
+    per-shard grids this process computes with the same kernels on the
+    same card, and to the plain versions' sharded fold; the trainer's
+    loss the same bits on both ranks and run to run, equal to the sharded
+    fold of its microbatch losses recomputed here and within 1e-6
+    (relative) of their local Kahan fold."""
+    import gc
+    import shutil
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    from repro_torch.core import kahan as K
+
+    t_start = time.perf_counter()
+    dev = kernels.dev
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    scratch = Path(tempfile.mkdtemp(prefix="dist-", dir=ROOT / "build"))
+    try:
+        ctx = mp.get_context("spawn")
+        procs = [ctx.Process(target=dist_rank, args=(
+            r, str(scratch / "store"), str(scratch / f"rank{r}.pt"), spec))
+            for r in range(DIST_RANKS)]
+        for p in procs:
+            p.start()
+        for p in procs:
+            p.join(timeout=600)
+        for r, p in enumerate(procs):
+            if p.is_alive():
+                p.kill()
+            check(p.exitcode == 0, f"phase 8: rank {r} exited with "
+                  f"{p.exitcode}")
+        ranks = [torch.load(scratch / f"rank{r}.pt", weights_only=False)
+                 for r in range(DIST_RANKS)]
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
+
+    def same(x, y):
+        return (x.dtype == y.dtype and x.shape == y.shape and torch.equal(
+            x.reshape(-1).view(torch.uint8), y.reshape(-1).view(torch.uint8)))
+
+    # 1. the same bits on both ranks and in both runs
+    for r, res in enumerate(ranks):
+        for key, val in res["runs"][0].items():
+            check(same(val, res["runs"][1][key]),
+                  f"phase 8: {key} differs run to run on rank {r}")
+            if key != "act":
+                check(same(val, ranks[0]["runs"][0][key]),
+                      f"phase 8: {key} differs between ranks 0 and {r}")
+    # 2. against the per-shard grids of the same kernels here, and the
+    # plain versions' sharded fold
+    want_kernel, want_plain = dist_expected(torch, kernels, dev, spec)
+    for key, want in want_kernel.items():
+        for r, res in enumerate(ranks):
+            got = res["runs"][0][key]
+            w = want[r] if key == "act" else want
+            check(same(got, w.cpu()),
+                  f"phase 8: {key} on rank {r} != the kernels' per-shard "
+                  f"grids folded here")
+            w = want_plain[key][r] if key == "act" else want_plain[key]
+            check(same(got, w.cpu()),
+                  f"phase 8: {key} on rank {r} != the plain versions' "
+                  f"sharded fold")
+    counts = ranks[0]["launches"]
+    for name, n in (("sum_accumulators", 2), ("dot_accumulators", 2),
+                    ("matmul_accumulators", 2),
+                    ("sum_accumulators_batched", 2)):
+        check(counts[name] == n, f"phase 8: {name} launched {counts[name]} "
+              f"times on rank 0 in two runs of the sharded calls, not {n}")
+    # 3. the trainer
+    ref = ranks[0]["train"][0]
+    eng = kernels.engine.CompensatedReduction()
+    for r, res in enumerate(ranks):
+        for i, run in enumerate(res["train"]):
+            check(same(run["loss"], ref["loss"]),
+                  f"phase 8: the trainer's loss on rank {r} run {i} != rank "
+                  f"0 run 0's")
+            check(bool(torch.isfinite(run["loss"]).all()),
+                  "phase 8: a trainer loss is not finite")
+    steps, n_micro = spec["steps"], spec["micro"]
+    micro = ref["micro"].view(steps, n_micro).to(dev)
+    local_rel = []
+    for step in range(steps):
+        shards = micro[step].view(DIST_RANKS, -1)
+        accs = [eng.sum_accumulators(s) for s in shards]
+        folded = kernels.engine.merge_accumulators(
+            torch.stack([a.s for a in accs]), torch.stack([a.c for a in accs]))
+        sharded = folded / n_micro
+        check(same(sharded.cpu(), ref["loss"][step]),
+              f"phase 8: step {step + 1}'s loss != the sharded fold of its "
+              f"microbatch losses recomputed here")
+        s = c = torch.zeros((), device=dev)
+        for v in micro[step]:
+            s, c = K.kahan_step(s, c, v)
+        local = (s + c) / n_micro
+        local_rel.append(abs(float(sharded) - float(local))
+                         / abs(float(local)))
+        check(local_rel[-1] <= 1e-6,
+              f"phase 8: step {step + 1}'s sharded loss is {local_rel[-1]:.2e}"
+              f" (relative) from the local fold's")
+    tcounts = ref["launches"]
+    check(tcounts["sum_accumulators"] == steps,
+          f"phase 8: the trainer launched B3 {tcounts['sum_accumulators']} "
+          f"times in {steps} steps, not once a step (the loss fold)")
+    for name, n in tcounts.items():
+        check(n == 0 or name in ("sum_accumulators", "column_sq_accumulators"),
+              f"phase 8: the trainer launched {name} {n} times")
+    kernels.launches["sharded"] = counts
+    kernels.launches["sharded-train"] = tcounts
+    kernels.dist_times(spec)
+    b3 = kernels.timing[("sum_accumulators", "kahan")]["ms"]
+    peaks = [max(run["peak_bytes"] for run in res["train"]) for res in ranks]
+    total = ranks[0]["total_bytes"]
+    seconds = time.perf_counter() - t_start
+    out = {"seconds": seconds, "gather_us": ranks[0]["gather_us"],
+           "sharded_sum_ms": ranks[0]["sharded_sum_ms"],
+           "single_rank_b3_ms": b3,
+           "train_loss": ref["loss"].tolist(),
+           "train_seconds": [run["seconds"] for run in ranks[0]["train"]],
+           "local_fold_rel": local_rel,
+           "peak_bytes": peaks, "card_bytes": total,
+           "launches": counts, "train_launches": tcounts}
+    log(f"# phase 8: 2 gloo ranks on the one card; sharded asum and dot at "
+        f"n = {spec['n']}, matmul {list(spec['matmul'])} with K split 2, "
+        f"activation_sq_norm {list(spec['act'])}, deterministic_mean, "
+        f"compressed_psum {list(spec['leaf'])}: the same "
+        f"bits on both ranks and in both runs, equal to the kernels' "
+        f"per-shard grids folded here and to the plain versions' sharded "
+        f"fold; B1, B3, B4, B5 twice each on a rank")
+    log(f"# phase 8: the gather {out['gather_us']:.1f} us a call (one "
+        f"[64, 128] grid, host clock); the sharded sum at n = {spec['n']} "
+        f"{out['sharded_sum_ms']} ms (events, both ranks on one card) "
+        f"against the single-rank B3 row {b3} ms (recorded, not gated)")
+    log(f"# phase 8: OLMo-1B trained on the 2-rank mesh at full width and "
+        f"depth, {steps} steps twice: loss "
+        f"{[round(x, 4) for x in out['train_loss']]} the same bits on both "
+        f"ranks and run to run, equal to the sharded fold of its microbatch "
+        f"losses recomputed here, within {max(local_rel):.1e} of the local "
+        f"fold; peak {', '.join(f'{p / 2**30:.2f}' for p in peaks)} GiB a "
+        f"rank of {total / 2**30:.1f}; {out['train_seconds'][0]:.1f} s the "
+        f"first run's {steps} steps; phase 8 took {seconds:.1f} s")
+    return out
+
+
+def dist_expected(torch, kernels, dev, spec):
+    """Phase 8's results as this process computes them on the card from
+    the same inputs: the per-shard grids of the same kernels folded by
+    ``merge_accumulators`` / ``merge_accumulator_grids``, and the plain
+    versions' per-shard grids folded the same way."""
+    from repro_torch.core import kahan as K
+    from repro_torch.distributed.compression import dequantize, quantize
+
+    engine, kd, ks, km = kernels.engine, kernels.kd, kernels.ks, kernels.km
+    eng = engine.CompensatedReduction()
+    d = [dist_inputs(torch, dev, r, spec) for r in range(DIST_RANKS)]
+    x, y, a, b = d[0]["x"], d[0]["y"], d[0]["a"], d[0]["b"]
+    n = DIST_RANKS
+    xs, ys = x.view(n, -1), y.view(n, -1)
+    kc = a.shape[1] // n
+    a_sh = [a[:, r * kc:(r + 1) * kc].contiguous() for r in range(n)]
+    b_sh = [b[r * kc:(r + 1) * kc] for r in range(n)]
+
+    def pair(acc):
+        return acc.s, acc.c
+
+    def fold(grids):
+        return engine.merge_accumulators(torch.stack([g[0] for g in grids]),
+                                         torch.stack([g[1] for g in grids]))
+
+    def fold_grids(grids):
+        m, cols = a.shape[0], b.shape[1]
+        return engine.merge_accumulator_grids(
+            torch.stack([g[0] for g in grids]),
+            torch.stack([g[1] for g in grids]))[:m, :cols]
+
+    sch, u = eng.scheme, eng.unroll
+    blocks = eng._matmul_blocks(a.shape[0], b.shape[1], kc, None, None, None)
+    sq = d[0]["act"].reshape(spec["act"][0], -1) ** 2
+    per = spec["act"][0] // n
+    v = d[0]["values"]
+    zero = torch.zeros((), device=dev)
+    pairs = [K.kahan_step(zero, zero, v[r]) for r in range(n)]
+    s = c = zero
+    for ps, pc in pairs:
+        s, c = K.kahan_combine(s, c, ps, pc)
+    mean = K.div(K.add(s, c), K.scalar_like(n, s))
+    scale = torch.max(torch.stack([dd["leaf"].abs().max() for dd in d]))
+    total = sum(quantize(dd["leaf"], scale).to(torch.int32) for dd in d)
+    compressed = dequantize(total, scale)
+    common = {"mean": mean, "compressed": compressed}
+    kernel = dict(common)
+    kernel["asum"] = fold([pair(eng.sum_accumulators(s_))
+                           for s_ in xs])
+    kernel["dot"] = fold([pair(eng.dot_accumulators(p, q))
+                          for p, q in zip(xs, ys)])
+    kernel["matmul"] = fold_grids([pair(eng.matmul_accumulators(p, q))
+                                   for p, q in zip(a_sh, b_sh)])
+    kernel["act"] = [eng.batched_asum(sq[r * per:(r + 1) * per])
+                     for r in range(n)]
+    plain = dict(common)
+    plain["asum"] = fold([tuple(g[0] for g in ks.sum_plain(
+        eng._prep1d(s_)[None], scheme=sch, unroll=u)) for s_ in xs])
+    plain["dot"] = fold([tuple(g[0] for g in kd.dot_plain(
+        eng._prep1d(p)[None], eng._prep1d(q)[None], scheme=sch, unroll=u))
+        for p, q in zip(xs, ys)])
+    plain_grids = []
+    for p, q in zip(a_sh, b_sh):
+        pp, qq = eng._prep_matmul(p, q, blocks)
+        gs, gc_ = km.matmul_plain(pp[None], qq[None], scheme=sch,
+                                  block_k=blocks[2],
+                                  compute_dtype=torch.float32)
+        pad = (-a.shape[0]) % blocks[0]
+        plain_grids.append(tuple(torch.nn.functional.pad(g[0], (0, 0, 0, pad))
+                                 for g in (gs, gc_)))
+    plain["matmul"] = fold_grids(plain_grids)
+    plain["act"] = []
+    for r in range(n):
+        grids = ks.sum_plain(eng._prep2d(sq[r * per:(r + 1) * per]),
+                             scheme=sch, unroll=u)
+        plain["act"].append(engine.Accumulator(*grids).total())
+    return kernel, plain
 
 
 if __name__ == "__main__":

@@ -22,10 +22,12 @@
 // stays outside Pallas in the reference.
 //
 // Arithmetic: built with -fmad=false, so no product is contracted by the
-// compiler. __fmaf_rn / __fma_rn sit at exactly the two sites where XLA
-// on the CPU contracts the reference: s = fma(a, b, s) in naive and
-// pairwise, y = fma(a, b, c) in kahan. dot2's TwoProd uses the Veltkamp
-// split with plain ops; the sum kernel has no fma. The scheme is a
+// compiler. __fmaf_rn / __fma_rn sit at exactly the sites where XLA on
+// the CPU contracts the reference: s = fma(a, b, s) in naive and
+// pairwise, y = fma(a, b, c) in kahan, and the four products of the
+// error term of dot2's Veltkamp-split TwoProd; the sum kernel has no
+// fma. Built with -ftz=true: float32 ops flush subnormal inputs and
+// results, as XLA on the CPU does. The scheme is a
 // template argument (ids in kernels/schemes.py). T is float, double or
 // Bf16: the reference rounds every bfloat16 op separately and contracts
 // nothing, which Bf16 reproduces with the conversion intrinsics (each op

@@ -31,6 +31,7 @@ struct Bf16 {
 __device__ __forceinline__ Bf16 operator+(Bf16 a, Bf16 b) { return Bf16(a.f() + b.f()); }
 __device__ __forceinline__ Bf16 operator-(Bf16 a, Bf16 b) { return Bf16(a.f() - b.f()); }
 __device__ __forceinline__ Bf16 operator*(Bf16 a, Bf16 b) { return Bf16(a.f() * b.f()); }
+__device__ __forceinline__ Bf16 operator-(Bf16 a) { Bf16 r; r.v = __hneg(a.v); return r; }
 static_assert(sizeof(Bf16) == 2, "Bf16 must be 2 bytes");
 
 __device__ __forceinline__ float fused(float a, float b, float c) {
@@ -66,7 +67,11 @@ __device__ __forceinline__ void two_prod(T a, T b, T& p, T& e) {
   const T b_big = k * b;
   const T b_hi = b_big - (b_big - b);
   const T b_lo = b - b_hi;
-  e = ((a_hi * b_hi - p) + a_hi * b_lo + a_lo * b_hi) + a_lo * b_lo;
+  // XLA contracts each product of the error term into the add it feeds:
+  // exact products in the normal range, so this only shows where they
+  // underflow (and fused() is two roundings in bfloat16, as there)
+  e = fused(a_lo, b_lo, fused(a_lo, b_hi, fused(a_hi, b_lo,
+                                                fused(a_hi, b_hi, -p))));
 }
 
 // scheme.update: fold an already-formed term x.

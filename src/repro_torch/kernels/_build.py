@@ -28,9 +28,15 @@ BUILD_DIR = _PKG.parents[1] / "build" / "kernels"
 
 #: contraction off: the kernels place their fused multiply-adds by hand
 #: (``__fmaf_rn`` / ``__fma_rn``) at exactly the reference's fused sites,
-#: and nowhere else (the flash and matmul chains have none).
+#: and nowhere else (the flash and matmul chains have none). ``-ftz=true``:
+#: float32 arithmetic flushes subnormal inputs and results to zeros of
+#: their sign, as XLA on the CPU does for the reference (bfloat16 is
+#: computed in float32, so it flushes too; float64 does not flush, and
+#: float64 results of float32 or bfloat16 data never reach its subnormal
+#: range).
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-fmad=false", "-ftz=true", "-shared", "-Xcompiler",
+              "-fPIC")
 
 _V, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _P = ctypes.POINTER(ctypes.c_int)

@@ -110,7 +110,10 @@ def merge_accumulators(s: Tensor, c: Tensor) -> Tensor:
 
 def merge_accumulator_grids(s: Tensor, c: Tensor) -> Tensor:
     """The same tree along the leading axis only, elementwise over the
-    trailing ones (``repro/kernels/engine.py:145-165``)."""
+    trailing ones (``repro/kernels/engine.py:145-165``). The grids are
+    flushed once here; every level below takes the flushed values that
+    the level above wrote."""
+    s, c = K.flush(s), K.flush(c)
     n = s.shape[0]
     p2 = 1 << (n - 1).bit_length()
     if p2 != n:
@@ -119,8 +122,8 @@ def merge_accumulator_grids(s: Tensor, c: Tensor) -> Tensor:
         c = torch.cat([c, pad])
     while s.shape[0] > 1:
         half = s.shape[0] // 2
-        s, c = K.kahan_combine(s[:half], c[:half], s[half:], c[half:])
-    return s[0] + c[0]
+        s, c = K._kahan_combine(s[:half], c[:half], s[half:], c[half:])
+    return K.add(s[0], c[0])
 
 
 # ---------------------------------------------------------------------------
@@ -180,7 +183,7 @@ class CompensatedReduction:
     def _prep1d(self, x: Tensor) -> Tensor:
         """Ravel, promote to the compute dtype, zero-pad to the block (an
         empty input becomes one zero block)."""
-        x = x.reshape(-1).to(self.compute_dtype)
+        x = K.promote(x.reshape(-1), self.compute_dtype)
         pad = (-x.shape[0]) % self.block
         if pad or x.shape[0] == 0:
             pad = pad or self.block
@@ -189,7 +192,8 @@ class CompensatedReduction:
 
     def _prep2d(self, x: Tensor) -> Tensor:
         """[batch, ...] -> [batch, n_padded] in the compute dtype."""
-        x = x.reshape(x.shape[0], -1).to(self.compute_dtype)
+        x = K.promote(x.reshape(x.shape[0], -1),
+                      self.compute_dtype)
         pad = (-x.shape[1]) % self.block
         if pad or x.shape[1] == 0:
             pad = pad or self.block
@@ -332,9 +336,10 @@ class CompensatedReduction:
         skv = k.shape[1]
         block_q = min(block_q, _round_up(sq, 8))
         block_k = min(block_k, _round_up(skv, 128))
-        q = _pad_rows(q.to(self.compute_dtype), (-sq) % block_q)
-        k = _pad_rows(k.to(self.compute_dtype), (-skv) % block_k)
-        v = _pad_rows(v.to(self.compute_dtype), (-skv) % block_k)
+        cdt = self.compute_dtype
+        q = _pad_rows(K.promote(q, cdt), (-sq) % block_q)
+        k = _pad_rows(K.promote(k, cdt), (-skv) % block_k)
+        v = _pad_rows(K.promote(v, cdt), (-skv) % block_k)
         return q, k, v, block_q, block_k, sq, skv
 
     # -- matmul --------------------------------------------------------------
@@ -364,9 +369,9 @@ class CompensatedReduction:
         k, n = b.shape[-2:]
         keep = _km.OPERAND_DTYPES[self.compute_dtype]
         if a.dtype not in keep:
-            a = a.to(self.compute_dtype)
+            a = K.promote(a, self.compute_dtype)
         if b.dtype not in keep:
-            b = b.to(self.compute_dtype)
+            b = K.promote(b, self.compute_dtype)
         pn, pk = (-n) % block_n, (-k) % block_k
         if pk:
             a = F.pad(a, (0, pk))
@@ -444,7 +449,7 @@ class CompensatedReduction:
     def _finalized_matmul(self, a: Tensor, b: Tensor,
                           blocks: Tuple[int, int, int]) -> Tensor:
         s, c = self._matmul_grids(a, b, blocks)
-        return _sliced_cols(s + c, b.shape[-1])
+        return _sliced_cols(K.add(s, c), b.shape[-1])
 
     def batched_matmul(self, a: Tensor, b: Tensor, *,
                        block_m: Optional[int] = None,
@@ -455,7 +460,7 @@ class CompensatedReduction:
         calls."""
         _, blocks = self._batched_blocks(a, b, block_m, block_n, block_k)
         s, c = self._matmul_grids(a, b, blocks)
-        return _sliced_cols(s + c, b.shape[-1])
+        return _sliced_cols(K.add(s, c), b.shape[-1])
 
 
 class _CompensatedMatmul(torch.autograd.Function):
@@ -517,4 +522,5 @@ def _pad_rows(x: Tensor, pad: int) -> Tensor:
 def _finalize_flash(l_acc: Accumulator, o_acc: Accumulator) -> Tensor:
     """``finalize(acc) / max(finalize(l), 1e-30)`` with ``finalize(s, c) =
     s + c``."""
-    return (o_acc.s + o_acc.c) / torch.clamp_min(l_acc.s + l_acc.c, 1e-30)
+    return K.div(K.add(o_acc.s, o_acc.c),
+                 torch.clamp_min(K.add(l_acc.s, l_acc.c), 1e-30))

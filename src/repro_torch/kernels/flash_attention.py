@@ -36,6 +36,7 @@ from typing import Optional, Tuple, Union
 
 import torch
 
+from repro_torch.core import kahan as K
 from repro_torch.kernels import _build
 from repro_torch.kernels.schemes import CompensationScheme
 
@@ -125,7 +126,7 @@ def rowsum_tree(p: Tensor) -> Tensor:
         p = torch.cat([p, p.new_zeros((*p.shape[:-1], p2 - n))], dim=-1)
     while p.shape[-1] > 1:
         half = p.shape[-1] // 2
-        p = p[..., :half] + p[..., half:]
+        p = K.add(p[..., :half], p[..., half:])
     return p
 
 
@@ -135,7 +136,7 @@ def _scores(q: Tensor, k: Tensor) -> Tensor:
     kernel's order)."""
     s = q.new_zeros((q.shape[0], q.shape[1], k.shape[1]))
     for d in range(q.shape[-1]):
-        s = s + q[:, :, d, None] * k[:, None, :, d]
+        s = K.add(s, K.mul(q[:, :, d, None], k[:, None, :, d]))
     return s
 
 
@@ -144,7 +145,7 @@ def _mix(p: Tensor, v: Tensor) -> Tensor:
     k-block (the kernel's order)."""
     out = p.new_zeros((p.shape[0], p.shape[1], v.shape[-1]))
     for j in range(p.shape[-1]):
-        out = out + p[:, :, j, None] * v[:, None, j, :]
+        out = K.add(out, K.mul(p[:, :, j, None], v[:, None, j, :]))
     return out
 
 
@@ -158,18 +159,19 @@ def flash_block_update(scheme: CompensationScheme, q, k, v, m_old, l_s, l_c,
     a_s/a_c ``[B, Sq, dh]``; ``q_pos`` ``[Sq, 1]`` and ``k_pos`` ``[1, bk]``
     absolute positions. Returns the updated (m, l_s, l_c, a_s, a_c)."""
     s = _scores(q, k)
-    s = s * scale
+    s = K.mul(s, K.scalar_like(scale, s))
     valid = k_pos < kv_len                       # engine-padded keys
     if causal:
         valid = valid & (q_pos >= k_pos)
     s = torch.where(valid, s, NEG_INF)
     m_new = torch.maximum(m_old, s.amax(dim=-1, keepdim=True))
-    corr = torch.exp(m_old - m_new)
-    p = torch.exp(s - m_new)
+    corr = K.flush(torch.exp(K.sub(m_old, m_new)))
+    p = K.flush(torch.exp(K.sub(s, m_new)))
     p_sum = rowsum_tree(p)
     pv = _mix(p, v)
-    l_s, l_c = scheme.update(l_s * corr, l_c * corr, p_sum, step)
-    a_s, a_c = scheme.update(a_s * corr, a_c * corr, pv, step)
+    l_s, l_c = scheme.update(K.mul(l_s, corr), K.mul(l_c, corr), p_sum,
+                             step)
+    a_s, a_c = scheme.update(K.mul(a_s, corr), K.mul(a_c, corr), pv, step)
     return m_new, l_s, l_c, a_s, a_c
 
 
@@ -183,6 +185,7 @@ def flash_plain(q: Tensor, k: Tensor, v: Tensor, *,
     rounds exactly as it would alone."""
     bh, sq, dh = q.shape
     skv = k.shape[1]
+    q, k, v = K.flush(q), K.flush(k), K.flush(v)
     if q_groups > 1:
         # row bh reads k/v head-row bh // G (pure data movement)
         k = k.repeat_interleave(q_groups, dim=0)

@@ -25,6 +25,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.core.kahan import flush
 from repro_torch.kernels import _build
 from repro_torch.kernels.schemes import CompensationScheme
 
@@ -117,8 +118,8 @@ def dot_plain(a: Tensor, b: Tensor, *, scheme: CompensationScheme,
     batch row rounds exactly as it would alone."""
     rows = SUBLANES * unroll
     batch, n = a.shape
-    a3 = a.reshape(batch, -1, rows, LANES)
-    b3 = b.reshape(batch, -1, rows, LANES)
+    a3 = flush(a).reshape(batch, -1, rows, LANES)
+    b3 = flush(b).reshape(batch, -1, rows, LANES)
     s = torch.zeros((batch, rows, LANES), dtype=a.dtype, device=a.device)
     c = torch.zeros_like(s)
     for g in range(a3.shape[1]):

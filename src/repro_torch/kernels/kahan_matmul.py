@@ -40,6 +40,7 @@ from typing import Tuple
 
 import torch
 
+from repro_torch.core.kahan import add, flush, mul, promote
 from repro_torch.kernels import _build
 from repro_torch.kernels.schemes import CompensationScheme
 
@@ -60,7 +61,7 @@ def block_product(a: Tensor, b: Tensor) -> Tensor:
     products and rounded adds, starting from zero (the kernel's order)."""
     p = a.new_zeros((*a.shape[:-1], b.shape[-1]))
     for t in range(a.shape[-1]):
-        p = p + a[..., :, t, None] * b[..., None, t, :]
+        p = add(p, mul(a[..., :, t, None], b[..., None, t, :]))
     return p
 
 
@@ -71,8 +72,8 @@ def matmul_plain(a: Tensor, b: Tensor, *, scheme: CompensationScheme,
     N]`` (K a multiple of ``block_k``) -> ``[B, M, N]`` (s, c) grids in the
     compute dtype. A loop over K-blocks; each step updates every cell
     elementwise, so a row rounds exactly as it would alone."""
-    a = a.to(compute_dtype)
-    b = b.to(compute_dtype)
+    a = flush(promote(a, compute_dtype))
+    b = flush(promote(b, compute_dtype))
     s = a.new_zeros((a.shape[0], a.shape[1], b.shape[2]))
     c = torch.zeros_like(s)
     for g in range(a.shape[2] // block_k):

@@ -15,6 +15,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.core.kahan import flush
 from repro_torch.kernels import _build
 from repro_torch.kernels.kahan_dot import (
     LANES,
@@ -34,7 +35,7 @@ def sum_plain(x: Tensor, *, scheme: CompensationScheme,
     multiple of ``8U * 128``) -> ``[B, 8U, 128]`` (s, c) grids."""
     rows = SUBLANES * unroll
     batch, n = x.shape
-    x3 = x.reshape(batch, -1, rows, LANES)
+    x3 = flush(x).reshape(batch, -1, rows, LANES)
     s = torch.zeros((batch, rows, LANES), dtype=x.dtype, device=x.device)
     c = torch.zeros_like(s)
     for g in range(x3.shape[1]):

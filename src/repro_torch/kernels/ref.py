@@ -16,6 +16,7 @@ from typing import Union
 
 import torch
 
+from repro_torch.core import kahan as K
 from repro_torch.kernels import schemes as _schemes
 from repro_torch.kernels.engine import merge_accumulators
 from repro_torch.kernels.schemes import CompensationScheme
@@ -50,8 +51,8 @@ def dot_ref(a: Tensor, b: Tensor, scheme: SchemeSpec = None, rows: int = 8,
     """Oracle for the dot kernels."""
     sch = _schemes.resolve_scheme(scheme)
     cdt = _schemes.resolve_compute_dtype(compute_dtype)
-    a = _pad_to(a.reshape(-1).to(cdt), rows * lanes)
-    b = _pad_to(b.reshape(-1).to(cdt), rows * lanes)
+    a = _pad_to(K.flush(K.promote(a.reshape(-1), cdt)), rows * lanes)
+    b = _pad_to(K.flush(K.promote(b.reshape(-1), cdt)), rows * lanes)
     return merge_accumulators(*_fold((a, b), rows, lanes, sch, True))
 
 
@@ -60,7 +61,7 @@ def sum_ref(x: Tensor, scheme: SchemeSpec = None, rows: int = 8,
     """Oracle for the sum kernels."""
     sch = _schemes.resolve_scheme(scheme)
     cdt = _schemes.resolve_compute_dtype(compute_dtype)
-    x = _pad_to(x.reshape(-1).to(cdt), rows * lanes)
+    x = _pad_to(K.flush(K.promote(x.reshape(-1), cdt)), rows * lanes)
     return merge_accumulators(*_fold((x,), rows, lanes, sch, False))
 
 
@@ -91,14 +92,14 @@ def matmul_ref(a: Tensor, b: Tensor, bk: int = 512,
 
     sch = _schemes.resolve_scheme(scheme)
     cdt = _schemes.resolve_compute_dtype(compute_dtype)
-    a = _pad_to(a.to(cdt), bk)
-    b = _pad_to(b.to(cdt).T, bk).T
+    a = _pad_to(K.flush(K.promote(a, cdt)), bk)
+    b = _pad_to(K.flush(K.promote(b, cdt)).T, bk).T
     s = a.new_zeros((a.shape[0], b.shape[1]))
     c = torch.zeros_like(s)
     for g in range(a.shape[1] // bk):
         lo, hi = g * bk, (g + 1) * bk
         s, c = sch.update(s, c, block_product(a[:, lo:hi], b[lo:hi]), g)
-    return s + c
+    return K.add(s, c)
 
 
 def batched_matmul_ref(a: Tensor, b: Tensor, bk: int = 512,
@@ -142,14 +143,15 @@ def flash_attention_ref(q: Tensor, k: Tensor, v: Tensor,
     if k.shape[0] * q_groups != bh:
         raise ValueError(f"q has {bh} head-rows, k/v {k.shape[0]} with "
                          f"q_groups={q_groups}")
-    k = k.repeat_interleave(q_groups, dim=0).to(cdt)
-    v = v.repeat_interleave(q_groups, dim=0).to(cdt)
+    k = K.flush(K.promote(k.repeat_interleave(q_groups, dim=0), cdt))
+    v = K.flush(K.promote(v.repeat_interleave(q_groups, dim=0), cdt))
     skv = k.shape[1]
     block_q = min(block_q, -(-sq // 8) * 8)
     block_k = min(block_k, -(-skv // 128) * 128)
     n_qb, n_kb = -(-sq // block_q), -(-skv // block_k)
-    q = torch.cat([q.to(cdt), q.new_zeros((bh, n_qb * block_q - sq, dh),
-                                          dtype=cdt)], dim=1)
+    q = torch.cat([K.flush(K.promote(q, cdt)),
+                   q.new_zeros((bh, n_qb * block_q - sq, dh), dtype=cdt)],
+                  dim=1)
     pad = q.new_zeros((bh, n_kb * block_k - skv, dh))
     k, v = torch.cat([k, pad], dim=1), torch.cat([v, pad], dim=1)
     rows = []
@@ -170,5 +172,6 @@ def flash_attention_ref(q: Tensor, k: Tensor, v: Tensor,
                 k_pos=torch.arange(lo, hi, device=q.device)[None, :],
                 kv_len=skv, causal=causal,
                 scale=softmax_scale(dh), step=kb)
-        rows.append((a_s + a_c) / torch.clamp_min(l_s + l_c, 1e-30))
+        rows.append(K.div(K.add(a_s, a_c),
+                          torch.clamp_min(K.add(l_s, l_c), 1e-30)))
     return torch.cat(rows, dim=1)[:, :sq]

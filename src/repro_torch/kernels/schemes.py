@@ -19,13 +19,16 @@ versions) and raises ``NotImplementedError`` on a CUDA tensor.
 Product sites. XLA on the CPU contracts ``a * b + acc`` into one fused
 multiply-add wherever the product feeds an add directly: ``naive`` and
 ``pairwise`` compute ``s = fma(a, b, s)`` and ``kahan`` computes
-``y = fma(a, b, c)``. ``dot2``'s split TwoProd and every ``update`` (the
-sum path) are not fused. The built-ins' ``mul_update`` place ``fma`` at
-exactly those sites, which is what makes the port bitwise equal to the
-reference; the CUDA kernels compile with ``-fmad=false`` and call
-``__fmaf_rn`` / ``__fma_rn`` at the same two sites. With a bfloat16
-accumulate dtype XLA contracts nothing and rounds every op to bfloat16,
-so ``_mac`` rounds the product and the add separately there.
+``y = fma(a, b, c)``; ``dot2``'s split TwoProd contracts the four
+products of its error term (``core.kahan._two_prod_fused``: those
+products are exact in the normal range, so only subnormal-reaching data
+tells). Every ``update`` (the sum path) is unfused. The built-ins'
+``mul_update`` place ``fma`` at exactly those sites, which is what makes
+the port bitwise equal to the reference; the CUDA kernels compile with
+``-fmad=false`` and call ``__fmaf_rn`` / ``__fma_rn`` at the same sites.
+With a bfloat16 accumulate dtype XLA contracts nothing and rounds every
+op to bfloat16, so ``core.kahan._mac`` rounds the product and the add
+separately there.
 """
 
 from __future__ import annotations
@@ -204,63 +207,58 @@ class CompensationScheme:
             upd = self.update
             object.__setattr__(
                 self, "mul_update",
-                lambda s, c, a, b, step, _u=upd: _u(s, c, a * b, step))
+                lambda s, c, a, b, step, _u=upd: _u(s, c, K.mul(a, b), step))
 
 
 # ---------------------------------------------------------------------------
 # Built-in schemes (reference op order, ``repro/kernels/schemes.py:250-288``)
 # ---------------------------------------------------------------------------
 
-def _mac(a, b, acc):
-    """``a * b + acc`` at a fused site: one rounding in float32 / float64,
-    where the reference contracts it; product and add rounded separately
-    in bfloat16, where it does not."""
-    if acc.dtype == torch.bfloat16:
-        return a * b + acc
-    return K.fma(a, b, acc)
-
+# The updates take flushed operands (the plain versions flush their
+# inputs once) and round every op as the reference does, subnormals
+# flushed (``core.kahan``: ``add``, ``sub``, ``mul``).
 
 def _naive_update(s, c, x, step):
-    return s + x, c
+    return K.add(s, x), c
 
 
 def _naive_mul_update(s, c, a, b, step):
-    return _mac(a, b, s), c
+    return K._mac(a, b, s), c
 
 
 def _kahan_update(s, c, x, step):
-    return K.kahan_step(s, c, x)
+    return K._kahan_step(s, c, x)
 
 
 def _kahan_mul_update(s, c, a, b, step):
-    y = _mac(a, b, c)
-    t = s + y
-    return t, y - (t - s)
+    y = K._mac(a, b, c)
+    t = K.add(s, y)
+    return t, K.sub(y, K.sub(t, s))
 
 
 def _pairwise_fold(s, c, step):
     if step % PAIRWISE_FOLD == PAIRWISE_FOLD - 1:
-        return torch.zeros_like(s), c + s
+        return torch.zeros_like(s), K.add(c, s)
     return s, c
 
 
 def _pairwise_update(s, c, x, step):
-    return _pairwise_fold(s + x, c, step)
+    return _pairwise_fold(K.add(s, x), c, step)
 
 
 def _pairwise_mul_update(s, c, a, b, step):
-    return _pairwise_fold(_mac(a, b, s), c, step)
+    return _pairwise_fold(K._mac(a, b, s), c, step)
 
 
 def _dot2_update(s, c, x, step):
-    s, e = K.two_sum(s, x)
-    return s, c + e
+    s, e = K._two_sum(s, x)
+    return s, K.add(c, e)
 
 
 def _dot2_mul_update(s, c, a, b, step):
-    p, ep = K.two_prod(a, b)
-    s, es = K.two_sum(s, p)
-    return s, c + (ep + es)
+    p, ep = K._two_prod_fused(a, b)
+    s, es = K._two_sum(s, p)
+    return s, K.add(c, K.add(ep, es))
 
 
 def _naive_bound(n: int, cond: float, eps: float = EPS32) -> float:

@@ -327,14 +327,30 @@ def mlp_apply(p: Params, x: Tensor, compute_dtype, *,
 # Compensated activation telemetry
 # ---------------------------------------------------------------------------
 
-def activation_sq_norm(x: Tensor, *, scheme=None) -> Tensor:
+def activation_sq_norm(x: Tensor, *, scheme=None, mesh=None,
+                       axis: str = "data") -> Tensor:
     """Per-request compensated squared L2 norm: ``x`` [B, ...] -> [B]
     float32 (``repro/models/layers.py:648-680``). Squares in torch, then
     ONE batched sum launch over the whole batch — bitwise equal to a
     per-request loop. ``scheme``: name / CompensationScheme / Policy, None
-    -> the ambient policy."""
+    -> the ambient policy.
+
+    With a ``mesh`` (a ``DeviceMesh``), ``x`` is batch-sharded over
+    ``axis`` (every rank passes the whole batch and takes its contiguous
+    block of requests): each rank reduces its own requests with one launch
+    and gets their norms, ``[B / n]``. No cross-rank fold: the norm is per
+    request (for a scalar one, ``distributed.collectives.sharded_asum``)."""
     from repro_torch.kernels.engine import CompensatedReduction
 
     eng = CompensatedReduction(scheme=scheme)
+    if mesh is not None:
+        import torch.distributed as dist
+
+        group = mesh.get_group(axis)
+        n, r = dist.get_world_size(group), dist.get_rank(group)
+        if x.shape[0] % n:
+            raise ValueError(f"activation_sq_norm: batch {x.shape[0]} does "
+                             f"not divide by the axis size {n}")
+        x = x[r * (x.shape[0] // n):(r + 1) * (x.shape[0] // n)]
     flat = x.reshape(x.shape[0], -1).float()
     return eng.batched_asum(flat * flat)

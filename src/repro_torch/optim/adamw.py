@@ -26,7 +26,8 @@ from typing import Any, NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.core import tree as _tree
-from repro_torch.core.kahan import fma, kahan_step, tree_kahan_sq_norm
+from repro_torch.core.kahan import (_fma, add, div, flush, kahan_step_, mul,
+                                    sub, tree_kahan_sq_norm)
 from repro_torch.kernels.engine import CompensatedReduction, merge_accumulators
 
 Tensor = torch.Tensor
@@ -51,7 +52,14 @@ class OptState(NamedTuple):
     comp: Optional[Any]              # Kahan compensation buffer (or None)
 
 
+@torch.no_grad()
 def init(cfg: AdamWConfig, params: Any) -> OptState:
+    """The optimizer state for ``params``. Flushes every float32 and
+    bfloat16 parameter in place (a subnormal parameter is a zero to each
+    op of the reference's step), so ``apply_update`` can take params, as
+    its other state, as flushed values: every value it writes is."""
+    for p in _tree.leaves(params):
+        p.copy_(flush(p))
     zeros = lambda: _tree.tree_map(  # noqa: E731
         lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device),
         params)
@@ -72,8 +80,10 @@ def engine_sq_norm(grads: Any) -> Tensor:
     per-leaf ``(s, c)`` grids concatenate in leaf order, and ONE
     ``merge_accumulators`` tree collapses them."""
     eng = CompensatedReduction()
-    accs = [eng.sum_accumulators(torch.square(g.float()))
-            for g in _tree.leaves(grads)]
+    accs = []
+    for g in _tree.leaves(grads):
+        gf = flush(g.float())
+        accs.append(eng.sum_accumulators(_sliced(mul, gf, gf)))
     s = torch.cat([a.s.reshape(-1) for a in accs])
     c = torch.cat([a.c.reshape(-1) for a in accs])
     return merge_accumulators(s, c)
@@ -91,9 +101,31 @@ def global_norm_ref(grads: Any) -> Tensor:
                           for g in _tree.leaves(grads)))
 
 
-#: elements a fused site handles at a time: the exact fma works in
-#: float64 temporaries, so a [16, 2048, 8192] leaf goes in slices
+#: elements a flushing op handles at a time: the exact fma works in
+#: float64 temporaries and each flushing op in a few full-size ones, so a
+#: [16, 2048, 8192] leaf goes in slices
 _FMA_CHUNK = 1 << 22
+
+
+def _sliced(op, *args) -> Tensor:
+    """``op(*args)`` for an elementwise ``op`` whose tensor arguments share
+    one shape or are 0-d (a Python scalar becomes a 0-d tensor of that
+    shape's dtype), in slices of about ``_FMA_CHUNK`` elements along the
+    leading axis when the shape is larger: the same bits as one call."""
+    like = max((x for x in args if isinstance(x, Tensor)), key=Tensor.dim)
+    args = [x if isinstance(x, Tensor)
+            else torch.tensor(x, dtype=like.dtype, device=like.device)
+            for x in args]
+    if like.dim() == 0 or like.numel() <= _FMA_CHUNK:
+        return op(*args)
+    rows = max(1, _FMA_CHUNK * like.shape[0] // like.numel())
+    out = None
+    for i in range(0, like.shape[0], rows):
+        part = op(*(x[i:i + rows] if x.dim() else x for x in args))
+        if out is None:
+            out = part.new_empty(like.shape)
+        out[i:i + rows] = part
+    return out
 
 
 def _fused(a, b, c: Tensor) -> Tensor:
@@ -104,18 +136,9 @@ def _fused(a, b, c: Tensor) -> Tensor:
     cast (float32 params), ``-lr * dir`` into the add that applies it.
     Found by comparing the jitted reference with each candidate set: bf16
     and float32 params, m, v and comp then match bit for bit. ``a`` or
-    ``b`` may be a scalar; tensors share ``c``'s shape."""
-    a, b = (x if isinstance(x, Tensor)
-            else torch.tensor(x, dtype=c.dtype, device=c.device)
-            for x in (a, b))
-    if c.dim() == 0 or c.numel() <= _FMA_CHUNK:
-        return fma(a, b, c)
-    rows = max(1, _FMA_CHUNK * c.shape[0] // c.numel())
-    cut = lambda x, i: x[i:i + rows] if x.dim() else x  # noqa: E731
-    out = torch.empty_like(c)
-    for i in range(0, c.shape[0], rows):
-        out[i:i + rows] = fma(cut(a, i), cut(b, i), c[i:i + rows])
-    return out
+    ``b`` may be a scalar; tensors share ``c``'s shape, and hold flushed
+    values (the step's state, or what its flushing ops wrote)."""
+    return _sliced(_fma, a, b, c)
 
 
 def _sqrt(x: Tensor) -> Tensor:
@@ -153,13 +176,21 @@ def apply_update(cfg: AdamWConfig, params: Any, grads: Any, state: OptState,
     flat_v = _tree.leaves(state.v)
     flat_c = _tree.leaves(state.comp) if cfg.kahan else [None] * len(flat_p)
     for p, g, m, v, c in zip(flat_p, flat_g, flat_m, flat_v, flat_c):
-        gf = g.float() * clip_scale
-        m32 = _fused(m.float(), b1, gf * (1 - b1))
-        v32 = _fused(v.float(), b2, torch.square(gf) * (1 - b2))
+        # every float32 op flushes as the reference's does (C2); the
+        # grads are the one input from outside, flushed here once
+        gf = flush(g.float())
+        if cfg.grad_clip > 0:
+            gf = _sliced(mul, gf, clip_scale)
+        m32 = _fused(m.float(), b1, _sliced(mul, gf, 1 - b1))
+        v32 = _fused(v.float(), b2,
+                     _sliced(mul, _sliced(mul, gf, gf), 1 - b2))
         # XLA rewrites mhat / (sqrt(vhat) + eps), mhat = m32 / c1, into
         # one division by a product (the compiled step's HLO:
-        # divide(m32, multiply(1 - b1^t, sqrt(v32 / c2) + eps)))
-        ratio = m32 / (c1 * (_sqrt(v32 / c2) + cfg.eps))
+        # divide(m32, multiply(1 - b1^t, sqrt(v32 / c2) + eps))). The
+        # divisor's ops need no flush: v32 is zero or at least tiny and
+        # c2 <= 1, so nothing there lands below tiny
+        denom = c1 * (_sqrt(v32 / c2) + cfg.eps)
+        ratio = _sliced(div, m32, denom)
         step_dir = _fused(cfg.weight_decay, p.float(), ratio)
         m.copy_(m32)
         v.copy_(v32)
@@ -168,20 +199,18 @@ def apply_update(cfg: AdamWConfig, params: Any, grads: Any, state: OptState,
             # into it (into y = delta + c of the Kahan step)
             if cfg.kahan:
                 y = _fused(-lr, step_dir, c)
-                t = p + y
-                c.copy_(y - (t - p))
+                t = add(p, y)
+                c.copy_(sub(y, sub(t, p)))
                 p.copy_(t)
             else:
                 p.copy_(_fused(-lr, step_dir, p))
             continue
-        delta = -lr * step_dir
+        delta = _sliced(mul, -lr, step_dir)
         if cfg.kahan:
             # compensated p += delta in the PARAM dtype (bf16-safe)
-            s, c2_ = kahan_step(p, c, delta.to(p.dtype))
-            p.copy_(s)
-            c.copy_(c2_)
+            kahan_step_(p, c, delta.to(p.dtype))
         else:
-            p.copy_((p.float() + delta).to(p.dtype))
+            p.copy_(_sliced(add, p.float(), delta).to(p.dtype))
     new_state = OptState(step=step, m=state.m, v=state.v,
                          comp=state.comp if cfg.kahan else None)
     lr_out = torch.as_tensor(lr, dtype=torch.float32, device=gnorm.device)

@@ -14,10 +14,11 @@ large partial sum), their losses by ``kahan_step``. The optimizer runs
 once per global step. The accumulator and the optimizer update their
 tensors in place (the reference's jitted step donates them).
 
-One device: a ``mesh`` with more than one data device, whose loss metric
-the reference folds through ``collectives.sharded_asum``, raises
-``NotImplementedError`` until the port has its collectives (ROADMAP A6);
-it never falls back to the local fold.
+A ``mesh`` (a ``DeviceMesh`` from ``launch.mesh.make_local_mesh``) with
+more than one rank on its "data" axis folds the loss metric through
+``distributed.collectives.sharded_asum``, as the reference does; the
+gradient path is the same on every rank (every rank computes the whole
+step: data parallelism of the batch is ROADMAP A8's).
 """
 
 from __future__ import annotations
@@ -34,6 +35,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core import tree as _tree
 from repro_torch.core.kahan import KahanAccumulator, kahan_step
 from repro_torch.data.pipeline import SyntheticLM
+from repro_torch.distributed import collectives
 from repro_torch.device import DeviceSpec, resolve_device
 from repro_torch.models import build_model
 from repro_torch.optim import AdamWConfig, apply_update
@@ -58,15 +60,21 @@ class TrainConfig:
 
 def make_train_step(model, cfg: ArchConfig, tc: TrainConfig,
                     mesh=None) -> Callable:
-    """Build the train step (``repro/train/trainer.py:49-147``). A
-    ``mesh`` (with a ``shape`` mapping of axis sizes, as the reference's)
-    with more than one device on its "data" axis raises (ROADMAP A6)."""
-    if mesh is not None and int(dict(mesh.shape).get("data", 1)) > 1:
-        raise NotImplementedError(
-            "a mesh with more than one data device folds the loss metric "
-            "through the sharded compensated sum, which the port does not "
-            "have yet (ROADMAP A6: distributed/collectives.py); refusing to "
-            "fall back to the local fold")
+    """Build the train step (``repro/train/trainer.py:49-147``).
+
+    ``mesh``: an optional ``DeviceMesh``. When its "data" axis has more
+    than one rank (and microbatching is on), the ``[microbatches]`` loss
+    vector folds through ``collectives.sharded_asum``: each rank's block
+    through the compensated sum kernel, the (s, c) grids gathered in rank
+    order, one two-sum tree; the loss is the same bits on every rank and
+    run to run. ``tc.microbatches`` must then divide by the axis size
+    (checked here: no silent fallback to the local fold)."""
+    n_data = collectives.axis_size(mesh, "data")
+    if n_data > 1 and tc.microbatches > 1 and tc.microbatches % n_data:
+        raise ValueError(
+            f"microbatches ({tc.microbatches}) must divide by the mesh "
+            f"data-axis size ({n_data}) for the sharded loss-metric fold "
+            "— refusing to silently fall back to the local fold")
 
     def grads_of(params, batch):
         leaves = _tree.leaves(params)
@@ -92,6 +100,7 @@ def make_train_step(model, cfg: ArchConfig, tc: TrainConfig,
             loss_s = torch.zeros((), dtype=torch.float32,
                                  device=_tree.leaves(params)[0].device)
             loss_c = torch.zeros_like(loss_s)
+            losses = []
             for i in range(n):
                 mb = {k: split(v, i) for k, v in batch.items()}
                 loss, metrics, grads = grads_of(params, mb)
@@ -101,9 +110,13 @@ def make_train_step(model, cfg: ArchConfig, tc: TrainConfig,
                 acc.add_(grads)
                 del grads
                 loss_s, loss_c = kahan_step(loss_s, loss_c, loss)
+                losses.append(loss.float())
             grads = acc.scale_total_(1.0 / n)
             del acc
-            loss = (loss_s + loss_c) / n
+            if n_data > 1:
+                loss = collectives.sharded_asum(mesh, torch.stack(losses)) / n
+            else:
+                loss = (loss_s + loss_c) / n
 
         lr_scale = schedules.warmup_cosine(opt_state.step, warmup=tc.warmup,
                                            total=max(tc.steps, 1))

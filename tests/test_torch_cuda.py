@@ -5,6 +5,11 @@ without jax:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
 
+import os
+import subprocess
+import sys
+from pathlib import Path
+
 import pytest
 import torch
 
@@ -775,3 +780,140 @@ def test_cuda_train_step_launch_counts(cuda_device, kahan_norm):
     norm = "column_sq_accumulators" if kahan_norm else "sum_accumulators"
     other = "sum_accumulators" if kahan_norm else "column_sq_accumulators"
     assert counts[norm] == leaves and counts[other] == 0
+
+
+# ---------------------------------------------------------------------------
+# Subnormals (-ftz=true) and the sharded sum on two ranks
+# ---------------------------------------------------------------------------
+
+TINY = 2.0 ** -126
+
+
+def _subnormal_reaching(gen, shape, lo, hi, device):
+    x = torch.randn(shape, generator=gen, device=device, dtype=torch.float64)
+    e = torch.randint(lo, hi, shape, generator=gen, device=device)
+    sub = torch.rand(shape, generator=gen, device=device) < 0.2
+    e = torch.where(sub, torch.randint(-149, -127, shape, generator=gen,
+                                       device=device), e)
+    return (x * torch.exp2(e.double())).float()
+
+
+@pytest.mark.cuda
+def test_cuda_ftz_boundary_products(cuda_device):
+    """The card's ``.ftz`` flushes as x86 does, and so as the reference
+    and the plain versions: (1 - 2^-24) * tiny (exact below tiny at 24
+    bits) gives zero, (1 - 2^-23) * tiny * (1 + 2^-23) gives tiny; a
+    subnormal operand counts as zero. Through the naive and kahan dots'
+    fma and dot2's split product, one product a cell."""
+    from repro_torch.kernels import kahan_dot
+
+    a = torch.zeros(1024, dtype=torch.float64)
+    b = torch.zeros(1024, dtype=torch.float64)
+    pairs = [(1 - 2.0 ** -24, TINY), (1 - 2.0 ** -23, TINY * (1 + 2.0 ** -23)),
+             (1.0, 2.0 ** -149), (-(1 - 2.0 ** -24), TINY)]
+    for i, (x, y) in enumerate(pairs):
+        a[i], b[i] = x, y
+    a, b = a.float().to(cuda_device), b.float().to(cuda_device)
+    # naive's s is fma(a, b, +0): the negative product flushes to -0;
+    # kahan's and dot2's s is +0 + (the flushed product): +0
+    for scheme, last in (("naive", -0x80000000), ("kahan", 0), ("dot2", 0)):
+        sch = tschemes.get(scheme)
+        s, _ = kahan_dot.dot_accumulators(a, b, scheme=sch, unroll=1)
+        got = s.reshape(-1)[:4].view(torch.int32).tolist()
+        assert got == [0, 0x800000, 0, last], (scheme, got)
+        plain = kahan_dot.dot_plain(a[None], b[None], scheme=sch, unroll=1)
+        assert torch.equal(s, plain[0][0]), scheme
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_kernels_flush_like_plain(cuda_device, dtype):
+    """Tier 2 on subnormal-reaching data: products and sums that
+    underflow, subnormal operands; the dot, sum, matmul and column-scan
+    kernels equal their flushing plain versions bit for bit."""
+    from repro_torch.core.kahan import column_sq_plain
+    from repro_torch.kernels import (engine, kahan_columns, kahan_dot,
+                                     kahan_matmul, kahan_sum)
+
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    for scheme in SCHEMES:
+        sch = tschemes.get(scheme)
+        for lo, hi in ((-75, -52), (-135, -110)):
+            a = _subnormal_reaching(gen, (2, 3 * 8192), lo, hi,
+                                    cuda_device).to(dtype)
+            b = _subnormal_reaching(gen, (2, 3 * 8192), lo, hi,
+                                    cuda_device).to(dtype)
+            got = kahan_dot.dot_accumulators_batched(a, b, scheme=sch,
+                                                     unroll=8)
+            want = kahan_dot.dot_plain(a, b, scheme=sch, unroll=8)
+            assert all(torch.equal(g, w) for g, w in zip(got, want))
+            got = kahan_sum.sum_accumulators_batched(a, scheme=sch, unroll=8)
+            want = kahan_sum.sum_plain(a, scheme=sch, unroll=8)
+            assert all(torch.equal(g, w) for g, w in zip(got, want))
+        eng = engine.CompensatedReduction(scheme=sch)
+        a = _subnormal_reaching(gen, (37, 1100), -75, -52,
+                                cuda_device).to(dtype)
+        b = _subnormal_reaching(gen, (1100, 200), -75, -52,
+                                cuda_device).to(dtype)
+        blocks = eng._matmul_blocks(37, 200, 1100, None, None, None)
+        ap, bp = eng._prep_matmul(a, b, blocks)
+        got = kahan_matmul.matmul_accumulators(
+            ap, bp, scheme=sch, block_m=blocks[0], block_n=blocks[1],
+            block_k=blocks[2], compute_dtype=torch.float32)
+        want = kahan_matmul.matmul_plain(ap[None], bp[None], scheme=sch,
+                                         block_k=blocks[2],
+                                         compute_dtype=torch.float32)
+        assert all(torch.equal(g, w[0]) for g, w in zip(got, want))
+    x = _subnormal_reaching(gen, (300, 37, 5), -75, -52,
+                            cuda_device).to(dtype)
+    got = kahan_columns.column_sq_accumulators(x)
+    want = column_sq_plain(x.float())
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+_RANK = """
+import sys, torch, torch.distributed as dist
+from repro_torch.distributed import collectives as coll
+from repro_torch.kernels import engine
+from repro_torch.launch.mesh import make_local_mesh
+rank, store, out = int(sys.argv[1]), sys.argv[2], sys.argv[3]
+dist.init_process_group("gloo", store=dist.FileStore(store, 2), rank=rank,
+                        world_size=2)
+mesh = make_local_mesh()
+gen = torch.Generator(device="cuda").manual_seed(3)
+x = torch.randn(2 * (3 * 8192 + 5), generator=gen, device="cuda")
+engine.reset_launch_counts()
+got = coll.sharded_asum(mesh, x)
+torch.save({"sum": got.cpu(), "launches": engine.launch_counts()}, out)
+dist.barrier()
+dist.destroy_process_group()
+"""
+
+
+@pytest.mark.cuda
+def test_cuda_sharded_asum_two_ranks(cuda_device, tmp_path):
+    """Two gloo ranks on the card: ``sharded_asum`` launches B3 once a
+    rank, both ranks hold the same bits, equal to the single-device tree
+    over the two shards' grids computed here with the same kernel."""
+    from repro_torch.kernels import engine
+
+    root = Path(__file__).resolve().parents[1]
+    ranks = [subprocess.Popen(
+        [sys.executable, "-c", _RANK, str(r), str(tmp_path / "store"),
+         str(tmp_path / f"rank{r}.pt")], cwd=root,
+        env=dict(os.environ, PYTHONPATH=str(root / "src")),
+        stderr=subprocess.PIPE, text=True) for r in range(2)]
+    for p in ranks:
+        _, err = p.communicate(timeout=300)
+        assert p.returncode == 0, err[-3000:]
+    res = [torch.load(tmp_path / f"rank{r}.pt") for r in range(2)]
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    x = torch.randn(2 * (3 * 8192 + 5), generator=gen, device=cuda_device)
+    eng = engine.CompensatedReduction()
+    accs = [eng.sum_accumulators(s) for s in x.view(2, -1)]
+    want = engine.merge_accumulators(torch.stack([a.s for a in accs]),
+                                     torch.stack([a.c for a in accs]))
+    for r in res:
+        assert r["launches"]["sum_accumulators"] == 1
+        assert torch.equal(r["sum"], want.cpu())
+

@@ -52,3 +52,29 @@ def test_chip_smoke_imports_nothing_of_jax_or_repro():
                "print(sorted(m for m in sys.modules if m.split('.')[0] in "
                "('jax', 'repro')))")
     assert out == "[]"
+
+
+def test_distributed_modules_import_without_a_process_group():
+    """The distributed slice's modules are in the package and importing
+    them (or building a train step with no mesh) touches no process
+    group: ``make_local_mesh`` is a function, as the reference's is."""
+    out = _run(
+        "import torch.distributed as dist\n"
+        "import repro_torch.distributed as d\n"
+        "from repro_torch.distributed import collectives, compression\n"
+        "from repro_torch.launch import mesh\n"
+        "from repro_torch.core import kahan\n"
+        "names = ['sharded_asum', 'sharded_dot', 'sharded_matmul',\n"
+        "         'merge_sharded_accumulators', 'deterministic_mean',\n"
+        "         'expected_grad_spec']\n"
+        "assert all(hasattr(collectives, n) for n in names)\n"
+        "assert all(hasattr(compression, n) for n in ('quantize',\n"
+        "    'dequantize', 'ef_step', 'compressed_psum'))\n"
+        "assert all(hasattr(kahan, n) for n in ('compensated_psum_scalar',\n"
+        "    'kahan_sum', 'kahan_dot', 'kahan_dot2', 'naive_sum',\n"
+        "    'naive_dot'))\n"
+        "assert callable(mesh.make_local_mesh)\n"
+        "assert not hasattr(mesh, 'make_production_mesh')\n"
+        "print(dist.is_initialized())")
+    assert out == "False"
+

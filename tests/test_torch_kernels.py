@@ -139,6 +139,61 @@ def test_other_accumulate_dtypes_bitwise(compute_dtype):
             _assert_same(ja.total(), ta.total(), f"{compute_dtype} sum")
 
 
+def _subnormal_data(shape, seed, lo=-75, hi=-52):
+    """Values scaled by 2^e, e in [lo, hi) (the defaults put products
+    near float32's ``tiny`` = 2^-126), a fifth of them subnormal and a
+    twentieth signed zeros: the data of fault C2."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal(shape) * np.exp2(rng.integers(lo, hi,
+                                                          size=shape))
+    sub = rng.random(shape) < 0.2
+    x[sub] = rng.standard_normal(int(sub.sum())) * np.exp2(
+        rng.integers(-149, -126, size=int(sub.sum())))
+    zero = rng.random(shape) < 0.05
+    x[zero] = np.copysign(0.0, x[zero])
+    return x.astype(np.float32)
+
+
+def _bf16_values(x):
+    return np.asarray(jnp.asarray(x).astype(jnp.bfloat16)).astype(np.float32)
+
+
+@pytest.mark.parametrize("data", ["float32", "bf16_inputs", "bf16_compute"])
+@pytest.mark.parametrize("scheme", SCHEMES)
+def test_subnormal_reaching_bitwise(scheme, data):
+    """Tier 1 on subnormal-reaching data (C2): the reference flushes
+    subnormal inputs and results, and so do the port's plain versions.
+    Dot grids (products near ``tiny``) and sum grids (terms and running
+    sums near ``tiny``) equal the reference's Pallas grids bit for bit,
+    for float32 data, bfloat16 data with a float32 accumulate and a
+    bfloat16 accumulate."""
+    n = 2 * 2048 + 37
+    a, b = _subnormal_data((2, n), seed=61)
+    x = _subnormal_data((n,), seed=62, lo=-135, hi=-110)
+    kw = dict(scheme=scheme, unroll=2)
+    if data == "bf16_compute":
+        kw["compute_dtype"] = "bfloat16"
+    je = jeng.CompensatedReduction(**kw)
+    te = teng.CompensatedReduction(**kw)
+    if data == "bf16_inputs":
+        a, b, x = _bf16_values(a), _bf16_values(b), _bf16_values(x)
+        jin = lambda v: jnp.asarray(v).astype(jnp.bfloat16)  # noqa: E731
+        tin = lambda v: _t(v).to(torch.bfloat16)  # noqa: E731
+    else:
+        jin, tin = jnp.asarray, _t
+    ja = je.dot_accumulators(jin(a), jin(b))
+    ta = te.dot_accumulators(tin(a), tin(b))
+    _assert_same(ja.s, ta.s, f"dot s {scheme} {data}")
+    _assert_same(ja.c, ta.c, f"dot c {scheme} {data}")
+    _assert_same(ja.total(), ta.total(), f"dot {scheme} {data}")
+    ja = je.sum_accumulators(jin(x))
+    ta = te.sum_accumulators(tin(x))
+    _assert_same(ja.s, ta.s, f"sum s {scheme} {data}")
+    _assert_same(ja.c, ta.c, f"sum c {scheme} {data}")
+    _assert_same(ja.total(), ta.total(), f"sum {scheme} {data}")
+    assert bool((ta.s.float().abs() >= 2.0 ** -126).any())
+
+
 def test_merge_bitwise_on_reference_grids():
     """Tier 1: the port's two-sum tree over the reference's own (s, c)
     grids gives the reference's totals, scalar and along a leading axis

@@ -106,6 +106,60 @@ def test_matmul_within_tolerance_of_reference(scheme, case, operands):
     _assert_close_to_scale(got.numpy(), want, a, b)
 
 
+def _one_product_blocks(rng, m, k, block_k, lo, hi):
+    """[m, k] with one nonzero a row in each K-block of ``block_k``
+    columns: each block product is one rounded product in any order, so
+    the port's grids can be held bit for bit against the reference's
+    (whose ``dot`` orders a dense block its own way)."""
+    a = np.zeros((m, k), np.float32)
+    for blk in range(0, k, block_k):
+        cols = rng.integers(blk, min(blk + block_k, k), size=m)
+        a[np.arange(m), cols] = (rng.standard_normal(m) * np.exp2(
+            rng.integers(lo, hi, size=m)))
+    return a
+
+
+@pytest.mark.parametrize("operands", ["float32", "bfloat16"])
+@pytest.mark.parametrize("scheme", SCHEMES)
+def test_subnormal_reaching_grids_bitwise(scheme, operands):
+    """Tier 1 on subnormal-reaching data (C2): products that underflow
+    and subnormal operands, on K-blocks of one product a row, so that
+    only the flushing of each product and of the scheme's fold across
+    the blocks is compared. The (s, c) grids and the product equal the
+    reference's Pallas grids bit for bit, at M 3 and 37."""
+    rng = np.random.default_rng(7)
+    k, n, bk = 3 * 128 + 37, 130, 128
+    blocks = dict(block_m=64, block_n=128, block_k=bk)
+    for m in (3, 37):
+        a = _one_product_blocks(rng, m, k, bk, -75, -52)
+        b = (rng.standard_normal((k, n)) * np.exp2(
+            rng.integers(-75, -52, size=(k, n)))).astype(np.float32)
+        b[rng.random((k, n)) < 0.2] *= np.float32(2.0 ** -70)
+        if operands == "bfloat16":
+            a = torch.from_numpy(a).bfloat16().float().numpy()
+            b = torch.from_numpy(b).bfloat16().float().numpy()
+        jdt = jnp.bfloat16 if operands == "bfloat16" else jnp.float32
+        tdt = getattr(torch, operands)
+        je = jeng_matmul(scheme)
+        te = teng.CompensatedReduction(scheme=scheme)
+        ja = je.matmul_accumulators(jnp.asarray(a).astype(jdt),
+                                    jnp.asarray(b).astype(jdt), **blocks)
+        ta = te.matmul_accumulators(torch.from_numpy(a).to(tdt),
+                                    torch.from_numpy(b).to(tdt), **blocks)
+        for w, g in ((ja.s, ta.s), (ja.c, ta.c)):
+            w = np.asarray(w)
+            assert w.shape == tuple(g.shape)
+            assert np.array_equal(w.view(np.uint32),
+                                  g.numpy().view(np.uint32)), (scheme, m)
+        assert bool((ta.s.abs() > 0).any())
+
+
+def jeng_matmul(scheme):
+    from repro.kernels.engine import CompensatedReduction
+
+    return CompensatedReduction(scheme=scheme)
+
+
 @pytest.mark.parametrize("batched", [False, True], ids=["B5", "B6"])
 @pytest.mark.parametrize("scheme", SCHEMES)
 def test_wrapper_grids_within_tolerance_of_reference_kernel(scheme,

@@ -169,6 +169,23 @@ def test_column_scan_bitwise(shape, dtype):
     assert _same(js, ts) and _same(jc, tc)
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("lo,hi", [(-75, -52), (-140, -50)])
+def test_column_scan_subnormal_bitwise(lo, hi, dtype):
+    """Tier 1 on subnormal-reaching data (C2): squares that underflow
+    (e in [-75, -52)) and entries from subnormal to normal (e in [-140,
+    -50)), signed zeros among them; the reference's compiled scan
+    flushes, and so does the port's loop."""
+    rng = np.random.default_rng(-lo)
+    x = _np((300, 37, 5), rng, lo=lo, hi=hi)
+    x[rng.random(x.shape) < 0.05] *= -0.0
+    g = jnp.asarray(x).astype(dtype)
+    js, jc = _jax_columns(g.astype(jnp.float32))
+    ts, tc = column_sq_accumulators(_t(g))
+    assert _same(js, ts) and _same(jc, tc)
+    assert bool((ts != 0).any())
+
+
 def test_column_scan_needs_the_fma():
     """Without the fma the loop is NOT the reference's (the contraction
     check, as for the dot)."""
@@ -287,6 +304,74 @@ def test_apply_update_f32_within_tolerance(kahan):
             np.testing.assert_allclose(b.numpy(), np.asarray(a), rtol=1e-6,
                                        atol=1e-12)
         assert _same_tree(js.m, ts.m) and _same_tree(js.v, ts.v)
+
+
+TINY32 = float(np.finfo(np.float32).tiny)
+
+
+def _underflows(exact: np.ndarray) -> int:
+    """How many exact (float64) results lie strictly between zero and
+    ``tiny``: the reference flushes each of them."""
+    a = np.abs(exact)
+    return int(((a > 0) & (a < TINY32)).sum())
+
+
+def _subnormal_grads(shape, rng):
+    """Gradients whose update reaches float32's subnormal range: entries
+    from subnormal up to 2^-20 (the global norm stays below the clip, so
+    the clip scale is exactly 1) and signed zeros. ``g * (1 - b1)``,
+    ``g * g`` and its ``* (1 - b2)`` underflow for many of them."""
+    n = int(np.prod(shape))
+    sign = rng.choice([-1.0, 1.0], n)
+    g = sign * rng.random(n) * np.exp2(rng.integers(-149, -20, n))
+    g[rng.random(n) < 0.05] = 0.0
+    g[rng.random(n) < 0.05] = -0.0
+    return g.reshape(shape).astype(np.float32)
+
+
+def _subnormal_params(shape, rng, dtype):
+    """Parameters from subnormal to 2^0, signed zeros among them: the
+    weight decay's term and ``-lr * dir`` of the small ones underflow."""
+    n = int(np.prod(shape))
+    sign = rng.choice([-1.0, 1.0], n)
+    p = sign * (1 + rng.random(n)) * np.exp2(rng.integers(-149, 0, n))
+    p[rng.random(n) < 0.05] *= -0.0
+    return jnp.asarray(p.reshape(shape).astype(np.float32)).astype(dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("kahan", [True, False])
+def test_apply_update_subnormal_bitwise(dtype, kahan):
+    """Tier 1 on subnormal-reaching data (C2): params and grads reach
+    float32's subnormal range, and so do the step's products (checked on
+    the data); params, m, v, comp and grad_norm equal the jitted
+    reference's after each of three steps (the engine-folded norm),
+    AdamW and KahanAdamW, float32 and bf16 params."""
+    rng = np.random.default_rng(9)
+    jp = {k: _subnormal_params(s, rng, dtype) for k, s in SHAPES.items()}
+    jcfg = JaxAdamWConfig(kahan=kahan, kahan_norm=False)
+    cfg = AdamWConfig(kahan=kahan, kahan_norm=False)
+    js = jax_opt_init(jcfg, jp)
+    tp = _tt(jp)
+    ts = init(cfg, tp)
+    step = jax.jit(jax_apply_update, static_argnums=0)
+    flat_p = np.concatenate([np.asarray(v, np.float64).reshape(-1)
+                             for v in jax.tree.leaves(jp)])
+    # the weight decay's product of the small params underflows
+    assert _underflows(flat_p * np.float32(cfg.weight_decay)) > 0
+    for i in range(3):
+        g = {k: _subnormal_grads(s, rng) for k, s in SHAPES.items()}
+        flat = np.concatenate([v.reshape(-1) for v in g.values()])
+        flat = flat.astype(np.float64)
+        assert _underflows(flat * np.float32(1 - cfg.b1)) > 0
+        assert _underflows(flat * flat) > 0
+        scale = np.float32(0.5 + 0.25 * i)
+        jp, js, jm = step(jcfg, jp, g, js, jnp.float32(scale))
+        tp, ts, tm = apply_update(cfg, tp, _tt(g), ts, torch.tensor(scale))
+        assert _same_tree(jp, tp), i
+        assert _same_tree(js.m, ts.m) and _same_tree(js.v, ts.v), i
+        assert _same_tree(js.comp, ts.comp) if kahan else ts.comp is None
+        assert float(jm["grad_norm"]) == float(tm["grad_norm"])
 
 
 @pytest.mark.parametrize("shape,scalar", [

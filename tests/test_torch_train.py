@@ -190,16 +190,25 @@ def test_embedding_backward_is_deterministic():
 
 
 def test_mesh_with_data_devices_raises():
+    """A mesh with more than one rank on "data" folds the loss through the
+    sharded sum (``tests/test_torch_distributed.py`` runs it on two
+    ranks); microbatches that do not divide by that size raise, as in the
+    reference, and no mesh or a one-rank axis builds the local step."""
     cfg = get_smoke("olmo-1b")
     model = build_model(cfg, CPU)
 
     class Mesh:
-        shape = {"data": 2, "model": 1}
+        mesh_dim_names = ("data", "model")
 
-    with pytest.raises(NotImplementedError, match="A6"):
-        make_train_step(model, cfg, TrainConfig(microbatches=2), mesh=Mesh())
+        def size(self, dim):
+            return (2, 1)[dim]
+
+    with pytest.raises(ValueError, match="must divide"):
+        make_train_step(model, cfg, TrainConfig(microbatches=3), mesh=Mesh())
+    make_train_step(model, cfg, TrainConfig(microbatches=2), mesh=Mesh())
     make_train_step(model, cfg, TrainConfig(), mesh=type(
-        "One", (), {"shape": {"data": 1}})())
+        "One", (), {"mesh_dim_names": ("data",),
+                    "size": lambda self, dim: 1})())
 
 
 # ---------------------------------------------------------------------------
