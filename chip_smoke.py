@@ -67,12 +67,14 @@ there is no CUDA device or no ``src/repro_torch`` beside it.
    comparison with the padded rows of earlier runs) and in a 64- and a
    32-token chunk plus the up projection of a 2048-token prefill, B6 at 4 chunk-sized q projections; each matmul
    and flash row with the tile (and cluster size or ring depth) the
-   kernel chose and its share of the mul+add ceiling, 2·M·N·K or
-   4·BH·Sq·Skv·dh over half the float32 fma rate; the flash rows also
+   kernel chose and its share of the mul+add ceiling, 2·M·N·K or 4·BH·dh
+   times the (query, key) pairs the causal mask keeps (unpadded) over
+   half the float32 fma rate; the flash rows also
    with the time of the 16-row kernel they replace), device time of
    launches captured in a CUDA graph (back-to-back launches timed with
    CUDA events beside the reductions and flash),
-   beside its bound (bytes or float32 operations),
+   beside its bound (bytes or float32 operations, both counted on the
+   function's own inputs, not the engine's padding),
    its plain version's time and one PyTorch call computing the same
    function (``library_ms``, a yardstick the port never calls:
    ``scaled_dot_product_attention`` in float32 with the same mask for the
@@ -170,6 +172,34 @@ there is no CUDA device or no ``src/repro_torch`` beside it.
    the gather's µs a call, the sharded sum's ms beside B3's alone, each
    rank's peak memory, the phase's seconds.
 
+9. The dense family and the paged layout: deepseek-7b, stablelm-3b,
+   qwen2.5-3b (QKV bias, GQA 8) and internvl2-2b (256 patch embeddings
+   spliced over its prompts) at their published width and depth (bf16,
+   random weights from seed 0), one at a time, each freed before the
+   next, each serving three staggered requests (prompts of 48, 96 and
+   160 tokens, internvl's of 256 patches plus 32 text tokens, 8 new
+   tokens each) under flash prefill with ``kahan_attention``
+   (``max_slots=4``, ``prefill_chunk=64``, telemetry, kahan, U = 8),
+   the launch counts reset just before. Checked: B8 n_layers times a
+   chunk and B4 once a tick and finished prefill, nothing else; one
+   tick's telemetry bitwise equal to the plain version; request 0 alone
+   == interleaved, bitwise; a 64-token chunk's flash logits within phase
+   4's relative L2 of 5e-2 of the scan path's; qwen2.5-3b also serves
+   one request with ``kahan_matmul`` (B5 7 times a layer, chunk and
+   decode position; the QKV bias after B5) and its chunk logits against
+   flash (relative L2 below 5e-2, the same argmax, as in phase 4). Then deepseek-7b on the paged layout (``page_size`` 16): the
+   trace's tokens and telemetry bitwise equal to the dense run's, again
+   in a pool whose every other page is held (scattered page tables ==
+   contiguous), a 64-token shared prefix admitted by reference equal to
+   its private prefill (``prefix_hit_tokens`` > 0), the free list back
+   to its initial size. Phase 2 first holds the kernels at these shapes
+   against their plain versions, bitwise: B1-B4 on [4, vocab] rows of
+   each config, B7/B8 at dh 80 and at G 8, B5 on operands the engine
+   pads (K 11008, 6912) and at N 256. Logged per config: params and
+   peak GiB, tokens/s, decode-tick ms, prefill ms per position, and the
+   KV bytes the dense rows hold against the paged live pages; one JSON
+   line ``{"slice": {...}}``.
+
 The last three lines are the card (``nvidia-smi`` name and power
 limit), one JSON object ``{"kernels": [...]}`` and
 ``{"ok": true, "device": {...}}``. The kernels line has one row per
@@ -178,18 +208,25 @@ trace, "serve-flash" for the same trace under flash, "serve-matmul" for
 it with ``kahan_matmul`` too, "serve-long" for the long request,
 "train-a" and "train-b" for the two training runs, "sharded" for phase
 8's sharded calls and "sharded-train" for its trainer, both rank 0's
-counts): its ``launches`` are that path's count and its times were
-taken at that path's shape (B5 on "serve-matmul": the decode q/k/v/o
+counts, "serve-<arch>" for each of phase 9's configs,
+"serve-qwen2.5-3b-matmul" for its ``kahan_matmul`` request and
+"serve-deepseek-7b-paged" for the paged trace): its ``launches`` are
+that path's count and its times were taken at that path's shape (B5 on "serve-matmul": the decode q/k/v/o
 shape at M 1, the one launched most; on "train-b" the up projection's
 forward at 1024 tokens; B3 on "train-b" the largest leaf; the column
 scan on "train-a" and "sharded-train" the embedding's gradient; on
 "sharded" one rank's block, requests or K-slice; B3 on "sharded-train"
-the loss fold's one element a rank, padded to one block).
+the loss fold's one element a rank, padded to one block; on phase 9's
+paths B4 at the config's [4, vocab] telemetry padded by the engine, B8
+at its [H, 64, dh] chunk against its cache with its GQA groups, B5 on
+"serve-qwen2.5-3b-matmul" phase 3's [1, 2048] x [2048, 2048] decode q/o
+shape).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -262,6 +299,15 @@ DIST_ACT = (4, 57344)
 DIST_LEAF = (2048, 8192)
 DIST_TRAIN_STEPS = 2
 
+#: phase 9: the dense family at published width and depth, the trace
+#: each serves (a VLM's prompts are its patches plus SLICE_VLM_TEXT text
+#: tokens), and the page size of the paged run
+SLICE_ARCHS = ("deepseek-7b", "stablelm-3b", "qwen2.5-3b", "internvl2-2b")
+SLICE_NEW = 8
+SLICE_TRACE = f"0:48:{SLICE_NEW},1:96:{SLICE_NEW},2:160:{SLICE_NEW}"
+SLICE_VLM_TEXT = 32
+PAGE_SIZE = 16
+
 #: the schemes with a device function, and the reduction wrappers
 SCHEMES = ("naive", "kahan", "pairwise", "dot2")
 REDUCTIONS = ("dot_accumulators", "dot_accumulators_batched",
@@ -310,6 +356,7 @@ def sync(torch, dev) -> None:
 def main() -> int:
     import torch
 
+    started = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -349,6 +396,7 @@ def main() -> int:
     kernels.flash_times(cfg, PREFILL_LEN, serve_max_len(TRACE),
                         serve_max_len(LONG_TRACE))
     kernels.matmul_parity()
+    kernels.slice_parity([get_config(name) for name in SLICE_ARCHS])
     kernels.matmul_times(cfg, PREFILL_LEN)
     kernels.column_parity()
     kernels.subnormal_parity()
@@ -360,6 +408,8 @@ def main() -> int:
     log(json.dumps({"train": train_stats}))
     log(json.dumps(paper_path(torch, kernels, card)))
     log(json.dumps({"dist": dist_path(torch, kernels, dist_spec(cfg))}))
+    log(json.dumps({"slice": slice_path(torch, kernels)}))
+    log(f"# chip_smoke took {time.perf_counter() - started:.1f} s")
     log(card)
     log(json.dumps({"kernels": kernels.rows()}))
     log(json.dumps({"ok": True, "device": {
@@ -446,6 +496,15 @@ def bound_ms(n_bytes: float, n_ops: float):
                                    else "operations")
 
 
+def flash_flops(bh: int, sq: int, skv: int, dh: int, q_off: int) -> int:
+    """The FLOPs causal flash attention needs: a multiply and an add for
+    each term of q k^T and of p v, over the (query, key) pairs the mask
+    keeps. Row i of a chunk at ``q_off`` sees min(q_off + i + 1, skv)
+    keys; padded rows and keys count nothing."""
+    pairs = sum(min(q_off + i + 1, skv) for i in range(sq))
+    return 4 * bh * pairs * dh
+
+
 def fma_ceiling_ms(flops: float) -> float:
     """``flops`` at half the float32 peak: the mul+add ceiling of a chain
     that may not fuse its products (no fma, no tensor cores)."""
@@ -470,6 +529,9 @@ class Kernels:
         self.gen = torch.Generator(device=dev).manual_seed(0)
         self.err = {name: 0.0 for name in engine.WRAPPERS}
         self.timing = {}
+        #: (wrapper, path) -> the timing label of that path's shape, for
+        #: the paths of phase 9
+        self.path_labels = {}
 
     def data(self, shape, dtype):
         torch = self.torch
@@ -606,17 +668,19 @@ class Kernels:
         rings = steps > 2 * stages * depth and steps % depth != 0
         seen[name].add((fn.plan, fn.copy, rings))
 
-    def flash_parity(self, dh: int):
+    def flash_parity(self, dh: int,
+                     heads=((4, 1), (4, 2), (48, 1), (48, 2))):
         """B7 and B8 against their plain version, bitwise: Sq = 300 and
         Skv = 600 (blocks 256: Sq padded to 512, Skv to 768 = 3 k-blocks,
-        60 padded keys masked), every built-in scheme, q_groups 1 and 2,
-        at BH 4 (B7 in 16-row tiles) and BH 48 (B7 in 64-row tiles, B8's
-        64-row chunks in 16-row tiles: rows equal across tile heights)."""
+        60 padded keys masked), every built-in scheme, at each (BH,
+        q_groups) of ``heads``: by default q_groups 1 and 2 at BH 4 (B7 in
+        16-row tiles) and BH 48 (B7 in 64-row tiles, B8's 64-row chunks in
+        16-row tiles: rows equal across tile heights)."""
         torch, fa = self.torch, self.fa
         sq, skv, bk = 300, 600, 256
         cases = 0
         plans = set()
-        for bh, groups in ((4, 1), (4, 2), (48, 1), (48, 2)):
+        for bh, groups in heads:
             eng = self.engine.CompensatedReduction(scheme="kahan")
             q, k, v, bq, bk, _, _ = eng._flash_prep(
                 "flash_parity", self.normal((bh, sq, dh)),
@@ -658,18 +722,20 @@ class Kernels:
               f"tiles beside B8 in 16-row tiles: (BH, B7 rows, B8 rows) "
               f"{sorted(plans)}")
         log(f"# phase 2: {cases} flash parity cases (dh={dh}, Sq={sq}, "
-            f"Skv={skv}, block_k={bk}, BH 4 and 48) bitwise equal to the "
-            f"plain version; B8 rows at aligned offsets == B7 rows, bitwise "
-            f"((BH, B7 tile rows, B8 tile rows): {sorted(plans)})")
+            f"Skv={skv}, block_k={bk}, (BH, G) {list(heads)}) bitwise equal "
+            f"to the plain version; B8 rows at aligned offsets == B7 rows, "
+            f"bitwise ((BH, B7 tile rows, B8 tile rows): {sorted(plans)})")
 
     # -- 3. times -------------------------------------------------------------
     def time_one(self, name, scheme, args, plain_fn, library_fn, reps=20,
-                 label=None):
+                 label=None, valid=None):
         """Kernel / plain / library times of one wrapper on padded
         float32 inputs, plus the kernel-vs-plain check at this shape. The
         kernel and library times are device times of launches captured in
         a CUDA graph; back-to-back launches timed with events beside
-        them."""
+        them. ``valid``: the function's own input shape where the engine
+        zero-pads it (the telemetry's [4, vocab]); the bound counts it,
+        not the padding."""
         torch = self.torch
         sch = self.schemes.get(scheme)
         wrapper = self.engine.WRAPPERS[name]
@@ -686,9 +752,8 @@ class Kernels:
         ms = graph_ms(torch, kernel, reps)
         events_ms = cuda_ms(torch, kernel, reps)
         library_ms = graph_ms(torch, library_fn, reps)
-        numel = sum(a.numel() for a in args)
-        n_elem = args[0].numel()
-        in_bytes = numel * args[0].element_size()
+        n_elem = math.prod(valid) if valid else args[0].numel()
+        in_bytes = len(args) * n_elem * args[0].element_size()
         mix = sch.instruction_mix
         ops = n_elem * (mix.flops if name.startswith("dot") else mix.adds)
         least, by = bound_ms(in_bytes + grid_bytes, ops)
@@ -758,22 +823,27 @@ class Kernels:
         x = self.data((4, 57344), f32)
         self.time_one("sum_accumulators_batched", "kahan", (x,),
                       lambda s: ks.sum_plain(x, scheme=s),
-                      lambda: torch.sum(x, dim=1), reps=200, label="serve")
+                      lambda: torch.sum(x, dim=1), reps=200, label="serve",
+                      valid=(4, 50304))
         del a, b, a2, b2
 
-    def time_flash(self, name, label, q, k, v, q_off, reps):
+    def time_flash(self, name, label, q, k, v, q_off, reps, groups=1):
         """One flash wrapper (scheme kahan) at the engine's padded shapes
-        for q [BH, Sq, dh] and the cache k/v [BH, Skv, dh]: kernel, plain
-        and library (float32 ``scaled_dot_product_attention``, the same
-        causal mask on absolute positions) times, and the parity check."""
+        for q [BH, Sq, dh] and the cache k/v [BH / groups, Skv, dh] (GQA
+        through the kernel's ``bh // G`` row): kernel, plain and library
+        (float32 ``scaled_dot_product_attention``, the same causal mask on
+        absolute positions, on k/v repeated to BH rows beforehand) times,
+        and the parity check."""
         torch, fa = self.torch, self.fa
         F = torch.nn.functional
         sch = self.schemes.get("kahan")
         bh, sq, dh = q.shape
         skv = k.shape[1]
         eng = self.engine.CompensatedReduction(scheme=sch)
-        qp, kp, vp, bq, bk, _, _ = eng._flash_prep(name, q, k, v, 256, 256, 1)
-        kw = dict(block_q=bq, block_k=bk, scheme=sch, kv_len=skv)
+        qp, kp, vp, bq, bk, _, _ = eng._flash_prep(name, q, k, v, 256, 256,
+                                                   groups)
+        kw = dict(block_q=bq, block_k=bk, scheme=sch, kv_len=skv,
+                  q_groups=groups)
         if name == "flash_accumulators":
             kernel = lambda: fa.flash_accumulators(  # noqa: E731
                 qp, kp, vp, causal=True, **kw)
@@ -784,10 +854,11 @@ class Kernels:
         sync(torch, self.dev)
         t0 = time.perf_counter()
         want = fa.flash_plain(qp, kp, vp, scheme=sch, block_k=bk, kv_len=skv,
-                              causal=True, q_off=q_off)
+                              causal=True, q_off=q_off, q_groups=groups)
         sync(torch, self.dev)
         plain_ms = (time.perf_counter() - t0) * 1e3
-        self.compare(name, got, want, f"kahan at {label} {tuple(q.shape)}")
+        self.compare(name, got, want, f"kahan at {label} {tuple(q.shape)} "
+                     f"G={groups}")
         del got, want
         # device time (launches captured in a CUDA graph: a 64-row B8
         # launch is about as short as its wrapper's host enqueue) and,
@@ -796,12 +867,14 @@ class Kernels:
         events_ms = cuda_ms(torch, kernel, reps)
         mask = ((q_off + torch.arange(sq, device=self.dev))[:, None]
                 >= torch.arange(skv, device=self.dev)[None, :])
+        kr, vr = (x.repeat_interleave(groups, dim=0) for x in (k, v))
         library_ms = graph_ms(torch, lambda: F.scaled_dot_product_attention(
-            q[None], k[None], v[None], attn_mask=mask), reps)
-        sq_pad, skv_pad = qp.shape[1], kp.shape[1]
-        flops = 4 * bh * sq_pad * skv_pad * dh
-        n_bytes = 4 * (qp.numel() + kp.numel() + vp.numel()
-                       + 2 * (bh * sq_pad + qp.numel()))
+            q[None], kr[None], vr[None], attn_mask=mask), reps)
+        del kr, vr
+        flops = flash_flops(bh, sq, skv, dh, q_off)
+        # q, k, v read once and (l_s, l_c, a_s, a_c) written once, unpadded
+        n_bytes = 4 * (q.numel() + k.numel() + v.numel()
+                       + 2 * (bh * sq + q.numel()))
         least, by = bound_ms(n_bytes, flops)
         # the fixed chains' own ceiling: a separate rounded multiply and
         # add per term, at half the fma rate
@@ -812,14 +885,17 @@ class Kernels:
                "mul_add_ceiling_ms": ceiling, "ceiling_share": ceiling / ms,
                "tile_rows": rows, "ring_stages": fa.RING_STAGES,
                "smem_bytes": smem,
-               "before_ms": FLASH_BEFORE_MS[label],
-               "shape": [bh, sq, dh], "skv": skv, "scheme": "kahan",
-               "tflops": flops / ms / 1e9}
+               "before_ms": FLASH_BEFORE_MS.get(label),
+               "shape": [bh, sq, dh], "skv": skv, "q_groups": groups,
+               "scheme": "kahan", "tflops": flops / ms / 1e9}
         self.timing[(name, label)] = row
-        log(f"# {name} {label} q {[bh, sq, dh]} kv {skv}: kernel {ms:.4f} ms "
-            f"device ({events_ms:.4f} back to back; {row['tflops']:.2f} "
-            f"TFLOP/s fp32; 16-row kernel before the redesign "
-            f"{FLASH_BEFORE_MS[label]:.4f}), {by} bound {least:.4f} ms, "
+        before = FLASH_BEFORE_MS.get(label)
+        was = (f"; 16-row kernel before the redesign {before:.4f}" if before
+               else "")
+        log(f"# {name} {label} q {[bh, sq, dh]} kv {skv} G={groups}: kernel "
+            f"{ms:.4f} ms device ({events_ms:.4f} back to back; "
+            f"{row['tflops']:.2f} TFLOP/s fp32{was}), {by} bound "
+            f"{least:.4f} ms, "
             f"mul+add ceiling {ceiling:.4f} ms ({100 * ceiling / ms:.1f}%), "
             f"tile {rows} rows, {fa.RING_STAGES}-stage ring, {smem} B "
             f"shared, plain {plain_ms:.1f} ms, library (sdpa f32) "
@@ -841,6 +917,99 @@ class Kernels:
                             self.normal((h, 64, dh)),
                             self.normal((h, length, dh)),
                             self.normal((h, length, dh)), off, reps=50)
+
+    # -- the dense family's shapes (phases 2 and 9) ---------------------------
+    def slice_parity(self, cfgs):
+        """Phase 2 at the shapes phase 9 gives the kernels, before it runs
+        them: B1-B4 on the telemetry's [4, vocab] rows of each config
+        (padded by the engine to 8 U 128), every scheme at U = 8; B7 and
+        B8 at stablelm-3b's head dim 80 (G 1, BH 4, 32 and 48) and at
+        qwen2.5-3b's GQA G 8 (dh 128, BH 16 and 48); B5 on bf16 operands
+        the engine pads, K 11008 (the down projection of deepseek-7b and
+        qwen2.5-3b) and 6912 (stablelm-3b's) at M 1 and 64, and qwen's k/v
+        N 256: every scheme at M 1, kahan at M 64."""
+        torch, km = self.torch, self.km
+        seen = {name: set() for name in REDUCTIONS}
+        cases = 0
+        for cfg in cfgs:
+            for name in SCHEMES:
+                sch = self.schemes.get(name)
+                eng = self.engine.CompensatedReduction(scheme=sch, unroll=8)
+                a = self.data((4, cfg.vocab_size), torch.float32)
+                b = self.data((4, cfg.vocab_size), torch.float32)
+                ap, bp = eng._prep2d(a), eng._prep2d(b)
+                kw = dict(scheme=sch, unroll=8)
+                plain = (self.kd.dot_plain(ap, bp, **kw),
+                         self.ks.sum_plain(ap, **kw))
+                self.reduction_case(ap, bp, plain, kw,
+                                    f"{name} [4, {cfg.vocab_size}] "
+                                    f"({cfg.name})", seen)
+                cases += 1
+        log(f"# phase 2: {cases} reduction parity cases at the telemetry's "
+            f"[4, vocab] of {[c.name for c in cfgs]} bitwise equal to the "
+            f"plain versions")
+        self.flash_parity(80, heads=((4, 1), (32, 1), (48, 1)))
+        self.flash_parity(128, heads=((16, 8), (48, 8)))
+        cases = 0
+        for m, k, n in ((1, 11008, 4096), (64, 11008, 2048),
+                        (1, 6912, 2560), (64, 6912, 2560), (1, 2048, 256),
+                        (64, 2048, 256)):
+            for name in SCHEMES if m == 1 else ("kahan",):
+                eng = self.engine.CompensatedReduction(scheme=name)
+                a = self.normal((m, k)).bfloat16()
+                b = self.normal((k, n)).bfloat16()
+                blocks = eng._matmul_blocks(m, n, k, None, None, None)
+                ap, bp = eng._prep_matmul(a, b, blocks)
+                kw = dict(scheme=eng.scheme, block_m=blocks[0],
+                          block_n=blocks[1], block_k=blocks[2],
+                          compute_dtype=torch.float32)
+                got = km.matmul_accumulators(ap, bp, **kw)
+                want = km.matmul_plain(ap[None], bp[None], scheme=eng.scheme,
+                                       block_k=blocks[2],
+                                       compute_dtype=torch.float32)
+                self.compare("matmul_accumulators", got,
+                             (want[0][0], want[1][0]),
+                             f"{name} bf16 {m}x{k}x{n} padded to "
+                             f"{list(bp.shape)}")
+                cases += 1
+        sync(torch, self.dev)
+        log(f"# phase 2: {cases} matmul parity cases at K 11008 and 6912 "
+            f"(padded by the engine) and N 256, M 1 and 64, bitwise equal to "
+            f"the plain version")
+
+    def slice_times(self, cfg, max_len):
+        """Phase 9's rows at one config's serving shapes: B4 at the
+        telemetry's [4, vocab] (padded by the engine), B8 at the last full
+        64-token chunk of a prompt that fills a ``max_len`` cache (H query
+        heads over KV cache heads); for qwen2.5-3b, B5 at its decode and
+        64-token chunk projections (k/v N 256, gate/up N 11008 and down K
+        11008, padded by the engine; q/o are phase 3's [2048, 2048])."""
+        torch = self.torch
+        label = f"serve-{cfg.name}"
+        eng = self.engine.CompensatedReduction(scheme="kahan", unroll=8)
+        x = eng._prep2d(self.data((4, cfg.vocab_size), torch.float32))
+        self.time_one("sum_accumulators_batched", "kahan", (x,),
+                      lambda s: self.ks.sum_plain(x, scheme=s),
+                      lambda: torch.sum(x, dim=1), reps=200, label=label,
+                      valid=(4, cfg.vocab_size))
+        h, kvh, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        off = (max_len - 64) // 64 * 64
+        self.time_flash("flash_chunk_accumulators", label,
+                        self.normal((h, 64, dh)),
+                        self.normal((kvh, max_len, dh)),
+                        self.normal((kvh, max_len, dh)), off, reps=50,
+                        groups=h // kvh)
+        del x
+        if cfg.name != "qwen2.5-3b":
+            return
+        d, f = cfg.d_model, cfg.d_ff
+        kv = cfg.n_kv_heads * cfg.head_dim
+        for where, m, reps in (("decode", 1, 50), ("chunk", 64, 20)):
+            self.time_matmul(f"qwen-{where}-kv", m, d, kv, reps=reps)
+            self.time_matmul(f"qwen-{where}-gate-up", m, d, f, reps=reps,
+                             pads=True)
+            self.time_matmul(f"qwen-{where}-down", m, f, d, reps=reps,
+                             pads=True)
 
     # -- matmul (B5, B6) -------------------------------------------------------
     def matmul_parity(self):
@@ -1035,7 +1204,7 @@ class Kernels:
         return 1
 
     def time_matmul(self, label, m, k, n, batch=None, reps=20,
-                    dtypes=None):
+                    dtypes=None, pads=False):
         """B5 (or B6 with ``batch``) at ``[M, K] x [K, N]`` with bf16
         operands (or ``dtypes``: the backward's float32 gradient against
         bf16 weights and activations), as the projections give it (the
@@ -1046,7 +1215,9 @@ class Kernels:
         the operands that together exceed the 50 MB L2 cache twice, as a
         decode position finds the weights cold, and are captured in a CUDA
         graph: a decode-shape launch is shorter than the wrapper's
-        enqueue on the host."""
+        enqueue on the host. ``pads``: a K off ``block_k`` (11008), which
+        the engine zero-pads; the kernel is timed on the padded operands
+        it gets."""
         torch, km = self.torch, self.km
         lead = () if batch is None else (batch,)
         name = ("matmul_accumulators" if batch is None
@@ -1058,17 +1229,20 @@ class Kernels:
         b = self.normal((*lead, k, n)).to(b_dt)
         blocks = eng._matmul_blocks(m, n, k, None, None, None)
         ap, bp = eng._prep_matmul(a, b, blocks)
-        check(ap.shape == a.shape and bp.data_ptr() == b.data_ptr(),
+        check(pads or (ap.shape == a.shape and bp.data_ptr() == b.data_ptr()),
               f"the engine padded or copied operands at {label}")
-        check(ap.data_ptr() == a.data_ptr() and ap.dtype == a_dt
-              and bp.dtype == b_dt,
-              f"the engine copied or widened operands at {label}")
+        check(pads or ap.data_ptr() == a.data_ptr(),
+              f"the engine copied operands at {label}")
+        check(ap.dtype == a_dt and bp.dtype == b_dt,
+              f"the engine widened operands at {label}")
+        kpad, npad = ap.shape[-1], bp.shape[-1]
         kw = dict(scheme=eng.scheme, block_m=blocks[0], block_n=blocks[1],
                   block_k=blocks[2], compute_dtype=torch.float32)
         got = wrapper(ap, bp, **kw)
         sync(torch, self.dev)
         t0 = time.perf_counter()
-        want = km.matmul_plain(ap.reshape(-1, m, k), bp.reshape(-1, k, n),
+        want = km.matmul_plain(ap.reshape(-1, m, kpad),
+                               bp.reshape(-1, kpad, npad),
                                scheme=eng.scheme, block_k=blocks[2],
                                compute_dtype=torch.float32)
         sync(torch, self.dev)
@@ -1084,14 +1258,16 @@ class Kernels:
         library_ms = graph_ms(torch, cycle(torch.matmul, promoted), reps)
         del operands, promoted
         nb = 1 if batch is None else batch
-        n_bytes = (ap.numel() * ap.element_size()
-                   + bp.numel() * bp.element_size() + 2 * nb * m * n * 4)
+        # the function's own bytes: the operands as given (not the padding
+        # the engine adds), the (s, c) grids written once
+        n_bytes = (a.numel() * a.element_size()
+                   + b.numel() * b.element_size() + 2 * nb * m * n * 4)
         flops = 2 * nb * m * n * k
         least, by = bound_ms(n_bytes, flops)
         # the fixed chain's own ceiling: a separate multiply and add per
         # term, at half the fma rate
         ceiling = fma_ceiling_ms(flops)
-        tm, tn, split = km.grid_plan(nb, m, n, k, blocks[2])
+        tm, tn, split = km.grid_plan(nb, m, npad, kpad, blocks[2])
         row = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
                "bound_ms": least, "bound_by": by,
                "shape": [*lead, m, k, n], "scheme": "kahan",
@@ -1479,6 +1655,7 @@ class Kernels:
                    ("matmul_accumulators", "sharded"): "sharded",
                    ("sum_accumulators", "sharded-train"): "sharded-loss",
                    ("column_sq_accumulators", "sharded-train"): "train"}
+        special.update(self.path_labels)
         rows = []
         for path, counts in self.launches.items():
             for name in replaces:
@@ -1731,12 +1908,17 @@ def cycle(fn, operand_sets):
     return call
 
 
-def serve_run(torch, kernels, cfg, model, params, trace, prefill_mode):
+def serve_run(torch, kernels, cfg, model, params, trace, prefill_mode,
+              max_len=None, phase="4", prepare=None, **engine_kw):
     """Serve ``trace`` once with every launch count reset just before and
     read just after; times every decode tick and prefill chunk. Checks
     what holds on every serving path: each request emits its tokens, the
     telemetry is finite and positive, and the sum kernel launched once
-    per decode tick and once per finished prefill."""
+    per decode tick and once per finished prefill. ``max_len`` (default:
+    fitted to the trace) and ``engine_kw`` (the paged layout's fields) go
+    to the ``EngineConfig``; ``prepare(engine)`` runs before the trace.
+    Under the paged layout the stats carry the peak pages in use and
+    whether a live page table was ever scattered."""
     from repro_torch.kernels import Policy
     from repro_torch.kernels.engine import launch_counts, reset_launch_counts
     from repro_torch.launch.serve import build_requests, parse_trace
@@ -1745,15 +1927,18 @@ def serve_run(torch, kernels, cfg, model, params, trace, prefill_mode):
     dev = kernels.dev
     cells = parse_trace(trace, 0.0)
     requests, arrivals = build_requests(cfg, cells, seed=0)
-    ec = EngineConfig(max_slots=4, max_len=serve_max_len(trace),
+    ec = EngineConfig(max_slots=4, max_len=max_len or serve_max_len(trace),
                       prefill_chunk=64, track_stats=True,
                       policy=Policy(scheme="kahan"),
-                      prefill_mode=prefill_mode)
+                      prefill_mode=prefill_mode, **engine_kw)
     engine = InferenceEngine(cfg, ec, model=model, params=params)
     check(engine.prefill_body == prefill_mode,
           f"engine resolved prefill body {engine.prefill_body!r}, wanted "
           f"{prefill_mode!r}")
+    if prepare is not None:
+        prepare(engine)
     tick_ms, chunk_ms, chunk_pos, widths, positions = [], [], [], [], []
+    pages = {"peak": 0, "scattered": False}
     captured = {}
     sum_kernel = kernels.engine.WRAPPERS["sum_accumulators_batched"]
     flash_kernels = [kernels.engine.WRAPPERS[n] for n in
@@ -1773,6 +1958,13 @@ def serve_run(torch, kernels, cfg, model, params, trace, prefill_mode):
               "decode tick")
         check([f.launches for f in flash_kernels] == flash_before,
               "a flash kernel launched in a decode tick")
+        if engine.kv_layout == "paged":
+            pages["peak"] = max(pages["peak"],
+                                engine.page_stats()["pages_in_use"])
+            for lease in engine._leases.values():
+                live = [int(p) for p in lease.table[:lease.n_pages]]
+                pages["scattered"] |= any(b - a != 1 for a, b in
+                                          zip(live, live[1:]))
 
     def timed_chunk(slot, h, events, _orig=engine._run_chunk):
         start = h.prefill_pos
@@ -1834,15 +2026,60 @@ def serve_run(torch, kernels, cfg, model, params, trace, prefill_mode):
         "prefill_positions_per_s": n_prompt / (sum(chunk_ms) / 1e3),
         "launches": counts,
         "max_memory_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+        "kv_layout": engine.kv_layout, "max_len": ec.max_len,
     }
-    log(f"# phase 4 [{prefill_mode}, kahan_attention={cfg.kahan_attention}, "
-        f"kahan_matmul={cfg.kahan_matmul}] {trace}: {len(cells)} requests, {n_tok} tokens in {wall:.2f} s "
+    if engine.kv_layout == "paged":
+        stats.update(peak_pages=pages["peak"], scattered=pages["scattered"],
+                     page_stats=engine.page_stats(),
+                     page_bytes=engine.slots.page_bytes)
+    log(f"# phase {phase} {cfg.name} [{prefill_mode}, "
+        f"kahan_attention={cfg.kahan_attention}, "
+        f"kahan_matmul={cfg.kahan_matmul}, {engine.kv_layout}] {trace}: "
+        f"{len(cells)} requests, {n_tok} tokens in {wall:.2f} s "
         f"({stats['tokens_per_s']:.1f} tokens/s); {len(chunk_ms)} prefill "
         f"chunks in {stats['prefill_s']:.2f} s "
         f"({stats['prefill_ms_per_position']:.3f} ms per position); "
         f"{n_ticks} decode ticks in {stats['decode_s']:.2f} s "
         f"({stats['decode_tick_ms_mean']:.2f} ms mean); launches {counts}")
     return ec, requests, served, captured, stats
+
+
+def check_tick_telemetry(torch, kernels, cfg, ec, captured, phase):
+    """One decode tick's telemetry (``captured`` by ``serve_run``) against
+    the plain version on the same logits, bitwise."""
+    from repro_torch.kernels.engine import Accumulator, CompensatedReduction
+
+    logits = captured["logits"][:, :cfg.vocab_size]
+    eng = CompensatedReduction(scheme=ec.policy)
+    sq = eng._prep2d(logits.float() * logits.float())
+    s, c = kernels.ks.sum_plain(sq, scheme=eng.scheme, unroll=eng.unroll)
+    check(torch.equal(Accumulator(s, c).total(), captured["norms"]),
+          f"{cfg.name}: decode-tick telemetry differs from the plain version")
+    log(f"# phase {phase} {cfg.name}: one tick's telemetry bitwise equal to "
+        f"the plain version")
+
+
+def check_solo(cfg, ec, model, params, req, served, what, phase):
+    """``req`` served alone emits bitwise the tokens and telemetry it
+    emitted interleaved in ``served``."""
+    from repro_torch.serve import InferenceEngine
+
+    solo = InferenceEngine(cfg, ec, model=model, params=params).run(
+        [req])[req.request_id]
+    both = served[req.request_id]
+    check(solo.tokens == both.tokens,
+          f"request {req.request_id}: tokens differ solo vs interleaved "
+          f"({what})")
+    differ = [(i, x, y) for i, (x, y) in enumerate(zip(solo.telemetry,
+                                                      both.telemetry))
+              if x != y]
+    check(solo.telemetry == both.telemetry,
+          f"request {req.request_id}: telemetry differs solo vs interleaved "
+          f"({what}): (position, solo, interleaved) {differ[:4]}, "
+          f"{len(solo.telemetry)} and {len(both.telemetry)} values")
+    log(f"# phase {phase} [{what}]: request {req.request_id} alone == "
+        f"interleaved, bitwise ({len(solo.tokens)} tokens and telemetry "
+        f"values)")
 
 
 def check_flash_launches(cfg, stats, what):
@@ -1874,15 +2111,9 @@ def main_path(torch, kernels: Kernels, cfg, paper_n):
     """Phases 4 and 5: the port's main paths, each with the launch counts
     reset just before it, then solo vs interleaved."""
     from repro_torch.kernels import ops
-    from repro_torch.kernels.engine import (
-        Accumulator,
-        CompensatedReduction,
-        launch_counts,
-        reset_launch_counts,
-    )
+    from repro_torch.kernels.engine import launch_counts, reset_launch_counts
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.models import build_model
-    from repro_torch.serve import InferenceEngine
 
     dev = kernels.dev
     model = build_model(cfg, dev)
@@ -1903,14 +2134,7 @@ def main_path(torch, kernels: Kernels, cfg, paper_n):
               == (name == "sum_accumulators_batched"),
               f"{name} launched {scan['launches'][name]} times while "
               f"serving under scan")
-    # one tick's telemetry against the plain version on the same logits
-    logits = captured["logits"][:, :cfg.vocab_size]
-    eng = CompensatedReduction(scheme=ec.policy)
-    sq = eng._prep2d(logits.float() * logits.float())
-    s, c = kernels.ks.sum_plain(sq, scheme=eng.scheme, unroll=eng.unroll)
-    check(torch.equal(Accumulator(s, c).total(), captured["norms"]),
-          "decode-tick telemetry differs from the plain version")
-    log("# phase 4: one tick's telemetry bitwise equal to the plain version")
+    check_tick_telemetry(torch, kernels, cfg, ec, captured, "4")
     scan["decode_position"] = profile_decode_step(torch, model, params, dev,
                                                   ec.max_len)
 
@@ -2049,19 +2273,7 @@ def main_path(torch, kernels: Kernels, cfg, paper_n):
                                 fserved),
                                ("kahan_matmul", matmul_cfg, matmul_model,
                                 mec, mserved)):
-        solo = InferenceEngine(c, e, model=m, params=params).run(
-            [req0])[req0.request_id]
-        check(solo.tokens == out[req0.request_id].tokens,
-              f"request 0: tokens differ solo vs interleaved ({what})")
-        both = out[req0.request_id].telemetry
-        differ = [(i, x, y) for i, (x, y) in enumerate(zip(solo.telemetry,
-                                                          both)) if x != y]
-        check(solo.telemetry == both,
-              f"request 0: telemetry differs solo vs interleaved ({what}): "
-              f"(position, solo, interleaved) {differ[:4]}, "
-              f"{len(solo.telemetry)} and {len(both)} values")
-        log(f"# phase 5 [{what}]: request 0 alone == interleaved, bitwise "
-            f"({len(solo.tokens)} tokens and telemetry values)")
+        check_solo(c, e, m, params, req0, out, what, "5")
     return {"scan": scan, "flash": flash, "matmul": mm, "flash_long": long,
             "entry_prefill_ms": prefill_ms, "entry_logits_rel_l2": rel,
             "entry_matmul_ms": matmul_ms, "entry_matmul_err": up_err,
@@ -2391,7 +2603,7 @@ def dense_enqueue_cost(torch, kernels, cfg, calls=200):
 
 
 def compare_chunk_logits(torch, kernels, cfg, flash_model, matmul_model,
-                         params):
+                         params, phase="4"):
     """One 64-token chunk at offset 0 through the flash model and the
     ``kahan_matmul`` model: the last position's logits within 5e-2
     (relative L2) and the same argmax."""
@@ -2406,11 +2618,13 @@ def compare_chunk_logits(torch, kernels, cfg, flash_model, matmul_model,
     fl, ml = out
     rel = float((ml - fl).norm() / fl.norm())
     same = int(ml.argmax()) == int(fl.argmax())
-    log(f"# phase 4: a {w}-token chunk's logits with kahan_matmul vs flash: "
+    log(f"# phase {phase} {cfg.name}: a {w}-token chunk's logits with "
+        f"kahan_matmul vs flash: "
         f"relative L2 {rel:.3e}, argmax {int(ml.argmax())} vs "
         f"{int(fl.argmax())}")
-    check(rel < 5e-2 and same, f"kahan_matmul chunk logits differ from the "
-          f"flash run's: relative L2 {rel:.3e}, same argmax {same}")
+    check(rel < 5e-2 and same, f"kahan_matmul chunk logits "
+          f"differ from the flash run's: relative L2 {rel:.3e}, same argmax "
+          f"{same}")
     return {"rel_l2": rel, "same_argmax": same}
 
 
@@ -2479,6 +2693,250 @@ def _leaves(tree):
             yield from _leaves(v)
     else:
         yield tree
+
+
+# -- 9. the dense family and the paged layout ---------------------------------
+
+def slice_max_len(cfg) -> int:
+    """The cache length phase 9 serves ``cfg``'s trace with: fitted to
+    the trace, rounded up to a page (the paged run on deepseek-7b must
+    match the dense one's cache length)."""
+    return -(-serve_max_len(slice_trace(cfg)) // PAGE_SIZE) * PAGE_SIZE
+
+
+def slice_trace(cfg) -> str:
+    """Three staggered requests, 8 new tokens each: prompts of 48, 96 and
+    160 tokens, or for a VLM config its patch positions plus 32 text
+    tokens (the patches spliced over the first positions)."""
+    if cfg.vision is None:
+        return SLICE_TRACE
+    plen = cfg.vision.n_patches + SLICE_VLM_TEXT
+    return ",".join(f"{a}:{plen}:{SLICE_NEW}" for a in range(3))
+
+
+def slice_path(torch, kernels):
+    """Phase 9: each config of ``SLICE_ARCHS`` at its published width and
+    depth (bf16, random weights from seed 0) serving its trace under
+    flash prefill with ``kahan_attention`` (``max_slots=4``,
+    ``prefill_chunk=64``, telemetry, kahan, U = 8), each path with the
+    launch counts reset just before it; then the paged layout on
+    deepseek-7b. Returns the phase's stats."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    dev = kernels.dev
+    t0 = time.perf_counter()
+    out = {}
+    for name in SLICE_ARCHS:
+        cfg = get_config(name).replace(kahan_attention=True)
+        max_len = slice_max_len(cfg)
+        kernels.slice_times(cfg, max_len)
+        # an engine and its timing wrappers form a reference cycle that
+        # holds the last config's params until a collection
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        model = build_model(cfg, dev)
+        params = model.init(torch.Generator(device=dev).manual_seed(0))
+        stats = slice_config(torch, kernels, cfg, model, params, max_len)
+        if name == "deepseek-7b":
+            stats["paged"] = paged_path(torch, kernels, cfg, model, params,
+                                        max_len, stats["served"],
+                                        stats["serve"])
+        stats.pop("served")
+        stats["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+        log(f"# phase 9 {name}: {cfg.n_layers}L d={cfg.d_model} "
+            f"H={cfg.n_heads}/{cfg.n_kv_heads} dh={cfg.head_dim} "
+            f"ff={cfg.d_ff} vocab={cfg.vocab_size}: params "
+            f"{stats['params_gib']:.2f} GiB, peak {stats['peak_gib']:.2f} "
+            f"GiB, {stats['serve']['tokens_per_s']:.1f} tokens/s, decode "
+            f"tick {stats['serve']['decode_tick_ms_mean']:.2f} ms mean, "
+            f"prefill {stats['serve']['prefill_ms_per_position']:.3f} ms "
+            f"per position")
+        out[name] = stats
+        del model, params
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    log(f"# phase 9 took {out['seconds']:.1f} s")
+    return out
+
+
+def slice_config(torch, kernels, cfg, model, params, max_len):
+    """Phase 9 (a) for one config: its trace under flash (B8 n_layers
+    times a chunk, B4 once a tick and finished prefill, nothing else),
+    one tick's telemetry against the plain version, request 0 alone ==
+    interleaved, and a 64-token chunk's flash logits within phase 4's
+    tolerance of the scan path's; for qwen2.5-3b one request with
+    ``kahan_matmul`` as well (the QKV bias after B5)."""
+    path = f"serve-{cfg.name}"
+    ec, requests, served, captured, st = serve_run(
+        torch, kernels, cfg, model, params, slice_trace(cfg), "flash",
+        max_len=max_len, phase="9")
+    check_flash_launches(cfg, st, path)
+    kernels.launches[path] = st["launches"]
+    for name in ("sum_accumulators_batched", "flash_chunk_accumulators"):
+        kernels.path_labels[(name, path)] = path
+    check_tick_telemetry(torch, kernels, cfg, ec, captured, "9")
+    check_solo(cfg, ec, model, params, requests[0], served, cfg.name, "9")
+    stats = {"params_gib": sum(t.numel() * t.element_size()
+                               for t in _leaves(params)) / 2**30,
+             "serve": st, "served": served,
+             "chunk_logits": scan_vs_flash_chunk(torch, kernels, cfg, model,
+                                                 params, requests[-1])}
+    if cfg.name == "qwen2.5-3b":
+        from repro_torch.models import build_model
+
+        mcfg = cfg.replace(kahan_matmul=True)
+        mmodel = build_model(mcfg, kernels.dev)
+        trace = SLICE_TRACE.split(",")[0]
+        mpath = f"{path}-matmul"
+        _, _, _, _, mst = serve_run(torch, kernels, mcfg, mmodel, params,
+                                    trace, "flash", max_len=max_len,
+                                    phase="9")
+        check_flash_launches(mcfg, mst, mpath)
+        kernels.launches[mpath] = mst["launches"]
+        kernels.path_labels[("sum_accumulators_batched", mpath)] = path
+        kernels.path_labels[("flash_chunk_accumulators", mpath)] = path
+        # q and o, launched most beside k and v: phase 3's [1, 2048] x
+        # [2048, 2048] decode row
+        kernels.path_labels[("matmul_accumulators", mpath)] = "decode-qkvo"
+        stats["matmul"] = mst
+        stats["matmul_chunk_logits"] = compare_chunk_logits(
+            torch, kernels, cfg, model, mmodel, params, phase="9")
+    return stats
+
+
+def scan_vs_flash_chunk(torch, kernels, cfg, model, params, req):
+    """The first 64-token chunk of ``req`` (the trace's longest prompt,
+    with its patch embeddings) through the flash body and through the
+    scan body (64 decode steps):
+    the last position's logits within phase 4's tolerance (relative L2
+    below 5e-2)."""
+    w = min(64, len(req.prompt))
+    toks = torch.as_tensor(req.prompt[:w], dtype=torch.long,
+                           device=kernels.dev)[None]
+    extras = {k: torch.as_tensor(v, device=kernels.dev)[None]
+              for k, v in (req.extras or {}).items()}
+    out = []
+    for body in (model.prefill_chunk_parallel, model.prefill_chunk):
+        logits, _ = body(params, toks, model.init_cache(1, w), 0, w,
+                         **extras)
+        out.append(logits[0, :cfg.vocab_size].double())
+    fl, sl = out
+    rel = float((fl - sl).norm() / sl.norm())
+    same = int(fl.argmax()) == int(sl.argmax())
+    log(f"# phase 9 {cfg.name}: a {w}-token chunk's logits, flash vs scan: "
+        f"relative L2 {rel:.3e}, argmax {int(fl.argmax())} vs "
+        f"{int(sl.argmax())}")
+    check(rel < 5e-2, f"{cfg.name}: flash chunk logits differ from the scan "
+          f"path's by {rel:.3e} (relative L2)")
+    return {"rel_l2": rel, "same_argmax": same}
+
+
+def paged_path(torch, kernels, cfg, model, params, max_len, dense,
+               dense_stats):
+    """Phase 9 (b) on deepseek-7b: the trace under the paged layout
+    (``page_size`` 16) equals the dense run bitwise, tokens and telemetry;
+    again in a pool fragmented first (every other page held), scattered
+    == contiguous; a 64-token shared prefix admitted by reference equals
+    its private prefill bitwise, with ``prefix_hit_tokens`` > 0; the free
+    list back to its initial size after each. Logs the KV bytes the dense
+    rows hold against the paged live pages."""
+    import numpy as np
+
+    from repro_torch.kernels import Policy
+    from repro_torch.serve import (EngineConfig, InferenceEngine, Request,
+                                   SamplingParams)
+
+    trace = slice_trace(cfg)
+    path = f"serve-{cfg.name}-paged"
+    runs = {}
+
+    def same(a, b, what):
+        for rid in a:
+            check(a[rid].tokens == b[rid].tokens
+                  and a[rid].telemetry == b[rid].telemetry,
+                  f"{cfg.name}: request {rid} differs, {what}")
+
+    held = []
+
+    def fragment(engine):
+        pages = engine.pages.alloc(engine.pages.free_count)
+        engine.pages.free(pages[::2])
+        held.extend(pages[1::2])
+        runs["engine"] = engine
+
+    for name, prepare in (("contiguous", None), ("fragmented", fragment)):
+        _, _, served, _, st = serve_run(
+            torch, kernels, cfg, model, params, trace, "flash",
+            max_len=max_len, phase="9", prepare=prepare, kv_layout="paged",
+            page_size=PAGE_SIZE)
+        check_flash_launches(cfg, st, f"{path} ({name})")
+        same(served, dense, f"paged ({name}) vs dense")
+        runs[name] = st
+    kernels.launches[path] = runs["contiguous"]["launches"]
+    for name in ("sum_accumulators_batched", "flash_chunk_accumulators"):
+        kernels.path_labels[(name, path)] = f"serve-{cfg.name}"
+    check(runs["fragmented"]["scattered"]
+          and not runs["contiguous"]["scattered"],
+          f"{cfg.name}: page tables scattered "
+          f"{runs['fragmented']['scattered']} in the fragmented pool, "
+          f"{runs['contiguous']['scattered']} in the fresh one")
+    engine = runs.pop("engine")
+    engine.pages.free(held)
+    for name in ("contiguous", "fragmented"):
+        st = runs[name]["page_stats"]
+        check(st["free_pages"] == st["num_pages"] - (
+            len(held) if name == "fragmented" else 0),
+              f"{cfg.name}: {st['free_pages']} pages free of "
+              f"{st['num_pages']} after the {name} run")
+    check(engine.pages.free_count == engine.num_pages,
+          "the fragmented pool did not return to its initial size")
+
+    # shared vs private: a 64-token prefix, resumed at the chunk boundary
+    rng = np.random.default_rng(9)
+    prefix = rng.integers(0, cfg.vocab_size, (64,))
+    donor, benef = (
+        Request(prompt=list(prefix) + list(rng.integers(0, cfg.vocab_size,
+                                                        (tail,))),
+                sampling=SamplingParams(max_new_tokens=SLICE_NEW),
+                request_id=rid)
+        for rid, tail in ((0, 32), (1, 48)))
+    kw = dict(max_slots=4, max_len=max_len, prefill_chunk=64,
+              track_stats=True, policy=Policy(scheme="kahan"),
+              prefill_mode="flash", kv_layout="paged", page_size=PAGE_SIZE)
+    private = InferenceEngine(cfg, EngineConfig(**kw), model=model,
+                              params=params).run([benef])
+    engine = InferenceEngine(cfg, EngineConfig(prefix_cache=True, **kw),
+                             model=model, params=params)
+    engine.run([donor])
+    shared = engine.run([benef])
+    st = engine.page_stats()
+    check(st["prefix_hit_tokens"] > 0,
+          f"{cfg.name}: the beneficiary never hit the shared prefix")
+    same(shared, private, "shared prefix vs private")
+    check(st["free_pages"] + st["prefix_pages"] == st["num_pages"],
+          f"{cfg.name}: pages leaked with the prefix cache: {st}")
+    freed = engine.prefix.evict(st["prefix_pages"])
+    engine.slots.reset_pages(freed)
+    engine.pages.free(freed)
+    check(engine.pages.free_count == engine.num_pages,
+          "the prefix-cache pool did not return to its initial size")
+    contiguous = runs["contiguous"]
+    dense_bytes = 4 * max_len * contiguous["page_bytes"] // PAGE_SIZE
+    live_bytes = contiguous["peak_pages"] * contiguous["page_bytes"]
+    log(f"# phase 9 {cfg.name} paged (page_size {PAGE_SIZE}): tokens and "
+        f"telemetry == dense, scattered == contiguous, shared prefix == "
+        f"private ({st['prefix_hit_tokens']} tokens by reference), bitwise; "
+        f"free list back to {engine.num_pages} pages; KV bytes held: dense "
+        f"{dense_bytes / 2**20:.1f} MiB (4 x {max_len} rows) vs paged live "
+        f"{live_bytes / 2**20:.1f} MiB at peak "
+        f"({contiguous['peak_pages']} pages); {contiguous['tokens_per_s']:.1f}"
+        f" tokens/s paged vs {dense_stats['tokens_per_s']:.1f} dense")
+    return {"contiguous": contiguous, "fragmented": runs["fragmented"],
+            "prefix_hit_tokens": st["prefix_hit_tokens"],
+            "dense_kv_bytes": dense_bytes, "paged_live_kv_bytes": live_bytes}
 
 
 # -- 8. the sharded slice on two ranks ----------------------------------------

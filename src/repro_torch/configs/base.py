@@ -6,8 +6,9 @@ A framework-free copy of ``repro/configs/base.py`` (importing
 configuration) and ``SMOKE`` (a reduced same-family configuration for CPU
 tests). ``get_config(name)`` / ``get_smoke(name)`` / ``list_archs()`` are
 the public API; the launcher's ``--arch <id>`` flag resolves through them.
-This slice of the port carries ``olmo-1b``; the other architectures of the
-reference follow with their model families.
+The port carries the dense family (``olmo-1b``, ``deepseek-7b``,
+``stablelm-3b``, ``qwen2.5-3b``) and the VLM ``internvl2-2b``; the other
+architectures of the reference follow with their model families.
 """
 
 from __future__ import annotations
@@ -246,9 +247,16 @@ def shape_applicable(cfg: ArchConfig, shape: ShapeSpec) -> Tuple[bool, str]:
 # Registry
 # ---------------------------------------------------------------------------
 
-ARCH_IDS = ("olmo-1b",)
+ARCH_IDS = ("olmo-1b", "deepseek-7b", "stablelm-3b", "qwen2.5-3b",
+            "internvl2-2b")
 
-_MODULES = {"olmo-1b": "olmo_1b"}
+_MODULES = {
+    "olmo-1b": "olmo_1b",
+    "deepseek-7b": "deepseek_7b",
+    "stablelm-3b": "stablelm_3b",
+    "qwen2.5-3b": "qwen2_5_3b",
+    "internvl2-2b": "internvl2_2b",
+}
 
 
 def list_archs() -> Tuple[str, ...]:

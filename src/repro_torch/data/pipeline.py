@@ -36,6 +36,8 @@ class DataConfig:
     global_batch: int
     seed: int = 1234
     n_bigram_states: int = 64      # Markov structure strength
+    vision_patches: int = 0        # VLM: prepend this many patch embeddings
+    d_model: int = 0               # width of the patch embedding stubs
 
 
 class SyntheticLM:
@@ -82,11 +84,18 @@ class SyntheticLM:
             u2 = rng.random(local_b)
             state = _first_above(self._trans_cdf, state, u2)
 
-        return {
+        batch = {
             "tokens": toks[:, :-1],
             "labels": toks[:, 1:].copy(),
             "loss_mask": np.ones((local_b, s), np.float32),
         }
+        if cfg.vision_patches:
+            # drawn after the tokens, from the same stream, as the
+            # reference draws them; the loss skips the patch positions
+            batch["vision_embeds"] = rng.standard_normal(
+                (local_b, cfg.vision_patches, cfg.d_model)).astype(np.float32)
+            batch["loss_mask"][:, :cfg.vision_patches] = 0.0
+        return batch
 
     # ------------------------------------------------------------ iterator
     def __iter__(self):

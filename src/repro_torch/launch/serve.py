@@ -19,10 +19,20 @@ kernel when the config has ``kahan_attention``, else through the
 materialized attention core. A config without the parallel path runs the
 scan body, with a notice.
 
+``--kv-layout paged`` keeps the KV cache in a page pool addressed
+through per-request page tables (``--page-size`` / ``--num-pages`` size
+it; live KV memory then scales with live tokens), and ``--prefix-cache``
+keeps finished prompts' pages in a radix tree so that shared prompt
+prefixes admit by reference. Both give the dense layout's tokens and
+telemetry bit for bit; the per-step line then carries the pool's
+counters. A VLM config (``--arch internvl2-2b``) gets each request's
+patch embeddings drawn from ``--seed`` as its ``vision_embeds``.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-3b \
+        --smoke --device cpu --trace 0:32:4,1:40:4 --kv-layout paged \
+        --prefix-cache --stats
+
 The flags are the reference launcher's, plus ``--device``.
-``--kv-layout paged`` and ``--prefix-cache`` are ported in a later slice
-and fail fast (``--page-size`` and ``--num-pages``, which only size the
-paged layout, come with it).
 """
 
 import argparse
@@ -72,14 +82,20 @@ def parse_trace(spec: str, default_temp: float,
 
 
 def build_requests(cfg, cells, seed: int):
-    """Requests with prompts drawn from ``seed``; request_id = cell index."""
+    """Requests with prompts (and, for a VLM config, patch embeddings,
+    drawn first) from ``seed``, in the reference launcher's order;
+    request_id = cell index."""
     rng = np.random.default_rng(seed)
     requests, arrivals = [], []
     for arrival, plen, new, temp in cells:
+        extras = None
+        if cfg.vision is not None:
+            extras = {"vision_embeds": rng.standard_normal(
+                (cfg.vision.n_patches, cfg.d_model)).astype(np.float32)}
         requests.append(Request(
             prompt=rng.integers(0, cfg.vocab_size, (plen,)).astype(np.int32),
             sampling=SamplingParams(temperature=temp, max_new_tokens=new),
-            request_id=len(requests)))
+            request_id=len(requests), extras=extras))
         arrivals.append(arrival)
     return requests, arrivals
 
@@ -102,8 +118,18 @@ def main(argv=None):
     ap.add_argument("--prefill-mode", default="scan",
                     help="chunk body: 'scan' (per-position oracle) or "
                          "'flash' (one forward pass per chunk)")
-    ap.add_argument("--kv-layout", default="dense")
-    ap.add_argument("--prefix-cache", action="store_true")
+    ap.add_argument("--kv-layout", default="dense",
+                    help="'dense' (a max_len row per slot) or 'paged' (a "
+                         "page pool with per-request page tables)")
+    ap.add_argument("--page-size", type=int, default=16,
+                    help="positions a KV page (a power of two; max_len is "
+                         "rounded up to a multiple). Paged layout only")
+    ap.add_argument("--num-pages", type=int, default=0,
+                    help="page-pool capacity; 0 -> dense parity (max_slots "
+                         "* max_len / page_size). Paged layout only")
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="share finished prompts' full pages through a "
+                         "radix tree (requires --kv-layout paged)")
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the prompts and the random weights")
@@ -121,14 +147,12 @@ def main(argv=None):
     if args.prefill_mode not in ("scan", "flash"):
         raise ValueError(f"--prefill-mode must be 'scan' or 'flash', got "
                          f"{args.prefill_mode!r}")
-    later = []
-    if args.kv_layout != "dense":
-        later.append(f"--kv-layout {args.kv_layout}")
-    if args.prefix_cache:
-        later.append("--prefix-cache")
-    if later:
-        raise ValueError(f"{', '.join(later)}: ported in a later slice — "
-                         f"see ROADMAP")
+    if args.kv_layout not in ("dense", "paged"):
+        raise ValueError(f"--kv-layout must be 'dense' or 'paged', got "
+                         f"{args.kv_layout!r}")
+    if args.prefix_cache and args.kv_layout != "paged":
+        raise ValueError("--prefix-cache requires --kv-layout paged (prefix "
+                         "sharing is page-granular)")
 
     cells = (parse_trace(args.trace, args.temperature) if args.trace else
              [(0, args.prompt_len, args.new_tokens, args.temperature)]
@@ -137,6 +161,9 @@ def main(argv=None):
                     compute_dtype=args.compute_dtype)
     cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
     max_len = args.max_len or max(p + n for _, p, n, _ in cells)
+    if args.kv_layout == "paged" and max_len % args.page_size:
+        # a fitted max_len rounds up to the next page boundary
+        max_len += args.page_size - max_len % args.page_size
     requests, arrivals = build_requests(cfg, cells, args.seed)
     device = resolve_device(args.device)
     if device.type == "cuda":
@@ -147,22 +174,43 @@ def main(argv=None):
                           track_stats=args.stats, policy=policy,
                           prefill_chunk=args.prefill_chunk or None,
                           prefill_budget=args.prefill_budget or None,
-                          prefill_mode=args.prefill_mode),
+                          prefill_mode=args.prefill_mode,
+                          kv_layout=args.kv_layout,
+                          page_size=args.page_size,
+                          num_pages=args.num_pages or None,
+                          prefix_cache=args.prefix_cache),
         seed=args.seed, device=device)
     if engine.prefill_body != args.prefill_mode:
         print(f"# prefill-mode {args.prefill_mode!r} requested but family "
               f"{cfg.family!r} runs the {engine.prefill_body!r} body "
               f"(per-position fallback — unsupported config)")
+    paged = args.kv_layout == "paged"
     for t, events in engine.stream(requests, arrivals):
         chunks = " ".join(f"r{rid}+{w}/{body}"
                           for rid, w, body in engine.last_chunks)
         emitted = ", ".join(
             f"r{e.request_id}:{e.token}{'*' if e.done else ''}"
             for e in events)
+        pages = ""
+        if paged:
+            st = engine.page_stats()
+            pages = (f" pages={st['pages_in_use']}/{st['num_pages']}"
+                     f" stalls={st['page_stalls']}")
+            if args.prefix_cache:
+                pages += (f" prefix-hit={st['prefix_hit_tokens']}tok"
+                          f" cached={st['prefix_cached_pages']}pg")
         print(f"# step {t:3d} occupancy={engine.scheduler.occupancy} "
               f"prefilling={len(engine.scheduler.prefilling)} "
-              f"queued={engine.scheduler.queued}"
+              f"queued={engine.scheduler.queued}{pages}"
               f"{'  chunks: ' + chunks if chunks else ''}  {emitted}")
+    if paged:
+        st = engine.page_stats()
+        print(f"# kv-layout=paged page_size={args.page_size} "
+              f"pool={st['num_pages']} free={st['free_pages']} "
+              f"prefix_pages={st['prefix_pages']} "
+              f"prefix_hit_tokens={st['prefix_hit_tokens']} "
+              f"page_stalls={st['page_stalls']} "
+              f"kv_bytes_in_use={st['kv_bytes_in_use']}")
     for rid, h in sorted(engine.handles.items()):
         arrival, plen, new, temp = cells[rid]
         print(f"request {rid} (arrived t={arrival}, prompt={plen}, "

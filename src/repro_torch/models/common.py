@@ -24,6 +24,70 @@ PAD_LOGIT = -1e30
 
 
 # ---------------------------------------------------------------------------
+# Cache axes: request slots and pages
+# ---------------------------------------------------------------------------
+
+def map_cache_leaves(fn, *trees):
+    """``fn`` over the leaves of caches shaped like ``init_cache``'s
+    (a dict of tuples of leaves), keeping that structure."""
+    return {k: tuple(fn(*leaves) for leaves in zip(*(t[k] for t in trees)))
+            for k in trees[0]}
+
+
+def _axis_of(names, name: str) -> int:
+    """Index of the axis called ``name`` in one leaf's axis names (an
+    entry may be a tuple of names), or -1."""
+    for i, n in enumerate(names):
+        if n == name or (isinstance(n, tuple) and name in n):
+            return i
+    return -1
+
+
+def cache_batch_axes(cache_specs) -> Any:
+    """Per-leaf index of the request ("batch") axis, in the cache's
+    structure (``repro/models/common.py::cache_batch_axes``): the slot
+    axis of every per-slot read, write and reset. A leaf that marks no
+    "batch" axis fails here, at engine construction."""
+    def one(names) -> int:
+        axis = _axis_of(names, "batch")
+        if axis < 0:
+            raise ValueError(
+                f"cache spec {names} does not mark a 'batch' axis; every "
+                f"cache leaf must be slot-addressable for request-level "
+                f"serving")
+        return axis
+
+    return map_cache_leaves(one, cache_specs)
+
+
+def cache_page_axes(cache, cache_specs, max_len: int) -> Any:
+    """Per-leaf index of the PAGEABLE sequence axis, -1 for a leaf that
+    stays dense per slot (``repro/models/common.py::cache_page_axes``).
+
+    A leaf is pageable exactly when its spec names a ``"kv_seq"`` axis
+    and it allocates the full ``max_len`` positions along it: position
+    ``pos`` lives at index ``pos``, so page-granular gather and scatter
+    are pure data movement. Everything else keeps its dense slot rows,
+    and the axis name is the ``pageable=False`` flag: ring-buffer window
+    caches name their length axis ``"kv_ring"`` (modular addressing, a
+    page is no contiguous position range), recurrent state and one-shot
+    cross-attention K/V name no sequence axis. A ``"kv_seq"`` leaf
+    shorter than ``max_len`` (a ring buffer under the wrong name) fails
+    here, at engine construction."""
+    def one(leaf, names) -> int:
+        axis = _axis_of(names, "kv_seq")
+        if axis >= 0 and leaf.shape[axis] != max_len:
+            raise ValueError(
+                f"cache leaf {tuple(leaf.shape)} marks axis {axis} as "
+                f"'kv_seq' but allocates {leaf.shape[axis]} != "
+                f"max_len={max_len} positions: ring-buffer caches must use "
+                f"the 'kv_ring' axis name (the pageable=False spec flag)")
+        return axis
+
+    return map_cache_leaves(one, cache, cache_specs)
+
+
+# ---------------------------------------------------------------------------
 # Chunked (resume-from-offset) prefill
 # ---------------------------------------------------------------------------
 

@@ -1,7 +1,8 @@
 """Model factory: ArchConfig -> model instance (counterpart of
-``repro/models/model_zoo.py``). The port serves the dense family, with
-``kahan_attention`` routing prefill through the flash kernels and
-``kahan_matmul`` the dense projections through the compensated matmul."""
+``repro/models/model_zoo.py``). The port serves the dense family (QKV bias
+included) and the VLM splice, with ``kahan_attention`` routing prefill
+through the flash kernels and ``kahan_matmul`` the dense projections
+through the compensated matmul."""
 
 from __future__ import annotations
 
@@ -12,22 +13,21 @@ from repro_torch.models.transformer import TransformerLM
 
 
 def build_model(cfg: ArchConfig, device: torch.device) -> TransformerLM:
-    """The dense decoder LM of ``cfg``; other families and dense features
-    the port does not carry yet raise."""
+    """The decoder LM of ``cfg`` (family "dense" or "vlm"; a ``vision``
+    stub splices patch embeddings); the families and features the port does not carry
+    yet raise, naming ROADMAP A5."""
     later = []
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "vlm"):
         later.append(f"family {cfg.family!r}")
-    for feature in ("moe", "mla", "ssm", "xlstm", "encoder", "vision"):
+    for feature in ("moe", "mla", "ssm", "xlstm", "encoder"):
         if getattr(cfg, feature) is not None:
             later.append(feature)
     if cfg.sliding_window > 0:
         later.append("sliding-window attention")
     if cfg.mlp != "swiglu":
         later.append(f"mlp {cfg.mlp!r}")
-    if cfg.qkv_bias:
-        later.append("qkv bias")
     if later:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(later)} ported in a later slice — see "
-            f"ROADMAP")
+            f"ROADMAP A5")
     return TransformerLM(cfg, device)

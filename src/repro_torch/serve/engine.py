@@ -1,6 +1,6 @@
 """Request-level continuous-batching inference engine, in PyTorch
-(counterpart of ``repro/serve/engine.py``: dense KV layout, scan and
-flash prefill).
+(counterpart of ``repro/serve/engine.py``: dense and paged KV layouts,
+the prefix cache, scan and flash prefill).
 
     engine = InferenceEngine(cfg, EngineConfig(max_slots=8, max_len=512))
     handle = engine.submit(Request(prompt=[3, 1, 4], sampling=SamplingParams(
@@ -45,8 +45,31 @@ unroll and accumulate dtype of everything the engine computes: the
 telemetry, and the flash kernels' accumulators (prefill chunks run under
 ``use_policy``).
 
-The reference's paged KV layout, prefix cache and vmapped slot loop are
-ported in later slices; asking for them raises.
+REQUEST EXTRAS (a VLM's ``vision_embeds``, unbatched ``[n_patches, D]``)
+move to the engine's device ONCE, at the request's first chunk, are
+handed to every chunk of its prompt and are dropped when its prefill
+completes (``repro/serve/engine.py:751-755, 800-815, 926``).
+
+PAGED KV LAYOUT (``EngineConfig.kv_layout="paged"``, ``serve.paging``):
+pageable cache leaves live in a pool of ``num_pages`` pages of
+``page_size`` positions, addressed per request through a page table on
+the cache's device, so live KV memory scales with live tokens. Each
+decode position and prefill chunk gathers the request's row through its
+table, runs the same batch-1 body as the dense layout and writes back
+only the pages it touched. The dense layout stays the default and the
+bitwise oracle: tokens and telemetry are the same bits under either
+layout and under any page placement. Pages are reserved whole-request at
+admission (the ALLOCATING state; exhaustion blocks admission, strict
+FIFO), and ``EngineConfig.prefix_cache`` adds a refcounted radix tree
+(``serve.prefix``) over finished prompts, so a request whose prompt
+prefix is resident admits by reference and resumes prefill at the shared
+page boundary. A model with no pageable cache leaf is refused, not
+served dense. ``engine.page_stats()`` reports the pool's accounting. The page bookkeeping is
+the reference's, decision for decision.
+
+The reference's vmapped slot loop is ported in a later slice; asking for
+it raises. Its compile-count guard has no analogue here: eager PyTorch
+compiles nothing per chunk width or page placement.
 """
 
 from __future__ import annotations
@@ -64,7 +87,15 @@ from repro_torch.kernels import schemes as _schemes
 from repro_torch.kernels.schemes import Policy
 from repro_torch.models import build_model
 from repro_torch.models.layers import activation_sq_norm
-from repro_torch.serve.scheduler import Request, RequestHandle, SlotScheduler
+from repro_torch.serve.paging import PageAllocator, PagedKVCache, pages_for
+from repro_torch.serve.prefix import PrefixNode, RadixPrefixTree
+from repro_torch.serve.scheduler import (
+    ALLOCATING,
+    QUEUED,
+    Request,
+    RequestHandle,
+    SlotScheduler,
+)
 from repro_torch.serve.slots import SlotKVCache, gather_row
 
 _LATER = "ported in a later slice — see ROADMAP"
@@ -75,9 +106,8 @@ class EngineConfig:
     """Engine-level serving configuration.
 
     The fields are the reference's, so a caller written against the
-    reference's API runs unchanged. ``slot_loop``, ``kv_layout`` and
-    ``prefix_cache`` accept only the value the port carries: the
-    reference's other options raise, naming the later slice, instead of
+    reference's API runs unchanged. ``slot_loop`` accepts only "scan":
+    the reference's "vmap" raises, naming the later slice, instead of
     being ignored.
 
     max_slots      decode batch width: concurrent requests per tick
@@ -95,8 +125,19 @@ class EngineConfig:
                    ``pop_finished()``)
     prefill_mode   "scan" (per-position, the oracle) or "flash" (one
                    forward pass per chunk)
-    kv_layout      "dense" only
-    prefix_cache   False only
+    kv_layout      "dense" (the default and the bitwise oracle: rows of
+                   max_slots x max_len) or "paged" (a page pool with
+                   per-request page tables, ``serve.paging``)
+    page_size      positions a page (a power of two; max_len must be a
+                   multiple). Paged layout only
+    num_pages      pool capacity in pages; None = dense parity (max_slots
+                   * max_len / page_size). Admission blocks (FIFO) when
+                   the pool runs short; a request that could never fit
+                   fails at ``submit``
+    prefix_cache   keep finished requests' full prompt pages in a
+                   refcounted radix tree (``serve.prefix``) so that a
+                   request with a resident prompt prefix admits by
+                   reference. Paged layout only
     """
 
     max_slots: int = 4
@@ -110,24 +151,42 @@ class EngineConfig:
     max_finished: Optional[int] = None
     prefill_mode: str = "scan"
     kv_layout: str = "dense"
+    page_size: int = 16
+    num_pages: Optional[int] = None
     prefix_cache: bool = False
 
     def __post_init__(self):
         if self.slot_loop != "scan":
-            raise ValueError(f"slot_loop={self.slot_loop!r}: only 'scan' "
-                             f"here; 'vmap' is {_LATER}")
+            raise ValueError(
+                f"slot_loop={self.slot_loop!r}: only 'scan' is served (the "
+                f"reference's 'vmap' is {_LATER})")
         if self.prefill_mode not in ("scan", "flash"):
             raise ValueError(f"prefill_mode must be 'scan' or 'flash', "
                              f"got {self.prefill_mode!r}")
-        if self.kv_layout != "dense":
-            raise ValueError(f"kv_layout={self.kv_layout!r}: only 'dense' "
-                             f"here; 'paged' is {_LATER}")
-        if self.prefix_cache:
-            raise ValueError(f"prefix_cache is {_LATER}")
+        if self.kv_layout not in ("dense", "paged"):
+            raise ValueError(f"kv_layout must be 'dense' or 'paged', "
+                             f"got {self.kv_layout!r}")
         if self.max_slots < 1:
             raise ValueError(f"max_slots must be >= 1, got {self.max_slots}")
         if self.max_len < 1:
             raise ValueError(f"max_len must be >= 1, got {self.max_len}")
+        if self.kv_layout == "paged":
+            ps = self.page_size
+            if ps < 1 or (ps & (ps - 1)):
+                raise ValueError(
+                    f"page_size must be a power of two >= 1, got {ps}")
+            if self.max_len % ps:
+                raise ValueError(
+                    f"max_len={self.max_len} must be a multiple of "
+                    f"page_size={ps}")
+            if self.num_pages is not None and self.num_pages < 1:
+                raise ValueError(
+                    f"num_pages must be >= 1 (or None for dense parity), "
+                    f"got {self.num_pages}")
+        if self.prefix_cache and self.kv_layout != "paged":
+            raise ValueError(
+                "prefix_cache=True requires kv_layout='paged' (prefix "
+                "sharing is page-granular)")
         if self.prefill_chunk is not None and self.prefill_chunk < 1:
             raise ValueError(
                 f"prefill_chunk must be >= 1 (or None for one-shot "
@@ -192,6 +251,32 @@ def sampling_seed(sample_seed: int, seed: int, emit_index: int) -> int:
     return h >> 1
 
 
+@dataclasses.dataclass
+class _PageLease:
+    """One admitted request's page reservation (paged layout only).
+
+    table      [max_pages] page table, host ints: shared prefix pages
+               first, then the request's own pages, NULL (0) past
+               ``n_pages``
+    table_dev  the same table as an index tensor on the cache's device
+    n_pages    reserved pages in all (every page the request can touch,
+               fixed at admission, so decode never allocates)
+    shared     the acquired prefix-tree path (refs held until finish)
+    own        engine-owned pages (freed, or adopted by the prefix tree,
+               at finish)
+    resume     prefill resume offset: positions [0, resume) came in by
+               reference (and at most one copy-on-write page) and are
+               never re-prefilled
+    """
+
+    table: np.ndarray
+    table_dev: torch.Tensor
+    n_pages: int
+    shared: List[PrefixNode]
+    own: List[int]
+    resume: int
+
+
 class InferenceEngine:
     """Continuous-batching serving engine over the port's model zoo.
 
@@ -216,8 +301,28 @@ class InferenceEngine:
             gen = torch.Generator(device=self.device).manual_seed(seed)
             params = model.init(gen)
         self.params = params
-        self.slots = SlotKVCache(model, ec.max_slots, ec.max_len)
+        self.pages: Optional[PageAllocator] = None
+        self.prefix: Optional[RadixPrefixTree] = None
+        self.num_pages = 0
+        if ec.kv_layout == "paged":
+            self.num_pages = (
+                ec.num_pages if ec.num_pages is not None
+                else ec.max_slots * ec.max_len // ec.page_size)
+            self.slots = PagedKVCache(model, ec.max_slots, ec.max_len,
+                                      ec.page_size, self.num_pages)
+            self.pages = PageAllocator(self.num_pages)
+            if ec.prefix_cache:
+                self.prefix = RadixPrefixTree(ec.page_size)
+        else:
+            self.slots = SlotKVCache(model, ec.max_slots, ec.max_len)
         self.scheduler = SlotScheduler(ec.max_slots)
+        # request_id -> its page lease; the counters ``page_stats`` reads
+        self._leases: Dict[int, _PageLease] = {}
+        self.prefix_hit_tokens = 0
+        self.page_stalls = 0
+        # request_id -> its extras on the device, from its first chunk to
+        # the end of its prefill
+        self._extras_dev: Dict[int, Dict[str, torch.Tensor]] = {}
         self._next_id = 0
         parallel = ec.prefill_mode == "flash" and model.parallel_prefill_ok
         self._prefill_body = "flash" if parallel else "scan"
@@ -249,9 +354,7 @@ class InferenceEngine:
         self._next_id = max(self._next_id, rid) + 1
         if request.sampling.max_new_tokens < 1:
             raise ValueError("max_new_tokens must be >= 1")
-        if request.extras:
-            raise ValueError(f"request {rid}: prefill extras (multimodal "
-                             f"inputs) are {_LATER}")
+        self._check_extras(rid, request.extras)
         prompt = np.asarray(request.prompt)
         if prompt.ndim != 1 or prompt.shape[0] == 0:
             raise ValueError(
@@ -263,11 +366,52 @@ class InferenceEngine:
                 f"request {rid}: prompt_len={prompt_len} + "
                 f"max_new_tokens={request.sampling.max_new_tokens} exceeds "
                 f"the engine's max_len={self.ec.max_len}")
+        if self.pages is not None:
+            need = pages_for(
+                prompt_len + request.sampling.max_new_tokens - 1,
+                self.ec.page_size)
+            if need > self.num_pages:
+                # could never be admitted even with the whole pool free:
+                # waiting at the head of the FIFO would starve the queue
+                raise ValueError(
+                    f"request {rid}: needs {need} pages but the pool has "
+                    f"only {self.num_pages}: raise num_pages or shrink the "
+                    f"request")
         handle = RequestHandle(request_id=rid, request=request,
                                prompt_len=prompt_len)
         self.handles[rid] = handle
         self.scheduler.submit(handle)
         return handle
+
+    def _check_extras(self, rid: int, extras) -> None:
+        """A request's extras must be ones the model takes: a VLM's
+        ``vision_embeds`` of shape [n_patches, d_model]. Anything else
+        (an encoder's ``frames``: ROADMAP A5) raises at ``submit``."""
+        if not extras:
+            return
+        vision = self.cfg.vision
+        unknown = sorted(set(extras) - {"vision_embeds"})
+        if unknown or vision is None:
+            raise ValueError(
+                f"request {rid}: extras {sorted(extras)} not taken by "
+                f"{self.cfg.name} (the port's models take 'vision_embeds' "
+                f"on a VLM config; encoder frames are {_LATER})")
+        shape = tuple(np.shape(extras["vision_embeds"]))
+        if shape != (vision.n_patches, self.cfg.d_model):
+            raise ValueError(
+                f"request {rid}: vision_embeds of shape {shape}, want "
+                f"({vision.n_patches}, {self.cfg.d_model})")
+
+    def _extras(self, rid: int, request: Request) -> Dict[str, torch.Tensor]:
+        """The request's extras as batch-1 tensors on the engine's device,
+        moved once and reused by every chunk of its prompt."""
+        if not request.extras:
+            return {}
+        if rid not in self._extras_dev:
+            self._extras_dev[rid] = {
+                k: torch.as_tensor(np.asarray(v)).to(self.device)[None]
+                for k, v in request.extras.items()}
+        return self._extras_dev[rid]
 
     # -------------------------------------------------------------- numerics
     def _norms(self, logits: torch.Tensor) -> torch.Tensor:
@@ -304,6 +448,12 @@ class InferenceEngine:
         spent = 0
         while True:
             while sch.can_admit():
+                if self.pages is not None and not self._reserve_pages(
+                        sch.peek()):
+                    # page exhaustion: the head waits IN THE QUEUE (strict
+                    # FIFO) until finishing requests release pages
+                    self.page_stalls += 1
+                    break
                 sch.admit_next()
             if budget is not None and spent >= budget:
                 break
@@ -330,12 +480,25 @@ class InferenceEngine:
         self.last_chunks.append((h.request_id, width, self.prefill_body))
         toks = np.zeros((1, width), np.int64)
         toks[0, :nvalid] = np.asarray(h.request.prompt)[offset:offset + nvalid]
+        extras = self._extras(h.request_id, h.request)
+        if self.pages is not None:
+            lease = self._leases[h.request_id]
+            row = self.slots.gather(slot, lease.table_dev, lease.n_pages)
+        else:
+            row = gather_row(self.slots.cache, slot)
         with _schemes.use_policy(self.policy):
             logits, _ = self._chunk_fn(
-                self.params, torch.from_numpy(toks).to(self.device),
-                gather_row(self.slots.cache, slot), offset, nvalid)
+                self.params, torch.from_numpy(toks).to(self.device), row,
+                offset, nvalid, **extras)
+        if self.pages is not None:
+            # write back ONLY the chunk's pages: everything below
+            # ``offset`` (shared prefix pages among them) stays untouched
+            ps = self.ec.page_size
+            self.slots.scatter(row, lease.table_dev, offset // ps,
+                               (offset + nvalid - 1) // ps + 1)
         h.prefill_pos = offset + nvalid
         if h.prefill_pos == h.prompt_len:
+            self._extras_dev.pop(h.request_id, None)
             self.scheduler.mark_running(h)
             h.pos = h.prompt_len
             sp = h.request.sampling
@@ -354,10 +517,17 @@ class InferenceEngine:
         toks: Dict[int, int] = {}
         for slot, h in running.items():
             tok_in = torch.tensor([h.tokens[-1]], device=self.device)
+            if self.pages is not None:
+                lease = self._leases[h.request_id]
+                row = self.slots.gather(slot, lease.table_dev, lease.n_pages)
+            else:
+                row = gather_row(self.slots.cache, slot)
             with _schemes.use_policy(self.policy):
-                row_logits = self.model.decode_step(
-                    self.params, gather_row(self.slots.cache, slot), tok_in,
-                    h.pos)
+                row_logits = self.model.decode_step(self.params, row, tok_in,
+                                                    h.pos)
+            if self.pages is not None:
+                # the one page holding the position just written
+                self.slots.scatter_decode(row, lease.table_dev, h.pos)
             logits[slot] = row_logits[0]
             toks[slot] = self._sample(row_logits[0], h.seed, h.emitted,
                                       h.request.sampling.temperature)
@@ -380,11 +550,162 @@ class InferenceEngine:
         if done:
             slot = self.scheduler.release(h)
             self.slots.reset(slot)      # eviction hook: no stale state
+            if self.pages is not None:
+                self._release_pages(h)
             self._finished.append(h.request_id)
             if self.ec.max_finished is not None:
                 while len(self._finished) > self.ec.max_finished:
                     self.handles.pop(self._finished.popleft(), None)
         events.append(TokenEvent(h.request_id, token, nval, done))
+
+    # ------------------------------------------------------ page admission
+    def _sharable(self, h: RequestHandle) -> bool:
+        """May this request share prompt pages through the prefix tree?
+        Only when its cache bits are a function of its tokens alone: no
+        extras (patch embeddings feed the cached positions), and under
+        the flash body only with a chunk width (the alignable resume
+        offset) (``repro/serve/engine.py::_sharable``)."""
+        return (self.prefix is not None and not h.request.extras
+                and (self.prefill_body == "scan"
+                     or self.ec.prefill_chunk is not None))
+
+    def _reserve_pages(self, h: RequestHandle) -> bool:
+        """Reserve EVERY page the queue head can touch (the ALLOCATING
+        window); False = the pool is exhausted even after evicting cached
+        prefix pages, and the head goes back to QUEUED. All allocation
+        happens here, on the host, and never mid-decode.
+
+        With the prefix cache, the prompt is matched against the radix
+        tree first: matched full pages are taken BY REFERENCE (refcounted,
+        never written: the prefill writes back only pages from the resume
+        offset on), and under the scan body one partially matching page
+        may be copied (copy-on-write). The resume offset is capped so at
+        least one prompt position is prefilled again (the final chunk's
+        logits emit token 0) and, under the flash body, aligned to the
+        page size and the chunk width, so that a resumed request runs
+        exactly the chunks its private prefill would from that offset.
+        The reference's decisions, step for step."""
+        ec = self.ec
+        ps = ec.page_size
+        h.status = ALLOCATING
+        total = pages_for(
+            h.prompt_len + h.request.sampling.max_new_tokens - 1, ps)
+        prompt = [int(t) for t in np.asarray(h.request.prompt)]
+        sharable = self._sharable(h)
+        path: List[PrefixNode] = []
+        resume = 0
+        if sharable:
+            path = self.prefix.match(prompt)
+            r = min(len(path) * ps, h.prompt_len - 1)
+            if self.prefill_body == "flash":
+                c = ec.prefill_chunk
+                r = min(r, c * ((h.prompt_len - 1) // c))
+                align = max(ps, c)
+                r = (r // align) * align
+            else:
+                r = (r // ps) * ps
+            path = path[:r // ps]
+            resume = r
+        shared = len(path)
+        need = total - shared
+        if self.prefix is not None:
+            self.prefix.acquire(path)
+            if self.pages.free_count < need:
+                # reclaim refs-0 cached prefix pages, oldest first (the
+                # path just acquired is pinned by its refs)
+                freed = self.prefix.evict(need - self.pages.free_count)
+                if freed:
+                    self.slots.reset_pages(freed)   # pristine before reuse
+                    self.pages.free(freed)
+        if self.pages.free_count < need:
+            if self.prefix is not None:
+                self.prefix.release(path)
+            h.status = QUEUED
+            return False
+        own = self.pages.alloc(need)
+        if sharable and self.prefill_body == "scan":
+            # copy-on-write at the first divergent page (scan body only:
+            # a flash resume stays chunk-aligned): copy the child sharing
+            # the longest token prefix of the next page into the request's
+            # first own page and resume AFTER the overlap
+            donor, t = self.prefix.partial_child(path, prompt)
+            t = min(t, h.prompt_len - 1 - resume)
+            if donor is not None and t > 0:
+                self.slots.copy_page(donor.page, own[0])
+                resume += t
+        table = np.zeros((self.slots.max_pages,), np.int32)
+        for j, node in enumerate(path):
+            table[j] = node.page
+        table[shared:shared + need] = own
+        self._leases[h.request_id] = _PageLease(
+            table=table, table_dev=self.slots.table_tensor(table),
+            n_pages=total, shared=path, own=own, resume=resume)
+        h.prefill_pos = resume
+        self.prefix_hit_tokens += resume
+        return True
+
+    def _release_pages(self, h: RequestHandle) -> None:
+        """Finish hook (after the slot is released): drop the request's
+        prefix references, offer its full prompt pages to the prefix tree
+        (the first insert of a page run wins: any two requests' bits for
+        the same full-page run are the same), and zero-reset and free
+        whatever the tree did not adopt. After a drained trace, free pages
+        plus tree-owned pages == num_pages."""
+        lease = self._leases.pop(h.request_id)
+        own = list(lease.own)
+        if self.prefix is not None:
+            self.prefix.release(lease.shared)
+            if self._sharable(h):
+                ps = self.ec.page_size
+                if self.prefill_body == "flash":
+                    # only positions computed by FULL chunk-width chunks
+                    # may be shared under flash (tail buckets round by
+                    # their width)
+                    c = self.ec.prefill_chunk
+                    n_ins = (c * ((h.prompt_len - 1) // c)) // ps
+                else:
+                    n_ins = h.prompt_len // ps
+                if n_ins:
+                    prompt = [int(t) for t in np.asarray(h.request.prompt)]
+                    adopted, _ = self.prefix.insert(
+                        prompt, n_ins, lease.table[:n_ins])
+                    if adopted:
+                        taken = set(adopted)
+                        own = [p for p in own if p not in taken]
+        if own:
+            self.slots.reset_pages(own)   # pristine before the free list
+            self.pages.free(own)
+
+    @property
+    def kv_layout(self) -> str:
+        """The cache layout served: ``EngineConfig.kv_layout`` (a model
+        the paged layout cannot page is refused at construction)."""
+        return self.ec.kv_layout
+
+    def page_stats(self) -> Dict[str, int]:
+        """Pool and prefix accounting (paged layout only), with the
+        reference's keys. ``pages_in_use`` counts every page not free
+        (reserved by requests, or owned by the tree); ``kv_bytes_in_use``
+        is that count times the bytes of one page across every pool leaf:
+        the live footprint that scales with live tokens where the dense
+        layout holds ``max_slots * max_len`` rows."""
+        if self.pages is None:
+            raise RuntimeError(
+                "page_stats: the dense layout has no page pool "
+                "(kv_layout='dense')")
+        in_use = self.num_pages - self.pages.free_count
+        return {
+            "num_pages": self.num_pages,
+            "free_pages": self.pages.free_count,
+            "pages_in_use": in_use,
+            "prefix_pages": (self.prefix.total_pages
+                             if self.prefix is not None else 0),
+            "prefix_cached_pages": (self.prefix.cached_pages
+                                    if self.prefix is not None else 0),
+            "prefix_hit_tokens": self.prefix_hit_tokens,
+            "page_stalls": self.page_stalls,
+            "kv_bytes_in_use": in_use * self.slots.page_bytes,
+        }
 
     # ------------------------------------------------------- handle hygiene
     def pop_finished(self) -> Dict[int, RequestHandle]:

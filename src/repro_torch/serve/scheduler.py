@@ -1,8 +1,7 @@
 """Request objects + the slot-based continuous-batching scheduler.
 
 A line-for-line copy of ``repro/serve/scheduler.py`` (the ALLOCATING
-state belongs to the paged KV layout, which a later slice of the port
-brings).
+state belongs to the paged KV layout, ``repro_torch.serve.paging``).
 
 The scheduling layer is deliberately plain Python (no array code): it decides
 WHICH request occupies WHICH decode slot WHEN, and nothing it decides may
@@ -75,8 +74,8 @@ class Request:
     request_id  stable int identity; None -> assigned by the engine
                 (submission order). Also the default sampling stream.
     extras      extra prefill inputs for multimodal archs, UNBATCHED
-                (the dense family of this slice takes none; the engine
-                rejects them).
+                (a VLM's ``vision_embeds`` [n_patches, d_model]; the
+                engine rejects any other).
     """
 
     prompt: Any

@@ -424,6 +424,106 @@ def test_cuda_flash_kernels_match_plain(cuda_device, case):
                     64, 16)
 
 
+#: (BH, dh, q_groups) the dense family serves: stablelm-3b's 32 heads of
+#: dh 80 (tile rows 84 floats apart), qwen2.5-3b's 16 heads over 2 (G 8)
+#: and internvl2-2b's 16 over 8 (G 2), both dh 128
+DENSE_FAMILY_HEADS = [(32, 80, 1), (16, 128, 8), (16, 128, 2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bh,dh,groups", DENSE_FAMILY_HEADS)
+def test_cuda_flash_dense_family_shapes_match_plain(cuda_device, bh, dh,
+                                                     groups):
+    """Tier 2 on the card at the dense family's head shapes: B8 on a
+    64-token serving chunk at offsets 0, 64 and 128 of a 176-row cache
+    (the engine pads it to 256), and B7 on 300 queries over 600 keys,
+    equal to their plain version bit for bit, every built-in scheme."""
+    from repro_torch.kernels import flash_attention as fa
+
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+    for sq, skv, chunk_offsets in ((64, 176, (0, 64, 128)),
+                                   (300, 600, ())):
+        sq_pad, skv_pad = -(-sq // 64) * 64, -(-skv // 256) * 256
+
+        def data(rows, n, pad):
+            x = torch.randn((rows, n, dh), generator=gen, device=cuda_device)
+            return torch.cat([x, x.new_zeros((rows, pad - n, dh))], 1)
+
+        q = data(bh, sq, sq_pad)
+        k = data(bh // groups, skv, skv_pad)
+        v = data(bh // groups, skv, skv_pad)
+        for scheme in SCHEMES:
+            sch = tschemes.get(scheme)
+            kw = dict(block_q=64, block_k=256, scheme=sch, kv_len=skv,
+                      q_groups=groups)
+            for off in chunk_offsets:
+                got = fa.flash_chunk_accumulators(q, k, v, off, **kw)
+                want = fa.flash_plain(q, k, v, scheme=sch, block_k=256,
+                                      kv_len=skv, causal=True, q_off=off,
+                                      q_groups=groups)
+                assert all(torch.equal(g, w) for g, w in zip(got, want)), (
+                    scheme, off)
+            if not chunk_offsets:
+                got = fa.flash_accumulators(q, k, v, causal=True, **kw)
+                want = fa.flash_plain(q, k, v, scheme=sch, block_k=256,
+                                      kv_len=skv, causal=True,
+                                      q_groups=groups)
+                assert all(torch.equal(g, w) for g, w in zip(got, want)), (
+                    scheme)
+
+
+@pytest.mark.cuda
+def test_cuda_paged_equals_dense(cuda_device):
+    """Tier 2 on the card, qwen2.5-3b's smoke config (GQA, QKV bias)
+    under flash prefill with ``kahan_attention``: the paged layout's
+    tokens and telemetry equal the dense layout's bit for bit, pool and
+    page tables on the card; a request admitted by reference from the
+    prefix cache equals its private prefill."""
+    import numpy as np
+
+    from repro_torch.configs import get_smoke
+    from repro_torch.kernels import engine
+    from repro_torch.models import build_model
+    from repro_torch.serve import (EngineConfig, InferenceEngine, Request,
+                                   SamplingParams)
+
+    cfg = get_smoke("qwen2.5-3b").replace(kahan_attention=True)
+    model = build_model(cfg, cuda_device)
+    params = model.init(torch.Generator(device=cuda_device).manual_seed(0))
+    rng = np.random.default_rng(0)
+    base = rng.integers(0, cfg.vocab_size, (9,))
+    reqs = [Request(prompt=np.concatenate([base, rng.integers(
+                        0, cfg.vocab_size, (t,))]),
+                    sampling=SamplingParams(max_new_tokens=n), request_id=i)
+            for i, (t, n) in enumerate([(5, 4), (3, 3), (7, 5)])]
+    kw = dict(max_slots=2, max_len=32, track_stats=True, prefill_chunk=4,
+              prefill_mode="flash")
+    before = engine.launch_counts()["flash_chunk_accumulators"]
+    dense = InferenceEngine(cfg, EngineConfig(**kw), model=model,
+                            params=params).run(reqs, [0, 1, 2])
+    assert engine.launch_counts()["flash_chunk_accumulators"] > before
+    paged_kw = dict(kw, kv_layout="paged", page_size=4)
+    eng = InferenceEngine(cfg, EngineConfig(**paged_kw), model=model,
+                          params=params)
+    pool = next(iter(eng.slots.cache.values()))[0]
+    assert pool.device.type == "cuda"
+    paged = eng.run(reqs, [0, 1, 2])
+    for rid in dense:
+        assert paged[rid].tokens == dense[rid].tokens
+        assert paged[rid].telemetry == dense[rid].telemetry
+    assert eng.pages.free_count == eng.num_pages
+    shared = InferenceEngine(cfg, EngineConfig(prefix_cache=True,
+                                               **paged_kw),
+                             model=model, params=params)
+    shared.run([reqs[0]])
+    benef = shared.run([reqs[2]])[2]
+    assert shared.prefix_hit_tokens > 0
+    assert benef.tokens == dense[2].tokens
+    assert benef.telemetry == dense[2].telemetry
+    st = shared.page_stats()
+    assert st["free_pages"] + st["prefix_pages"] == st["num_pages"]
+
+
 @pytest.mark.cuda
 def test_cuda_flash_refuses_a_wrong_plan(cuda_device):
     """The C entry recomputes the plan's shared memory: a byte count that

@@ -31,6 +31,7 @@ from repro.serve import Request as JaxRequest
 from repro.serve import SamplingParams as JaxSampling
 from repro_torch.bridge import params_from_jax
 from repro_torch.configs import get_smoke
+from repro_torch.configs.base import EncoderConfig, SSMConfig, XLSTMConfig
 from repro_torch.kernels.schemes import Policy
 from repro_torch.models import build_model
 from repro_torch.models.layers import activation_sq_norm
@@ -202,13 +203,21 @@ def test_slot_cache_rows_and_eviction(served):
 
 
 def test_engine_rejects_later_slices(served):
-    for kw in (dict(kv_layout="paged"), dict(prefix_cache=True),
-               dict(slot_loop="vmap")):
-        with pytest.raises(ValueError, match="later slice"):
-            EngineConfig(**kw)
+    """What the port does not carry yet raises, naming the later slice:
+    the vmapped slot loop, and the families and dense features of ROADMAP
+    A5 (the paged layout, the prefix cache, QKV bias and the VLM splice
+    are served since)."""
+    with pytest.raises(ValueError, match="later slice"):
+        EngineConfig(slot_loop="vmap")
+    EngineConfig(kv_layout="paged", prefix_cache=True)
     cfg = served["cfg"]
-    with pytest.raises(NotImplementedError, match="later slice"):
-        build_model(cfg.replace(family="moe"), CPU)
+    for kw in (dict(family="moe"), dict(family="hybrid"),
+               dict(sliding_window=8), dict(mlp="gelu"),
+               dict(encoder=EncoderConfig(n_layers=1)),
+               dict(xlstm=XLSTMConfig()), dict(ssm=SSMConfig())):
+        with pytest.raises(NotImplementedError, match="later slice"):
+            build_model(cfg.replace(**kw), CPU)
+    build_model(cfg.replace(qkv_bias=True), CPU)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             InferenceEngine(cfg, _engine_config())
@@ -229,9 +238,35 @@ def test_launcher_serves_a_trace_on_cpu(capsys):
     out = capsys.readouterr().out
     assert "request 0 (arrived t=0, prompt=5, new=3" in out
     assert "|logits|^2 (kahan)" in out
-    with pytest.raises(ValueError, match="later slice"):
+    with pytest.raises(ValueError, match="--kv-layout"):
         serve.main(["--arch", "olmo-1b", "--smoke", "--device", "cpu",
-                    "--kv-layout", "paged"])
+                    "--kv-layout", "ragged"])
+    with pytest.raises(ValueError, match="--prefix-cache requires"):
+        serve.main(["--arch", "olmo-1b", "--smoke", "--device", "cpu",
+                    "--prefix-cache"])
+
+
+def test_launcher_serves_paged_with_the_prefix_cache_on_cpu(capsys):
+    """``--kv-layout paged --prefix-cache`` on qwen2.5-3b's smoke config:
+    the pool's counters each step, and the same tokens and telemetry as
+    the dense layout."""
+    from repro_torch.launch import serve
+
+    argv = ["--arch", "qwen2.5-3b", "--smoke", "--device", "cpu",
+            "--trace", "0:20:3,1:9:2", "--prefill-chunk", "4", "--stats"]
+    serve.main(argv)
+    dense = capsys.readouterr().out
+    serve.main(argv + ["--kv-layout", "paged", "--prefix-cache",
+                       "--page-size", "4", "--num-pages", "12"])
+    paged = capsys.readouterr().out
+    assert " pages=" in paged and "prefix-hit=" in paged
+    assert "# kv-layout=paged page_size=4 pool=12 free=" in paged
+
+    def results(out):
+        return [line for line in out.splitlines()
+                if line.startswith("request ")]
+
+    assert results(paged) == results(dense)
 
 
 # ---------------------------------------------------------------------------
