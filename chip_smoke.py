@@ -199,6 +199,36 @@ there is no CUDA device or no ``src/repro_torch`` beside it.
    peak GiB, tokens/s, decode-tick ms, prefill ms per position, and the
    KV bytes the dense rows hold against the paged live pages; one JSON
    line ``{"slice": {...}}``.
+10. The MoE family. deepseek-v2-lite-16b at its published width and
+   depth (27 layers, MLA with a 512-wide latent, 64 experts top-6 and 2
+   shared, a dense first layer; bf16, random weights from seed 0) serves
+   phase 9's trace with flash prefill asked for, which the engine
+   resolves to the scan body (MLA and capacity routing have no parallel
+   chunk), the launch counts reset just before: B4 once a tick and
+   finished prefill, nothing else; one tick's telemetry bitwise equal to
+   the plain version; request 0 alone == interleaved, bitwise; the same
+   trace on the paged layout (``page_size`` 16) equal to dense bitwise,
+   the pool free at the end, ``dropped_frac`` 0 at every single-position
+   MoE call; the whole-prompt ``TransformerLM.prefill`` of the 160-token
+   prompt at capacity factor 16 against the scan chunk's last logits,
+   in float32 compute on the bf16 weights within relative L2 2e-3 and
+   the same argmax, and in bf16 logged with the tokens routed to other
+   experts; one request with ``kahan_matmul`` (B5 189 times a position:
+   MLA's q, dkv, kr and o, the dense layer's MLP and the shared experts)
+   and a 16-token scan chunk's logits against the cuBLAS path, in
+   float32 compute within relative L2 5e-2 and the same argmax, in bf16
+   logged with the tokens routed to other experts; one profiled decode
+   position (host ms,
+   device-busy ms, kernels). Then llama4-maverick-400b-a17b at its
+   published width CUT to 2 of its 48 layers (one dense+MoE superblock;
+   d 5120, 40/8 heads, 128 experts top-1, vocabulary 202048): one
+   request on the dense layout and its whole-prompt prefill against the
+   scan chunk as deepseek's (float32 compute gated, bf16 logged).
+   Phase 2 first holds B5 (kahan) at M 1 and 64 on every projection of
+   both configs and B1-B4 at their [4, vocab], bitwise. Logged per
+   config: params, init peak and peak GiB, tokens/s, decode-tick ms,
+   prefill ms per position, KV bytes a token and held; one JSON line
+   ``{"moe": {...}}``.
 
 The last three lines are the card (``nvidia-smi`` name and power
 limit), one JSON object ``{"kernels": [...]}`` and
@@ -210,7 +240,9 @@ it with ``kahan_matmul`` too, "serve-long" for the long request,
 8's sharded calls and "sharded-train" for its trainer, both rank 0's
 counts, "serve-<arch>" for each of phase 9's configs,
 "serve-qwen2.5-3b-matmul" for its ``kahan_matmul`` request and
-"serve-deepseek-7b-paged" for the paged trace): its ``launches`` are
+"serve-deepseek-7b-paged" for the paged trace; phase 10's
+"serve-deepseek-v2-lite" (and "-paged", "-matmul") and
+"serve-llama4-maverick-2l"): its ``launches`` are
 that path's count and its times were taken at that path's shape (B5 on "serve-matmul": the decode q/k/v/o
 shape at M 1, the one launched most; on "train-b" the up projection's
 forward at 1024 tokens; B3 on "train-b" the largest leaf; the column
@@ -220,11 +252,13 @@ the loss fold's one element a rank, padded to one block; on phase 9's
 paths B4 at the config's [4, vocab] telemetry padded by the engine, B8
 at its [H, 64, dh] chunk against its cache with its GQA groups, B5 on
 "serve-qwen2.5-3b-matmul" phase 3's [1, 2048] x [2048, 2048] decode q/o
-shape).
+shape; on "serve-deepseek-v2-lite-matmul" the shared experts' decode
+gate/up [1, 2048] x [2048, 2816], the projection launched most).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -307,6 +341,24 @@ SLICE_NEW = 8
 SLICE_TRACE = f"0:48:{SLICE_NEW},1:96:{SLICE_NEW},2:160:{SLICE_NEW}"
 SLICE_VLM_TEXT = 32
 PAGE_SIZE = 16
+#: phase 10: the MoE family. deepseek-v2-lite at its published width and
+#: depth serves phase 9's trace; llama4-maverick at its published width
+#: cut to one dense+MoE superblock (its 48 layers hold about 800 GB)
+MOE_ARCH = "deepseek-v2-lite-16b"
+LLAMA4 = "llama4-maverick-400b-a17b"
+LLAMA4_LAYERS = 2
+LLAMA4_TRACE = "0:32:4"
+MOE_CHECK_CAPACITY = 16.0
+#: the gate of a MoE config's prefill against its scan chunk, in float32
+#: compute on the bf16 weights: the reference test's tolerance. In bf16
+#: the two bodies' roundings send tokens to other experts (deepseek-v2-
+#: lite: 9 of 160 in the first MoE layer, about 50 in the last; its 27
+#: layers' logits part by 1.3e-1, relative L2), and so does kahan_matmul
+#: against cuBLAS: bf16 is logged, float32 gated
+MOE_PREFILL_REL = 2e-3
+#: the B5 row of the kahan_matmul path: the shared experts' gate/up at a
+#: decode position, the projection launched most (twice a MoE layer)
+MOE_B5_ROW = "dsv2-decode-shared-gate-up"
 
 #: the schemes with a device function, and the reduction wrappers
 SCHEMES = ("naive", "kahan", "pairwise", "dot2")
@@ -397,6 +449,7 @@ def main() -> int:
                         serve_max_len(LONG_TRACE))
     kernels.matmul_parity()
     kernels.slice_parity([get_config(name) for name in SLICE_ARCHS])
+    kernels.moe_parity([get_config(MOE_ARCH), get_config(LLAMA4)])
     kernels.matmul_times(cfg, PREFILL_LEN)
     kernels.column_parity()
     kernels.subnormal_parity()
@@ -409,6 +462,7 @@ def main() -> int:
     log(json.dumps(paper_path(torch, kernels, card)))
     log(json.dumps({"dist": dist_path(torch, kernels, dist_spec(cfg))}))
     log(json.dumps({"slice": slice_path(torch, kernels)}))
+    log(json.dumps({"moe": moe_path(torch, kernels)}))
     log(f"# chip_smoke took {time.perf_counter() - started:.1f} s")
     log(card)
     log(json.dumps({"kernels": kernels.rows()}))
@@ -928,23 +982,8 @@ class Kernels:
         the engine pads, K 11008 (the down projection of deepseek-7b and
         qwen2.5-3b) and 6912 (stablelm-3b's) at M 1 and 64, and qwen's k/v
         N 256: every scheme at M 1, kahan at M 64."""
-        torch, km = self.torch, self.km
-        seen = {name: set() for name in REDUCTIONS}
-        cases = 0
-        for cfg in cfgs:
-            for name in SCHEMES:
-                sch = self.schemes.get(name)
-                eng = self.engine.CompensatedReduction(scheme=sch, unroll=8)
-                a = self.data((4, cfg.vocab_size), torch.float32)
-                b = self.data((4, cfg.vocab_size), torch.float32)
-                ap, bp = eng._prep2d(a), eng._prep2d(b)
-                kw = dict(scheme=sch, unroll=8)
-                plain = (self.kd.dot_plain(ap, bp, **kw),
-                         self.ks.sum_plain(ap, **kw))
-                self.reduction_case(ap, bp, plain, kw,
-                                    f"{name} [4, {cfg.vocab_size}] "
-                                    f"({cfg.name})", seen)
-                cases += 1
+        torch = self.torch
+        cases = sum(self.vocab_parity(cfg) for cfg in cfgs)
         log(f"# phase 2: {cases} reduction parity cases at the telemetry's "
             f"[4, vocab] of {[c.name for c in cfgs]} bitwise equal to the "
             f"plain versions")
@@ -955,27 +994,71 @@ class Kernels:
                         (1, 6912, 2560), (64, 6912, 2560), (1, 2048, 256),
                         (64, 2048, 256)):
             for name in SCHEMES if m == 1 else ("kahan",):
-                eng = self.engine.CompensatedReduction(scheme=name)
-                a = self.normal((m, k)).bfloat16()
-                b = self.normal((k, n)).bfloat16()
-                blocks = eng._matmul_blocks(m, n, k, None, None, None)
-                ap, bp = eng._prep_matmul(a, b, blocks)
-                kw = dict(scheme=eng.scheme, block_m=blocks[0],
-                          block_n=blocks[1], block_k=blocks[2],
-                          compute_dtype=torch.float32)
-                got = km.matmul_accumulators(ap, bp, **kw)
-                want = km.matmul_plain(ap[None], bp[None], scheme=eng.scheme,
-                                       block_k=blocks[2],
-                                       compute_dtype=torch.float32)
-                self.compare("matmul_accumulators", got,
-                             (want[0][0], want[1][0]),
-                             f"{name} bf16 {m}x{k}x{n} padded to "
-                             f"{list(bp.shape)}")
+                self.padded_matmul_case(name, m, k, n)
                 cases += 1
         sync(torch, self.dev)
         log(f"# phase 2: {cases} matmul parity cases at K 11008 and 6912 "
             f"(padded by the engine) and N 256, M 1 and 64, bitwise equal to "
             f"the plain version")
+
+    def padded_matmul_case(self, name, m, k, n):
+        """B5 on bf16 ``[m, k] x [k, n]`` operands as the engine pads them
+        for scheme ``name``, against ``matmul_plain``, bitwise."""
+        torch, km = self.torch, self.km
+        eng = self.engine.CompensatedReduction(scheme=name)
+        a = self.normal((m, k)).bfloat16()
+        b = self.normal((k, n)).bfloat16()
+        blocks = eng._matmul_blocks(m, n, k, None, None, None)
+        ap, bp = eng._prep_matmul(a, b, blocks)
+        kw = dict(scheme=eng.scheme, block_m=blocks[0], block_n=blocks[1],
+                  block_k=blocks[2], compute_dtype=torch.float32)
+        got = km.matmul_accumulators(ap, bp, **kw)
+        want = km.matmul_plain(ap[None], bp[None], scheme=eng.scheme,
+                               block_k=blocks[2], compute_dtype=torch.float32)
+        self.compare("matmul_accumulators", got, (want[0][0], want[1][0]),
+                     f"{name} bf16 {m}x{k}x{n} padded to {list(bp.shape)}")
+
+    def vocab_parity(self, cfg):
+        """B1-B4 on the telemetry's [4, vocab] rows of ``cfg`` (padded by
+        the engine to 8 U 128), every scheme at U = 8, bitwise; returns
+        the cases run."""
+        torch = self.torch
+        seen = {name: set() for name in REDUCTIONS}
+        for name in SCHEMES:
+            sch = self.schemes.get(name)
+            eng = self.engine.CompensatedReduction(scheme=sch, unroll=8)
+            a = self.data((4, cfg.vocab_size), torch.float32)
+            b = self.data((4, cfg.vocab_size), torch.float32)
+            ap, bp = eng._prep2d(a), eng._prep2d(b)
+            kw = dict(scheme=sch, unroll=8)
+            plain = (self.kd.dot_plain(ap, bp, **kw),
+                     self.ks.sum_plain(ap, **kw))
+            self.reduction_case(ap, bp, plain, kw,
+                                f"{name} [4, {cfg.vocab_size}] "
+                                f"({cfg.name})", seen)
+        return len(SCHEMES)
+
+    def moe_parity(self, cfgs):
+        """Phase 2 at the shapes phase 10 gives the kernels: B1-B4 on the
+        telemetry's [4, vocab] of each MoE config (llama4's 202048), and
+        B5 (kahan, bf16 operands as the engine pads them) at M 1 and 64
+        on every projection of the path: deepseek-v2-lite's MLA q, dkv,
+        kr and o (N 3072, 512, 64, 2048), its shared experts (N 2816, K
+        2816) and dense first layer (N and K 10944); llama4's q, k/v and
+        o (N 5120, 1024), dense MLP (N and K 16384) and shared expert (N
+        and K 8192)."""
+        cases = sum(self.vocab_parity(cfg) for cfg in cfgs)
+        log(f"# phase 2: {cases} reduction parity cases at the telemetry's "
+            f"[4, vocab] of {[c.name for c in cfgs]} bitwise equal to the "
+            f"plain versions")
+        shapes = [(k, n) for cfg in cfgs for k, n in moe_projections(cfg)]
+        for m in (1, 64):
+            for k, n in shapes:
+                self.padded_matmul_case("kahan", m, k, n)
+        sync(self.torch, self.dev)
+        log(f"# phase 2: {2 * len(shapes)} matmul parity cases at the MoE "
+            f"family's projections [K, N] {shapes}, M 1 and 64, bitwise "
+            f"equal to the plain version")
 
     def slice_times(self, cfg, max_len):
         """Phase 9's rows at one config's serving shapes: B4 at the
@@ -1010,6 +1093,33 @@ class Kernels:
                              pads=True)
             self.time_matmul(f"qwen-{where}-down", m, f, d, reps=reps,
                              pads=True)
+
+    def moe_times(self, cfg, label):
+        """Phase 10's rows at one MoE config's serving shapes: B4 at the
+        telemetry's [4, vocab] (padded by the engine); for
+        deepseek-v2-lite, B5 at the decode (M 1) projections particular
+        to it: MLA's q (N 3072) and kr (N 64, padded), the shared
+        experts' gate/up (N 2816) and down (K 2816, padded)."""
+        torch = self.torch
+        eng = self.engine.CompensatedReduction(scheme="kahan", unroll=8)
+        x = eng._prep2d(self.data((4, cfg.vocab_size), torch.float32))
+        self.time_one("sum_accumulators_batched", "kahan", (x,),
+                      lambda s: self.ks.sum_plain(x, scheme=s),
+                      lambda: torch.sum(x, dim=1), reps=200, label=label,
+                      valid=(4, cfg.vocab_size))
+        del x
+        if cfg.mla is None:
+            return
+        d, m = cfg.d_model, cfg.mla
+        shared = cfg.moe.n_shared * cfg.moe.d_ff_shared
+        self.time_matmul("dsv2-decode-q", 1, d,
+                         cfg.n_heads * (m.qk_nope_dim + m.qk_rope_dim),
+                         reps=50)
+        self.time_matmul("dsv2-decode-kr", 1, d, m.qk_rope_dim, reps=50,
+                         pads=True)
+        self.time_matmul(MOE_B5_ROW, 1, d, shared, reps=50)
+        self.time_matmul("dsv2-decode-shared-down", 1, shared, d, reps=50,
+                         pads=True)
 
     # -- matmul (B5, B6) -------------------------------------------------------
     def matmul_parity(self):
@@ -1909,14 +2019,16 @@ def cycle(fn, operand_sets):
 
 
 def serve_run(torch, kernels, cfg, model, params, trace, prefill_mode,
-              max_len=None, phase="4", prepare=None, **engine_kw):
+              max_len=None, phase="4", prepare=None, body=None, **engine_kw):
     """Serve ``trace`` once with every launch count reset just before and
     read just after; times every decode tick and prefill chunk. Checks
     what holds on every serving path: each request emits its tokens, the
     telemetry is finite and positive, and the sum kernel launched once
     per decode tick and once per finished prefill. ``max_len`` (default:
     fitted to the trace) and ``engine_kw`` (the paged layout's fields) go
-    to the ``EngineConfig``; ``prepare(engine)`` runs before the trace.
+    to the ``EngineConfig``; ``prepare(engine)`` runs before the trace;
+    ``body`` is the chunk body the engine must resolve ``prefill_mode``
+    to (default: ``prefill_mode`` itself).
     Under the paged layout the stats carry the peak pages in use and
     whether a live page table was ever scattered."""
     from repro_torch.kernels import Policy
@@ -1932,9 +2044,10 @@ def serve_run(torch, kernels, cfg, model, params, trace, prefill_mode,
                       policy=Policy(scheme="kahan"),
                       prefill_mode=prefill_mode, **engine_kw)
     engine = InferenceEngine(cfg, ec, model=model, params=params)
-    check(engine.prefill_body == prefill_mode,
+    body = body or prefill_mode
+    check(engine.prefill_body == body,
           f"engine resolved prefill body {engine.prefill_body!r}, wanted "
-          f"{prefill_mode!r}")
+          f"{body!r}")
     if prepare is not None:
         prepare(engine)
     tick_ms, chunk_ms, chunk_pos, widths, positions = [], [], [], [], []
@@ -2023,6 +2136,7 @@ def serve_run(torch, kernels, cfg, model, params, trace, prefill_mode,
         "prefill_s": sum(chunk_ms) / 1e3,
         "prefill_chunk_ms_mean": sum(chunk_ms) / len(chunk_ms),
         "prefill_ms_per_position": sum(chunk_ms) / n_prompt,
+        "prompt_positions": n_prompt, "prefill_body": body,
         "prefill_positions_per_s": n_prompt / (sum(chunk_ms) / 1e3),
         "launches": counts,
         "max_memory_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
@@ -2937,6 +3051,361 @@ def paged_path(torch, kernels, cfg, model, params, max_len, dense,
     return {"contiguous": contiguous, "fragmented": runs["fragmented"],
             "prefix_hit_tokens": st["prefix_hit_tokens"],
             "dense_kv_bytes": dense_bytes, "paged_live_kv_bytes": live_bytes}
+
+
+# -- 10. the MoE family -------------------------------------------------------
+
+def moe_projections(cfg):
+    """The distinct [K, N] of the B5 projections a MoE config runs under
+    ``kahan_matmul``: attention's (MLA's q, dkv, kr, o; or GQA's q, k/v,
+    o), the dense layers' MLP and the shared experts'."""
+    d, h = cfg.d_model, cfg.n_heads
+    if cfg.mla is not None:
+        m = cfg.mla
+        attn = [(d, h * (m.qk_nope_dim + m.qk_rope_dim)),
+                (d, m.kv_lora_rank), (d, m.qk_rope_dim),
+                (h * m.v_head_dim, d)]
+    else:
+        attn = [(d, h * cfg.head_dim), (d, cfg.n_kv_heads * cfg.head_dim),
+                (h * cfg.head_dim, d)]
+    mo = cfg.moe
+    shared = mo.n_shared * (mo.d_ff_shared or mo.d_ff_expert)
+    mlp = [(d, cfg.d_ff), (cfg.d_ff, d), (d, shared), (shared, d)]
+    return list(dict.fromkeys(attn + mlp))
+
+
+def b5_per_position(model) -> int:
+    """B5 launches a position under ``kahan_matmul``: attention's four
+    projections a layer and three for its dense MLP or shared experts
+    (the router and the routed experts stay plain)."""
+    per = 0
+    for seg in model.segments:
+        for kind in (("dense", "moe") if seg.kind == "super"
+                     else (seg.kind,)):
+            mlp = kind == "dense" or bool(model.cfg.moe.n_shared)
+            per += seg.n_layers * (4 + 3 * mlp)
+    return per
+
+
+def check_scan_launches(model, stats, what):
+    """Under the scan body no flash kernel runs; with ``kahan_matmul`` B5
+    ran ``b5_per_position`` times a prompt and a decode position, and
+    never without it; B6 and the dot / single sum kernels never."""
+    counts = stats["launches"]
+    units = stats["prompt_positions"] + stats["decode_positions"]
+    want = b5_per_position(model) * units if model.cfg.kahan_matmul else 0
+    check(counts["matmul_accumulators"] == want,
+          f"{what}: B5 launched {counts['matmul_accumulators']} times, want "
+          f"{want} ({units} positions)")
+    for name in ("flash_accumulators", "flash_chunk_accumulators",
+                 "dot_accumulators", "dot_accumulators_batched",
+                 "sum_accumulators", "matmul_accumulators_batched"):
+        check(counts[name] == 0,
+              f"{what}: {name} launched {counts[name]} times while serving")
+
+
+@contextlib.contextmanager
+def moe_drops(torch, dev):
+    """While active, every ``moe_apply`` call adds its ``dropped_frac`` to
+    a device sum: single-position calls (decode steps and scan prefill
+    positions) to ``"one"``, wider ones to ``"wide"``, with their counts
+    (no host sync a call)."""
+    from repro_torch.models import moe
+
+    orig = moe.moe_apply
+    acc = {"one": torch.zeros((), device=dev), "wide": torch.zeros(
+        (), device=dev), "one_calls": 0, "wide_calls": 0}
+
+    def recording(p, cfg, x):
+        y, met = orig(p, cfg, x)
+        key = "one" if x.shape[1] == 1 else "wide"
+        acc[key] += met["dropped_frac"]
+        acc[f"{key}_calls"] += 1
+        return y, met
+
+    moe.moe_apply = recording
+    try:
+        yield acc
+    finally:
+        moe.moe_apply = orig
+
+
+def moe_model(torch, dev, cfg):
+    """``cfg``'s model and random weights from seed 0 on the card, all
+    earlier memory freed first; (model, params, params GiB, init peak
+    GiB)."""
+    from repro_torch.models import build_model
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    model = build_model(cfg, dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    sync(torch, dev)
+    gib = sum(t.numel() * t.element_size() for t in _leaves(params)) / 2**30
+    return model, params, gib, torch.cuda.max_memory_allocated(dev) / 2**30
+
+
+@contextlib.contextmanager
+def moe_routes():
+    """While active, each MoE layer call appends its tokens' top-k expert
+    ids, sorted, [tokens, k], to the list it yields."""
+    from repro_torch.models import moe
+
+    routes, route = [], moe.route
+
+    def recording(p, cfg, xg, s):
+        out = route(p, cfg, xg, s)
+        routes.append(out.expert_idx.reshape(-1, cfg.moe.top_k)
+                      .sort(-1).values)
+        return out
+
+    moe.route = recording
+    try:
+        yield routes
+    finally:
+        moe.route = route
+
+
+def rerouted(torch, layers, a, b):
+    """Tokens whose experts differ in each of ``layers`` MoE layers
+    between two runs' ``moe_routes`` records over the same positions: a
+    whole-prompt call a layer, or (scan) a call a layer and position."""
+    def per_layer(routes):
+        return [torch.cat(routes[i::layers]) for i in range(layers)]
+
+    return [int((x != y).any(-1).sum())
+            for x, y in zip(per_layer(a), per_layer(b))]
+
+
+def compare_logits(what, cfg, x, y, rel_max, moved):
+    """Relative L2 of the last-position logits ``y`` against ``x`` and
+    whether their argmax agrees, logged with the tokens routed to other
+    experts by layer; gated (relative L2 below ``rel_max``, the same
+    argmax, finite) unless ``rel_max`` is None."""
+    import torch
+
+    x, y = (t[0, :cfg.vocab_size].double() for t in (x, y))
+    rel = float((y - x).norm() / x.norm())
+    same = int(x.argmax()) == int(y.argmax())
+    finite = bool(torch.isfinite(x).all() and torch.isfinite(y).all())
+    log(f"# phase 10 {cfg.name}: {what}, {cfg.compute_dtype} compute: "
+        f"relative L2 {rel:.3e}"
+        f"{' (logged)' if rel_max is None else f' (gate {rel_max})'}, "
+        f"argmax {int(y.argmax())} vs {int(x.argmax())}, finite {finite}; "
+        f"tokens routed to other experts by layer {moved}")
+    check(finite, f"{cfg.name}: {what}: logits not finite")
+    if rel_max is not None:
+        check(rel < rel_max and same, f"{cfg.name}: {what} "
+              f"({cfg.compute_dtype}): relative L2 {rel:.3e}, same argmax "
+              f"{same}")
+    return {"compute_dtype": cfg.compute_dtype, "rel_l2": rel,
+            "same_argmax": same, "rerouted_tokens": moved, "gate": rel_max}
+
+
+def prefill_vs_scan(torch, kernels, cfg, params, prompt, rel_max):
+    """Whole-prompt ``TransformerLM.prefill`` of ``prompt`` against the
+    scan chunk's last logits at capacity factor 16 (the reference's
+    ``test_decode_matches_prefill``), the model computing in
+    ``cfg.compute_dtype`` on the bf16 weights (``compare_logits``); the
+    prefill's ``dropped_frac`` logged."""
+    from repro_torch.models import build_model
+
+    dev = kernels.dev
+    wide = cfg.replace(moe=dataclasses.replace(
+        cfg.moe, capacity_factor=MOE_CHECK_CAPACITY))
+    model = build_model(wide, dev)
+    toks = torch.as_tensor(prompt, dtype=torch.long, device=dev)[None]
+    n = toks.shape[1]
+    with moe_routes() as full_routes, moe_drops(torch, dev) as drops:
+        full, _ = model.prefill(params, toks, model.init_cache(1, n))
+    with moe_routes() as scan_routes:
+        scan, _ = model.prefill_chunk(params, toks, model.init_cache(1, n),
+                                      0, n)
+    out = compare_logits(
+        f"whole-prompt prefill of {n} tokens vs the scan chunk, capacity "
+        f"factor {MOE_CHECK_CAPACITY}", wide, scan, full, rel_max,
+        rerouted(torch, model.moe_layers, full_routes, scan_routes))
+    out["prefill_dropped"] = float(drops["wide"])
+    log(f"# phase 10 {cfg.name}: the prefill's dropped_frac summed over "
+        f"{drops['wide_calls']} MoE layers {out['prefill_dropped']}")
+    return out
+
+
+def matmul_vs_cublas(torch, kernels, cfg, params, prompt, rel_max):
+    """``prompt`` through the scan chunk with and without
+    ``kahan_matmul``, the model computing in ``cfg.compute_dtype``
+    (``compare_logits``)."""
+    from repro_torch.models import build_model
+
+    dev = kernels.dev
+    toks = torch.as_tensor(prompt, dtype=torch.long, device=dev)[None]
+    w = toks.shape[1]
+    out, routes = [], []
+    for c in (cfg, cfg.replace(kahan_matmul=True)):
+        model = build_model(c, dev)
+        layers = model.moe_layers
+        with moe_routes() as r:
+            out.append(model.prefill_chunk(params, toks,
+                                           model.init_cache(1, w), 0, w)[0])
+        routes.append(r)
+    return compare_logits(f"a {w}-token scan chunk with kahan_matmul vs "
+                          f"cuBLAS", cfg, *out, rel_max,
+                          rerouted(torch, layers, *routes))
+
+
+def moe_path(torch, kernels):
+    """Phase 10: deepseek-v2-lite-16b at its published width and depth,
+    then llama4-maverick at its published width cut to one superblock
+    (bf16, random weights from seed 0, ``max_slots=4``,
+    ``prefill_chunk=64``, telemetry, kahan, U = 8), each run with the
+    launch counts reset just before it. Returns the phase's stats."""
+    from repro_torch.configs import get_config
+
+    t0 = time.perf_counter()
+    out = {MOE_ARCH: moe_deepseek(torch, kernels, get_config(MOE_ARCH))}
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config(LLAMA4).replace(n_layers=LLAMA4_LAYERS)
+    out[LLAMA4] = moe_llama4(torch, kernels, cfg)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"# phase 10 took {out['seconds']:.1f} s")
+    return out
+
+
+def moe_deepseek(torch, kernels, cfg):
+    """Phase 10 on deepseek-v2-lite-16b, no cut: phase 9's trace with
+    flash prefill requested, resolved to the scan body (MLA and capacity
+    routing have no parallel chunk); request 0 alone == interleaved; the
+    paged layout (``page_size`` 16) == dense with the pool free at the
+    end and ``dropped_frac`` 0 on every single-position MoE call; the
+    whole-prompt prefill of the 160-token prompt against the scan chunk
+    (gated in float32 compute, logged in bf16);
+    one request with ``kahan_matmul`` (B5 189 times a position) against
+    the cuBLAS path; one profiled decode position."""
+    from repro_torch.models import build_model
+
+    dev = kernels.dev
+    path = "serve-deepseek-v2-lite"
+    max_len = slice_max_len(cfg)
+    kernels.moe_times(cfg, path)
+    model, params, params_gib, init_gib = moe_model(torch, dev, cfg)
+    ec, requests, served, captured, st = serve_run(
+        torch, kernels, cfg, model, params, SLICE_TRACE, "flash",
+        max_len=max_len, phase="10", body="scan")
+    check_scan_launches(model, st, path)
+    kernels.launches[path] = st["launches"]
+    kernels.path_labels[("sum_accumulators_batched", path)] = path
+    check_tick_telemetry(torch, kernels, cfg, ec, captured, "10")
+    check_solo(cfg, ec, model, params, requests[0], served, cfg.name, "10")
+
+    with moe_drops(torch, dev) as drops:
+        _, _, paged, _, pst = serve_run(
+            torch, kernels, cfg, model, params, SLICE_TRACE, "flash",
+            max_len=max_len, phase="10", body="scan", kv_layout="paged",
+            page_size=PAGE_SIZE)
+    check_scan_launches(model, pst, f"{path}-paged")
+    kernels.launches[f"{path}-paged"] = pst["launches"]
+    kernels.path_labels[("sum_accumulators_batched", f"{path}-paged")] = path
+    for rid in served:
+        check(paged[rid].tokens == served[rid].tokens
+              and paged[rid].telemetry == served[rid].telemetry,
+              f"{cfg.name}: request {rid} differs, paged vs dense")
+    ps = pst["page_stats"]
+    check(ps["free_pages"] == ps["num_pages"],
+          f"{cfg.name}: {ps['free_pages']} pages free of {ps['num_pages']} "
+          f"after the paged run")
+    n_moe = model.moe_layers
+    positions = pst["prompt_positions"] + pst["decode_positions"]
+    check(drops["one_calls"] == n_moe * positions
+          and float(drops["one"]) == 0.0,
+          f"{cfg.name}: dropped_frac summed to {float(drops['one'])} over "
+          f"{drops['one_calls']} single-position MoE calls ({n_moe} layers "
+          f"x {positions} positions)")
+    token_bytes = pst["page_bytes"] // PAGE_SIZE
+    dense_bytes = ec.max_slots * max_len * token_bytes
+    live_bytes = pst["peak_pages"] * pst["page_bytes"]
+    log(f"# phase 10 {cfg.name} paged (page_size {PAGE_SIZE}): tokens and "
+        f"telemetry == dense, bitwise; pool free at the end; dropped_frac 0 "
+        f"on all {drops['one_calls']} single-position MoE calls; KV "
+        f"{token_bytes / 1024:.1f} KiB a token (MLA's latent and rope key "
+        f"x {cfg.n_layers} layers); held: dense {dense_bytes / 2**20:.1f} "
+        f"MiB ({ec.max_slots} x {max_len} rows) vs paged live "
+        f"{live_bytes / 2**20:.1f} MiB at peak ({pst['peak_pages']} pages)")
+
+    f32 = cfg.replace(compute_dtype="float32")
+    stats = {"params_gib": params_gib, "init_peak_gib": init_gib,
+             "serve": st, "paged": pst, "kv_bytes_per_token": token_bytes,
+             "dense_kv_bytes": dense_bytes, "paged_live_kv_bytes": live_bytes,
+             "prefill_vs_scan": [prefill_vs_scan(
+                 torch, kernels, c, params, requests[-1].prompt, gate)
+                 for c, gate in ((cfg, None), (f32, MOE_PREFILL_REL))]}
+
+    mcfg = cfg.replace(kahan_matmul=True)
+    mmodel = build_model(mcfg, dev)
+    mpath = f"{path}-matmul"
+    _, _, _, _, mst = serve_run(torch, kernels, mcfg, mmodel, params,
+                                SLICE_TRACE.split(",")[0], "flash",
+                                max_len=max_len, phase="10", body="scan")
+    check_scan_launches(mmodel, mst, mpath)
+    kernels.launches[mpath] = mst["launches"]
+    kernels.path_labels[("sum_accumulators_batched", mpath)] = path
+    kernels.path_labels[("matmul_accumulators", mpath)] = MOE_B5_ROW
+    stats["matmul"] = mst
+    stats["matmul_vs_cublas"] = [
+        matmul_vs_cublas(torch, kernels, c, params, requests[0].prompt[:16],
+                         gate)
+        for c, gate in ((cfg, None), (f32, 5e-2))]
+    stats["decode_profile"] = profile_decode_step(torch, model, params, dev,
+                                                  max_len)
+    stats["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+    log(f"# phase 10 {cfg.name}: {cfg.n_layers}L d={cfg.d_model} "
+        f"H={cfg.n_heads} MLA r={cfg.mla.kv_lora_rank} "
+        f"E={cfg.moe.n_experts} top-{cfg.moe.top_k} +{cfg.moe.n_shared} "
+        f"shared vocab={cfg.vocab_size} (no cut): params "
+        f"{params_gib:.2f} GiB, init peak {init_gib:.2f} GiB, peak "
+        f"{stats['peak_gib']:.2f} GiB, {st['tokens_per_s']:.2f} tokens/s, "
+        f"decode tick {st['decode_tick_ms_mean']:.2f} ms mean, prefill "
+        f"{st['prefill_ms_per_position']:.3f} ms per position (scan); one "
+        f"decode position {stats['decode_profile']['host_ms']:.2f} ms host, "
+        f"{stats['decode_profile']['device_busy_ms'] or 0:.3f} ms device "
+        f"busy, {stats['decode_profile']['device_kernels']} kernels")
+    return stats
+
+
+def moe_llama4(torch, kernels, cfg):
+    """Phase 10 on llama4-maverick at its published width cut to
+    ``LLAMA4_LAYERS`` layers (one dense+MoE superblock; the 48 layers
+    need about 800 GB): one request on the dense layout under the scan
+    body, and its prompt's whole-prompt prefill against the scan chunk
+    at capacity factor 16."""
+    dev = kernels.dev
+    path = f"serve-llama4-maverick-{cfg.n_layers}l"
+    kernels.moe_times(cfg, path)
+    model, params, params_gib, init_gib = moe_model(torch, dev, cfg)
+    _, requests, served, _, st = serve_run(
+        torch, kernels, cfg, model, params, LLAMA4_TRACE, "flash",
+        phase="10", body="scan")
+    check_scan_launches(model, st, path)
+    kernels.launches[path] = st["launches"]
+    kernels.path_labels[("sum_accumulators_batched", path)] = path
+    stats = {"cut": f"n_layers {cfg.n_layers} of 48 (one superblock)",
+             "params_gib": params_gib, "init_peak_gib": init_gib,
+             "serve": st, "prefill_vs_scan": [prefill_vs_scan(
+                 torch, kernels, c, params, requests[0].prompt, gate)
+                 for c, gate in ((cfg, None),
+                                 (cfg.replace(compute_dtype="float32"),
+                                  MOE_PREFILL_REL))]}
+    stats["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+    log(f"# phase 10 {cfg.name} CUT to {cfg.n_layers} of 48 layers: "
+        f"d={cfg.d_model} H={cfg.n_heads}/{cfg.n_kv_heads} "
+        f"E={cfg.moe.n_experts} top-{cfg.moe.top_k} ff={cfg.d_ff} "
+        f"vocab={cfg.vocab_size}: params {params_gib:.2f} GiB, init peak "
+        f"{init_gib:.2f} GiB, peak {stats['peak_gib']:.2f} GiB, "
+        f"{st['tokens_per_s']:.2f} tokens/s, decode tick "
+        f"{st['decode_tick_ms_mean']:.2f} ms mean")
+    del model, params
+    return stats
 
 
 # -- 8. the sharded slice on two ranks ----------------------------------------

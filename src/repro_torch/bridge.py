@@ -4,11 +4,14 @@
 parameter tree as numpy arrays (``jax.tree.map(np.asarray, params)``)
 and returns the port's: the same nested dict — the port keeps the JAX
 layouts at its public functions — of torch tensors on ``device``. Every
-leaf is checked against the port's own parameter spec (names, shapes,
-the stacked ``blocks`` segment with its leading layer axis, the
-``[V_pad, d]`` embedding table that doubles as the tied head, q/k/v
-``w`` of ``[d, H, dh]`` and o ``w`` of ``[H*dh, d]``), so a tree that does
-not fit fails here rather than inside a matmul.
+leaf is checked against the port's own parameter spec (names, shapes and
+dtypes: each segment of ``TransformerLM.segments``, a stacked one
+(``blocks``, ``moe_blocks``, ``super_blocks``) with its leading layer
+axis and the unstacked ``dense_prefix`` without; the ``[V_pad, d]``
+embedding table that doubles as the tied head, q/k/v ``w`` of ``[d, H,
+dh]`` and o ``w`` of ``[H*dh, d]``, MLA's q/dkv/kr/uk/uv/o, the experts'
+``[E, d, f]`` / ``[E, f, d]`` and the float32 router), so a tree that
+does not fit fails here rather than inside a matmul.
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import DeviceSpec, resolve_device
 from repro_torch.models import build_model
+from repro_torch.models.common import leaf_dtype
 
 
 def _to_tensor(x: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -50,6 +54,10 @@ def params_from_jax(np_params: Dict[str, Any], cfg: ArchConfig,
         if tuple(np.shape(node)) != shape:
             raise ValueError(f"params{path}: want shape {shape}, got "
                              f"{tuple(np.shape(node))}")
-        return _to_tensor(node, dev)
+        t = _to_tensor(node, dev)
+        if t.dtype != leaf_dtype(want, cfg):
+            raise ValueError(f"params{path}: want dtype "
+                             f"{leaf_dtype(want, cfg)}, got {t.dtype}")
+        return t
 
     return walk(np_params, spec, "")

@@ -7,8 +7,10 @@ configuration) and ``SMOKE`` (a reduced same-family configuration for CPU
 tests). ``get_config(name)`` / ``get_smoke(name)`` / ``list_archs()`` are
 the public API; the launcher's ``--arch <id>`` flag resolves through them.
 The port carries the dense family (``olmo-1b``, ``deepseek-7b``,
-``stablelm-3b``, ``qwen2.5-3b``) and the VLM ``internvl2-2b``; the other
-architectures of the reference follow with their model families.
+``stablelm-3b``, ``qwen2.5-3b``), the VLM ``internvl2-2b`` and the MoE
+family (``deepseek-v2-lite-16b`` with MLA, ``llama4-maverick-400b-a17b``
+with dense+MoE superblocks); the other architectures of the reference
+follow with their model families.
 """
 
 from __future__ import annotations
@@ -248,7 +250,8 @@ def shape_applicable(cfg: ArchConfig, shape: ShapeSpec) -> Tuple[bool, str]:
 # ---------------------------------------------------------------------------
 
 ARCH_IDS = ("olmo-1b", "deepseek-7b", "stablelm-3b", "qwen2.5-3b",
-            "internvl2-2b")
+            "internvl2-2b", "deepseek-v2-lite-16b",
+            "llama4-maverick-400b-a17b")
 
 _MODULES = {
     "olmo-1b": "olmo_1b",
@@ -256,6 +259,8 @@ _MODULES = {
     "stablelm-3b": "stablelm_3b",
     "qwen2.5-3b": "qwen2_5_3b",
     "internvl2-2b": "internvl2_2b",
+    "deepseek-v2-lite-16b": "deepseek_v2_lite",
+    "llama4-maverick-400b-a17b": "llama4_maverick",
 }
 
 

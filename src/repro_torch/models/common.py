@@ -27,11 +27,35 @@ PAD_LOGIT = -1e30
 # Cache axes: request slots and pages
 # ---------------------------------------------------------------------------
 
+def _is_node(x) -> bool:
+    """A dict or a tuple of caches, as against a leaf: a tensor, an axis
+    index, or one leaf's axis names (a tuple that holds a name or None)."""
+    if isinstance(x, dict):
+        return True
+    return isinstance(x, tuple) and not any(
+        isinstance(e, str) or e is None for e in x)
+
+
 def map_cache_leaves(fn, *trees):
-    """``fn`` over the leaves of caches shaped like ``init_cache``'s
-    (a dict of tuples of leaves), keeping that structure."""
-    return {k: tuple(fn(*leaves) for leaves in zip(*(t[k] for t in trees)))
-            for k in trees[0]}
+    """``fn`` over the leaves of caches shaped like ``init_cache``'s (a
+    dict of tuples of leaves, a tuple nesting tuples where a segment
+    pairs two layers), keeping that structure."""
+    def walk(*nodes):
+        if isinstance(nodes[0], dict):
+            return {k: walk(*(n[k] for n in nodes)) for k in nodes[0]}
+        if _is_node(nodes[0]):
+            return tuple(walk(*z) for z in zip(*nodes))
+        return fn(*nodes)
+
+    return walk(*trees)
+
+
+def cache_leaves(tree) -> list:
+    """The leaves of a cache-shaped tree, in ``map_cache_leaves``'s
+    order."""
+    out = []
+    map_cache_leaves(out.append, tree)
+    return out
 
 
 def _axis_of(names, name: str) -> int:
@@ -221,23 +245,29 @@ def norm_shapes(d: int, kind: str) -> Dict[str, Any]:
     raise ValueError(kind)
 
 
+def leaf_dtype(leaf, cfg: ArchConfig) -> torch.dtype:
+    """The dtype of a (shape, init[, dtype]) leaf: its own where it names
+    one (the MoE router's float32), else ``cfg.param_dtype``."""
+    return dtype_of(leaf[2] if len(leaf) > 2 else cfg.param_dtype)
+
+
 def init_params(spec: Dict[str, Any], cfg: ArchConfig,
                 generator: torch.Generator, device) -> Params:
-    """Materialize a nested dict of (shape, init) leaves: a float scale
-    draws ``scale * N(0, 1)`` in float32 from ``generator`` (in the
-    dict's order), "ones"/"zeros" are constants; then cast to
-    ``cfg.param_dtype``."""
-    dt = dtype_of(cfg.param_dtype)
-
+    """Materialize a nested dict of (shape, init[, dtype]) leaves: a float
+    scale draws ``scale * N(0, 1)`` in float32 from ``generator`` (in the
+    dict's order), scaled in place, "ones"/"zeros" are constants; then
+    cast to the leaf's dtype (``leaf_dtype``). The largest leaf costs its
+    float32 draw and its cast at once, no second float32 copy."""
     def one(leaf):
-        shape, init = leaf
+        shape, init = leaf[:2]
+        dt = leaf_dtype(leaf, cfg)
         if init == "ones":
             return torch.ones(shape, dtype=dt, device=device)
         if init == "zeros":
             return torch.zeros(shape, dtype=dt, device=device)
         x = torch.randn(shape, generator=generator, dtype=torch.float32,
                         device=device)
-        return (x * init).to(dt)
+        return x.mul_(init).to(dt)
 
     def walk(node):
         if isinstance(node, dict):

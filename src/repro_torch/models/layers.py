@@ -1,5 +1,5 @@
-"""Model layers of the dense decoder, in PyTorch (counterpart of
-``repro/models/layers.py``, dense path).
+"""Model layers of the decoder LMs, in PyTorch (counterpart of
+``repro/models/layers.py``: GQA and MLA attention, the MLP, the norms).
 
 Parameters are plain nested dicts of tensors in the reference's layouts
 (q/k/v ``w``: ``[d, H, dh]``, o ``w``: ``[H*dh, d]``, embedding table
@@ -8,7 +8,10 @@ Parameters are plain nested dicts of tensors in the reference's layouts
 ``cfg.param_dtype``, matmuls in ``cfg.compute_dtype``, softmax / norm
 statistics / logits in float32.
 
-Attention against a KV cache has the reference's three modes
+MLA (``mla_attention``, DeepSeek-V2's latent attention) caches the
+latent and the shared rope key, decodes in the weight-absorbed form and
+prefills by expanding K/V once. Attention against a KV cache has the
+reference's three modes
 (``repro/models/layers.py:306-462``): decode (one position, attending every
 cache row under a causal mask on absolute positions), whole-prompt
 prefill (fill the cache prefix, attend the in-flight k/v) and chunk
@@ -211,6 +214,13 @@ def _flash_chunk_core(qg: Tensor, k: Tensor, v: Tensor, q_off: int,
     return _unflatten_heads(out, qg, compute_dtype)
 
 
+def _causal_bias(q_pos: Tensor, k_pos: Tensor) -> Tensor:
+    """[Sq, Sk] float32: 0 where the key's position is at or before the
+    query's, -inf elsewhere."""
+    ok = (q_pos[:, None] - k_pos[None, :]) >= 0
+    return torch.where(ok, 0.0, float("-inf")).to(torch.float32)
+
+
 def _attn_core(q: Tensor, k: Tensor, v: Tensor, q_pos: Tensor,
                k_pos: Tensor, compute_dtype, chunked: bool = True) -> Tensor:
     """Causal grouped-query attention, q-chunked at ``ATTN_Q_CHUNK``
@@ -226,9 +236,7 @@ def _attn_core(q: Tensor, k: Tensor, v: Tensor, q_pos: Tensor,
             for i in range(0, q.shape[1], ATTN_Q_CHUNK)], dim=1)
     scale = q.shape[-1] ** -0.5
     scores = torch.einsum("bqkgd,bskd->bkgqs", q.float(), k.float()) * scale
-    ok = (q_pos[:, None] - k_pos[None, :]) >= 0
-    bias = torch.where(ok, 0.0, float("-inf")).to(torch.float32)
-    scores = scores + bias
+    scores = scores + _causal_bias(q_pos, k_pos)
     m = torch.amax(scores, dim=-1, keepdim=True).clamp_min(-1e30)
     p = torch.exp(scores - m)
     l = torch.sum(p, dim=-1, keepdim=True)
@@ -310,8 +318,124 @@ def attention(p: Params, st: AttnStatic, x: Tensor, *,
 
 
 # ---------------------------------------------------------------------------
+# MLA (DeepSeek-V2 multi-head latent attention)
+# ---------------------------------------------------------------------------
+
+def mla_spec(cfg) -> Params:
+    """(shape, init) of one MLA block's parameters, scaled as the
+    reference's ``mla_init`` (``repro/models/layers.py:469-492``): q ``[d,
+    H, nope + rope]``, dkv ``[d, r]``, kr ``[d, dr]``, uk ``[r, H, nope]``,
+    uv ``[r, H, v]``, o ``[H * v, d]`` and the latent's rmsnorm scale."""
+    m, d, h = cfg.mla, cfg.d_model, cfg.n_heads
+    r, hv = m.kv_lora_rank, h * m.v_head_dim
+    return {
+        "q": {"w": ((d, h, m.qk_nope_dim + m.qk_rope_dim), d ** -0.5)},
+        "dkv": {"w": ((d, r), d ** -0.5)},
+        "kr": {"w": ((d, m.qk_rope_dim), d ** -0.5)},
+        "uk": {"w": ((r, h, m.qk_nope_dim), r ** -0.5)},
+        "uv": {"w": ((r, h, m.v_head_dim), r ** -0.5)},
+        "o": {"w": ((hv, d), hv ** -0.5 / (2 * cfg.n_layers) ** 0.5)},
+        "kv_norm": {"scale": ((r,), "ones")},
+    }
+
+
+def mla_attention(p: Params, cfg, freqs: Tensor, x: Tensor, *,
+                  cache: Optional[Tuple[Tensor, Tensor]] = None,
+                  pos: Optional[int] = None) -> Tensor:
+    """MLA (``repro/models/layers.py:495-598``) with the cache holding the
+    latent ``c_kv`` [B,S,r] and the shared rope key ``k_rope`` [B,S,dr],
+    written in place; ``freqs`` are ``rope_freqs(dr, theta)``. Modes as in
+    ``attention``, without chunk prefill (MLA has no chunk-at-offset
+    form, so the engine runs its scan):
+
+    decode          ``pos`` given, x [B,1,D]: the weight-absorbed form,
+                    ``q_c = q_nope W_ukᵀ`` scored against the latent and
+                    the rope keys, the context through ``W_uv``.
+    prefill         ``pos`` None with a cache: fill the prefix, expand K/V
+                    from the latent once, attend the cache causally,
+                    q-chunked at ``ATTN_Q_CHUNK``.
+    training        no cache: the expanded form over x itself, unchunked.
+
+    The q, dkv, kr and o projections run the compensated matmul with
+    ``cfg.kahan_matmul``; the latent einsums stay plain, as the reference
+    computes them outside any kernel. Returns [B,S,D]."""
+    m = cfg.mla
+    cd = dtype_of(cfg.compute_dtype)
+    cmp = cfg.kahan_matmul
+    b, s, _ = x.shape
+    h, nope = cfg.n_heads, m.qk_nope_dim
+    start = 0 if pos is None else pos
+    q_pos = torch.arange(start, start + s, device=x.device)
+    q = dense(p["q"], x, cd, compensated=cmp)           # [B,S,H,nope+rope]
+    q_nope = q[..., :nope]
+    q_rope = rope_apply(q[..., nope:], q_pos, freqs)
+    c_kv = norm_apply(p["kv_norm"], dense(p["dkv"], x, cd, compensated=cmp),
+                      "rmsnorm")                          # [B,S,r]
+    k_rope = rope_apply(dense(p["kr"], x, cd, compensated=cmp)[:, :, None],
+                        q_pos, freqs)[:, :, 0]            # [B,S,dr]
+    if cache is None:
+        if pos is not None:
+            raise ValueError("mla_attention: training mode (no cache) runs "
+                             "positions 0..S-1; pos must be None")
+        c_all, r_all = c_kv, k_rope
+    else:
+        cc, cr = cache
+        if pos is None:
+            cc[:, :s] = c_kv.to(cc.dtype)
+            cr[:, :s] = k_rope.to(cr.dtype)
+        elif s == 1:
+            cc[:, pos] = c_kv[:, 0].to(cc.dtype)
+            cr[:, pos] = k_rope[:, 0].to(cr.dtype)
+        else:
+            raise ValueError("mla_attention: a cached call at a position "
+                             "takes one token (MLA has no chunk prefill)")
+        c_all, r_all = cc.to(cd), cr.to(cd)
+    k_pos = torch.arange(c_all.shape[1], device=x.device)
+    w_uk = p["uk"]["w"].to(cd)                            # [r,H,nope]
+    w_uv = p["uv"]["w"].to(cd)                            # [r,H,v]
+    scale = (nope + m.qk_rope_dim) ** -0.5
+    if pos is not None:                                   # absorbed decode
+        bias = _causal_bias(q_pos, torch.where(k_pos <= pos, k_pos, _FAR))
+        q_c = torch.einsum("bqhn,rhn->bqhr", q_nope, w_uk)
+        sc = (torch.einsum("bqhr,bsr->bhqs", q_c.float(), c_all.float())
+              + torch.einsum("bqhd,bsd->bhqs", q_rope.float(),
+                             r_all.float())) * scale + bias
+        probs = torch.softmax(sc, dim=-1).to(cd)
+        ctx_c = torch.einsum("bhqs,bsr->bqhr", probs, c_all)
+        ctx = torch.einsum("bqhr,rhv->bqhv", ctx_c, w_uv)
+    else:                                                 # expanded K/V
+        k_nope = torch.einsum("bsr,rhn->bshn", c_all, w_uk)
+        v = torch.einsum("bsr,rhv->bshv", c_all, w_uv)
+
+        def one_chunk(lo, hi):
+            sc = (torch.einsum("bqhn,bshn->bhqs", q_nope[:, lo:hi].float(),
+                               k_nope.float())
+                  + torch.einsum("bqhd,bsd->bhqs", q_rope[:, lo:hi].float(),
+                                 r_all.float())) * scale
+            sc = sc + _causal_bias(q_pos[lo:hi], k_pos)
+            pr = torch.softmax(sc, dim=-1).to(cd)
+            return torch.einsum("bhqs,bshv->bqhv", pr, v)
+
+        chunk = s if cache is None else ATTN_Q_CHUNK
+        ctx = torch.cat([one_chunk(i, i + chunk)
+                         for i in range(0, s, chunk)], dim=1)
+    return dense(p["o"], ctx.reshape(b, s, h * m.v_head_dim), cd,
+                 compensated=cmp)
+
+
+# ---------------------------------------------------------------------------
 # MLP
 # ---------------------------------------------------------------------------
+
+def mlp_spec(cfg, d_ff: int) -> Params:
+    """(shape, init) of a SwiGLU MLP of width ``d_ff`` (the reference's
+    ``mlp_init``)."""
+    d = cfg.d_model
+    deep = (2 * cfg.n_layers) ** 0.5
+    return {"gate": {"w": ((d, d_ff), d ** -0.5)},
+            "up": {"w": ((d, d_ff), d ** -0.5)},
+            "down": {"w": ((d_ff, d), d_ff ** -0.5 / deep)}}
+
 
 def mlp_apply(p: Params, x: Tensor, compute_dtype, *,
               compensated: bool = False) -> Tensor:

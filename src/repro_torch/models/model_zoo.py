@@ -1,6 +1,7 @@
 """Model factory: ArchConfig -> model instance (counterpart of
 ``repro/models/model_zoo.py``). The port serves the dense family (QKV bias
-included) and the VLM splice, with ``kahan_attention`` routing prefill
+included), the VLM splice and the MoE family (MLA, routed and shared
+experts, dense+MoE superblocks), with ``kahan_attention`` routing prefill
 through the flash kernels and ``kahan_matmul`` the dense projections
 through the compensated matmul."""
 
@@ -13,13 +14,14 @@ from repro_torch.models.transformer import TransformerLM
 
 
 def build_model(cfg: ArchConfig, device: torch.device) -> TransformerLM:
-    """The decoder LM of ``cfg`` (family "dense" or "vlm"; a ``vision``
-    stub splices patch embeddings); the families and features the port does not carry
-    yet raise, naming ROADMAP A5."""
+    """The decoder LM of ``cfg`` (family "dense", "vlm" or "moe"; a
+    ``vision`` stub splices patch embeddings, ``moe`` / ``mla`` select the
+    MoE layers and latent attention); the families and features the port
+    does not carry yet raise, naming ROADMAP A5."""
     later = []
-    if cfg.family not in ("dense", "vlm"):
+    if cfg.family not in ("dense", "vlm", "moe"):
         later.append(f"family {cfg.family!r}")
-    for feature in ("moe", "mla", "ssm", "xlstm", "encoder"):
+    for feature in ("ssm", "xlstm", "encoder"):
         if getattr(cfg, feature) is not None:
             later.append(feature)
     if cfg.sliding_window > 0:

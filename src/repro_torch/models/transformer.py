@@ -1,14 +1,22 @@
-"""Dense decoder-only transformer LM, in PyTorch (counterpart of
-``repro/models/transformer.py``, dense segment only).
+"""Decoder-only transformer LMs: dense, VLM splice and MoE, in PyTorch
+(counterpart of ``repro/models/transformer.py``).
 
-Parameters keep the reference's tree: ``embed``, ``final_norm`` and one
-stacked ``blocks`` segment whose leaves carry a leading layer axis (q/k/v
-carry a ``b`` leaf too under ``qkv_bias``). The KV cache is ``{"blocks":
-(k, v)}`` with k/v ``[L, B, S, KV, dh]`` in the compute dtype, as the
-reference's ``init_cache`` builds it; ``cache_specs`` names each leaf's
-axes as the reference's logical specs do (request axis "batch", the
-position-addressed history "kv_seq"). Where the reference scans over
-layers, the port loops.
+The model is assembled from SEGMENTS (``plan_segments``), as in the
+reference: a dense config has one stacked ``blocks`` segment; a MoE
+config a ``dense_prefix`` of its leading dense layer (unstacked), then
+``moe_blocks`` (stacked MoE layers) or ``super_blocks`` (stacked pairs
+``{"a": dense, "b": moe}``, llama4's interleave). Parameters keep the
+reference's tree: ``embed``, ``final_norm`` and one entry a segment whose
+stacked leaves carry a leading layer axis (q/k/v carry a ``b`` leaf too
+under ``qkv_bias``; MLA's leaves are ``layers.mla_spec``'s; the MoE
+router is float32). The KV cache is one entry a segment, ``(k, v)`` with
+k/v ``[L, B, S, KV, dh]`` in the compute dtype (MLA: the latent ``[L, B,
+S, r]`` and the rope key ``[L, B, S, dr]``), a superblock's a pair of
+those; unlike the reference, the unstacked ``dense_prefix`` caches under
+a layer axis of 1 too, so every leaf's request axis is 1. ``cache_specs``
+names each leaf's axes as the reference's logical specs do (request axis
+"batch", the position-addressed history "kv_seq"). Where the reference
+scans over layers, the port loops.
 
     init(generator)                               -> params
     loss(params, batch)                           -> (loss, metrics)
@@ -33,8 +41,9 @@ reference.
 
 ``loss`` is the training forward: every block recomputed in the backward
 pass (the reference's ``remat=True``), attention unchunked through the
-materialized core, the compensated chunked cross-entropy. The serving
-steps write the cache in place. ``prefill_chunk`` is the
+materialized core, the compensated chunked cross-entropy, and for a MoE
+config the router's load-balance loss averaged over the MoE layers. The
+serving steps write the cache in place. ``prefill_chunk`` is the
 per-position scan (the oracle); ``prefill_chunk_parallel`` runs the whole
 chunk in ONE forward pass, its attention through the chunk flash kernel
 when ``kahan_attention``.
@@ -42,12 +51,15 @@ when ``kahan_attention``.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+import dataclasses
+from typing import Any, Dict, List, Tuple
 
 import torch
 
 from repro_torch.configs.base import ArchConfig
 from torch.utils.checkpoint import checkpoint
+
+from repro_torch.models import moe as moe_lib
 
 from repro_torch.models.common import (
     Params,
@@ -66,7 +78,10 @@ from repro_torch.models.layers import (
     attention,
     dtype_of,
     embed_lookup,
+    mla_attention,
+    mla_spec,
     mlp_apply,
+    mlp_spec,
     norm_apply,
     rope_freqs,
 )
@@ -74,8 +89,42 @@ from repro_torch.models.layers import (
 Tensor = torch.Tensor
 
 
+@dataclasses.dataclass(frozen=True)
+class Segment:
+    """A run of layers of one kind: "dense", "moe" or "super" (a
+    dense+MoE pair counted as one layer); ``scan`` False for the
+    unstacked ``dense_prefix``."""
+
+    name: str
+    kind: str
+    n_layers: int
+    scan: bool = True
+
+
+def plan_segments(cfg: ArchConfig) -> List[Segment]:
+    """The reference's segments (``repro/models/transformer.py:61-78``)."""
+    if cfg.moe is None:
+        return [Segment("blocks", "dense", cfg.n_layers)]
+    mo = cfg.moe
+    segs: List[Segment] = []
+    if mo.first_k_dense:
+        segs.append(Segment("dense_prefix", "dense", mo.first_k_dense,
+                            scan=False))
+    remaining = cfg.n_layers - mo.first_k_dense
+    if mo.interleave == 1:
+        segs.append(Segment("moe_blocks", "moe", remaining))
+    elif mo.interleave == 2:
+        if remaining % 2:
+            raise ValueError(f"{cfg.name}: {remaining} layers after the "
+                             f"dense prefix do not pair into superblocks")
+        segs.append(Segment("super_blocks", "super", remaining // 2))
+    else:
+        raise NotImplementedError(f"interleave={mo.interleave}")
+    return segs
+
+
 class TransformerLM:
-    """Dense decoder-only LM on one device."""
+    """Dense / MoE / VLM decoder-only LM on one device."""
 
     def __init__(self, cfg: ArchConfig, device: torch.device):
         self.cfg = cfg
@@ -86,6 +135,13 @@ class TransformerLM:
             rope_freqs(cfg.head_dim, cfg.rope_theta, self.device),
             self.compute_dtype, kahan_attention=cfg.kahan_attention,
             kahan_matmul=cfg.kahan_matmul)
+        self.segments = plan_segments(cfg)
+        #: MoE layers (a superblock holds one)
+        self.moe_layers = sum(seg.n_layers for seg in self.segments
+                              if seg.kind in ("moe", "super"))
+        #: MLA's rope runs over its decoupled rope dims only
+        self.mla_freqs = (None if cfg.mla is None else rope_freqs(
+            cfg.mla.qk_rope_dim, cfg.rope_theta, self.device))
         # one forward pass over a chunk is position-independent only
         # without MLA, MoE capacity routing or sliding-window ring caches
         # (``repro/models/transformer.py:91-99``); other configs keep the
@@ -94,12 +150,16 @@ class TransformerLM:
                                     and cfg.sliding_window <= 0)
 
     # ------------------------------------------------------------------ init
-    def block_spec(self) -> Dict[str, Any]:
+    def block_spec(self, kind: str) -> Dict[str, Any]:
         """(shape, init) of one block's parameters, without the layer
-        axis; init scales as the reference's ``attn_init`` / ``mlp_init``."""
+        axis; init scales as the reference's ``attn_init`` / ``mla_init``
+        / ``mlp_init`` / ``moe_init``. ``kind`` "super" pairs a dense and
+        a MoE block as ``{"a", "b"}``."""
         cfg = self.cfg
-        d, h, kv, dh, f = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
-                           cfg.head_dim, cfg.d_ff)
+        if kind == "super":
+            return {"a": self.block_spec("dense"),
+                    "b": self.block_spec("moe")}
+        d, h, kv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
         deep = (2 * cfg.n_layers) ** 0.5
 
         def proj(heads):
@@ -110,28 +170,35 @@ class TransformerLM:
                 out["b"] = ((heads, dh), "zeros")
             return out
 
+        if cfg.mla is not None:
+            attn = mla_spec(cfg)
+        else:
+            attn = {"q": proj(h), "k": proj(kv), "v": proj(kv),
+                    "o": {"w": ((h * dh, d), (h * dh) ** -0.5 / deep)}}
         return {
             "ln1": norm_shapes(d, cfg.norm),
-            "attn": {"q": proj(h), "k": proj(kv), "v": proj(kv),
-                     "o": {"w": ((h * dh, d), (h * dh) ** -0.5 / deep)}},
+            "attn": attn,
             "ln2": norm_shapes(d, cfg.norm),
-            "ffn": {"gate": {"w": ((d, f), d ** -0.5)},
-                    "up": {"w": ((d, f), d ** -0.5)},
-                    "down": {"w": ((f, d), f ** -0.5 / deep)}},
+            "ffn": (moe_lib.moe_spec(cfg) if kind == "moe"
+                    else mlp_spec(cfg, cfg.d_ff)),
         }
 
-    def param_spec(self) -> Dict[str, Any]:
-        """(shape, init) of every parameter, stacked blocks included."""
-        n = self.cfg.n_layers
-
-        def stack(node):
+    def segment_spec(self) -> Dict[str, Any]:
+        """(shape, init) of every segment's parameters, a stacked
+        segment's with its leading layer axis."""
+        def stack(node, n):
             if isinstance(node, dict):
-                return {k: stack(v) for k, v in node.items()}
-            shape, init = node
-            return ((n, *shape), init)
+                return {k: stack(v, n) for k, v in node.items()}
+            return ((n, *node[0]), *node[1:])
 
+        return {seg.name: (stack(self.block_spec(seg.kind), seg.n_layers)
+                           if seg.scan else self.block_spec(seg.kind))
+                for seg in self.segments}
+
+    def param_spec(self) -> Dict[str, Any]:
+        """(shape, init) of every parameter, the segments included."""
         spec = embed_and_head_spec(self.cfg)
-        spec["blocks"] = stack(self.block_spec())
+        spec.update(self.segment_spec())
         return spec
 
     def init(self, generator: torch.Generator) -> Params:
@@ -139,63 +206,136 @@ class TransformerLM:
         the model's device). Not the reference's numbers: weights that must
         match the JAX package come through ``repro_torch.bridge``."""
         params = init_embed_and_head(generator, self.cfg, self.device)
-        blocks = {"blocks": self.param_spec()["blocks"]}
-        params.update(init_params(blocks, self.cfg, generator, self.device))
+        params.update(init_params(self.segment_spec(), self.cfg, generator,
+                                  self.device))
         return params
 
-    # ----------------------------------------------------------------- cache
-    def init_cache(self, batch_size: int, max_len: int,
-                   ) -> Dict[str, Tuple[Tensor, Tensor]]:
-        cfg = self.cfg
-        shape = (cfg.n_layers, batch_size, max_len, cfg.n_kv_heads,
-                 cfg.head_dim)
-        mk = lambda: torch.zeros(shape, dtype=self.compute_dtype,  # noqa: E731
-                                 device=self.device)
-        return {"blocks": (mk(), mk())}
+    def layers(self, params: Params):
+        """(segment, one layer's parameter tree) for every layer in order,
+        a superblock as one layer; views of the stacked leaves."""
+        for seg in self.segments:
+            if seg.scan:
+                for p in _unbind(params[seg.name], seg.n_layers):
+                    yield seg, p
+            else:
+                yield seg, params[seg.name]
 
-    def cache_specs(self) -> Dict[str, Tuple[Tuple[Any, ...], ...]]:
+    # ----------------------------------------------------------------- cache
+    def _cache_shapes(self, batch_size: int, max_len: int):
+        """One layer's cache leaves as shapes (the reference's
+        ``_cache_one``): MLA's latent and rope key, else k and v."""
+        cfg = self.cfg
+        if cfg.mla is not None:
+            m = cfg.mla
+            return ((batch_size, max_len, m.kv_lora_rank),
+                    (batch_size, max_len, m.qk_rope_dim))
+        kv = (batch_size, max_len, cfg.n_kv_heads, cfg.head_dim)
+        return kv, kv
+
+    def init_cache(self, batch_size: int, max_len: int) -> Dict[str, Any]:
+        """Zero caches, one entry a segment (a superblock's a pair)."""
+        def one(n):
+            return tuple(torch.zeros((n, *shape), dtype=self.compute_dtype,
+                                     device=self.device)
+                         for shape in self._cache_shapes(batch_size,
+                                                         max_len))
+
+        out = {}
+        for seg in self.segments:
+            n = seg.n_layers if seg.scan else 1
+            out[seg.name] = (one(n), one(n)) if seg.kind == "super" else one(n)
+        return out
+
+    def cache_specs(self) -> Dict[str, Any]:
         """The axis names of every cache leaf, in ``init_cache``'s
         structure: the reference's logical specs (``_cache_one`` under the
-        stacked layer axis). ``"batch"`` marks the request axis,
-        ``"kv_seq"`` the position-addressed KV history the paged layout
-        may re-home into pages (``models.common.cache_page_axes``)."""
-        kv = ("layers", "batch", "kv_seq", "kv_heads", None)
-        return {"blocks": (kv, kv)}
+        layer axis). ``"batch"`` marks the request axis, ``"kv_seq"`` the
+        position-addressed history the paged layout may re-home into
+        pages (``models.common.cache_page_axes``): MLA's latent leaves
+        page as K/V do."""
+        if self.cfg.mla is not None:
+            leaf = ("layers", "batch", "kv_seq", None)
+        else:
+            leaf = ("layers", "batch", "kv_seq", "kv_heads", None)
+        out = {}
+        for seg in self.segments:
+            pair = (leaf, leaf)
+            out[seg.name] = (pair, pair) if seg.kind == "super" else pair
+        return out
+
+    def cache_layers(self, cache):
+        """Each layer's cache, in ``layers``' order: views of the layer
+        axis, a superblock's a pair."""
+        for seg in self.segments:
+            c = cache[seg.name]
+            n = seg.n_layers if seg.scan else 1
+            for i in range(n):
+                if seg.kind == "super":
+                    yield tuple(tuple(t[i] for t in half) for half in c)
+                else:
+                    yield tuple(t[i] for t in c)
 
     # ------------------------------------------------------------------ loss
-    def _train_block(self, p: Params, x: Tensor) -> Tensor:
-        """One block of the training forward (no cache)."""
+    def _block(self, kind: str, p: Params, x: Tensor, cache=None,
+               pos=None, chunk_valid=None):
+        """One layer (the reference's ``_apply_block``): (x, aux_loss,
+        dropped_frac), the last two 0.0 for a dense layer; a
+        "super" layer runs its dense and its MoE half in turn, each on
+        its half of ``cache``."""
+        if kind == "super":
+            ca, cb = cache if cache is not None else (None, None)
+            x, aux_a, drop_a = self._block("dense", p["a"], x, ca, pos,
+                                           chunk_valid)
+            x, aux_b, drop_b = self._block("moe", p["b"], x, cb, pos,
+                                           chunk_valid)
+            return x, aux_a + aux_b, drop_a + drop_b
         cfg = self.cfg
         a_in = norm_apply(p["ln1"], x, cfg.norm)
-        x = x + attention(p["attn"], self.st, a_in)
+        if cfg.mla is not None:
+            x = x + mla_attention(p["attn"], cfg, self.mla_freqs, a_in,
+                                  cache=cache, pos=pos)
+        else:
+            x = x + attention(p["attn"], self.st, a_in, cache=cache, pos=pos,
+                              chunk_valid=chunk_valid)
         m_in = norm_apply(p["ln2"], x, cfg.norm)
-        return x + mlp_apply(p["ffn"], m_in, self.compute_dtype,
-                             compensated=cfg.kahan_matmul)
+        if kind == "moe":
+            y, met = moe_lib.moe_apply(p["ffn"], cfg, m_in)
+            return x + y, met["aux_loss"], met["dropped_frac"]
+        return (x + mlp_apply(p["ffn"], m_in, self.compute_dtype,
+                              compensated=cfg.kahan_matmul), 0.0, 0.0)
 
     def loss(self, params: Params, batch: Dict[str, Tensor],
              ) -> Tuple[Tensor, Dict[str, Tensor]]:
         """Mean masked next-token cross-entropy of ``batch`` (``tokens``,
         ``labels`` [B,S] int, ``loss_mask`` [B,S]) and its metrics
-        (``repro/models/transformer.py:240-261``): ``ce_loss`` and
-        ``tokens``; ``aux_loss`` and ``dropped_frac`` are 0 for a dense
-        model. Each block runs under ``torch.utils.checkpoint`` and is
+        (``repro/models/transformer.py:240-261``): ``ce_loss``,
+        ``tokens``, and ``aux_loss`` / ``dropped_frac`` summed over the
+        layers (0 for a dense model). A MoE config adds
+        ``router_aux_coef`` times the mean aux loss of its MoE layers to
+        the loss. Each layer runs under ``torch.utils.checkpoint`` and is
         recomputed in the backward pass, as the reference's ``remat``."""
         cfg = self.cfg
         x = self._embed(params, batch["tokens"], batch.get("vision_embeds"))
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        drop = torch.zeros_like(aux)
         # one view per layer: the stacked leaves' gradient is ONE stack of
         # the layers' (unbind's backward), not a full-size sum per layer
-        layers = _unbind(params["blocks"], cfg.n_layers)
-        for p in layers:
-            x = checkpoint(self._train_block, p, x, use_reentrant=False,
-                           preserve_rng_state=False)
+        for seg, p in self.layers(params):
+            x, a, d = checkpoint(self._block, seg.kind, p, x,
+                                 use_reentrant=False,
+                                 preserve_rng_state=False)
+            if seg.kind != "dense":
+                aux, drop = aux + a, drop + d
         x = norm_apply(params["final_norm"], x, cfg.norm)
         sum_loss, cnt = chunked_ce_loss(x, lm_head_weight(params, cfg),
                                         batch["labels"], batch["loss_mask"],
                                         cfg)
-        loss = sum_loss / torch.clamp_min(cnt, 1.0)
-        zero = torch.zeros((), dtype=torch.float32, device=loss.device)
-        metrics = {"ce_loss": loss.detach(), "aux_loss": zero,
-                   "dropped_frac": zero, "tokens": cnt.detach()}
+        ce = sum_loss / torch.clamp_min(cnt, 1.0)
+        loss = ce
+        if self.moe_layers:
+            loss = loss + cfg.moe.router_aux_coef * aux / self.moe_layers
+        metrics = {"ce_loss": ce.detach(), "aux_loss": aux.detach(),
+                   "dropped_frac": drop.detach(), "tokens": cnt.detach()}
         return loss, metrics
 
     # --------------------------------------------------------------- forward
@@ -231,17 +371,9 @@ class TransformerLM:
         """The layer loop over [B,S,D] hidden states; ``pos`` /
         ``chunk_valid`` select the attention mode (``layers.attention``).
         Returns the final-normed hidden states."""
-        cfg = self.cfg
-        ck_all, cv_all = cache["blocks"]
-        for layer, p in enumerate(_unbind(params["blocks"], cfg.n_layers)):
-            a_in = norm_apply(p["ln1"], x, cfg.norm)
-            x = x + attention(p["attn"], self.st, a_in,
-                              cache=(ck_all[layer], cv_all[layer]), pos=pos,
-                              chunk_valid=chunk_valid)
-            m_in = norm_apply(p["ln2"], x, cfg.norm)
-            x = x + mlp_apply(p["ffn"], m_in, self.compute_dtype,
-                              compensated=cfg.kahan_matmul)
-        return norm_apply(params["final_norm"], x, cfg.norm)
+        for (seg, p), c in zip(self.layers(params), self.cache_layers(cache)):
+            x, _, _ = self._block(seg.kind, p, x, c, pos, chunk_valid)
+        return norm_apply(params["final_norm"], x, self.cfg.norm)
 
     def prefill(self, params: Params, tokens: Tensor, cache,
                 vision_embeds=None) -> Tuple[Tensor, Any]:

@@ -55,6 +55,7 @@ import torch
 
 from repro_torch.models.common import (
     cache_batch_axes,
+    cache_leaves,
     cache_page_axes,
     map_cache_leaves,
 )
@@ -256,7 +257,7 @@ class PagedKVCache:
                     "(keep the leaf dense via the kv_ring spec flag)")
 
         map_cache_leaves(pristine, row, self.page_axes)
-        axes = [s for leaves in self.page_axes.values() for s in leaves]
+        axes = cache_leaves(self.page_axes)
         if all(s < 0 for s in axes):
             raise ValueError(
                 "kv_layout='paged': the model's cache has no pageable leaf "
@@ -278,7 +279,7 @@ class PagedKVCache:
     def table_tensor(self, table) -> Tensor:
         """A page table (host ints) as the int64 index tensor the gather
         and scatters take, on the pool's device."""
-        leaf = next(iter(self.cache.values()))[0]
+        leaf = cache_leaves(self.cache)[0]
         return torch.as_tensor(table, dtype=torch.long).to(leaf.device)
 
     # ------------------------------------------------------------- row ops
@@ -339,12 +340,11 @@ class PagedKVCache:
     def page_bytes(self) -> int:
         """Bytes of ONE page across every pool leaf: the unit of the
         engine's live-memory accounting."""
-        total = 0
-        for leaves, axes, baxes in zip(self.cache.values(),
-                                       self.page_axes.values(),
-                                       self.batch_axes.values()):
-            for leaf, s, b in zip(leaves, axes, baxes):
-                if s >= 0:
-                    total += (leaf.numel() // leaf.shape[_page_axis(b, s)]
-                              * leaf.element_size())
-        return total
+        def one(leaf, s, b):
+            if s < 0:
+                return 0
+            return (leaf.numel() // leaf.shape[_page_axis(b, s)]
+                    * leaf.element_size())
+
+        return sum(cache_leaves(map_cache_leaves(
+            one, self.cache, self.page_axes, self.batch_axes)))

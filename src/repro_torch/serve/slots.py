@@ -11,28 +11,29 @@ to the pristine zero state on eviction.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict
 
 import torch
 
-Tensor = torch.Tensor
-Cache = Dict[str, Tuple[Tensor, ...]]
+from repro_torch.models.common import cache_leaves, map_cache_leaves
 
-#: the request axis of every cache leaf ([L, B, S, KV, dh])
+Tensor = torch.Tensor
+Cache = Dict[str, Any]
+
+#: the request axis of every cache leaf ([L, B, S, ...]: the port stacks a
+#: layer axis in front of every leaf, also for an unstacked segment)
 BATCH_AXIS = 1
 
 
 def gather_row(cache: Cache, slot: int) -> Cache:
     """Slot ``slot`` as a batch-1 row cache of views (writes go through)."""
-    return {k: tuple(t.narrow(BATCH_AXIS, slot, 1) for t in leaves)
-            for k, leaves in cache.items()}
+    return map_cache_leaves(lambda t: t.narrow(BATCH_AXIS, slot, 1), cache)
 
 
 def scatter_row(cache: Cache, row: Cache, slot: int) -> None:
     """Copy a batch-1 row cache into slot ``slot``."""
-    for k, leaves in cache.items():
-        for big, r in zip(leaves, row[k]):
-            big.narrow(BATCH_AXIS, slot, 1).copy_(r)
+    map_cache_leaves(lambda big, r: big.narrow(BATCH_AXIS, slot, 1).copy_(r),
+                     cache, row)
 
 
 class SlotKVCache:
@@ -47,6 +48,5 @@ class SlotKVCache:
     def reset(self, slot: int) -> None:
         """Return ``slot`` to the model's pristine (zero) init state — freed
         slots never leak a previous request's K/V."""
-        for leaves in gather_row(self.cache, slot).values():
-            for t in leaves:
-                t.zero_()
+        for t in cache_leaves(gather_row(self.cache, slot)):
+            t.zero_()

@@ -1,8 +1,11 @@
-"""The dense family beyond OLMo-1B and the VLM splice vs the JAX reference:
-the smoke configs of deepseek-7b (rmsnorm), stablelm-3b (parametric
-LayerNorm), qwen2.5-3b (extreme GQA, QKV bias, tied embeddings) and
-internvl2-2b (patch embeddings spliced over the first positions), with
-JAX-initialised weights carried over by ``repro_torch.bridge``. The
+"""The dense family beyond OLMo-1B, the VLM splice and the MoE family vs
+the JAX reference: the smoke configs of deepseek-7b (rmsnorm),
+stablelm-3b (parametric LayerNorm), qwen2.5-3b (extreme GQA, QKV bias,
+tied embeddings), internvl2-2b (patch embeddings spliced over the first
+positions), deepseek-v2-lite-16b (MLA, a dense first layer, 8 routed
+experts top-2 and a shared one) and llama4-maverick-400b-a17b (dense+MoE
+superblocks, top-1), with JAX-initialised weights carried over by
+``repro_torch.bridge``. The
 q/k/v biases and the norms' scale and bias are drawn at random on both
 sides (the reference initialises them to zeros and ones, which would let
 a bias dropped on one side pass unseen).
@@ -14,9 +17,17 @@ Parity tiers:
   and PyTorch sum the matmuls in different orders); the engine's
   telemetry within rtol 1e-5; ``loss`` within rtol 1e-6 and each
   gradient leaf within 2e-6 of its largest magnitude (internvl with its
-  ``vision_embeds`` and the loss masked over them). Greedy tokens of a
-  staggered trace must be EXACT, under the port's dense and paged
-  layouts alike.
+  ``vision_embeds`` and the loss masked over them); a MoE config's
+  ``dropped_frac`` EXACT (the same entries dropped) and ``aux_loss``
+  within rtol 1e-6. A MoE config's gradients are compared with both
+  sides' parameters and compute in float64 (jax's x64 mode; each side
+  still casts to float32 where its code says so: norms, softmax, the
+  router, the loss): in float32 the two sides' roundings alone part
+  the MoE configs' gradients by 1.4e-6 to 2.9e-6 of a leaf's largest
+  magnitude over six weight and batch seeds (2.07e-6 at this test's),
+  against 0.8e-6 to 1.8e-6 in float64 compute
+  (``scripts/moe_grad_parity.py``). Greedy tokens of a staggered trace
+  must be EXACT, under the port's dense and paged layouts alike.
 * tier 1 (bitwise against the reference): the synthetic batches with
   patch embeddings and their loss mask.
 """
@@ -57,7 +68,8 @@ from repro_torch.train.trainer import batch_to_device
 
 CPU = torch.device("cpu")
 ROOT = Path(__file__).resolve().parents[1]
-ARCHS = ["deepseek-7b", "stablelm-3b", "qwen2.5-3b", "internvl2-2b"]
+ARCHS = ["deepseek-7b", "stablelm-3b", "qwen2.5-3b", "internvl2-2b",
+         "deepseek-v2-lite-16b", "llama4-maverick-400b-a17b"]
 #: (prompt_len, max_new_tokens) and arrival step of the staggered trace
 SPEC = [(12, 4), (17, 3), (9, 5)]
 ARRIVALS = [0, 1, 3]
@@ -103,7 +115,7 @@ def _vision(cfg, rng):
                                 cfg.d_model)).astype(np.float32)
 
 
-def test_registry_serves_the_dense_family_and_the_vlm():
+def test_registry_serves_the_dense_family_the_vlm_and_moe():
     assert list_archs() == ("olmo-1b", *ARCHS)
     for name in ARCHS:
         full, smoke = get_config(name), get_smoke(name)
@@ -111,6 +123,8 @@ def test_registry_serves_the_dense_family_and_the_vlm():
         build_model(smoke, CPU)          # the zoo accepts each
     assert get_config("qwen2.5-3b").qkv_bias
     assert get_config("internvl2-2b").vision.n_patches == 256
+    assert get_config("deepseek-v2-lite-16b").mla.kv_lora_rank == 512
+    assert get_config("llama4-maverick-400b-a17b").moe.interleave == 2
     with pytest.raises(KeyError, match="unknown arch"):
         get_config("whisper-large-v3")
 
@@ -123,9 +137,12 @@ def test_params_match_the_reference_tree(arch):
     assert len(got) == len(want)
     for w, g in zip(want, got):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
-    block = arch["params"]["blocks"]
-    assert ("b" in block["attn"]["q"]) == arch["cfg"].qkv_bias
-    assert ("bias" in block["ln1"]) == (arch["cfg"].norm == "layernorm")
+        assert str(g.dtype)[6:] == np.asarray(w).dtype.name
+    for seg in arch["model"].segments:
+        block = arch["params"][seg.name]
+        block = block["a"] if seg.kind == "super" else block
+        assert ("b" in block["attn"].get("q", {})) == arch["cfg"].qkv_bias
+        assert ("bias" in block["ln1"]) == (arch["cfg"].norm == "layernorm")
 
 
 def test_logits_within_tolerance(arch):
@@ -250,10 +267,39 @@ def test_loss_and_grads_within_tolerance(arch):
     grads = torch.autograd.grad(loss, T.leaves(params))
     np.testing.assert_allclose(float(loss.detach()), float(jloss), rtol=1e-6)
     assert float(met["tokens"]) == float(jmet["tokens"]) == 2 * (16 - vp)
+    assert float(met["dropped_frac"]) == float(jmet["dropped_frac"])
+    np.testing.assert_allclose(float(met["aux_loss"]),
+                               float(jmet["aux_loss"]), rtol=1e-6)
+    assert (float(met["dropped_frac"]) > 0) == (cfg.moe is not None)
+    if cfg.moe is not None:
+        jgrads, grads = _grads_in_float64(a, batch)
     for want, got in zip(jax.tree.leaves(jgrads), grads):
         want = np.asarray(want)
         np.testing.assert_allclose(got.numpy(), want, rtol=0,
                                    atol=2e-6 * np.abs(want).max())
+
+
+def _grads_in_float64(arch, batch):
+    """Both sides' gradients of ``batch``'s loss with float64 parameters
+    and compute (the reference initialised and perturbed as the fixture
+    does, under x64)."""
+    kw = dict(param_dtype="float64", compute_dtype="float64")
+    with jax.enable_x64(True):
+        jmodel = jax_build(arch["jcfg"].replace(**kw))
+        jparams, _ = jmodel.init(jax.random.key(0))
+        np_params = _perturb(jax.tree.map(np.asarray, jparams),
+                             np.random.default_rng(7))
+        _, jgrads = jax.value_and_grad(jmodel.loss, has_aux=True)(
+            jax.tree.map(jnp.asarray, np_params),
+            jax.tree.map(jnp.asarray, batch))
+        jgrads = jax.tree.map(np.asarray, jgrads)
+    cfg = arch["cfg"].replace(**kw)
+    params = T.tree_map(lambda p: p.requires_grad_(),
+                        params_from_jax(np_params, cfg, CPU))
+    loss, _ = build_model(cfg, CPU).loss(params, batch_to_device(batch, CPU))
+    assert loss.dtype == torch.float32 and jgrads["embed"]["table"].dtype == (
+        np.float64)
+    return jgrads, torch.autograd.grad(loss, T.leaves(params))
 
 
 def test_bridge_refuses_a_tree_without_the_biases():

@@ -1017,3 +1017,44 @@ def test_cuda_sharded_asum_two_ranks(cuda_device, tmp_path):
         assert r["launches"]["sum_accumulators"] == 1
         assert torch.equal(r["sum"], want.cpu())
 
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["deepseek-v2-lite-16b",
+                                  "llama4-maverick-400b-a17b"])
+def test_cuda_moe_is_repeatable_and_matches_cpu(cuda_device, name):
+    """The MoE layer on the card (smoke config, float32, drops at
+    capacity 1.25): two calls give the same bits (no atomics in the
+    dispatch or the combine), the routing equals the CPU's and the output
+    is within 1e-5 of it; the combine alone, on the same contributions,
+    within 1e-6 of the CPU's fold."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.core import tree as T
+    from repro_torch.models import build_model, moe
+
+    cfg = get_smoke(name)
+    model = build_model(cfg, torch.device("cpu"))
+    seg = next(s for s in model.segments if s.kind in ("moe", "super"))
+    params = model.init(torch.Generator().manual_seed(0))
+    p = params[seg.name]
+    p = T.tree_map(lambda t: t[0], p["b"] if seg.kind == "super" else p)
+    p = p["ffn"]
+    x = torch.randn((2, 16, cfg.d_model),
+                    generator=torch.Generator().manual_seed(1))
+    pc = T.tree_map(lambda t: t.to(cuda_device), p)
+    y1, m1 = moe.moe_apply(pc, cfg, x.to(cuda_device))
+    y2, m2 = moe.moe_apply(pc, cfg, x.to(cuda_device))
+    assert torch.equal(y1, y2) and torch.equal(m1["aux_loss"],
+                                               m2["aux_loss"])
+    y, m = moe.moe_apply(p, cfg, x)
+    assert float(m1["dropped_frac"]) == float(m["dropped_frac"]) > 0
+    torch.testing.assert_close(y1.cpu(), y, rtol=1e-5, atol=1e-5)
+    r = moe.route(p, cfg, x, 16)
+    rc = moe.route(pc, cfg, x.to(cuda_device), 16)
+    assert torch.equal(rc.expert_idx.cpu(), r.expert_idx)
+    assert torch.equal(rc.keep.cpu(), r.keep)
+    contrib = torch.randn((*r.token.shape, cfg.d_model),
+                          generator=torch.Generator().manual_seed(2))
+    got = moe.combine(contrib.to(cuda_device), rc.order, cfg.moe.top_k)
+    want = moe.combine(contrib, r.order, cfg.moe.top_k)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-6, atol=1e-6)

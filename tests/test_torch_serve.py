@@ -205,13 +205,14 @@ def test_slot_cache_rows_and_eviction(served):
 def test_engine_rejects_later_slices(served):
     """What the port does not carry yet raises, naming the later slice:
     the vmapped slot loop, and the families and dense features of ROADMAP
-    A5 (the paged layout, the prefix cache, QKV bias and the VLM splice
-    are served since)."""
+    A5 (the paged layout, the prefix cache, QKV bias, the VLM splice and
+    the MoE family are served since)."""
     with pytest.raises(ValueError, match="later slice"):
         EngineConfig(slot_loop="vmap")
     EngineConfig(kv_layout="paged", prefix_cache=True)
     cfg = served["cfg"]
-    for kw in (dict(family="moe"), dict(family="hybrid"),
+    build_model(cfg.replace(family="moe"), CPU)
+    for kw in (dict(family="hybrid"),
                dict(sliding_window=8), dict(mlp="gelu"),
                dict(encoder=EncoderConfig(n_layers=1)),
                dict(xlstm=XLSTMConfig()), dict(ssm=SSMConfig())):
