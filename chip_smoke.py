@@ -229,6 +229,33 @@ there is no CUDA device or no ``src/repro_torch`` beside it.
    config: params, init peak and peak GiB, tokens/s, decode-tick ms,
    prefill ms per position, KV bytes a token and held; one JSON line
    ``{"moe": {...}}``.
+11. The hybrid family. hymba-1.5b at its published width and depth (32
+   layers, d 1600, 25 heads over 5, attention and a selective SSM in
+   every layer, 1024-token sliding-window rings on 29 layers, global
+   layers {0, 15, 31}; bf16, random weights from seed 0, no cut) serves
+   phase 9's trace with flash prefill asked for, which the engine
+   resolves to the scan body (the SSM recurrence and the rings have no
+   parallel chunk), the launch counts reset just before: B4 once a tick
+   and finished prefill, nothing else; one tick's telemetry bitwise
+   equal to the plain version; request 0 alone == interleaved, bitwise;
+   the same trace on the paged layout (``page_size`` 16: the global
+   layers page, the rings and the SSM state stay dense slot rows) equal
+   to dense bitwise, the pool free at the end; one request with
+   ``kahan_matmul`` (B5 7 times a layer and position: q, k, v, o, gate,
+   up, down; the SSM's contractions stay plain, as in the reference).
+   Then the rings wrap at the published window: ``HymbaLM.prefill`` of a
+   1088-token prompt under ``kahan_attention`` (B7 on the 3 global
+   layers, [25, S, 64] over 5 KV heads) and 8 greedy ``decode_step``s
+   against the wrapped rings, each step's logits against a prefill of
+   the prompt and the tokens so far: in float32 compute on the bf16
+   weights within relative L2 2e-3 (the reference test's tolerance) and
+   the same argmax, in bf16 logged; B7 3 times a prefill. One profiled
+   decode position. Phase 2 first holds B4 on [4, 32001] (every scheme),
+   B7/B8 at dh 64 with GQA groups of 5 and B5 at M 1 and 64 on hymba's
+   projections (K 1600 and 5504, N 320, all padded by the engine),
+   bitwise. Logged: params, init peak and peak GiB, tokens/s, decode-tick
+   ms, prefill ms per position, the KV held (rings, global layers dense
+   against live pages, SSM state); one JSON line ``{"hybrid": {...}}``.
 
 The last three lines are the card (``nvidia-smi`` name and power
 limit), one JSON object ``{"kernels": [...]}`` and
@@ -242,7 +269,9 @@ counts, "serve-<arch>" for each of phase 9's configs,
 "serve-qwen2.5-3b-matmul" for its ``kahan_matmul`` request and
 "serve-deepseek-7b-paged" for the paged trace; phase 10's
 "serve-deepseek-v2-lite" (and "-paged", "-matmul") and
-"serve-llama4-maverick-2l"): its ``launches`` are
+"serve-llama4-maverick-2l"; phase 11's "serve-hymba-1.5b" (and "-paged",
+"-matmul", and "-prefill" for the ring check's float32 prefills, B7):
+its ``launches`` are
 that path's count and its times were taken at that path's shape (B5 on "serve-matmul": the decode q/k/v/o
 shape at M 1, the one launched most; on "train-b" the up projection's
 forward at 1024 tokens; B3 on "train-b" the largest leaf; the column
@@ -253,7 +282,9 @@ paths B4 at the config's [4, vocab] telemetry padded by the engine, B8
 at its [H, 64, dh] chunk against its cache with its GQA groups, B5 on
 "serve-qwen2.5-3b-matmul" phase 3's [1, 2048] x [2048, 2048] decode q/o
 shape; on "serve-deepseek-v2-lite-matmul" the shared experts' decode
-gate/up [1, 2048] x [2048, 2816], the projection launched most).
+gate/up [1, 2048] x [2048, 2816], the projection launched most; on
+"serve-hymba-1.5b-matmul" the decode q/o [1, 1600] x [1600, 1600], on
+"serve-hymba-1.5b-prefill" B7 at [25, 1088, 64] over 5 KV heads).
 """
 
 from __future__ import annotations
@@ -360,6 +391,20 @@ MOE_PREFILL_REL = 2e-3
 #: decode position, the projection launched most (twice a MoE layer)
 MOE_B5_ROW = "dsv2-decode-shared-gate-up"
 
+#: phase 11: the hybrid family. hymba-1.5b at its published width and
+#: depth serves phase 9's trace; its rings wrap in a whole-prompt prefill
+#: of HYMBA_RING_PROMPT tokens (past the 1024-token window) and
+#: HYMBA_RING_STEPS greedy decode steps after it, each step's logits held
+#: to a prefill of the prompt and the tokens so far within relative L2
+#: HYMBA_RING_REL (the reference test's tolerance) in float32 compute on
+#: the bf16 weights; bf16 is logged
+HYMBA = "hymba-1.5b"
+HYMBA_RING_PROMPT = 1088
+HYMBA_RING_STEPS = 8
+HYMBA_RING_REL = 2e-3
+#: the B5 row of hymba's kahan_matmul path: the decode q/o projection
+HYMBA_B5_ROW = "hymba-decode-qo"
+
 #: the schemes with a device function, and the reduction wrappers
 SCHEMES = ("naive", "kahan", "pairwise", "dot2")
 REDUCTIONS = ("dot_accumulators", "dot_accumulators_batched",
@@ -450,6 +495,7 @@ def main() -> int:
     kernels.matmul_parity()
     kernels.slice_parity([get_config(name) for name in SLICE_ARCHS])
     kernels.moe_parity([get_config(MOE_ARCH), get_config(LLAMA4)])
+    kernels.hybrid_parity(get_config(HYMBA))
     kernels.matmul_times(cfg, PREFILL_LEN)
     kernels.column_parity()
     kernels.subnormal_parity()
@@ -463,6 +509,7 @@ def main() -> int:
     log(json.dumps({"dist": dist_path(torch, kernels, dist_spec(cfg))}))
     log(json.dumps({"slice": slice_path(torch, kernels)}))
     log(json.dumps({"moe": moe_path(torch, kernels)}))
+    log(json.dumps({"hybrid": hybrid_path(torch, kernels)}))
     log(f"# chip_smoke took {time.perf_counter() - started:.1f} s")
     log(card)
     log(json.dumps({"kernels": kernels.rows()}))
@@ -772,9 +819,9 @@ class Kernels:
                                fa.flash_chunk_accumulators.plan[0]))
                     cases += 1
         sync(torch, self.dev)
-        check((48, 64, 16) in plans, f"no parity case ran B7 in 64-row "
-              f"tiles beside B8 in 16-row tiles: (BH, B7 rows, B8 rows) "
-              f"{sorted(plans)}")
+        check(any(r7 == 64 and r8 == 16 for _, r7, r8 in plans),
+              f"no parity case ran B7 in 64-row tiles beside B8 in 16-row "
+              f"tiles: (BH, B7 rows, B8 rows) {sorted(plans)}")
         log(f"# phase 2: {cases} flash parity cases (dh={dh}, Sq={sq}, "
             f"Skv={skv}, block_k={bk}, (BH, G) {list(heads)}) bitwise equal "
             f"to the plain version; B8 rows at aligned offsets == B7 rows, "
@@ -1120,6 +1167,57 @@ class Kernels:
         self.time_matmul(MOE_B5_ROW, 1, d, shared, reps=50)
         self.time_matmul("dsv2-decode-shared-down", 1, shared, d, reps=50,
                          pads=True)
+
+    # -- the hybrid family's shapes (phases 2 and 11) -------------------------
+    def hybrid_parity(self, cfg):
+        """Phase 2 at the shapes phase 11 gives the kernels: B1-B4 on the
+        telemetry's [4, vocab] (hymba's 32001, padded by the engine to
+        32768), every scheme; B7 and B8 at dh 64 with GQA groups of 5 (BH
+        5, 25 and 60), every scheme, causal or not, Sq and Skv off their
+        blocks; B5 (kahan, bf16 operands as the engine pads them) at M 1
+        and 64 on every projection: q/o [1600, 1600], k/v [1600, 320],
+        gate/up [1600, 5504] and down [5504, 1600]."""
+        cases = self.vocab_parity(cfg)
+        log(f"# phase 2: {cases} reduction parity cases at the telemetry's "
+            f"[4, {cfg.vocab_size}] of {cfg.name} bitwise equal to the plain "
+            f"versions")
+        g = cfg.n_heads // cfg.n_kv_heads
+        self.flash_parity(cfg.head_dim, heads=((g, g), (cfg.n_heads, g),
+                                               (12 * g, g)))
+        shapes = hybrid_projections(cfg)
+        for m in (1, 64):
+            for k, n in shapes:
+                self.padded_matmul_case("kahan", m, k, n)
+        sync(self.torch, self.dev)
+        log(f"# phase 2: {2 * len(shapes)} matmul parity cases at "
+            f"{cfg.name}'s projections [K, N] {shapes} (padded by the "
+            f"engine), M 1 and 64, bitwise equal to the plain version")
+
+    def hybrid_times(self, cfg, label, prefill_len):
+        """Phase 11's rows at hymba's serving shapes: B4 at the
+        telemetry's [4, vocab] (padded by the engine); B5 at the decode (M
+        1) projections, each padded by the engine (K 1600 to 2048, N to a
+        multiple of 256); B7 at the whole-prompt prefill of the ring check,
+        ``prefill_len`` tokens, its H heads over the KV heads."""
+        torch = self.torch
+        eng = self.engine.CompensatedReduction(scheme="kahan", unroll=8)
+        x = eng._prep2d(self.data((4, cfg.vocab_size), torch.float32))
+        self.time_one("sum_accumulators_batched", "kahan", (x,),
+                      lambda s: self.ks.sum_plain(x, scheme=s),
+                      lambda: torch.sum(x, dim=1), reps=200, label=label,
+                      valid=(4, cfg.vocab_size))
+        del x
+        d, kv, f = cfg.d_model, cfg.n_kv_heads * cfg.head_dim, cfg.d_ff
+        for name, k, n in ((HYMBA_B5_ROW, d, d), ("hymba-decode-kv", d, kv),
+                           ("hymba-decode-gate-up", d, f),
+                           ("hymba-decode-down", f, d)):
+            self.time_matmul(name, 1, k, n, reps=50, pads=True)
+        h, kvh, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        self.time_flash("flash_accumulators", f"{label}-prefill",
+                        self.normal((h, prefill_len, dh)),
+                        self.normal((kvh, prefill_len, dh)),
+                        self.normal((kvh, prefill_len, dh)), 0, reps=10,
+                        groups=h // kvh)
 
     # -- matmul (B5, B6) -------------------------------------------------------
     def matmul_parity(self):
@@ -3077,7 +3175,9 @@ def moe_projections(cfg):
 def b5_per_position(model) -> int:
     """B5 launches a position under ``kahan_matmul``: attention's four
     projections a layer and three for its dense MLP or shared experts
-    (the router and the routed experts stay plain)."""
+    (the router, the routed experts and a hybrid's SSM stay plain)."""
+    if model.cfg.moe is None:
+        return PROJECTIONS * model.cfg.n_layers
     per = 0
     for seg in model.segments:
         for kind in (("dense", "moe") if seg.kind == "super"
@@ -3405,6 +3505,234 @@ def moe_llama4(torch, kernels, cfg):
         f"{st['tokens_per_s']:.2f} tokens/s, decode tick "
         f"{st['decode_tick_ms_mean']:.2f} ms mean")
     del model, params
+    return stats
+
+
+# -- 11. the hybrid family ----------------------------------------------------
+
+def hybrid_projections(cfg):
+    """The distinct [K, N] of the B5 projections hymba runs under
+    ``kahan_matmul``: q/o, k/v, gate/up and down (its SSM's contractions
+    stay plain)."""
+    d, kv = cfg.d_model, cfg.n_kv_heads * cfg.head_dim
+    return list(dict.fromkeys([(d, cfg.n_heads * cfg.head_dim), (d, kv),
+                               (cfg.n_heads * cfg.head_dim, d),
+                               (d, cfg.d_ff), (cfg.d_ff, d)]))
+
+
+def hybrid_state_bytes(engine):
+    """Bytes the engine's cache holds, by kind: the ring buffers
+    (``"kv_ring"`` leaves), the global layers' K/V held densely
+    (``"kv_seq"`` leaves kept as slot rows; 0 under the paged layout,
+    whose pool ``page_stats`` counts) and the SSM state, over all
+    slots."""
+    from repro_torch.models.common import cache_leaves
+
+    out = {"ring": 0, "global_dense": 0, "ssm": 0}
+    specs = engine.model.cache_specs()
+    for seg, c in engine.slots.cache.items():
+        for kind, leaves, names in (("kv", c["kv"], specs[seg]["kv"]),
+                                    ("ssm", c["ssm"], specs[seg]["ssm"])):
+            for leaf, axes in zip(cache_leaves(leaves), names):
+                n = leaf.numel() * leaf.element_size()
+                if kind == "ssm":
+                    out["ssm"] += n
+                elif "kv_ring" in axes:
+                    out["ring"] += n
+                elif engine.kv_layout == "dense":
+                    out["global_dense"] += n
+    return out
+
+
+def ring_wrap(torch, kernels, cfg, params, prompt, rel_max):
+    """``HymbaLM.prefill`` of ``prompt`` (past the window: its rings
+    wrap) under ``kahan_attention`` (B7 on the global layers), then
+    ``HYMBA_RING_STEPS`` greedy ``decode_step``s against the wrapped
+    rings, each step's logits against a whole-prompt prefill of the
+    prompt and the tokens so far: relative L2 and argmax, gated below
+    ``rel_max`` unless it is None. The launch counts are reset just
+    before and read just after. Returns the step errors, the counts and
+    the prefill's ms."""
+    from repro_torch.kernels.engine import launch_counts, reset_launch_counts
+    from repro_torch.models import build_model
+
+    dev = kernels.dev
+    model = build_model(cfg.replace(kahan_attention=True), dev)
+    n = len(prompt)
+    seq = [int(t) for t in prompt]
+
+    def prefill(tokens):
+        toks = torch.as_tensor(tokens, dtype=torch.long, device=dev)[None]
+        return model.prefill(params, toks, model.init_cache(
+            1, n + HYMBA_RING_STEPS))
+
+    reset_launch_counts()
+    sync(torch, dev)
+    t0 = time.perf_counter()
+    logits, cache = prefill(seq)
+    sync(torch, dev)
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    steps = []
+    for i in range(HYMBA_RING_STEPS):
+        tok = int(torch.argmax(logits[0, :cfg.vocab_size]))
+        seq.append(tok)
+        logits = model.decode_step(params, cache, torch.tensor([tok],
+                                                               device=dev),
+                                   n + i)
+        full, _ = prefill(seq)
+        x, y = (t[0, :cfg.vocab_size].double() for t in (full, logits))
+        rel = float((y - x).norm() / x.norm())
+        same = int(x.argmax()) == int(y.argmax())
+        finite = bool(torch.isfinite(y).all() and torch.isfinite(x).all())
+        steps.append({"pos": n + i, "rel_l2": rel, "same_argmax": same,
+                      "finite": finite})
+    sync(torch, dev)
+    counts = launch_counts()
+    worst = max(st["rel_l2"] for st in steps)
+    rels = ", ".join(f"{st['rel_l2']:.3e}" for st in steps)
+    log(f"# phase 11 {cfg.name}: ring wrap, {cfg.compute_dtype} compute: "
+        f"prefill of {n} tokens (window {cfg.sliding_window}) in "
+        f"{prefill_ms:.1f} ms, then {HYMBA_RING_STEPS} decode steps against "
+        f"the wrapped rings vs a prefill of prompt + tokens: relative L2 "
+        f"[{rels}], worst {worst:.3e}"
+        f"{' (logged)' if rel_max is None else f' (gate {rel_max})'}, "
+        f"argmax equal {[st['same_argmax'] for st in steps]}; B7 launched "
+        f"{counts['flash_accumulators']} times")
+    check(all(st["finite"] for st in steps),
+          f"{cfg.name}: ring-wrap logits not finite ({cfg.compute_dtype})")
+    if rel_max is not None:
+        check(worst < rel_max and all(st["same_argmax"] for st in steps),
+              f"{cfg.name}: ring wrap ({cfg.compute_dtype}): decode vs "
+              f"prefill relative L2 {worst:.3e}, argmax "
+              f"{[st['same_argmax'] for st in steps]}")
+    n_global = sum(1 for seg in model.segments if seg.window <= 0)
+    want = n_global * (1 + HYMBA_RING_STEPS)
+    check(counts["flash_accumulators"] == want,
+          f"{cfg.name}: B7 launched {counts['flash_accumulators']} times in "
+          f"the ring check, want {want} ({n_global} global layers x "
+          f"{1 + HYMBA_RING_STEPS} prefills)")
+    for name in ("flash_chunk_accumulators", "matmul_accumulators",
+                 "matmul_accumulators_batched", "dot_accumulators",
+                 "dot_accumulators_batched", "sum_accumulators",
+                 "sum_accumulators_batched"):
+        check(counts[name] == 0, f"{cfg.name}: {name} launched "
+              f"{counts[name]} times in the ring check")
+    return {"compute_dtype": cfg.compute_dtype, "prompt": n,
+            "prefill_ms": prefill_ms, "steps": steps, "worst_rel_l2": worst,
+            "gate": rel_max, "launches": counts}
+
+
+def hybrid_path(torch, kernels):
+    """Phase 11: hymba-1.5b at its published width and depth, no cut
+    (bf16, random weights from seed 0, ``max_slots=4``,
+    ``prefill_chunk=64``, telemetry, kahan, U = 8), each path with the
+    launch counts reset just before it: phase 9's trace with flash asked
+    for and the scan body resolved (B4 once a tick and finished prefill,
+    nothing else), its telemetry against the plain version, request 0
+    alone == interleaved, the paged layout (``page_size`` 16: the global
+    layers page, the rings and SSM state stay dense) == dense, one
+    request with ``kahan_matmul`` (B5 7 times a layer and position); the
+    ring wrap of ``ring_wrap`` in bf16 (logged) and float32 compute
+    (gated); one profiled decode position. Returns the phase's stats."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    t_phase = time.perf_counter()
+    dev = kernels.dev
+    cfg = get_config(HYMBA)
+    path = f"serve-{cfg.name}"
+    max_len = slice_max_len(cfg)
+    kernels.hybrid_times(cfg, path, HYMBA_RING_PROMPT)
+    model, params, params_gib, init_gib = moe_model(torch, dev, cfg)
+    dense_state, paged_state = {}, {}
+    ec, requests, served, captured, st = serve_run(
+        torch, kernels, cfg, model, params, SLICE_TRACE, "flash",
+        max_len=max_len, phase="11", body="scan",
+        prepare=lambda e: dense_state.update(hybrid_state_bytes(e)))
+    check_scan_launches(model, st, path)
+    kernels.launches[path] = st["launches"]
+    kernels.path_labels[("sum_accumulators_batched", path)] = path
+    check_tick_telemetry(torch, kernels, cfg, ec, captured, "11")
+    check_solo(cfg, ec, model, params, requests[0], served, cfg.name, "11")
+    _, _, paged, _, pst = serve_run(
+        torch, kernels, cfg, model, params, SLICE_TRACE, "flash",
+        max_len=max_len, phase="11", body="scan", kv_layout="paged",
+        page_size=PAGE_SIZE,
+        prepare=lambda e: paged_state.update(hybrid_state_bytes(e)))
+    check(pst["kv_layout"] == "paged", f"{cfg.name}: the paged layout "
+          f"resolved to {pst['kv_layout']}")
+    check_scan_launches(model, pst, f"{path}-paged")
+    kernels.launches[f"{path}-paged"] = pst["launches"]
+    kernels.path_labels[("sum_accumulators_batched", f"{path}-paged")] = path
+    for rid in served:
+        check(paged[rid].tokens == served[rid].tokens
+              and paged[rid].telemetry == served[rid].telemetry,
+              f"{cfg.name}: request {rid} differs, paged vs dense")
+    ps = pst["page_stats"]
+    check(ps["free_pages"] == ps["num_pages"],
+          f"{cfg.name}: {ps['free_pages']} pages free of {ps['num_pages']} "
+          f"after the paged run")
+    token_bytes = pst["page_bytes"] // PAGE_SIZE
+    live_bytes = pst["peak_pages"] * pst["page_bytes"]
+    n_ring = sum(seg.n_layers for seg in model.segments if seg.window > 0)
+    log(f"# phase 11 {cfg.name} paged (page_size {PAGE_SIZE}): tokens and "
+        f"telemetry == dense, bitwise; pool free at the end. KV held over "
+        f"{ec.max_slots} slots: rings {dense_state['ring'] / 2**20:.1f} MiB "
+        f"({n_ring} layers x {cfg.sliding_window} rows, dense in both "
+        f"layouts), "
+        f"global layers dense {dense_state['global_dense'] / 2**20:.2f} MiB "
+        f"({ec.max_slots} x {max_len} rows, {token_bytes} B a token) vs "
+        f"paged live {live_bytes / 2**20:.2f} MiB at peak "
+        f"({pst['peak_pages']} pages), SSM state "
+        f"{dense_state['ssm'] / 2**20:.2f} MiB")
+
+    mcfg = cfg.replace(kahan_matmul=True)
+    mmodel = build_model(mcfg, dev)
+    mpath = f"{path}-matmul"
+    _, _, _, _, mst = serve_run(torch, kernels, mcfg, mmodel, params,
+                                SLICE_TRACE.split(",")[0], "flash",
+                                max_len=max_len, phase="11", body="scan")
+    check_scan_launches(mmodel, mst, mpath)
+    kernels.launches[mpath] = mst["launches"]
+    kernels.path_labels[("sum_accumulators_batched", mpath)] = path
+    kernels.path_labels[("matmul_accumulators", mpath)] = HYMBA_B5_ROW
+    del mmodel
+
+    prompt = torch.randint(0, cfg.vocab_size, (HYMBA_RING_PROMPT,),
+                           generator=torch.Generator().manual_seed(0))
+    ring = [ring_wrap(torch, kernels, c, params, prompt, gate)
+            for c, gate in ((cfg, None),
+                            (cfg.replace(compute_dtype="float32"),
+                             HYMBA_RING_REL))]
+    ppath = f"{path}-prefill"
+    kernels.launches[ppath] = ring[-1]["launches"]
+    kernels.path_labels[("flash_accumulators", ppath)] = ppath
+    profile = profile_decode_step(torch, model, params, dev, max_len)
+    stats = {"params_gib": params_gib, "init_peak_gib": init_gib,
+             "serve": st, "paged": pst, "matmul": mst,
+             "kv_bytes_per_token_global": token_bytes,
+             "state_bytes_dense": dense_state,
+             "state_bytes_paged": paged_state,
+             "paged_live_kv_bytes": live_bytes, "ring_wrap": ring,
+             "decode_profile": profile,
+             "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30}
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    stats["seconds"] = time.perf_counter() - t_phase
+    log(f"# phase 11 {cfg.name}: {cfg.n_layers}L d={cfg.d_model} "
+        f"H={cfg.n_heads}/{cfg.n_kv_heads} window {cfg.sliding_window}, "
+        f"global {list(cfg.global_attn_layers)}, SSM d_state "
+        f"{cfg.ssm.d_state} (no cut): params {params_gib:.2f} GiB, init peak "
+        f"{init_gib:.2f} GiB, peak {stats['peak_gib']:.2f} GiB, "
+        f"{st['tokens_per_s']:.2f} tokens/s (paged "
+        f"{pst['tokens_per_s']:.2f}, kahan_matmul {mst['tokens_per_s']:.2f}),"
+        f" decode tick {st['decode_tick_ms_mean']:.2f} ms mean, prefill "
+        f"{st['prefill_ms_per_position']:.3f} ms per position (scan); one "
+        f"decode position {profile['host_ms']:.2f} ms host, "
+        f"{profile['device_busy_ms'] or 0:.3f} ms device busy, "
+        f"{profile['device_kernels']} kernels; phase 11 took "
+        f"{stats['seconds']:.1f} s")
     return stats
 
 

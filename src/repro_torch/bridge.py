@@ -5,12 +5,14 @@ parameter tree as numpy arrays (``jax.tree.map(np.asarray, params)``)
 and returns the port's: the same nested dict — the port keeps the JAX
 layouts at its public functions — of torch tensors on ``device``. Every
 leaf is checked against the port's own parameter spec (names, shapes and
-dtypes: each segment of ``TransformerLM.segments``, a stacked one
-(``blocks``, ``moe_blocks``, ``super_blocks``) with its leading layer
-axis and the unstacked ``dense_prefix`` without; the ``[V_pad, d]``
+dtypes: each segment of the model's ``segments``, a stacked one
+(``blocks``, ``moe_blocks``, ``super_blocks``, a hybrid's ``swa_<i>_<j>``)
+with its leading layer axis and an unstacked one (``dense_prefix``, a
+hybrid's ``global_<i>``) without; the ``[V_pad, d]``
 embedding table that doubles as the tied head, q/k/v ``w`` of ``[d, H,
 dh]`` and o ``w`` of ``[H*dh, d]``, MLA's q/dkv/kr/uk/uv/o, the experts'
-``[E, d, f]`` / ``[E, f, d]`` and the float32 router), so a tree that
+``[E, d, f]`` / ``[E, f, d]`` and the float32 router, the SSM's leaves
+with its float32 ``A_log`` and ``D``), so a tree that
 does not fit fails here rather than inside a matmul.
 """
 

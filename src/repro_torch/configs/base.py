@@ -9,8 +9,9 @@ the public API; the launcher's ``--arch <id>`` flag resolves through them.
 The port carries the dense family (``olmo-1b``, ``deepseek-7b``,
 ``stablelm-3b``, ``qwen2.5-3b``), the VLM ``internvl2-2b`` and the MoE
 family (``deepseek-v2-lite-16b`` with MLA, ``llama4-maverick-400b-a17b``
-with dense+MoE superblocks); the other architectures of the reference
-follow with their model families.
+with dense+MoE superblocks) and the hybrid ``hymba-1.5b`` (parallel
+attention and selective-SSM heads, sliding-window ring caches); the other
+architectures of the reference follow with their model families.
 """
 
 from __future__ import annotations
@@ -251,7 +252,7 @@ def shape_applicable(cfg: ArchConfig, shape: ShapeSpec) -> Tuple[bool, str]:
 
 ARCH_IDS = ("olmo-1b", "deepseek-7b", "stablelm-3b", "qwen2.5-3b",
             "internvl2-2b", "deepseek-v2-lite-16b",
-            "llama4-maverick-400b-a17b")
+            "llama4-maverick-400b-a17b", "hymba-1.5b")
 
 _MODULES = {
     "olmo-1b": "olmo_1b",
@@ -261,6 +262,7 @@ _MODULES = {
     "internvl2-2b": "internvl2_2b",
     "deepseek-v2-lite-16b": "deepseek_v2_lite",
     "llama4-maverick-400b-a17b": "llama4_maverick",
+    "hymba-1.5b": "hymba_1_5b",
 }
 
 

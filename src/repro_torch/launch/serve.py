@@ -26,7 +26,10 @@ keeps finished prompts' pages in a radix tree so that shared prompt
 prefixes admit by reference. Both give the dense layout's tokens and
 telemetry bit for bit; the per-step line then carries the pool's
 counters. A VLM config (``--arch internvl2-2b``) gets each request's
-patch embeddings drawn from ``--seed`` as its ``vision_embeds``.
+patch embeddings drawn from ``--seed`` as its ``vision_embeds``. The
+hybrid ``--arch hymba-1.5b`` runs the scan body whatever
+``--prefill-mode`` asks, pages only its global layers (its rings and
+SSM state stay dense) and refuses ``--prefix-cache``.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-3b \
         --smoke --device cpu --trace 0:32:4,1:40:4 --kv-layout paged \
@@ -180,11 +183,16 @@ def main(argv=None):
                           num_pages=args.num_pages or None,
                           prefix_cache=args.prefix_cache),
         seed=args.seed, device=device)
+    if args.kv_layout == "paged" and engine.kv_layout == "dense":
+        print(f"# kv-layout 'paged' requested but family {cfg.family!r} "
+              f"has no pageable KV leaf (ring or recurrent state only): "
+              f"running the dense layout")
     if engine.prefill_body != args.prefill_mode:
         print(f"# prefill-mode {args.prefill_mode!r} requested but family "
               f"{cfg.family!r} runs the {engine.prefill_body!r} body "
-              f"(per-position fallback — unsupported config)")
-    paged = args.kv_layout == "paged"
+              f"(per-position fallback: recurrent state or unsupported "
+              f"config)")
+    paged = engine.kv_layout == "paged"
     for t, events in engine.stream(requests, arrivals):
         chunks = " ".join(f"r{rid}+{w}/{body}"
                           for rid, w, body in engine.last_chunks)

@@ -1,4 +1,4 @@
-"""Model zoo of the port: the dense decoder family, the VLM splice and
-the MoE family."""
+"""Model zoo of the port: the dense decoder family, the VLM splice, the
+MoE family and the hybrid family."""
 
 from repro_torch.models.model_zoo import build_model  # noqa: F401

@@ -255,12 +255,16 @@ def init_params(spec: Dict[str, Any], cfg: ArchConfig,
                 generator: torch.Generator, device) -> Params:
     """Materialize a nested dict of (shape, init[, dtype]) leaves: a float
     scale draws ``scale * N(0, 1)`` in float32 from ``generator`` (in the
-    dict's order), scaled in place, "ones"/"zeros" are constants; then
-    cast to the leaf's dtype (``leaf_dtype``). The largest leaf costs its
-    float32 draw and its cast at once, no second float32 copy."""
+    dict's order), scaled in place, "ones"/"zeros" are constants, a
+    callable ``init(shape)`` returns the float32 values (the SSM's fixed
+    ``A_log`` and ``dt_proj`` bias); then cast to the leaf's dtype
+    (``leaf_dtype``). The largest leaf costs its float32 draw and its
+    cast at once, no second float32 copy."""
     def one(leaf):
         shape, init = leaf[:2]
         dt = leaf_dtype(leaf, cfg)
+        if callable(init):
+            return init(shape).to(device=device, dtype=dt)
         if init == "ones":
             return torch.ones(shape, dtype=dt, device=device)
         if init == "zeros":
@@ -275,6 +279,23 @@ def init_params(spec: Dict[str, Any], cfg: ArchConfig,
         return one(node)
 
     return walk(spec)
+
+
+def stack_spec(node, n: int):
+    """A spec tree of (shape, init[, dtype]) leaves with a leading layer
+    axis of ``n`` on every shape: a stacked segment's parameters."""
+    if isinstance(node, dict):
+        return {k: stack_spec(v, n) for k, v in node.items()}
+    return ((n, *node[0]), *node[1:])
+
+
+def unbind_layers(tree, n: int):
+    """The ``n`` layers of a stacked parameter tree, as a list of trees
+    of views."""
+    if isinstance(tree, dict):
+        per_key = {k: unbind_layers(v, n) for k, v in tree.items()}
+        return [{k: v[i] for k, v in per_key.items()} for i in range(n)]
+    return list(torch.unbind(tree, 0))
 
 
 def init_embed_and_head(generator: torch.Generator, cfg: ArchConfig,

@@ -20,7 +20,9 @@ prefill (one prompt chunk at an offset, attending the whole cache). With
 kernels (``_flash_core``: B7, ``_flash_chunk_core``: B8); otherwise, and
 always in decode, the materialized ``_attn_core`` (plain matmuls and an
 explicit softmax, q-chunked at ``ATTN_Q_CHUNK``). Without a cache
-(training) attention is that core, unchunked. With ``kahan_matmul``
+(training) attention is that core, unchunked. A positive ``window``
+(sliding-window attention) masks keys ``window`` or more positions back,
+and a cache of exactly ``window`` rows is a ring buffer. With ``kahan_matmul``
 every dense projection (q, k, v, o, gate, up, down) runs the engine's
 compensated matmul (B5, its backward too); the tied head stays a plain
 matmul, as the reference computes it outside any kernel.
@@ -153,6 +155,24 @@ def rope_apply(x: Tensor, pos: Tensor, freqs: Tensor) -> Tensor:
 # Attention (GQA, decode against a KV cache)
 # ---------------------------------------------------------------------------
 
+def attn_spec(cfg) -> Params:
+    """(shape, init) of one GQA attention's parameters, scaled as the
+    reference's ``attn_init`` (``repro/models/layers.py:161-179``): q/k/v
+    ``w`` ``[d, heads, dh]`` (with a zero ``b`` of ``[heads, dh]`` under
+    ``qkv_bias``), o ``w`` ``[H * dh, d]``."""
+    d, h, kv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    deep = (2 * cfg.n_layers) ** 0.5
+
+    def proj(heads):
+        out = {"w": ((d, heads, dh), d ** -0.5)}
+        if cfg.qkv_bias:
+            out["b"] = ((heads, dh), "zeros")
+        return out
+
+    return {"q": proj(h), "k": proj(kv), "v": proj(kv),
+            "o": {"w": ((h * dh, d), (h * dh) ** -0.5 / deep)}}
+
+
 @dataclasses.dataclass
 class AttnStatic:
     """Static attention wiring derived from the ArchConfig; ``freqs`` are
@@ -214,29 +234,37 @@ def _flash_chunk_core(qg: Tensor, k: Tensor, v: Tensor, q_off: int,
     return _unflatten_heads(out, qg, compute_dtype)
 
 
-def _causal_bias(q_pos: Tensor, k_pos: Tensor) -> Tensor:
+def _causal_bias(q_pos: Tensor, k_pos: Tensor, window: int = 0) -> Tensor:
     """[Sq, Sk] float32: 0 where the key's position is at or before the
-    query's, -inf elsewhere."""
-    ok = (q_pos[:, None] - k_pos[None, :]) >= 0
+    query's (and, with ``window > 0``, fewer than ``window`` positions
+    before it), -inf elsewhere (``repro/models/layers.py:182-195``)."""
+    diff = q_pos[:, None] - k_pos[None, :]
+    ok = diff >= 0
+    if window > 0:
+        ok = ok & (diff < window)
     return torch.where(ok, 0.0, float("-inf")).to(torch.float32)
 
 
 def _attn_core(q: Tensor, k: Tensor, v: Tensor, q_pos: Tensor,
-               k_pos: Tensor, compute_dtype, chunked: bool = True) -> Tensor:
+               k_pos: Tensor, compute_dtype, chunked: bool = True,
+               window: int = 0) -> Tensor:
     """Causal grouped-query attention, q-chunked at ``ATTN_Q_CHUNK``
     unless ``chunked`` is False (training, as in the reference)
     (``repro/models/layers.py:252-303``). q: [B,Sq,KV,G,dh]; k/v:
-    [B,Skv,KV,dh]. Scores in float32, masked by absolute positions,
-    softmax with the reference's guards (``m >= -1e30``, ``l >= 1e-30``).
-    Returns [B,Sq,KV,G,dh] in the compute dtype."""
+    [B,Skv,KV,dh]. Scores in float32, masked by absolute positions (and
+    by ``window`` when it is positive), softmax with the reference's
+    guards (``m >= -1e30``, ``l >= 1e-30``: a ring slot not filled yet
+    masks a whole row's keys only before the first position). Returns
+    [B,Sq,KV,G,dh] in the compute dtype."""
     if chunked and q.shape[1] > ATTN_Q_CHUNK:
         return torch.cat([
             _attn_core(q[:, i:i + ATTN_Q_CHUNK], k, v,
-                       q_pos[i:i + ATTN_Q_CHUNK], k_pos, compute_dtype)
+                       q_pos[i:i + ATTN_Q_CHUNK], k_pos, compute_dtype,
+                       window=window)
             for i in range(0, q.shape[1], ATTN_Q_CHUNK)], dim=1)
     scale = q.shape[-1] ** -0.5
     scores = torch.einsum("bqkgd,bskd->bkgqs", q.float(), k.float()) * scale
-    scores = scores + _causal_bias(q_pos, k_pos)
+    scores = scores + _causal_bias(q_pos, k_pos, window)
     m = torch.amax(scores, dim=-1, keepdim=True).clamp_min(-1e30)
     p = torch.exp(scores - m)
     l = torch.sum(p, dim=-1, keepdim=True)
@@ -247,7 +275,8 @@ def _attn_core(q: Tensor, k: Tensor, v: Tensor, q_pos: Tensor,
 def attention(p: Params, st: AttnStatic, x: Tensor, *,
               cache: Optional[Tuple[Tensor, Tensor]] = None,
               pos: Optional[int] = None,
-              chunk_valid: Optional[int] = None) -> Tensor:
+              chunk_valid: Optional[int] = None,
+              window: int = 0) -> Tensor:
     """Attention in one of four modes. With no ``cache`` (training) x
     [B,S,D] at positions 0..S-1 attends itself causally through the
     materialized ``_attn_core``, unchunked, never through flash (the
@@ -268,10 +297,22 @@ def attention(p: Params, st: AttnStatic, x: Tensor, *,
                     back in the compute dtype, causal on absolute
                     positions (which also excludes rows not yet written).
 
+    ``window > 0`` (sliding-window attention) also masks keys ``window``
+    or more positions before the query, in every mode. A cache of
+    exactly ``window`` rows is a RING (``repro/models/layers.py:357-432``):
+    position ``t`` lives in row ``t % window``. Decode writes that row and
+    rebuilds each row's position as ``pos - ((pos - j) mod window)``
+    (rows not filled yet get the far position ``_FAR``, outside the
+    causal range); prefill keeps the prompt's last ``window`` positions
+    and zeroes the rows no position fills; chunk prefill refuses a ring.
+    A windowed cache of any other length is position-addressed as
+    without a window.
+
     Prefill and chunk prefill run the flash kernels when
-    ``st.kahan_attention``; decode always runs ``_attn_core``, as in the
-    reference. The q, k, v and o projections run the compensated matmul
-    when ``st.kahan_matmul``. Returns [B,S,D].
+    ``st.kahan_attention``, prefill only without a window (the kernel has
+    no window mask, nor has the reference's); decode always runs
+    ``_attn_core``, as in the reference. The q, k, v and o projections
+    run the compensated matmul when ``st.kahan_matmul``. Returns [B,S,D].
     """
     cd = st.compute_dtype
     cmp = st.kahan_matmul
@@ -289,18 +330,35 @@ def attention(p: Params, st: AttnStatic, x: Tensor, *,
         if pos is not None:
             raise ValueError("attention: training mode (no cache) runs "
                              "positions 0..S-1; pos must be None")
-        out = _attn_core(qg, k, v, q_pos, q_pos, cd, chunked=False)
+        out = _attn_core(qg, k, v, q_pos, q_pos, cd, chunked=False,
+                         window=window)
         return dense(p["o"], out.reshape(b, s, -1), cd, compensated=cmp)
     ck, cv = cache
     s_kv = ck.shape[1]
+    ring = window > 0 and s_kv == window
     if pos is None:                                         # prefill
-        ck[:, :s] = k.to(ck.dtype)
-        cv[:, :s] = v.to(cv.dtype)
-        if st.kahan_attention:
+        if ring:
+            # row j holds the last position p < s with p = j (mod W);
+            # rows no position reaches stay exact zeros
+            j = torch.arange(s_kv, device=x.device)
+            src = (s - 1) - torch.remainder(s - 1 - j, s_kv)
+            filled = (src >= 0)[None, :, None, None]
+            src = src.clamp_min(0)
+            ck.copy_(torch.where(filled, k[:, src].to(ck.dtype), 0))
+            cv.copy_(torch.where(filled, v[:, src].to(cv.dtype), 0))
+        else:
+            ck[:, :s] = k.to(ck.dtype)
+            cv[:, :s] = v.to(cv.dtype)
+        if st.kahan_attention and window <= 0:
             out = _flash_core(qg, k, v, cd)
         else:
-            out = _attn_core(qg, k, v, q_pos, q_pos, cd)
+            out = _attn_core(qg, k, v, q_pos, q_pos, cd, window=window)
     elif chunk_valid is not None and s > 1:                 # chunk prefill
+        if ring:
+            raise ValueError(
+                "chunk-parallel prefill does not support ring-buffer "
+                "caches; window layers' families must fall back to the "
+                "per-position scan body")
         ck[:, pos:pos + chunk_valid] = k[:, :chunk_valid].to(ck.dtype)
         cv[:, pos:pos + chunk_valid] = v[:, :chunk_valid].to(cv.dtype)
         if st.kahan_attention:
@@ -309,11 +367,17 @@ def attention(p: Params, st: AttnStatic, x: Tensor, *,
             out = _attn_core(qg, ck.to(cd), cv.to(cd), q_pos,
                              torch.arange(s_kv, device=x.device), cd)
     else:                                                   # decode
-        ck[:, pos] = k[:, 0].to(ck.dtype)
-        cv[:, pos] = v[:, 0].to(cv.dtype)
-        k_pos = torch.arange(s_kv, device=x.device)
-        k_pos = torch.where(k_pos <= pos, k_pos, _FAR)
-        out = _attn_core(qg, ck.to(cd), cv.to(cd), q_pos, k_pos, cd)
+        row = pos % s_kv if ring else pos
+        ck[:, row] = k[:, 0].to(ck.dtype)
+        cv[:, row] = v[:, 0].to(cv.dtype)
+        j = torch.arange(s_kv, device=x.device)
+        if ring:
+            k_pos = pos - torch.remainder(pos - j, s_kv)
+            k_pos = torch.where(k_pos >= 0, k_pos, _FAR)
+        else:
+            k_pos = torch.where(j <= pos, j, _FAR)
+        out = _attn_core(qg, ck.to(cd), cv.to(cd), q_pos, k_pos, cd,
+                         window=window)
     return dense(p["o"], out.reshape(b, s, -1), cd, compensated=cmp)
 
 

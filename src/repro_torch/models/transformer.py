@@ -46,7 +46,10 @@ config the router's load-balance loss averaged over the MoE layers. The
 serving steps write the cache in place. ``prefill_chunk`` is the
 per-position scan (the oracle); ``prefill_chunk_parallel`` runs the whole
 chunk in ONE forward pass, its attention through the chunk flash kernel
-when ``kahan_attention``.
+when ``kahan_attention``. A ``sliding_window`` masks attention by the
+window in every mode while the caches stay full-length (no ring: the
+hybrid family's rings are ``models/hybrid.py``'s), and such a config
+keeps the per-position scan.
 """
 
 from __future__ import annotations
@@ -72,9 +75,12 @@ from repro_torch.models.common import (
     norm_shapes,
     parallel_chunk_logits,
     prefill_chunk_scan,
+    stack_spec,
+    unbind_layers,
 )
 from repro_torch.models.layers import (
     AttnStatic,
+    attn_spec,
     attention,
     dtype_of,
     embed_lookup,
@@ -159,22 +165,8 @@ class TransformerLM:
         if kind == "super":
             return {"a": self.block_spec("dense"),
                     "b": self.block_spec("moe")}
-        d, h, kv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-        deep = (2 * cfg.n_layers) ** 0.5
-
-        def proj(heads):
-            # the reference's ``dense_init(bias=cfg.qkv_bias)``: a zero
-            # ``b`` of the fused output shape beside ``w``
-            out = {"w": ((d, heads, dh), d ** -0.5)}
-            if cfg.qkv_bias:
-                out["b"] = ((heads, dh), "zeros")
-            return out
-
-        if cfg.mla is not None:
-            attn = mla_spec(cfg)
-        else:
-            attn = {"q": proj(h), "k": proj(kv), "v": proj(kv),
-                    "o": {"w": ((h * dh, d), (h * dh) ** -0.5 / deep)}}
+        d = cfg.d_model
+        attn = mla_spec(cfg) if cfg.mla is not None else attn_spec(cfg)
         return {
             "ln1": norm_shapes(d, cfg.norm),
             "attn": attn,
@@ -186,12 +178,8 @@ class TransformerLM:
     def segment_spec(self) -> Dict[str, Any]:
         """(shape, init) of every segment's parameters, a stacked
         segment's with its leading layer axis."""
-        def stack(node, n):
-            if isinstance(node, dict):
-                return {k: stack(v, n) for k, v in node.items()}
-            return ((n, *node[0]), *node[1:])
-
-        return {seg.name: (stack(self.block_spec(seg.kind), seg.n_layers)
+        return {seg.name: (stack_spec(self.block_spec(seg.kind),
+                                      seg.n_layers)
                            if seg.scan else self.block_spec(seg.kind))
                 for seg in self.segments}
 
@@ -215,7 +203,7 @@ class TransformerLM:
         a superblock as one layer; views of the stacked leaves."""
         for seg in self.segments:
             if seg.scan:
-                for p in _unbind(params[seg.name], seg.n_layers):
+                for p in unbind_layers(params[seg.name], seg.n_layers):
                     yield seg, p
             else:
                 yield seg, params[seg.name]
@@ -296,7 +284,8 @@ class TransformerLM:
                                   cache=cache, pos=pos)
         else:
             x = x + attention(p["attn"], self.st, a_in, cache=cache, pos=pos,
-                              chunk_valid=chunk_valid)
+                              chunk_valid=chunk_valid,
+                              window=cfg.sliding_window)
         m_in = norm_apply(p["ln2"], x, cfg.norm)
         if kind == "moe":
             y, met = moe_lib.moe_apply(p["ffn"], cfg, m_in)
@@ -450,13 +439,4 @@ class TransformerLM:
         x = self._run_blocks(params, cache, x, pos=offset,
                              chunk_valid=nvalid)
         return parallel_chunk_logits(x, params, self.cfg, nvalid), cache
-
-
-def _unbind(tree, n: int):
-    """The ``n`` layers of a stacked parameter tree, as a list of trees
-    of views."""
-    if isinstance(tree, dict):
-        per_key = {k: _unbind(v, n) for k, v in tree.items()}
-        return [{k: v[i] for k, v in per_key.items()} for i in range(n)]
-    return list(torch.unbind(tree, 0))
 

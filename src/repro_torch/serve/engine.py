@@ -63,9 +63,17 @@ admission (the ALLOCATING state; exhaustion blocks admission, strict
 FIFO), and ``EngineConfig.prefix_cache`` adds a refcounted radix tree
 (``serve.prefix``) over finished prompts, so a request whose prompt
 prefix is resident admits by reference and resumes prefill at the shared
-page boundary. A model with no pageable cache leaf is refused, not
-served dense. ``engine.page_stats()`` reports the pool's accounting. The page bookkeeping is
-the reference's, decision for decision.
+page boundary. Pageable leaves page; the others (a hybrid's ring buffers
+and SSM state) keep their dense slot rows beside them, and a model with
+no pageable leaf at all is served on the dense layout, as the reference
+resolves it (``engine.kv_layout`` reports the layout served).
+``engine.page_stats()`` reports the pool's accounting. The page
+bookkeeping is the reference's, decision for decision. The prefix cache
+is refused (``ValueError``) for a model with state that does not page:
+a prefix hit resumes past positions whose ring rows and SSM state the
+request never computed, and the reference, which shares such prefixes,
+then serves other tokens than without the cache
+(``scripts/hymba_prefix_reference.py``).
 
 The reference's vmapped slot loop is ported in a later slice; asking for
 it raises. Its compile-count guard has no analogue here: eager PyTorch
@@ -137,7 +145,8 @@ class EngineConfig:
     prefix_cache   keep finished requests' full prompt pages in a
                    refcounted radix tree (``serve.prefix``) so that a
                    request with a resident prompt prefix admits by
-                   reference. Paged layout only
+                   reference. Paged layout only; the engine refuses it
+                   for a model with state that does not page
     """
 
     max_slots: int = 4
@@ -304,7 +313,16 @@ class InferenceEngine:
         self.pages: Optional[PageAllocator] = None
         self.prefix: Optional[RadixPrefixTree] = None
         self.num_pages = 0
-        if ec.kv_layout == "paged":
+        # the layout served: "paged" needs at least one pageable leaf; a
+        # model without one runs dense (``kv_layout`` reports it)
+        axes = (PagedKVCache.page_axes_of(model, ec.max_len)
+                if ec.kv_layout == "paged" else [])
+        if ec.prefix_cache and any(s < 0 for s in axes):
+            raise ValueError(
+                f"prefix_cache=True: {cfg.name}'s cache holds state that "
+                f"does not page (ring buffers, recurrent state); a shared "
+                f"prefix would resume without it")
+        if any(s >= 0 for s in axes):
             self.num_pages = (
                 ec.num_pages if ec.num_pages is not None
                 else ec.max_slots * ec.max_len // ec.page_size)
@@ -678,9 +696,10 @@ class InferenceEngine:
 
     @property
     def kv_layout(self) -> str:
-        """The cache layout served: ``EngineConfig.kv_layout`` (a model
-        the paged layout cannot page is refused at construction)."""
-        return self.ec.kv_layout
+        """The RESOLVED cache layout: "paged" only when
+        ``EngineConfig.kv_layout == "paged"`` and the model's cache has a
+        pageable leaf; otherwise "dense"."""
+        return "paged" if self.pages is not None else "dense"
 
     def page_stats(self) -> Dict[str, int]:
         """Pool and prefix accounting (paged layout only), with the

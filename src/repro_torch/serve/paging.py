@@ -276,6 +276,16 @@ class PagedKVCache:
         self.cache = map_cache_leaves(build, full, row, self.batch_axes,
                                  self.page_axes)
 
+    @staticmethod
+    def page_axes_of(model, max_len: int) -> List[int]:
+        """Every cache leaf's pageable axis (-1: stays dense), in
+        ``cache_leaves`` order, from a batch-1 row of the model's cache:
+        the engine serves a model with none pageable (all-window hybrids,
+        recurrent families) on the dense layout, as the reference's
+        ``PagedKVCache.pageable`` decides."""
+        return cache_leaves(cache_page_axes(model.init_cache(1, max_len),
+                                            model.cache_specs(), max_len))
+
     def table_tensor(self, table) -> Tensor:
         """A page table (host ints) as the int64 index tensor the gather
         and scatters take, on the pool's device."""

@@ -116,7 +116,8 @@ def _vision(cfg, rng):
 
 
 def test_registry_serves_the_dense_family_the_vlm_and_moe():
-    assert list_archs() == ("olmo-1b", *ARCHS)
+    # hymba-1.5b (the hybrid family) is held in tests/test_torch_hybrid.py
+    assert list_archs() == ("olmo-1b", *ARCHS, "hymba-1.5b")
     for name in ARCHS:
         full, smoke = get_config(name), get_smoke(name)
         assert full.name == smoke.name == name

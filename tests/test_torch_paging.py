@@ -22,10 +22,11 @@ Parity tiers:
   greedy tokens equal its tokens exactly.
 
 The reference's compile-count guard has no analogue here: eager PyTorch
-compiles no program per chunk width or page placement. Its hybrid and
-recurrent paging tests (ring buffers kept dense beside paged global
-layers, recurrent families falling back to dense) wait for those
-families (ROADMAP A5).
+compiles no program per chunk width or page placement. Its hybrid
+paging tests (ring buffers and SSM state kept dense beside paged global
+layers, an all-window hybrid falling back to dense) are replayed in
+``tests/test_torch_hybrid.py``; its xLSTM case waits for that family
+(ROADMAP A5).
 """
 
 import jax

@@ -204,21 +204,27 @@ def test_slot_cache_rows_and_eviction(served):
 
 def test_engine_rejects_later_slices(served):
     """What the port does not carry yet raises, naming the later slice:
-    the vmapped slot loop, and the families and dense features of ROADMAP
-    A5 (the paged layout, the prefix cache, QKV bias, the VLM splice and
-    the MoE family are served since)."""
+    the vmapped slot loop, and the families and features of ROADMAP A5
+    (the paged layout, the prefix cache, QKV bias, the VLM splice, the
+    MoE family, and the hybrid family with its SSM and sliding windows
+    are served since)."""
     with pytest.raises(ValueError, match="later slice"):
         EngineConfig(slot_loop="vmap")
     EngineConfig(kv_layout="paged", prefix_cache=True)
     cfg = served["cfg"]
     build_model(cfg.replace(family="moe"), CPU)
-    for kw in (dict(family="hybrid"),
-               dict(sliding_window=8), dict(mlp="gelu"),
-               dict(encoder=EncoderConfig(n_layers=1)),
-               dict(xlstm=XLSTMConfig()), dict(ssm=SSMConfig())):
+    for kw in (dict(mlp="gelu"), dict(encoder=EncoderConfig(n_layers=1)),
+               dict(xlstm=XLSTMConfig())):
         with pytest.raises(NotImplementedError, match="later slice"):
             build_model(cfg.replace(**kw), CPU)
     build_model(cfg.replace(qkv_bias=True), CPU)
+    # the reference dispatches on the sub-configs, not on the family name
+    assert type(build_model(cfg.replace(family="hybrid"), CPU)).__name__ == (
+        "TransformerLM")
+    assert type(build_model(cfg.replace(sliding_window=8), CPU)).__name__ == (
+        "TransformerLM")
+    assert type(build_model(cfg.replace(ssm=SSMConfig()), CPU)).__name__ == (
+        "HymbaLM")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             InferenceEngine(cfg, _engine_config())
