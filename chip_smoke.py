@@ -207,15 +207,18 @@ there is no CUDA device or no ``src/repro_torch`` beside it.
    chunk), the launch counts reset just before: B4 once a tick and
    finished prefill, nothing else; one tick's telemetry bitwise equal to
    the plain version; request 0 alone == interleaved, bitwise; the same
-   trace on the paged layout (``page_size`` 16) equal to dense bitwise,
-   the pool free at the end, ``dropped_frac`` 0 at every single-position
-   MoE call; the whole-prompt ``TransformerLM.prefill`` of the 160-token
+   trace at the first 4 of the 27 layers (a cut for the script's time
+   limit) on the dense and on the paged layout (``page_size`` 16), paged
+   equal to dense bitwise, the pool free at the end, ``dropped_frac`` 0
+   at every single-position MoE call; the whole-prompt
+   ``TransformerLM.prefill`` of the 160-token
    prompt at capacity factor 16 against the scan chunk's last logits,
    in float32 compute on the bf16 weights within relative L2 2e-3 and
    the same argmax, and in bf16 logged with the tokens routed to other
-   experts; one request with ``kahan_matmul`` (B5 189 times a position:
-   MLA's q, dkv, kr and o, the dense layer's MLP and the shared experts)
-   and a 16-token scan chunk's logits against the cuBLAS path, in
+   experts; one request with ``kahan_matmul`` at the same 4 layers (B5
+   28 times a position: MLA's q, dkv, kr and o, the dense layer's MLP
+   and the shared experts) and, at all 27, a 16-token scan chunk's
+   logits against the cuBLAS path, in
    float32 compute within relative L2 5e-2 and the same argmax, in bf16
    logged with the tokens routed to other experts; one profiled decode
    position (host ms,
@@ -256,6 +259,50 @@ there is no CUDA device or no ``src/repro_torch`` beside it.
    bitwise. Logged: params, init peak and peak GiB, tokens/s, decode-tick
    ms, prefill ms per position, the KV held (rings, global layers dense
    against live pages, SSM state); one JSON line ``{"hybrid": {...}}``.
+12. The xLSTM family. xlstm-1.3b at its published width and depth (48
+   blocks: 6 groups of 7 mLSTM and one sLSTM, d 2048, 4 heads, chunk
+   512; bf16, random weights from seed 0, no cut) serves phase 9's trace
+   with flash prefill and the paged layout asked for, which the engine
+   resolves to the scan body and the dense layout (recurrent state
+   only), the launch counts reset just before: B4 once a tick and
+   finished prefill, nothing else (its projections are einsums, as in
+   the reference); one tick's telemetry bitwise equal to the plain
+   version; request 0 alone == interleaved, bitwise; three 16-token
+   requests on 2 slots, the third on a slot reset on eviction to the
+   model's initial row (every stabiliser ``m`` at -1e30), equal to its
+   solo run bitwise. Then ``XLSTMLM.prefill`` of a 640-token prompt (two
+   512-token chunks, the second padded) and 8 greedy ``decode_step``s,
+   each step's logits against a prefill of the prompt and the tokens so
+   far: with the bf16 weights, the compute and every float32 cast in
+   float64 within relative L2 2e-3 and the same argmax; 2 steps in bf16
+   and float32 compute logged (rounding alone parts the two bodies
+   there, amplified block by block: ``scripts/xlstm_conditioning.py``);
+   no kernel launched. One profiled decode position. Logged: params, init peak and
+   peak GiB, the state bytes, tokens/s, decode-tick ms, prefill ms per
+   position; one JSON line ``{"xlstm": {...}}``.
+13. The encoder-decoder family. whisper-large-v3 at its published width
+   and depth (32 encoder and 32 decoder layers, d 1280, 20 heads of 64,
+   GELU MLP of 5120, 1500 frames; bf16, random weights from seed 0, no
+   cut), each request with frames [1500, 1280] drawn from the seed,
+   serves phase 9's trace under flash prefill with ``kahan_attention``,
+   the launch counts reset just before: B8 32 times a chunk, B4 once a
+   tick and finished prefill, nothing else; one tick's telemetry bitwise
+   equal to the plain version; request 0 alone == interleaved, bitwise;
+   the paged layout (``page_size`` 16: only the self-attention K/V page,
+   the cross K/V stay dense slot rows) equal to dense bitwise, the pool
+   free at the end; one request with ``kahan_matmul`` (B5 6 times an
+   encoder layer a request at M 1500, 8 times a decoder layer a chunk
+   and position); the encoder alone under ``kahan_matmul`` (B5 192
+   times); ``EncDecLM.prefill`` of the 160-token prompt (B7 32 times)
+   against the chunked path over the same ``prefill_begin``, relative L2
+   below 5e-2 and the same argmax. One profiled decode position. Phase 2
+   first holds B4 on [4, 50304] and [4, 51866] (every scheme), B7/B8 at
+   dh 64 and G 1 (BH 20 and 80) and B5 at M 1, 64 and 1500 on whisper's
+   projections (K 1280 and 5120, N 1280 and 5120, padded by the engine),
+   bitwise. Logged: params, init peak and peak GiB, tokens/s,
+   decode-tick ms, prefill ms per position, the self-attention K/V dense
+   against live pages and the cross K/V apart; one JSON line
+   ``{"encdec": {...}}``.
 
 The last three lines are the card (``nvidia-smi`` name and power
 limit), one JSON object ``{"kernels": [...]}`` and
@@ -270,7 +317,10 @@ counts, "serve-<arch>" for each of phase 9's configs,
 "serve-deepseek-7b-paged" for the paged trace; phase 10's
 "serve-deepseek-v2-lite" (and "-paged", "-matmul") and
 "serve-llama4-maverick-2l"; phase 11's "serve-hymba-1.5b" (and "-paged",
-"-matmul", and "-prefill" for the ring check's float32 prefills, B7):
+"-matmul", and "-prefill" for the ring check's float32 prefills, B7);
+phase 12's "serve-xlstm-1.3b"; phase 13's "serve-whisper-large-v3" (and
+"-paged", "-matmul"), "whisper-encode-matmul" (the encoder alone, B5)
+and "whisper-prefill" (``EncDecLM.prefill``, B7):
 its ``launches`` are
 that path's count and its times were taken at that path's shape (B5 on "serve-matmul": the decode q/k/v/o
 shape at M 1, the one launched most; on "train-b" the up projection's
@@ -284,7 +334,11 @@ at its [H, 64, dh] chunk against its cache with its GQA groups, B5 on
 shape; on "serve-deepseek-v2-lite-matmul" the shared experts' decode
 gate/up [1, 2048] x [2048, 2816], the projection launched most; on
 "serve-hymba-1.5b-matmul" the decode q/o [1, 1600] x [1600, 1600], on
-"serve-hymba-1.5b-prefill" B7 at [25, 1088, 64] over 5 KV heads).
+"serve-hymba-1.5b-prefill" B7 at [25, 1088, 64] over 5 KV heads; on
+"serve-whisper-large-v3-matmul" the decode q/k/v/o [1, 1280] x [1280,
+1280], on "whisper-encode-matmul" the encoder's q/k/v/o [1500, 1280] x
+[1280, 1280], both padded by the engine to K 1536; on "whisper-prefill"
+B7 at [20, 160, 64]).
 """
 
 from __future__ import annotations
@@ -380,6 +434,10 @@ LLAMA4 = "llama4-maverick-400b-a17b"
 LLAMA4_LAYERS = 2
 LLAMA4_TRACE = "0:32:4"
 MOE_CHECK_CAPACITY = 16.0
+#: deepseek-v2-lite's paged and kahan_matmul runs take its first
+#: MOE_CUT_LAYERS layers (the dense prefix and 3 MoE layers): the
+#: script's time limit; its dense run keeps all 27
+MOE_CUT_LAYERS = 4
 #: the gate of a MoE config's prefill against its scan chunk, in float32
 #: compute on the bf16 weights: the reference test's tolerance. In bf16
 #: the two bodies' roundings send tokens to other experts (deepseek-v2-
@@ -404,6 +462,40 @@ HYMBA_RING_STEPS = 8
 HYMBA_RING_REL = 2e-3
 #: the B5 row of hymba's kahan_matmul path: the decode q/o projection
 HYMBA_B5_ROW = "hymba-decode-qo"
+
+#: phase 12: the xLSTM family. xlstm-1.3b at its published width and
+#: depth serves phase 9's trace (and XLSTM_REUSE_TRACE on 2 slots, so
+#: that the third request reuses an evicted slot); a whole-prompt prefill of
+#: XLSTM_PROMPT tokens crosses the 512-token chunk and takes the pad path,
+#: then XLSTM_STEPS greedy decode steps, each step's logits held to a
+#: prefill of the prompt and the tokens so far within relative L2
+#: XLSTM_REL (the reference test's tolerance) with the bf16 weights, the
+#: compute and every float32 cast of the model in float64; bf16 and
+#: float32 compute are logged. At this width and depth with random
+#: weights each mLSTM block amplifies a perturbation of its input, and
+#: float32 rounding alone parts the two bodies by about 0.2
+#: (``scripts/xlstm_conditioning.py``): only float64 separates a fault
+#: from rounding
+XLSTM = "xlstm-1.3b"
+XLSTM_PROMPT = 640
+XLSTM_STEPS = 8
+XLSTM_REL = 2e-3
+#: the logged compute dtypes' decode steps (the script's time limit)
+XLSTM_LOGGED_STEPS = 2
+#: three requests on 2 slots: the third waits for an eviction and
+#: reuses the freed slot
+XLSTM_REUSE_TRACE = "0:16:8,0:16:8,1:16:8"
+#: phase 13: the encoder-decoder family. whisper-large-v3 at its
+#: published width and depth serves phase 9's trace with each request's
+#: frames; its whole-prompt prefill (B7) is held to the chunked path over
+#: the same ``prefill_begin`` within phase 4's relative L2
+WHISPER = "whisper-large-v3"
+WHISPER_REL = 5e-2
+#: the B5 rows of whisper: the encoder's q/k/v/o at M 1500 and a decode
+#: position's, the projections launched most; the B7 row of its prefill
+WHISPER_ENCODE_ROW = "whisper-encode-qkvo"
+WHISPER_DECODE_ROW = "whisper-decode-qkvo"
+WHISPER_PREFILL_ROW = "whisper-prefill"
 
 #: the schemes with a device function, and the reduction wrappers
 SCHEMES = ("naive", "kahan", "pairwise", "dot2")
@@ -496,6 +588,7 @@ def main() -> int:
     kernels.slice_parity([get_config(name) for name in SLICE_ARCHS])
     kernels.moe_parity([get_config(MOE_ARCH), get_config(LLAMA4)])
     kernels.hybrid_parity(get_config(HYMBA))
+    kernels.family_parity(get_config(XLSTM), get_config(WHISPER))
     kernels.matmul_times(cfg, PREFILL_LEN)
     kernels.column_parity()
     kernels.subnormal_parity()
@@ -510,6 +603,8 @@ def main() -> int:
     log(json.dumps({"slice": slice_path(torch, kernels)}))
     log(json.dumps({"moe": moe_path(torch, kernels)}))
     log(json.dumps({"hybrid": hybrid_path(torch, kernels)}))
+    log(json.dumps({"xlstm": xlstm_path(torch, kernels)}))
+    log(json.dumps({"encdec": whisper_path(torch, kernels)}))
     log(f"# chip_smoke took {time.perf_counter() - started:.1f} s")
     log(card)
     log(json.dumps({"kernels": kernels.rows()}))
@@ -1107,6 +1202,17 @@ class Kernels:
             f"family's projections [K, N] {shapes}, M 1 and 64, bitwise "
             f"equal to the plain version")
 
+    def telemetry_times(self, cfg, label):
+        """B4 at ``cfg``'s serving telemetry: [4, vocab], padded by the
+        engine."""
+        torch = self.torch
+        eng = self.engine.CompensatedReduction(scheme="kahan", unroll=8)
+        x = eng._prep2d(self.data((4, cfg.vocab_size), torch.float32))
+        self.time_one("sum_accumulators_batched", "kahan", (x,),
+                      lambda s: self.ks.sum_plain(x, scheme=s),
+                      lambda: torch.sum(x, dim=1), reps=200, label=label,
+                      valid=(4, cfg.vocab_size))
+
     def slice_times(self, cfg, max_len):
         """Phase 9's rows at one config's serving shapes: B4 at the
         telemetry's [4, vocab] (padded by the engine), B8 at the last full
@@ -1114,14 +1220,8 @@ class Kernels:
         heads over KV cache heads); for qwen2.5-3b, B5 at its decode and
         64-token chunk projections (k/v N 256, gate/up N 11008 and down K
         11008, padded by the engine; q/o are phase 3's [2048, 2048])."""
-        torch = self.torch
         label = f"serve-{cfg.name}"
-        eng = self.engine.CompensatedReduction(scheme="kahan", unroll=8)
-        x = eng._prep2d(self.data((4, cfg.vocab_size), torch.float32))
-        self.time_one("sum_accumulators_batched", "kahan", (x,),
-                      lambda s: self.ks.sum_plain(x, scheme=s),
-                      lambda: torch.sum(x, dim=1), reps=200, label=label,
-                      valid=(4, cfg.vocab_size))
+        self.telemetry_times(cfg, label)
         h, kvh, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
         off = (max_len - 64) // 64 * 64
         self.time_flash("flash_chunk_accumulators", label,
@@ -1129,7 +1229,6 @@ class Kernels:
                         self.normal((kvh, max_len, dh)),
                         self.normal((kvh, max_len, dh)), off, reps=50,
                         groups=h // kvh)
-        del x
         if cfg.name != "qwen2.5-3b":
             return
         d, f = cfg.d_model, cfg.d_ff
@@ -1147,14 +1246,7 @@ class Kernels:
         deepseek-v2-lite, B5 at the decode (M 1) projections particular
         to it: MLA's q (N 3072) and kr (N 64, padded), the shared
         experts' gate/up (N 2816) and down (K 2816, padded)."""
-        torch = self.torch
-        eng = self.engine.CompensatedReduction(scheme="kahan", unroll=8)
-        x = eng._prep2d(self.data((4, cfg.vocab_size), torch.float32))
-        self.time_one("sum_accumulators_batched", "kahan", (x,),
-                      lambda s: self.ks.sum_plain(x, scheme=s),
-                      lambda: torch.sum(x, dim=1), reps=200, label=label,
-                      valid=(4, cfg.vocab_size))
-        del x
+        self.telemetry_times(cfg, label)
         if cfg.mla is None:
             return
         d, m = cfg.d_model, cfg.mla
@@ -1199,14 +1291,7 @@ class Kernels:
         1) projections, each padded by the engine (K 1600 to 2048, N to a
         multiple of 256); B7 at the whole-prompt prefill of the ring check,
         ``prefill_len`` tokens, its H heads over the KV heads."""
-        torch = self.torch
-        eng = self.engine.CompensatedReduction(scheme="kahan", unroll=8)
-        x = eng._prep2d(self.data((4, cfg.vocab_size), torch.float32))
-        self.time_one("sum_accumulators_batched", "kahan", (x,),
-                      lambda s: self.ks.sum_plain(x, scheme=s),
-                      lambda: torch.sum(x, dim=1), reps=200, label=label,
-                      valid=(4, cfg.vocab_size))
-        del x
+        self.telemetry_times(cfg, label)
         d, kv, f = cfg.d_model, cfg.n_kv_heads * cfg.head_dim, cfg.d_ff
         for name, k, n in ((HYMBA_B5_ROW, d, d), ("hymba-decode-kv", d, kv),
                            ("hymba-decode-gate-up", d, f),
@@ -1218,6 +1303,61 @@ class Kernels:
                         self.normal((kvh, prefill_len, dh)),
                         self.normal((kvh, prefill_len, dh)), 0, reps=10,
                         groups=h // kvh)
+
+    # -- the xLSTM and encoder-decoder families (phases 2, 12, 13) -------------
+    def family_parity(self, xcfg, wcfg):
+        """Phase 2 at the shapes phases 12 and 13 give the kernels: B1-B4
+        on the telemetry's [4, vocab] of xlstm-1.3b (50304, padded by the
+        engine to 57344) and whisper-large-v3 (51866, padded to 57344),
+        every scheme; B7 and B8 at whisper's dh 64 with G 1 (BH 20, one
+        request's heads, and BH 80), every scheme, causal or not, Sq and
+        Skv off their blocks; B5 (kahan, bf16 operands as the engine pads
+        them: K 1280 to 1536) at M 1, 64 and 1500 (the encoder's frames)
+        on whisper's projections: q/k/v/o [1280, 1280], up [1280, 5120]
+        and down [5120, 1280]."""
+        cases = self.vocab_parity(xcfg) + self.vocab_parity(wcfg)
+        log(f"# phase 2: {cases} reduction parity cases at the telemetry's "
+            f"[4, {xcfg.vocab_size}] of {xcfg.name} and [4, "
+            f"{wcfg.vocab_size}] of {wcfg.name} bitwise equal to the plain "
+            f"versions")
+        self.flash_parity(wcfg.head_dim, heads=((wcfg.n_heads, 1),
+                                                (4 * wcfg.n_heads, 1)))
+        shapes = whisper_projections(wcfg)
+        for m in (1, 64, wcfg.encoder.n_frames):
+            for k, n in shapes:
+                self.padded_matmul_case("kahan", m, k, n)
+        sync(self.torch, self.dev)
+        log(f"# phase 2: {3 * len(shapes)} matmul parity cases at "
+            f"{wcfg.name}'s projections [K, N] {shapes} (padded by the "
+            f"engine), M 1, 64 and {wcfg.encoder.n_frames}, bitwise equal to "
+            f"the plain version")
+
+    def whisper_times(self, cfg, label, max_len, prefill_len):
+        """Phase 13's rows at whisper's serving shapes: B4 at the
+        telemetry; B8 at the last full 64-token chunk of a prompt that
+        fills a ``max_len`` cache ([20, 64, 64], G 1); B7 at the
+        whole-prompt prefill of ``prefill_len`` tokens; B5 at the
+        encoder's M 1500 and at a decode position's M 1, each projection
+        padded by the engine (K 1280 to 1536)."""
+        self.telemetry_times(cfg, label)
+        h, dh = cfg.n_heads, cfg.head_dim
+        off = (max_len - 64) // 64 * 64
+        self.time_flash("flash_chunk_accumulators", label,
+                        self.normal((h, 64, dh)), self.normal((h, max_len, dh)),
+                        self.normal((h, max_len, dh)), off, reps=50)
+        self.time_flash("flash_accumulators", WHISPER_PREFILL_ROW,
+                        self.normal((h, prefill_len, dh)),
+                        self.normal((h, prefill_len, dh)),
+                        self.normal((h, prefill_len, dh)), 0, reps=20)
+        d, f = cfg.d_model, cfg.d_ff
+        for where, m, reps in (("encode", cfg.encoder.n_frames, 10),
+                               ("decode", 1, 50)):
+            self.time_matmul(f"whisper-{where}-qkvo", m, d, d, reps=reps,
+                             pads=True)
+            self.time_matmul(f"whisper-{where}-up", m, d, f, reps=reps,
+                             pads=True)
+            self.time_matmul(f"whisper-{where}-down", m, f, d, reps=reps,
+                             pads=True)
 
     # -- matmul (B5, B6) -------------------------------------------------------
     def matmul_parity(self):
@@ -2117,7 +2257,8 @@ def cycle(fn, operand_sets):
 
 
 def serve_run(torch, kernels, cfg, model, params, trace, prefill_mode,
-              max_len=None, phase="4", prepare=None, body=None, **engine_kw):
+              max_len=None, phase="4", prepare=None, body=None, max_slots=4,
+              **engine_kw):
     """Serve ``trace`` once with every launch count reset just before and
     read just after; times every decode tick and prefill chunk. Checks
     what holds on every serving path: each request emits its tokens, the
@@ -2126,7 +2267,8 @@ def serve_run(torch, kernels, cfg, model, params, trace, prefill_mode,
     fitted to the trace) and ``engine_kw`` (the paged layout's fields) go
     to the ``EngineConfig``; ``prepare(engine)`` runs before the trace;
     ``body`` is the chunk body the engine must resolve ``prefill_mode``
-    to (default: ``prefill_mode`` itself).
+    to (default: ``prefill_mode`` itself); ``max_slots`` the decode
+    batch (default 4).
     Under the paged layout the stats carry the peak pages in use and
     whether a live page table was ever scattered."""
     from repro_torch.kernels import Policy
@@ -2137,7 +2279,8 @@ def serve_run(torch, kernels, cfg, model, params, trace, prefill_mode,
     dev = kernels.dev
     cells = parse_trace(trace, 0.0)
     requests, arrivals = build_requests(cfg, cells, seed=0)
-    ec = EngineConfig(max_slots=4, max_len=max_len or serve_max_len(trace),
+    ec = EngineConfig(max_slots=max_slots,
+                      max_len=max_len or serve_max_len(trace),
                       prefill_chunk=64, track_stats=True,
                       policy=Policy(scheme="kahan"),
                       prefill_mode=prefill_mode, **engine_kw)
@@ -2875,10 +3018,13 @@ def is_cublas(kernel_name: str) -> bool:
     return any(word in name for word in ("gemm", "gemv", "nvjet"))
 
 
-def profile_decode_step(torch, model, params, dev, max_len):
+def profile_decode_step(torch, model, params, dev, max_len, prepare=None):
     """One batch-1 decode position: the unit a decode tick runs per slot
-    and scan prefill per prompt position."""
+    and scan prefill per prompt position. ``prepare(cache)`` fills the
+    cache first (an encoder-decoder's ``prefill_begin``)."""
     cache = model.init_cache(1, max_len)
+    if prepare is not None:
+        prepare(cache)
     tok = torch.tensor([1], device=dev)
     return profile_step(
         torch, dev, lambda i: model.decode_step(params, cache, tok, i),
@@ -3374,15 +3520,20 @@ def moe_path(torch, kernels):
 
 
 def moe_deepseek(torch, kernels, cfg):
-    """Phase 10 on deepseek-v2-lite-16b, no cut: phase 9's trace with
-    flash prefill requested, resolved to the scan body (MLA and capacity
-    routing have no parallel chunk); request 0 alone == interleaved; the
-    paged layout (``page_size`` 16) == dense with the pool free at the
-    end and ``dropped_frac`` 0 on every single-position MoE call; the
+    """Phase 10 on deepseek-v2-lite-16b: phase 9's trace with flash
+    prefill requested, resolved to the scan body (MLA and capacity
+    routing have no parallel chunk), no cut; request 0 alone ==
+    interleaved; the paged layout (``page_size`` 16) at the first
+    ``MOE_CUT_LAYERS`` layers == dense at that depth with the pool free
+    at the end and ``dropped_frac`` 0 on every single-position MoE call;
+    the
     whole-prompt prefill of the 160-token prompt against the scan chunk
     (gated in float32 compute, logged in bf16);
-    one request with ``kahan_matmul`` (B5 189 times a position) against
-    the cuBLAS path; one profiled decode position."""
+    one request with ``kahan_matmul`` at ``MOE_CUT_LAYERS`` layers (B5 at
+    every projection but the routed experts' a position); the full
+    depth's 16-token chunk with ``kahan_matmul`` against the cuBLAS path;
+    one profiled decode position."""
+    from repro_torch.core.tree import tree_map
     from repro_torch.models import build_model
 
     dev = kernels.dev
@@ -3399,23 +3550,36 @@ def moe_deepseek(torch, kernels, cfg):
     check_tick_telemetry(torch, kernels, cfg, ec, captured, "10")
     check_solo(cfg, ec, model, params, requests[0], served, cfg.name, "10")
 
+    # the paged layout and kahan_matmul run the first MOE_CUT_LAYERS
+    # layers (the script's time limit); a dense run at that depth is the
+    # paged run's reference
+    ccfg = cfg.replace(n_layers=MOE_CUT_LAYERS)
+    cmodel = build_model(ccfg, dev)
+    cparams = dict(params, moe_blocks=tree_map(
+        lambda t: t[:MOE_CUT_LAYERS - cfg.moe.first_k_dense],
+        params["moe_blocks"]))
+    _, _, cdense, _, cst = serve_run(
+        torch, kernels, ccfg, cmodel, cparams, SLICE_TRACE, "flash",
+        max_len=max_len, phase="10", body="scan")
+    check_scan_launches(cmodel, cst, f"{path}-{MOE_CUT_LAYERS}l")
     with moe_drops(torch, dev) as drops:
         _, _, paged, _, pst = serve_run(
-            torch, kernels, cfg, model, params, SLICE_TRACE, "flash",
+            torch, kernels, ccfg, cmodel, cparams, SLICE_TRACE, "flash",
             max_len=max_len, phase="10", body="scan", kv_layout="paged",
             page_size=PAGE_SIZE)
-    check_scan_launches(model, pst, f"{path}-paged")
+    check_scan_launches(cmodel, pst, f"{path}-paged")
     kernels.launches[f"{path}-paged"] = pst["launches"]
     kernels.path_labels[("sum_accumulators_batched", f"{path}-paged")] = path
     for rid in served:
-        check(paged[rid].tokens == served[rid].tokens
-              and paged[rid].telemetry == served[rid].telemetry,
-              f"{cfg.name}: request {rid} differs, paged vs dense")
+        check(paged[rid].tokens == cdense[rid].tokens
+              and paged[rid].telemetry == cdense[rid].telemetry,
+              f"{cfg.name}: request {rid} differs, paged vs dense "
+              f"({MOE_CUT_LAYERS} layers)")
     ps = pst["page_stats"]
     check(ps["free_pages"] == ps["num_pages"],
           f"{cfg.name}: {ps['free_pages']} pages free of {ps['num_pages']} "
           f"after the paged run")
-    n_moe = model.moe_layers
+    n_moe = cmodel.moe_layers
     positions = pst["prompt_positions"] + pst["decode_positions"]
     check(drops["one_calls"] == n_moe * positions
           and float(drops["one"]) == 0.0,
@@ -3425,26 +3589,29 @@ def moe_deepseek(torch, kernels, cfg):
     token_bytes = pst["page_bytes"] // PAGE_SIZE
     dense_bytes = ec.max_slots * max_len * token_bytes
     live_bytes = pst["peak_pages"] * pst["page_bytes"]
-    log(f"# phase 10 {cfg.name} paged (page_size {PAGE_SIZE}): tokens and "
-        f"telemetry == dense, bitwise; pool free at the end; dropped_frac 0 "
+    log(f"# phase 10 {cfg.name} paged (page_size {PAGE_SIZE}), CUT to "
+        f"{MOE_CUT_LAYERS} of {cfg.n_layers} layers: tokens and telemetry == "
+        f"dense at that depth, bitwise; pool free at the end; dropped_frac 0 "
         f"on all {drops['one_calls']} single-position MoE calls; KV "
         f"{token_bytes / 1024:.1f} KiB a token (MLA's latent and rope key "
-        f"x {cfg.n_layers} layers); held: dense {dense_bytes / 2**20:.1f} "
+        f"x {MOE_CUT_LAYERS} layers); held: dense {dense_bytes / 2**20:.1f} "
         f"MiB ({ec.max_slots} x {max_len} rows) vs paged live "
         f"{live_bytes / 2**20:.1f} MiB at peak ({pst['peak_pages']} pages)")
 
     f32 = cfg.replace(compute_dtype="float32")
     stats = {"params_gib": params_gib, "init_peak_gib": init_gib,
-             "serve": st, "paged": pst, "kv_bytes_per_token": token_bytes,
+             "serve": st, "cut": f"paged and kahan_matmul at "
+             f"{MOE_CUT_LAYERS} of {cfg.n_layers} layers",
+             "dense_cut": cst, "paged": pst, "kv_bytes_per_token": token_bytes,
              "dense_kv_bytes": dense_bytes, "paged_live_kv_bytes": live_bytes,
              "prefill_vs_scan": [prefill_vs_scan(
                  torch, kernels, c, params, requests[-1].prompt, gate)
                  for c, gate in ((cfg, None), (f32, MOE_PREFILL_REL))]}
 
-    mcfg = cfg.replace(kahan_matmul=True)
+    mcfg = ccfg.replace(kahan_matmul=True)
     mmodel = build_model(mcfg, dev)
     mpath = f"{path}-matmul"
-    _, _, _, _, mst = serve_run(torch, kernels, mcfg, mmodel, params,
+    _, _, _, _, mst = serve_run(torch, kernels, mcfg, mmodel, cparams,
                                 SLICE_TRACE.split(",")[0], "flash",
                                 max_len=max_len, phase="10", body="scan")
     check_scan_launches(mmodel, mst, mpath)
@@ -3462,7 +3629,8 @@ def moe_deepseek(torch, kernels, cfg):
     log(f"# phase 10 {cfg.name}: {cfg.n_layers}L d={cfg.d_model} "
         f"H={cfg.n_heads} MLA r={cfg.mla.kv_lora_rank} "
         f"E={cfg.moe.n_experts} top-{cfg.moe.top_k} +{cfg.moe.n_shared} "
-        f"shared vocab={cfg.vocab_size} (no cut): params "
+        f"shared vocab={cfg.vocab_size} (paged and kahan_matmul runs at "
+        f"{MOE_CUT_LAYERS} layers): params "
         f"{params_gib:.2f} GiB, init peak {init_gib:.2f} GiB, peak "
         f"{stats['peak_gib']:.2f} GiB, {st['tokens_per_s']:.2f} tokens/s, "
         f"decode tick {st['decode_tick_ms_mean']:.2f} ms mean, prefill "
@@ -3508,6 +3676,74 @@ def moe_llama4(torch, kernels, cfg):
     return stats
 
 
+def decode_vs_prefill(torch, cfg, model, params, prompt, prefill, steps,
+                      rel_max, phase):
+    """``prefill(tokens)`` -> (last logits, cache) of ``prompt``, then
+    ``steps`` greedy ``decode_step``s, each step's logits against
+    ``prefill`` of the prompt and the tokens so far: relative L2 and
+    argmax, gated below ``rel_max`` unless it is None. Returns the steps'
+    errors and the first prefill's ms."""
+    dev = model.device
+    n = len(prompt)
+    seq = [int(t) for t in prompt]
+    sync(torch, dev)
+    t0 = time.perf_counter()
+    logits, cache = prefill(seq)
+    sync(torch, dev)
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    out = []
+    for i in range(steps):
+        tok = int(torch.argmax(logits[0, :cfg.vocab_size]))
+        seq.append(tok)
+        logits = model.decode_step(params, cache,
+                                   torch.tensor([tok], device=dev), n + i)
+        full, _ = prefill(seq)
+        x, y = (t[0, :cfg.vocab_size].double() for t in (full, logits))
+        out.append({"pos": n + i, "rel_l2": float((y - x).norm() / x.norm()),
+                    "same_argmax": int(x.argmax()) == int(y.argmax()),
+                    "finite": bool(torch.isfinite(y).all()
+                                   and torch.isfinite(x).all())})
+    worst = max(st["rel_l2"] for st in out)
+    rels = ", ".join(f"{st['rel_l2']:.3e}" for st in out)
+    log(f"# phase {phase} {cfg.name}: prefill of {n} tokens "
+        f"({cfg.compute_dtype} compute) in {prefill_ms:.1f} ms, then {steps} "
+        f"decode steps vs a prefill of prompt + tokens: relative L2 "
+        f"[{rels}], worst {worst:.3e}"
+        f"{' (logged)' if rel_max is None else f' (gate {rel_max})'}, "
+        f"argmax equal {[st['same_argmax'] for st in out]}")
+    check(all(st["finite"] for st in out),
+          f"{cfg.name}: decode-vs-prefill logits not finite "
+          f"({cfg.compute_dtype})")
+    if rel_max is not None:
+        check(worst < rel_max and all(st["same_argmax"] for st in out),
+              f"{cfg.name} ({cfg.compute_dtype}): decode vs prefill relative "
+              f"L2 {worst:.3e}, argmax {[st['same_argmax'] for st in out]}")
+    return {"compute_dtype": cfg.compute_dtype, "prompt": n,
+            "prefill_ms": prefill_ms, "steps": out, "worst_rel_l2": worst,
+            "gate": rel_max}
+
+
+@contextlib.contextmanager
+def widened_casts(torch, on=True):
+    """While active (and ``on``), ``Tensor.float`` returns float64: the
+    model's float32 casts (the gates, the states, the norms) widen with
+    its compute, as the CPU tests widen both sides' gradients."""
+    orig = torch.Tensor.float
+    if on:
+        torch.Tensor.float = torch.Tensor.double
+    try:
+        yield
+    finally:
+        torch.Tensor.float = orig
+
+
+def check_no_kernels(counts, what, allowed=()):
+    """No wrapper but ``allowed`` launched in ``counts``."""
+    for name, n in counts.items():
+        if name not in allowed:
+            check(n == 0, f"{what}: {name} launched {n} times")
+
+
 # -- 11. the hybrid family ----------------------------------------------------
 
 def hybrid_projections(cfg):
@@ -3549,8 +3785,8 @@ def ring_wrap(torch, kernels, cfg, params, prompt, rel_max):
     wrap) under ``kahan_attention`` (B7 on the global layers), then
     ``HYMBA_RING_STEPS`` greedy ``decode_step``s against the wrapped
     rings, each step's logits against a whole-prompt prefill of the
-    prompt and the tokens so far: relative L2 and argmax, gated below
-    ``rel_max`` unless it is None. The launch counts are reset just
+    prompt and the tokens so far (``decode_vs_prefill``, gated below
+    ``rel_max`` unless it is None). The launch counts are reset just
     before and read just after. Returns the step errors, the counts and
     the prefill's ms."""
     from repro_torch.kernels.engine import launch_counts, reset_launch_counts
@@ -3559,7 +3795,6 @@ def ring_wrap(torch, kernels, cfg, params, prompt, rel_max):
     dev = kernels.dev
     model = build_model(cfg.replace(kahan_attention=True), dev)
     n = len(prompt)
-    seq = [int(t) for t in prompt]
 
     def prefill(tokens):
         toks = torch.as_tensor(tokens, dtype=torch.long, device=dev)[None]
@@ -3567,59 +3802,22 @@ def ring_wrap(torch, kernels, cfg, params, prompt, rel_max):
             1, n + HYMBA_RING_STEPS))
 
     reset_launch_counts()
-    sync(torch, dev)
-    t0 = time.perf_counter()
-    logits, cache = prefill(seq)
-    sync(torch, dev)
-    prefill_ms = (time.perf_counter() - t0) * 1e3
-    steps = []
-    for i in range(HYMBA_RING_STEPS):
-        tok = int(torch.argmax(logits[0, :cfg.vocab_size]))
-        seq.append(tok)
-        logits = model.decode_step(params, cache, torch.tensor([tok],
-                                                               device=dev),
-                                   n + i)
-        full, _ = prefill(seq)
-        x, y = (t[0, :cfg.vocab_size].double() for t in (full, logits))
-        rel = float((y - x).norm() / x.norm())
-        same = int(x.argmax()) == int(y.argmax())
-        finite = bool(torch.isfinite(y).all() and torch.isfinite(x).all())
-        steps.append({"pos": n + i, "rel_l2": rel, "same_argmax": same,
-                      "finite": finite})
+    out = decode_vs_prefill(torch, cfg, model, params, prompt, prefill,
+                            HYMBA_RING_STEPS, rel_max, "11")
     sync(torch, dev)
     counts = launch_counts()
-    worst = max(st["rel_l2"] for st in steps)
-    rels = ", ".join(f"{st['rel_l2']:.3e}" for st in steps)
-    log(f"# phase 11 {cfg.name}: ring wrap, {cfg.compute_dtype} compute: "
-        f"prefill of {n} tokens (window {cfg.sliding_window}) in "
-        f"{prefill_ms:.1f} ms, then {HYMBA_RING_STEPS} decode steps against "
-        f"the wrapped rings vs a prefill of prompt + tokens: relative L2 "
-        f"[{rels}], worst {worst:.3e}"
-        f"{' (logged)' if rel_max is None else f' (gate {rel_max})'}, "
-        f"argmax equal {[st['same_argmax'] for st in steps]}; B7 launched "
-        f"{counts['flash_accumulators']} times")
-    check(all(st["finite"] for st in steps),
-          f"{cfg.name}: ring-wrap logits not finite ({cfg.compute_dtype})")
-    if rel_max is not None:
-        check(worst < rel_max and all(st["same_argmax"] for st in steps),
-              f"{cfg.name}: ring wrap ({cfg.compute_dtype}): decode vs "
-              f"prefill relative L2 {worst:.3e}, argmax "
-              f"{[st['same_argmax'] for st in steps]}")
     n_global = sum(1 for seg in model.segments if seg.window <= 0)
     want = n_global * (1 + HYMBA_RING_STEPS)
+    log(f"# phase 11 {cfg.name}: the prompt wraps the "
+        f"{cfg.sliding_window}-row rings; B7 launched "
+        f"{counts['flash_accumulators']} times")
     check(counts["flash_accumulators"] == want,
           f"{cfg.name}: B7 launched {counts['flash_accumulators']} times in "
           f"the ring check, want {want} ({n_global} global layers x "
           f"{1 + HYMBA_RING_STEPS} prefills)")
-    for name in ("flash_chunk_accumulators", "matmul_accumulators",
-                 "matmul_accumulators_batched", "dot_accumulators",
-                 "dot_accumulators_batched", "sum_accumulators",
-                 "sum_accumulators_batched"):
-        check(counts[name] == 0, f"{cfg.name}: {name} launched "
-              f"{counts[name]} times in the ring check")
-    return {"compute_dtype": cfg.compute_dtype, "prompt": n,
-            "prefill_ms": prefill_ms, "steps": steps, "worst_rel_l2": worst,
-            "gate": rel_max, "launches": counts}
+    check_no_kernels(counts, f"{cfg.name} ring check", ("flash_accumulators",))
+    out["launches"] = counts
+    return out
 
 
 def hybrid_path(torch, kernels):
@@ -3732,6 +3930,330 @@ def hybrid_path(torch, kernels):
         f"decode position {profile['host_ms']:.2f} ms host, "
         f"{profile['device_busy_ms'] or 0:.3f} ms device busy, "
         f"{profile['device_kernels']} kernels; phase 11 took "
+        f"{stats['seconds']:.1f} s")
+    return stats
+
+
+# -- 12. the xLSTM family -----------------------------------------------------
+
+def state_bytes(engine, *keys):
+    """Bytes of the engine's cache under ``keys`` of its top level, over
+    all slots (every leaf when no key is given)."""
+    from repro_torch.models.common import cache_leaves
+
+    cache = engine.slots.cache
+    trees = [cache[k] for k in keys] if keys else [cache]
+    return sum(leaf.numel() * leaf.element_size()
+               for tree in trees for leaf in cache_leaves(tree))
+
+
+def xlstm_path(torch, kernels):
+    """Phase 12: xlstm-1.3b at its published width and depth, no cut
+    (bf16, random weights from seed 0, ``prefill_chunk=64``, telemetry,
+    kahan, U = 8), each path with the launch counts reset just before it:
+    phase 9's trace with flash and the paged layout asked for, the scan
+    body and the dense layout resolved (B4 once a tick and finished
+    prefill, nothing else: the projections are einsums, as in the
+    reference), its telemetry against the plain version, request 0 alone
+    == interleaved; three short requests on 2 slots, the third on a slot
+    reused after an eviction, equal to its solo run bitwise; the
+    whole-prompt ``XLSTMLM.prefill`` of ``XLSTM_PROMPT`` tokens (two
+    512-token chunks, the second padded) and ``XLSTM_STEPS`` greedy decode
+    steps against prefills of the prompt and the tokens so far, in bf16
+    and float32 compute (logged) and in float64 with the casts widened
+    (gated); one profiled decode position. Returns the phase's stats."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.tree import tree_map
+    from repro_torch.kernels.engine import launch_counts, reset_launch_counts
+    from repro_torch.models import build_model
+    from repro_torch.models.common import map_cache_leaves
+
+    t_phase = time.perf_counter()
+    dev = kernels.dev
+    cfg = get_config(XLSTM)
+    path = f"serve-{cfg.name}"
+    max_len = slice_max_len(cfg)
+    kernels.telemetry_times(cfg, path)
+    model, params, params_gib, init_gib = moe_model(torch, dev, cfg)
+    state = {}
+    ec, requests, served, captured, st = serve_run(
+        torch, kernels, cfg, model, params, SLICE_TRACE, "flash",
+        max_len=max_len, phase="12", body="scan", kv_layout="paged",
+        page_size=PAGE_SIZE,
+        prepare=lambda e: state.update(bytes=state_bytes(e)))
+    check(st["kv_layout"] == "dense", f"{cfg.name}: the paged layout "
+          f"resolved to {st['kv_layout']}, want dense (nothing pages)")
+    check_no_kernels(st["launches"], path, ("sum_accumulators_batched",))
+    kernels.launches[path] = st["launches"]
+    kernels.path_labels[("sum_accumulators_batched", path)] = path
+    check_tick_telemetry(torch, kernels, cfg, ec, captured, "12")
+    check_solo(cfg, ec, model, params, requests[0], served, cfg.name, "12")
+    resets = []
+
+    def count_resets(engine):
+        orig = engine.slots.reset
+
+        def reset(slot):
+            resets.append(slot)
+            orig(slot)
+
+        engine.slots.reset = reset
+
+    rec, rreqs, reused, _, rst = serve_run(
+        torch, kernels, cfg, model, params, XLSTM_REUSE_TRACE, "scan",
+        max_len=max_len, phase="12", max_slots=2, prepare=count_resets)
+    check(len(resets) == len(rreqs) == 3,
+          f"{cfg.name}: {len(resets)} evictions on 2 slots for "
+          f"{len(rreqs)} requests")
+    check_solo(cfg, rec, model, params, rreqs[2], reused,
+               f"{cfg.name}, a slot reused after eviction {resets}", "12")
+
+    reset_launch_counts()
+    prompt = torch.randint(0, cfg.vocab_size, (XLSTM_PROMPT,),
+                           generator=torch.Generator().manual_seed(0))
+    entry = []
+    for dtype, gate, steps in (("bfloat16", None, XLSTM_LOGGED_STEPS),
+                               ("float32", None, XLSTM_LOGGED_STEPS),
+                               ("float64", XLSTM_REL, XLSTM_STEPS)):
+        c = cfg.replace(compute_dtype=dtype)
+        m = build_model(c, dev)
+        wide = dtype == "float64"
+        p = tree_map(lambda t: t.double(), params) if wide else params
+
+        def prefill(tokens, m=m, p=p, wide=wide):
+            toks = torch.as_tensor(tokens, dtype=torch.long,
+                                   device=dev)[None]
+            cache = m.init_cache(1, 0)
+            if wide:
+                cache = map_cache_leaves(lambda t: t.double(), cache)
+            return m.prefill(p, toks, cache)
+
+        with widened_casts(torch, wide):
+            entry.append(decode_vs_prefill(torch, c, m, p, prompt.tolist(),
+                                           prefill, steps, gate, "12"))
+        del p
+    sync(torch, dev)
+    check_no_kernels(launch_counts(), f"{cfg.name} prefill check")
+    profile = profile_decode_step(torch, model, params, dev, max_len)
+    stats = {"params_gib": params_gib, "init_peak_gib": init_gib,
+             "serve": st, "two_slots": rst, "evictions": resets,
+             "state_bytes": state["bytes"],
+             "state_bytes_per_slot": state["bytes"] // ec.max_slots,
+             "prefill_check": entry, "decode_profile": profile,
+             "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30}
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    stats["seconds"] = time.perf_counter() - t_phase
+    log(f"# phase 12 {cfg.name}: {cfg.n_layers} blocks "
+        f"({cfg.n_layers // cfg.xlstm.slstm_every} groups of "
+        f"{cfg.xlstm.slstm_every - 1} mLSTM + 1 sLSTM) d={cfg.d_model} "
+        f"H={cfg.n_heads} chunk {cfg.xlstm.chunk} (no cut): params "
+        f"{params_gib:.2f} GiB, init peak {init_gib:.2f} GiB, peak "
+        f"{stats['peak_gib']:.2f} GiB, state {state['bytes'] / 2**30:.3f} "
+        f"GiB over {ec.max_slots} slots, {st['tokens_per_s']:.2f} tokens/s, "
+        f"decode tick {st['decode_tick_ms_mean']:.2f} ms mean, prefill "
+        f"{st['prefill_ms_per_position']:.3f} ms per position (scan); one "
+        f"decode position {profile['host_ms']:.2f} ms host, "
+        f"{profile['device_busy_ms'] or 0:.3f} ms device busy, "
+        f"{profile['device_kernels']} kernels; phase 12 took "
+        f"{stats['seconds']:.1f} s")
+    return stats
+
+
+# -- 13. the encoder-decoder family -------------------------------------------
+
+def whisper_projections(cfg):
+    """The distinct [K, N] of whisper's B5 projections: q/k/v/o, up and
+    down (the cross K/V fill stays plain)."""
+    d = cfg.d_model
+    return [(d, d), (d, cfg.d_ff), (cfg.d_ff, d)]
+
+
+def check_whisper_launches(cfg, stats, what):
+    """Under flash with ``kahan_attention``: B8 n_layers times a chunk of
+    width > 1; with ``kahan_matmul``, B5 6 times an encoder layer a
+    request (q, k, v, o, up, down at its frames) and 8 times a decoder
+    layer a chunk and a decode position (self-attention's q, k, v, o, the
+    cross-attention's q and o, up and down), never without it; B4 once a
+    tick and finished prefill (``serve_run``); nothing else."""
+    counts = stats["launches"]
+    wide = sum(1 for w in stats["chunk_widths"] if w > 1)
+    want8 = cfg.n_layers * wide if cfg.kahan_attention else 0
+    check(counts["flash_chunk_accumulators"] == want8,
+          f"{what}: B8 launched {counts['flash_chunk_accumulators']} times, "
+          f"want {want8}")
+    units = stats["prefill_chunks"] + stats["decode_positions"]
+    want5 = ((6 * cfg.encoder.n_layers * stats["requests"]
+              + 8 * cfg.n_layers * units) if cfg.kahan_matmul else 0)
+    check(counts["matmul_accumulators"] == want5,
+          f"{what}: B5 launched {counts['matmul_accumulators']} times, want "
+          f"{want5}")
+    check_no_kernels(counts, what, ("flash_chunk_accumulators",
+                                    "matmul_accumulators",
+                                    "sum_accumulators_batched"))
+
+
+def whisper_path(torch, kernels):
+    """Phase 13: whisper-large-v3 at its published width and depth, no
+    cut (32 encoder and 32 decoder layers; bf16, random weights from seed
+    0, ``max_slots=4``, ``prefill_chunk=64``, telemetry, kahan, U = 8;
+    each request with frames [1500, 1280] drawn from the seed), each path
+    with the launch counts reset just before it: phase 9's trace under
+    flash prefill with ``kahan_attention`` (B8 32 times a chunk, B4 once
+    a tick and finished prefill), its telemetry against the plain
+    version, request 0 alone == interleaved, the paged layout
+    (``page_size`` 16: only the self-attention K/V page, the cross K/V
+    stay dense slot rows) == dense, one request with ``kahan_matmul`` (B5
+    at the encoder's M 1500 and the decoder's chunks and positions); the
+    encoder alone under ``kahan_matmul``; ``EncDecLM.prefill`` of the
+    longest prompt (B7 32 times) against the chunked path over the same
+    ``prefill_begin``, relative L2 below phase 4's 5e-2 and the same
+    argmax; one profiled decode position. Returns the phase's stats."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.engine import launch_counts, reset_launch_counts
+    from repro_torch.models import build_model
+
+    t_phase = time.perf_counter()
+    dev = kernels.dev
+    cfg = get_config(WHISPER).replace(kahan_attention=True)
+    path = f"serve-{cfg.name}"
+    max_len = slice_max_len(cfg)
+    longest = max(int(c.split(":")[1]) for c in SLICE_TRACE.split(","))
+    kernels.whisper_times(cfg, path, max_len, longest)
+    model, params, params_gib, init_gib = moe_model(torch, dev, cfg)
+    dense_bytes = {}
+
+    def measure(engine):
+        dense_bytes.update(kv=state_bytes(engine, "kv"),
+                           cross=state_bytes(engine, "xk", "xv"))
+
+    ec, requests, served, captured, st = serve_run(
+        torch, kernels, cfg, model, params, SLICE_TRACE, "flash",
+        max_len=max_len, phase="13", prepare=measure)
+    check_whisper_launches(cfg, st, path)
+    kernels.launches[path] = st["launches"]
+    for name in ("sum_accumulators_batched", "flash_chunk_accumulators"):
+        kernels.path_labels[(name, path)] = path
+    check_tick_telemetry(torch, kernels, cfg, ec, captured, "13")
+    check_solo(cfg, ec, model, params, requests[0], served, cfg.name, "13")
+
+    _, _, paged, _, pst = serve_run(
+        torch, kernels, cfg, model, params, SLICE_TRACE, "flash",
+        max_len=max_len, phase="13", kv_layout="paged", page_size=PAGE_SIZE)
+    check(pst["kv_layout"] == "paged", f"{cfg.name}: the paged layout "
+          f"resolved to {pst['kv_layout']}")
+    check_whisper_launches(cfg, pst, f"{path}-paged")
+    kernels.launches[f"{path}-paged"] = pst["launches"]
+    for name in ("sum_accumulators_batched", "flash_chunk_accumulators"):
+        kernels.path_labels[(name, f"{path}-paged")] = path
+    for rid in served:
+        check(paged[rid].tokens == served[rid].tokens
+              and paged[rid].telemetry == served[rid].telemetry,
+              f"{cfg.name}: request {rid} differs, paged vs dense")
+    ps = pst["page_stats"]
+    check(ps["free_pages"] == ps["num_pages"],
+          f"{cfg.name}: {ps['free_pages']} pages free of {ps['num_pages']} "
+          f"after the paged run")
+    live_bytes = pst["peak_pages"] * pst["page_bytes"]
+    log(f"# phase 13 {cfg.name} paged (page_size {PAGE_SIZE}): tokens and "
+        f"telemetry == dense, bitwise; pool free at the end. Over "
+        f"{ec.max_slots} slots: self-attention K/V dense "
+        f"{dense_bytes['kv'] / 2**20:.2f} MiB ({ec.max_slots} x {max_len} "
+        f"rows, {pst['page_bytes'] // PAGE_SIZE} B a token) vs paged live "
+        f"{live_bytes / 2**20:.2f} MiB at peak ({pst['peak_pages']} pages); "
+        f"cross K/V {dense_bytes['cross'] / 2**30:.3f} GiB, dense slot rows "
+        f"in both layouts")
+
+    mcfg = cfg.replace(kahan_matmul=True)
+    mmodel = build_model(mcfg, dev)
+    mpath = f"{path}-matmul"
+    _, mreqs, _, _, mst = serve_run(torch, kernels, mcfg, mmodel, params,
+                                    SLICE_TRACE.split(",")[0], "flash",
+                                    max_len=max_len, phase="13")
+    check_whisper_launches(mcfg, mst, mpath)
+    kernels.launches[mpath] = mst["launches"]
+    for name in ("sum_accumulators_batched", "flash_chunk_accumulators"):
+        kernels.path_labels[(name, mpath)] = path
+    kernels.path_labels[("matmul_accumulators", mpath)] = WHISPER_DECODE_ROW
+    frames = torch.as_tensor(mreqs[0].extras["frames"], device=dev)[None]
+    reset_launch_counts()
+    enc = mmodel.encode(params, frames)
+    sync(torch, dev)
+    ecounts = launch_counts()
+    want = 6 * cfg.encoder.n_layers
+    check(ecounts["matmul_accumulators"] == want,
+          f"{cfg.name}: the encoder launched B5 "
+          f"{ecounts['matmul_accumulators']} times, want {want}")
+    check_no_kernels(ecounts, "whisper encode", ("matmul_accumulators",))
+    check(bool(torch.isfinite(enc).all()), f"{cfg.name}: encoder output "
+          f"not finite under kahan_matmul")
+    kernels.launches["whisper-encode-matmul"] = ecounts
+    kernels.path_labels[("matmul_accumulators", "whisper-encode-matmul")] = (
+        WHISPER_ENCODE_ROW)
+    del mmodel, enc
+
+    req = requests[-1]
+    toks = torch.as_tensor(req.prompt, dtype=torch.long, device=dev)[None]
+    frames = torch.as_tensor(req.extras["frames"], device=dev)[None]
+    n = toks.shape[1]
+    reset_launch_counts()
+    sync(torch, dev)
+    t0 = time.perf_counter()
+    full, _ = model.prefill(params, toks, model.init_cache(1, n), frames)
+    sync(torch, dev)
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    pcounts = launch_counts()
+    check(pcounts["flash_accumulators"] == cfg.n_layers,
+          f"{cfg.name}: prefill launched B7 {pcounts['flash_accumulators']} "
+          f"times, want {cfg.n_layers}")
+    check_no_kernels(pcounts, "whisper prefill", ("flash_accumulators",))
+    kernels.launches[WHISPER_PREFILL_ROW] = pcounts
+    kernels.path_labels[("flash_accumulators", WHISPER_PREFILL_ROW)] = (
+        WHISPER_PREFILL_ROW)
+    cache = model.prefill_begin(params, model.init_cache(1, n), frames)
+    for off in range(0, n, 64):
+        w = min(64, n - off)
+        chunked, cache = model.prefill_chunk_parallel(
+            params, toks[:, off:off + w], cache, off, w)
+    x, y = (t[0, :cfg.vocab_size].double() for t in (full, chunked))
+    rel = float((x - y).norm() / y.norm())
+    same = int(x.argmax()) == int(y.argmax())
+    log(f"# phase 13 {cfg.name}: EncDecLM.prefill of {n} tokens (B7 "
+        f"{pcounts['flash_accumulators']} times, {prefill_ms:.1f} ms) vs the "
+        f"chunked path over the same prefill_begin: relative L2 {rel:.3e}, "
+        f"argmax {int(x.argmax())} vs {int(y.argmax())}")
+    check(rel < WHISPER_REL and same,
+          f"{cfg.name}: prefill vs chunked path relative L2 {rel:.3e}, same "
+          f"argmax {same}")
+    profile = profile_decode_step(
+        torch, model, params, dev, max_len,
+        prepare=lambda cache: model.prefill_begin(params, cache, frames))
+    stats = {"params_gib": params_gib, "init_peak_gib": init_gib,
+             "serve": st, "paged": pst, "matmul": mst,
+             "encode_launches": ecounts["matmul_accumulators"],
+             "kv_bytes_dense": dense_bytes["kv"],
+             "cross_kv_bytes": dense_bytes["cross"],
+             "paged_live_kv_bytes": live_bytes,
+             "prefill_vs_chunked": {"rel_l2": rel, "same_argmax": same,
+                                    "prefill_ms": prefill_ms, "prompt": n},
+             "decode_profile": profile,
+             "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30}
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    stats["seconds"] = time.perf_counter() - t_phase
+    log(f"# phase 13 {cfg.name}: {cfg.encoder.n_layers}+{cfg.n_layers}L "
+        f"d={cfg.d_model} H={cfg.n_heads} ff={cfg.d_ff} GELU, "
+        f"{cfg.encoder.n_frames} frames (no cut): params {params_gib:.2f} "
+        f"GiB, init peak {init_gib:.2f} GiB, peak {stats['peak_gib']:.2f} "
+        f"GiB, {st['tokens_per_s']:.2f} tokens/s (paged "
+        f"{pst['tokens_per_s']:.2f}, kahan_matmul {mst['tokens_per_s']:.2f}),"
+        f" decode tick {st['decode_tick_ms_mean']:.2f} ms mean, prefill "
+        f"{st['prefill_ms_per_position']:.3f} ms per position (flash, the "
+        f"encoder included); one decode position {profile['host_ms']:.2f} "
+        f"ms host, {profile['device_busy_ms'] or 0:.3f} ms device busy, "
+        f"{profile['device_kernels']} kernels; phase 13 took "
         f"{stats['seconds']:.1f} s")
     return stats
 

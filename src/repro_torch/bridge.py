@@ -12,7 +12,11 @@ hybrid's ``global_<i>``) without; the ``[V_pad, d]``
 embedding table that doubles as the tied head, q/k/v ``w`` of ``[d, H,
 dh]`` and o ``w`` of ``[H*dh, d]``, MLA's q/dkv/kr/uk/uv/o, the experts'
 ``[E, d, f]`` / ``[E, f, d]`` and the float32 router, the SSM's leaves
-with its float32 ``A_log`` and ``D``), so a tree that
+with its float32 ``A_log`` and ``D``, an xLSTM's ``groups`` with mLSTM
+leaves ``[G, M, ...]`` and sLSTM leaves ``[G, ...]`` (the gates'
+projection and bias and the recurrent ``r`` in float32), an
+encoder-decoder's stacked ``encoder`` and ``decoder`` with ``xattn``,
+``ln_x`` and the GELU MLP's ``up`` and ``down``), so a tree that
 does not fit fails here rather than inside a matmul.
 """
 

@@ -9,9 +9,11 @@ the public API; the launcher's ``--arch <id>`` flag resolves through them.
 The port carries the dense family (``olmo-1b``, ``deepseek-7b``,
 ``stablelm-3b``, ``qwen2.5-3b``), the VLM ``internvl2-2b`` and the MoE
 family (``deepseek-v2-lite-16b`` with MLA, ``llama4-maverick-400b-a17b``
-with dense+MoE superblocks) and the hybrid ``hymba-1.5b`` (parallel
-attention and selective-SSM heads, sliding-window ring caches); the other
-architectures of the reference follow with their model families.
+with dense+MoE superblocks), the hybrid ``hymba-1.5b`` (parallel
+attention and selective-SSM heads, sliding-window ring caches), the
+recurrent ``xlstm-1.3b`` (mLSTM and sLSTM blocks) and the
+encoder-decoder ``whisper-large-v3`` (precomputed frames, cross-attention):
+every architecture of the reference.
 """
 
 from __future__ import annotations
@@ -252,7 +254,8 @@ def shape_applicable(cfg: ArchConfig, shape: ShapeSpec) -> Tuple[bool, str]:
 
 ARCH_IDS = ("olmo-1b", "deepseek-7b", "stablelm-3b", "qwen2.5-3b",
             "internvl2-2b", "deepseek-v2-lite-16b",
-            "llama4-maverick-400b-a17b", "hymba-1.5b")
+            "llama4-maverick-400b-a17b", "hymba-1.5b", "xlstm-1.3b",
+            "whisper-large-v3")
 
 _MODULES = {
     "olmo-1b": "olmo_1b",
@@ -263,6 +266,8 @@ _MODULES = {
     "deepseek-v2-lite-16b": "deepseek_v2_lite",
     "llama4-maverick-400b-a17b": "llama4_maverick",
     "hymba-1.5b": "hymba_1_5b",
+    "xlstm-1.3b": "xlstm_1_3b",
+    "whisper-large-v3": "whisper_large_v3",
 }
 
 
@@ -272,8 +277,7 @@ def list_archs() -> Tuple[str, ...]:
 
 def _load(name: str):
     if name not in _MODULES:
-        raise KeyError(f"unknown arch {name!r}; available in this slice of "
-                       f"the port: {ARCH_IDS}")
+        raise KeyError(f"unknown arch {name!r}; available: {ARCH_IDS}")
     return importlib.import_module(f"repro_torch.configs.{_MODULES[name]}")
 
 

@@ -37,7 +37,8 @@ class DataConfig:
     seed: int = 1234
     n_bigram_states: int = 64      # Markov structure strength
     vision_patches: int = 0        # VLM: prepend this many patch embeddings
-    d_model: int = 0               # width of the patch embedding stubs
+    d_model: int = 0               # width of the patch / frame stubs
+    n_frames: int = 0              # encoder-decoder: stub frames a row
 
 
 class SyntheticLM:
@@ -95,6 +96,10 @@ class SyntheticLM:
             batch["vision_embeds"] = rng.standard_normal(
                 (local_b, cfg.vision_patches, cfg.d_model)).astype(np.float32)
             batch["loss_mask"][:, :cfg.vision_patches] = 0.0
+        if cfg.n_frames:
+            # the encoder's frames, drawn last, as the reference draws them
+            batch["frames"] = rng.standard_normal(
+                (local_b, cfg.n_frames, cfg.d_model)).astype(np.float32)
         return batch
 
     # ------------------------------------------------------------ iterator

@@ -29,7 +29,12 @@ counters. A VLM config (``--arch internvl2-2b``) gets each request's
 patch embeddings drawn from ``--seed`` as its ``vision_embeds``. The
 hybrid ``--arch hymba-1.5b`` runs the scan body whatever
 ``--prefill-mode`` asks, pages only its global layers (its rings and
-SSM state stay dense) and refuses ``--prefix-cache``.
+SSM state stay dense) and refuses ``--prefix-cache``; so does
+``--arch xlstm-1.3b``, whose recurrent state pages nowhere (``--kv-layout
+paged`` serves it on the dense layout). ``--arch whisper-large-v3`` gets
+each request's encoder frames ``[n_frames, d_model]`` drawn from
+``--seed``; its self-attention K/V page, its cross K/V stay dense slot
+rows, and its requests never share a prefix.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-3b \
         --smoke --device cpu --trace 0:32:4,1:40:4 --kv-layout paged \
@@ -86,15 +91,19 @@ def parse_trace(spec: str, default_temp: float,
 
 def build_requests(cfg, cells, seed: int):
     """Requests with prompts (and, for a VLM config, patch embeddings,
-    drawn first) from ``seed``, in the reference launcher's order;
-    request_id = cell index."""
+    for an encoder-decoder config frames, drawn first) from ``seed``, in
+    the reference launcher's order; request_id = cell index."""
     rng = np.random.default_rng(seed)
     requests, arrivals = [], []
     for arrival, plen, new, temp in cells:
-        extras = None
+        extras = {}
         if cfg.vision is not None:
-            extras = {"vision_embeds": rng.standard_normal(
-                (cfg.vision.n_patches, cfg.d_model)).astype(np.float32)}
+            extras["vision_embeds"] = rng.standard_normal(
+                (cfg.vision.n_patches, cfg.d_model)).astype(np.float32)
+        if cfg.encoder is not None:
+            extras["frames"] = rng.standard_normal(
+                (cfg.encoder.n_frames, cfg.d_model)).astype(np.float32)
+        extras = extras or None
         requests.append(Request(
             prompt=rng.integers(0, cfg.vocab_size, (plen,)).astype(np.int32),
             sampling=SamplingParams(temperature=temp, max_new_tokens=new),

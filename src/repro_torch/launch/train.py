@@ -50,6 +50,7 @@ def main(argv=None):
         vocab_size=cfg.vocab_size, seq_len=args.seq_len,
         global_batch=args.global_batch,
         vision_patches=cfg.vision.n_patches if cfg.vision else 0,
+        n_frames=cfg.encoder.n_frames if cfg.encoder else 0,
         d_model=cfg.d_model))
     trainer = Trainer(cfg, tc, data, device=args.device)
     final = trainer.run()

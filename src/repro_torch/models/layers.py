@@ -234,12 +234,14 @@ def _flash_chunk_core(qg: Tensor, k: Tensor, v: Tensor, q_off: int,
     return _unflatten_heads(out, qg, compute_dtype)
 
 
-def _causal_bias(q_pos: Tensor, k_pos: Tensor, window: int = 0) -> Tensor:
+def _causal_bias(q_pos: Tensor, k_pos: Tensor, window: int = 0,
+                 causal: bool = True) -> Tensor:
     """[Sq, Sk] float32: 0 where the key's position is at or before the
-    query's (and, with ``window > 0``, fewer than ``window`` positions
-    before it), -inf elsewhere (``repro/models/layers.py:182-195``)."""
+    query's (every key when ``causal`` is False; and, with ``window > 0``,
+    fewer than ``window`` positions before it), -inf elsewhere
+    (``repro/models/layers.py:182-195``)."""
     diff = q_pos[:, None] - k_pos[None, :]
-    ok = diff >= 0
+    ok = diff >= 0 if causal else torch.ones_like(diff, dtype=torch.bool)
     if window > 0:
         ok = ok & (diff < window)
     return torch.where(ok, 0.0, float("-inf")).to(torch.float32)
@@ -247,24 +249,25 @@ def _causal_bias(q_pos: Tensor, k_pos: Tensor, window: int = 0) -> Tensor:
 
 def _attn_core(q: Tensor, k: Tensor, v: Tensor, q_pos: Tensor,
                k_pos: Tensor, compute_dtype, chunked: bool = True,
-               window: int = 0) -> Tensor:
-    """Causal grouped-query attention, q-chunked at ``ATTN_Q_CHUNK``
-    unless ``chunked`` is False (training, as in the reference)
-    (``repro/models/layers.py:252-303``). q: [B,Sq,KV,G,dh]; k/v:
-    [B,Skv,KV,dh]. Scores in float32, masked by absolute positions (and
-    by ``window`` when it is positive), softmax with the reference's
-    guards (``m >= -1e30``, ``l >= 1e-30``: a ring slot not filled yet
-    masks a whole row's keys only before the first position). Returns
-    [B,Sq,KV,G,dh] in the compute dtype."""
+               window: int = 0, causal: bool = True) -> Tensor:
+    """Grouped-query attention, q-chunked at ``ATTN_Q_CHUNK`` unless
+    ``chunked`` is False (training, the encoder and cross-attention, as
+    in the reference) (``repro/models/layers.py:252-303``). q:
+    [B,Sq,KV,G,dh]; k/v: [B,Skv,KV,dh]. Scores in float32, masked by
+    absolute positions when ``causal`` (and by ``window`` when it is
+    positive), softmax with the reference's guards (``m >= -1e30``, ``l
+    >= 1e-30``: a ring slot not filled yet masks a whole row's keys only
+    before the first position). Returns [B,Sq,KV,G,dh] in the compute
+    dtype."""
     if chunked and q.shape[1] > ATTN_Q_CHUNK:
         return torch.cat([
             _attn_core(q[:, i:i + ATTN_Q_CHUNK], k, v,
                        q_pos[i:i + ATTN_Q_CHUNK], k_pos, compute_dtype,
-                       window=window)
+                       window=window, causal=causal)
             for i in range(0, q.shape[1], ATTN_Q_CHUNK)], dim=1)
     scale = q.shape[-1] ** -0.5
     scores = torch.einsum("bqkgd,bskd->bkgqs", q.float(), k.float()) * scale
-    scores = scores + _causal_bias(q_pos, k_pos, window)
+    scores = scores + _causal_bias(q_pos, k_pos, window, causal)
     m = torch.amax(scores, dim=-1, keepdim=True).clamp_min(-1e30)
     p = torch.exp(scores - m)
     l = torch.sum(p, dim=-1, keepdim=True)
@@ -276,11 +279,17 @@ def attention(p: Params, st: AttnStatic, x: Tensor, *,
               cache: Optional[Tuple[Tensor, Tensor]] = None,
               pos: Optional[int] = None,
               chunk_valid: Optional[int] = None,
-              window: int = 0) -> Tensor:
-    """Attention in one of four modes. With no ``cache`` (training) x
-    [B,S,D] at positions 0..S-1 attends itself causally through the
-    materialized ``_attn_core``, unchunked, never through flash (the
-    reference's flash kernel has no backward), and writes nothing.
+              window: int = 0, causal: bool = True,
+              cross_kv: Optional[Tuple[Tensor, Tensor]] = None) -> Tensor:
+    """Attention in one of five modes. With no ``cache`` (training) x
+    [B,S,D] at positions 0..S-1 attends itself causally (every position,
+    with ``causal`` False: an encoder) through the materialized
+    ``_attn_core``, unchunked, never through flash (the reference's flash
+    kernel has no backward), and writes nothing. With ``cross_kv``
+    (cross-attention: k/v [B,F,KV,dh] computed elsewhere, an encoder's
+    memory) the queries carry no RoPE and attend every row of ``cross_kv``
+    through the materialized core, unchunked, without a cache or a
+    position mask (``repro/models/layers.py:348-356, 412-416``).
     Against a KV cache ([B,S,KV,dh] each) the other three; the cache is
     written IN PLACE (the reference returns an updated copy; PyTorch
     eager saves copying the whole cache).
@@ -319,20 +328,31 @@ def attention(p: Params, st: AttnStatic, x: Tensor, *,
     b, s, _ = x.shape
     start = 0 if pos is None else pos
     q_pos = torch.arange(start, start + s, device=x.device)
+    groups = st.n_heads // st.n_kv
+    if cross_kv is not None:                                # cross
+        k, v = cross_kv
+        qg = dense(p["q"], x, cd, compensated=cmp).reshape(
+            b, s, st.n_kv, groups, st.d_head)
+        out = _attn_core(qg, k, v, q_pos,
+                         torch.arange(k.shape[1], device=x.device), cd,
+                         chunked=False, causal=False)
+        return dense(p["o"], out.reshape(b, s, -1), cd, compensated=cmp)
     q = rope_apply(dense(p["q"], x, cd, compensated=cmp), q_pos,
                    st.freqs)                                # [B,S,H,dh]
     k = rope_apply(dense(p["k"], x, cd, compensated=cmp), q_pos,
                    st.freqs)                                # [B,S,KV,dh]
     v = dense(p["v"], x, cd, compensated=cmp)
-    groups = st.n_heads // st.n_kv
     qg = q.reshape(b, s, st.n_kv, groups, st.d_head)
     if cache is None:                                       # training
         if pos is not None:
             raise ValueError("attention: training mode (no cache) runs "
                              "positions 0..S-1; pos must be None")
         out = _attn_core(qg, k, v, q_pos, q_pos, cd, chunked=False,
-                         window=window)
+                         window=window, causal=causal)
         return dense(p["o"], out.reshape(b, s, -1), cd, compensated=cmp)
+    if not causal:
+        raise ValueError("attention: a cached call is causal (only the "
+                         "encoder, without a cache, attends every position)")
     ck, cv = cache
     s_kv = ck.shape[1]
     ring = window > 0 and s_kv == window
@@ -492,22 +512,33 @@ def mla_attention(p: Params, cfg, freqs: Tensor, x: Tensor, *,
 # ---------------------------------------------------------------------------
 
 def mlp_spec(cfg, d_ff: int) -> Params:
-    """(shape, init) of a SwiGLU MLP of width ``d_ff`` (the reference's
-    ``mlp_init``)."""
+    """(shape, init) of an MLP of width ``d_ff`` (the reference's
+    ``mlp_init``): SwiGLU's gate, up and down, or with ``cfg.mlp ==
+    "gelu"`` only up and down."""
     d = cfg.d_model
     deep = (2 * cfg.n_layers) ** 0.5
-    return {"gate": {"w": ((d, d_ff), d ** -0.5)},
-            "up": {"w": ((d, d_ff), d ** -0.5)},
-            "down": {"w": ((d_ff, d), d_ff ** -0.5 / deep)}}
+    if cfg.mlp not in ("swiglu", "gelu"):
+        raise ValueError(f"mlp {cfg.mlp!r}")
+    out = {"gate": {"w": ((d, d_ff), d ** -0.5)}} if cfg.mlp == "swiglu" \
+        else {}
+    out["up"] = {"w": ((d, d_ff), d ** -0.5)}
+    out["down"] = {"w": ((d_ff, d), d_ff ** -0.5 / deep)}
+    return out
 
 
 def mlp_apply(p: Params, x: Tensor, compute_dtype, *,
               compensated: bool = False) -> Tensor:
-    """SwiGLU: ``down(silu(gate(x)) * up(x))``, silu in float32; the three
-    projections compensated when ``compensated`` (``kahan_matmul``)."""
+    """SwiGLU ``down(silu(gate(x)) * up(x))`` when ``p`` has a gate, else
+    the GELU MLP ``down(gelu(up(x)))``; the activation in float32 and the
+    GELU in its tanh form, ``jax.nn.gelu``'s default (the reference's
+    ``mlp_apply``). The projections compensated when ``compensated``
+    (``kahan_matmul``)."""
     cd, cmp = compute_dtype, compensated
-    g = F.silu(dense(p["gate"], x, cd, compensated=cmp).float()).to(cd)
     u = dense(p["up"], x, cd, compensated=cmp)
+    if "gate" not in p:
+        h = F.gelu(u.float(), approximate="tanh").to(cd)
+        return dense(p["down"], h, cd, compensated=cmp)
+    g = F.silu(dense(p["gate"], x, cd, compensated=cmp).float()).to(cd)
     return dense(p["down"], g * u, cd, compensated=cmp)
 
 

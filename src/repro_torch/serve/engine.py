@@ -45,10 +45,15 @@ unroll and accumulate dtype of everything the engine computes: the
 telemetry, and the flash kernels' accumulators (prefill chunks run under
 ``use_policy``).
 
-REQUEST EXTRAS (a VLM's ``vision_embeds``, unbatched ``[n_patches, D]``)
-move to the engine's device ONCE, at the request's first chunk, are
-handed to every chunk of its prompt and are dropped when its prefill
-completes (``repro/serve/engine.py:751-755, 800-815, 926``).
+REQUEST EXTRAS (a VLM's ``vision_embeds``, unbatched ``[n_patches, D]``;
+an encoder-decoder's ``frames``, ``[n_frames, D]``) move to the engine's
+device ONCE, at the request's first chunk, and are dropped when its
+prefill completes (``repro/serve/engine.py:751-755, 800-815, 926``). A
+VLM's are handed to every chunk of its prompt. A model with a
+``prefill_begin`` (the encoder-decoder) takes them there instead, once,
+in the request's first chunk: it encodes the frames and fills the cross
+K/V of the request's slot, which every later chunk and decode step reads
+(``repro/serve/engine.py:584-600, 911``).
 
 PAGED KV LAYOUT (``EngineConfig.kv_layout="paged"``, ``serve.paging``):
 pageable cache leaves live in a pool of ``num_pages`` pages of
@@ -69,11 +74,19 @@ no pageable leaf at all is served on the dense layout, as the reference
 resolves it (``engine.kv_layout`` reports the layout served).
 ``engine.page_stats()`` reports the pool's accounting. The page
 bookkeeping is the reference's, decision for decision. The prefix cache
-is refused (``ValueError``) for a model with state that does not page:
+is refused (``ValueError``) for a model with state that does not page
+(unless it has a ``prefill_begin``, whose requests never share):
 a prefix hit resumes past positions whose ring rows and SSM state the
 request never computed, and the reference, which shares such prefixes,
 then serves other tokens than without the cache
-(``scripts/hymba_prefix_reference.py``).
+(``scripts/hymba_prefix_reference.py``). A request with extras, and any
+request of a model with a ``prefill_begin``, never shares: their cached
+positions depend on more than the tokens
+(``repro/serve/engine.py:954-966``).
+
+EVICTION resets a slot to the model's initial row (``serve.slots``): an
+xLSTM's stabiliser state starts at -1e30, and a slot zeroed instead would
+serve a reused slot's next request other tokens.
 
 The reference's vmapped slot loop is ported in a later slice; asking for
 it raises. Its compile-count guard has no analogue here: eager PyTorch
@@ -317,7 +330,13 @@ class InferenceEngine:
         # model without one runs dense (``kv_layout`` reports it)
         axes = (PagedKVCache.page_axes_of(model, ec.max_len)
                 if ec.kv_layout == "paged" else [])
-        if ec.prefix_cache and any(s < 0 for s in axes):
+        #: the model's one-time prefill setup (the encoder-decoder's), run
+        #: in a request's first chunk; None for the other families
+        self._begin = getattr(model, "prefill_begin", None)
+        # a ``prefill_begin`` family shares no prefix at all (``_sharable``),
+        # so its dense cross K/V cannot be skipped by a prefix hit
+        if (ec.prefix_cache and self._begin is None
+                and any(s < 0 for s in axes)):
             raise ValueError(
                 f"prefix_cache=True: {cfg.name}'s cache holds state that "
                 f"does not page (ring buffers, recurrent state); a shared "
@@ -402,23 +421,30 @@ class InferenceEngine:
         return handle
 
     def _check_extras(self, rid: int, extras) -> None:
-        """A request's extras must be ones the model takes: a VLM's
-        ``vision_embeds`` of shape [n_patches, d_model]. Anything else
-        (an encoder's ``frames``: ROADMAP A5) raises at ``submit``."""
-        if not extras:
-            return
-        vision = self.cfg.vision
-        unknown = sorted(set(extras) - {"vision_embeds"})
-        if unknown or vision is None:
+        """A request's extras must be the ones the model takes, at their
+        shapes: a VLM's ``vision_embeds`` [n_patches, d_model], an
+        encoder-decoder's ``frames`` [n_frames, d_model] (which it must
+        bring). Anything else raises at ``submit``."""
+        cfg = self.cfg
+        want = {}
+        if cfg.vision is not None:
+            want["vision_embeds"] = (cfg.vision.n_patches, cfg.d_model)
+        if cfg.encoder is not None:
+            want["frames"] = (cfg.encoder.n_frames, cfg.d_model)
+        extras = extras or {}
+        unknown = sorted(set(extras) - set(want))
+        if unknown:
             raise ValueError(
-                f"request {rid}: extras {sorted(extras)} not taken by "
-                f"{self.cfg.name} (the port's models take 'vision_embeds' "
-                f"on a VLM config; encoder frames are {_LATER})")
-        shape = tuple(np.shape(extras["vision_embeds"]))
-        if shape != (vision.n_patches, self.cfg.d_model):
-            raise ValueError(
-                f"request {rid}: vision_embeds of shape {shape}, want "
-                f"({vision.n_patches}, {self.cfg.d_model})")
+                f"request {rid}: extras {unknown} not taken by {cfg.name} "
+                f"(it takes {sorted(want) or 'none'})")
+        if self._begin is not None and "frames" not in extras:
+            raise ValueError(f"request {rid}: {cfg.name} needs 'frames' "
+                             f"{want['frames']} among its extras")
+        for name, value in extras.items():
+            shape = tuple(np.shape(value))
+            if shape != want[name]:
+                raise ValueError(f"request {rid}: {name} of shape {shape}, "
+                                 f"want {want[name]}")
 
     def _extras(self, rid: int, request: Request) -> Dict[str, torch.Tensor]:
         """The request's extras as batch-1 tensors on the engine's device,
@@ -499,12 +525,19 @@ class InferenceEngine:
         toks = np.zeros((1, width), np.int64)
         toks[0, :nvalid] = np.asarray(h.request.prompt)[offset:offset + nvalid]
         extras = self._extras(h.request_id, h.request)
+        resume = 0
         if self.pages is not None:
             lease = self._leases[h.request_id]
             row = self.slots.gather(slot, lease.table_dev, lease.n_pages)
+            resume = lease.resume
         else:
             row = gather_row(self.slots.cache, slot)
         with _schemes.use_policy(self.policy):
+            if self._begin is not None:
+                # the setup takes the extras, in the first chunk only
+                if offset == resume:
+                    self._begin(self.params, row, **extras)
+                extras = {}
             logits, _ = self._chunk_fn(
                 self.params, torch.from_numpy(toks).to(self.device), row,
                 offset, nvalid, **extras)
@@ -580,10 +613,12 @@ class InferenceEngine:
     def _sharable(self, h: RequestHandle) -> bool:
         """May this request share prompt pages through the prefix tree?
         Only when its cache bits are a function of its tokens alone: no
-        extras (patch embeddings feed the cached positions), and under
-        the flash body only with a chunk width (the alignable resume
-        offset) (``repro/serve/engine.py::_sharable``)."""
+        extras (patch embeddings or frames feed the cached positions), no
+        ``prefill_begin`` family (its setup conditions every position),
+        and under the flash body only with a chunk width (the alignable
+        resume offset) (``repro/serve/engine.py::_sharable``)."""
         return (self.prefix is not None and not h.request.extras
+                and self._begin is None
                 and (self.prefill_body == "scan"
                      or self.ec.prefill_chunk is not None))
 

@@ -59,6 +59,7 @@ from repro_torch.models.common import (
     cache_page_axes,
     map_cache_leaves,
 )
+from repro_torch.serve.slots import pristine_row, reset_leaf
 
 Tensor = torch.Tensor
 
@@ -257,6 +258,8 @@ class PagedKVCache:
                     "(keep the leaf dense via the kv_ring spec flag)")
 
         map_cache_leaves(pristine, row, self.page_axes)
+        #: the initial bits of the dense leaves, for ``reset``
+        self._pristine = pristine_row(row)
         axes = cache_leaves(self.page_axes)
         if all(s < 0 for s in axes):
             raise ValueError(
@@ -314,13 +317,15 @@ class PagedKVCache:
 
     # ------------------------------------------------------------- mutators
     def reset(self, slot: int) -> None:
-        """Return a freed slot's DENSE leaves to the pristine zero row
-        (pool leaves are reset page by page, ``reset_pages``)."""
-        def one(leaf, b, s):
+        """Return a freed slot's DENSE leaves to the model's initial row
+        (``slots.reset_leaf``: zeros, or an xLSTM-style non-zero start);
+        pool leaves are reset page by page (``reset_pages``)."""
+        def one(leaf, b, s, pristine):
             if s < 0:
-                leaf.narrow(b, slot, 1).zero_()
+                reset_leaf(leaf.narrow(b, slot, 1), pristine)
 
-        map_cache_leaves(one, self.cache, self.batch_axes, self.page_axes)
+        map_cache_leaves(one, self.cache, self.batch_axes, self.page_axes,
+                         self._pristine)
 
     def reset_pages(self, pages: Sequence[int]) -> None:
         """Zero freed pages before they re-enter the free list: the

@@ -6,7 +6,9 @@ of ``max_slots`` rows — axis 1 of every leaf, behind the stacked layer
 axis. ``gather_row`` hands out a slot's batch-1 row as VIEWS of the big
 cache, so the model's in-place K/V writes land in the slot directly;
 ``scatter_row`` installs a row from elsewhere. ``reset`` returns a slot
-to the pristine zero state on eviction.
+to the model's initial state on eviction: the row of a fresh
+``init_cache(1, max_len)``, as the reference scatters it — zeros for
+K/V, but -1e30 for an xLSTM's stabiliser ``m``.
 """
 
 from __future__ import annotations
@@ -15,7 +17,7 @@ from typing import Any, Dict
 
 import torch
 
-from repro_torch.models.common import cache_leaves, map_cache_leaves
+from repro_torch.models.common import map_cache_leaves
 
 Tensor = torch.Tensor
 Cache = Dict[str, Any]
@@ -36,6 +38,21 @@ def scatter_row(cache: Cache, row: Cache, slot: int) -> None:
                      cache, row)
 
 
+def pristine_row(row: Cache) -> Any:
+    """A fresh batch-1 row (``init_cache(1, max_len)``) reduced to what a
+    reset must copy: each leaf that is not all zeros, None for the rest
+    (a zeroed leaf is reset by ``zero_``, with the same bits)."""
+    return map_cache_leaves(lambda t: t if bool(t.any()) else None, row)
+
+
+def reset_leaf(view: Tensor, pristine) -> None:
+    """Return one slot leaf (a view) to its initial bits."""
+    if pristine is None:
+        view.zero_()
+    else:
+        view.copy_(pristine)
+
+
 class SlotKVCache:
     """Fixed-batch slot cache over the model's cache."""
 
@@ -44,9 +61,11 @@ class SlotKVCache:
         self.max_slots = max_slots
         self.max_len = max_len
         self.cache = model.init_cache(max_slots, max_len)
+        self._pristine = pristine_row(model.init_cache(1, max_len))
 
     def reset(self, slot: int) -> None:
-        """Return ``slot`` to the model's pristine (zero) init state — freed
-        slots never leak a previous request's K/V."""
-        for t in cache_leaves(gather_row(self.cache, slot)):
-            t.zero_()
+        """Return ``slot`` to the model's initial row — freed slots never
+        leak a previous request's state, and the next request starts
+        where a fresh engine would."""
+        map_cache_leaves(reset_leaf, gather_row(self.cache, slot),
+                         self._pristine)

@@ -5,7 +5,10 @@ tied embeddings), internvl2-2b (patch embeddings spliced over the first
 positions), deepseek-v2-lite-16b (MLA, a dense first layer, 8 routed
 experts top-2 and a shared one) and llama4-maverick-400b-a17b (dense+MoE
 superblocks, top-1), with JAX-initialised weights carried over by
-``repro_torch.bridge``. The
+``repro_torch.bridge``; the bridge, logits and loss tests also hold the
+xLSTM and encoder-decoder families (xlstm-1.3b, whisper-large-v3 with
+its frames), whose engines ``tests/test_torch_xlstm.py`` and
+``tests/test_torch_encdec.py`` hold. The
 q/k/v biases and the norms' scale and bias are drawn at random on both
 sides (the reference initialises them to zeros and ones, which would let
 a bias dropped on one side pass unseen).
@@ -26,7 +29,10 @@ Parity tiers:
   the MoE configs' gradients by 1.4e-6 to 2.9e-6 of a leaf's largest
   magnitude over six weight and batch seeds (2.07e-6 at this test's),
   against 0.8e-6 to 1.8e-6 in float64 compute
-  (``scripts/moe_grad_parity.py``). Greedy tokens of a staggered trace
+  (``scripts/moe_grad_parity.py``); xlstm-1.3b's likewise, with every
+  float32 cast of both sides widened to float64 too (its gates and
+  states round to float32 on both sides), as ``tests/test_torch_xlstm.py``
+  holds them. Greedy tokens of a staggered trace
   must be EXACT, under the port's dense and paged layouts alike.
 * tier 1 (bitwise against the reference): the synthetic batches with
   patch embeddings and their loss mask.
@@ -70,6 +76,9 @@ CPU = torch.device("cpu")
 ROOT = Path(__file__).resolve().parents[1]
 ARCHS = ["deepseek-7b", "stablelm-3b", "qwen2.5-3b", "internvl2-2b",
          "deepseek-v2-lite-16b", "llama4-maverick-400b-a17b"]
+#: the recurrent and encoder-decoder families, in the bridge, logits and
+#: loss tests
+FAMILIES = ["xlstm-1.3b", "whisper-large-v3"]
 #: (prompt_len, max_new_tokens) and arrival step of the staggered trace
 SPEC = [(12, 4), (17, 3), (9, 5)]
 ARRIVALS = [0, 1, 3]
@@ -91,7 +100,7 @@ def _perturb(tree, rng):
     return walk(tree, ())
 
 
-@pytest.fixture(scope="module", params=ARCHS)
+@pytest.fixture(scope="module")
 def arch(request):
     """One arch's reference model and weights and the port's, over the
     same (perturbed) numbers."""
@@ -115,10 +124,17 @@ def _vision(cfg, rng):
                                 cfg.d_model)).astype(np.float32)
 
 
+def _frames(cfg, rng):
+    if cfg.encoder is None:
+        return None
+    return rng.standard_normal((cfg.encoder.n_frames,
+                                cfg.d_model)).astype(np.float32)
+
+
 def test_registry_serves_the_dense_family_the_vlm_and_moe():
     # hymba-1.5b (the hybrid family) is held in tests/test_torch_hybrid.py
-    assert list_archs() == ("olmo-1b", *ARCHS, "hymba-1.5b")
-    for name in ARCHS:
+    assert list_archs() == ("olmo-1b", *ARCHS, "hymba-1.5b", *FAMILIES)
+    for name in ARCHS + FAMILIES:
         full, smoke = get_config(name), get_smoke(name)
         assert full.name == smoke.name == name
         build_model(smoke, CPU)          # the zoo accepts each
@@ -127,9 +143,10 @@ def test_registry_serves_the_dense_family_the_vlm_and_moe():
     assert get_config("deepseek-v2-lite-16b").mla.kv_lora_rank == 512
     assert get_config("llama4-maverick-400b-a17b").moe.interleave == 2
     with pytest.raises(KeyError, match="unknown arch"):
-        get_config("whisper-large-v3")
+        get_config("whisper-tiny")
 
 
+@pytest.mark.parametrize("arch", ARCHS + FAMILIES, indirect=True)
 def test_params_match_the_reference_tree(arch):
     """The bridge carried every leaf (biases and parametric norms
     included) unchanged."""
@@ -139,33 +156,45 @@ def test_params_match_the_reference_tree(arch):
     for w, g in zip(want, got):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
         assert str(g.dtype)[6:] == np.asarray(w).dtype.name
-    for seg in arch["model"].segments:
+    for seg in getattr(arch["model"], "segments", ()):
         block = arch["params"][seg.name]
         block = block["a"] if seg.kind == "super" else block
         assert ("b" in block["attn"].get("q", {})) == arch["cfg"].qkv_bias
         assert ("bias" in block["ln1"]) == (arch["cfg"].norm == "layernorm")
 
 
+@pytest.mark.parametrize("arch", ARCHS + FAMILIES, indirect=True)
 def test_logits_within_tolerance(arch):
-    """Tier 3: a prompt through the scan chunk, the parallel chunk and the
-    whole-prompt prefill, and the next decode step."""
+    """Tier 3: a prompt through the scan chunk, the parallel chunk (where
+    the reference has one: not xLSTM's) and the whole-prompt prefill, and
+    the next decode step; an encoder-decoder's chunks over a cache whose
+    cross K/V ``prefill_begin`` filled from the request's frames."""
     a = arch
     cfg, model, jmodel = a["cfg"], a["model"], a["jmodel"]
     rng = np.random.default_rng(3)
     toks = rng.integers(0, cfg.vocab_size, (1, 12)).astype(np.int32)
-    vis = _vision(cfg, rng)
+    vis, frames = _vision(cfg, rng), _frames(cfg, rng)
     jbatch = {"tokens": jnp.asarray(toks)}
-    extra = {}
+    extra, begin = {}, {}
     if vis is not None:
         jbatch["vision_embeds"] = jnp.asarray(vis[None])
         extra["vision_embeds"] = torch.from_numpy(vis[None])
+    if frames is not None:
+        jbatch["frames"] = jnp.asarray(frames[None])
+        begin["frames"] = torch.from_numpy(frames[None])
     t = torch.from_numpy(toks.astype(np.int64))
     n = toks.shape[1]
-    for chunk in ("prefill_chunk", "prefill_chunk_parallel"):
+    chunks = [c for c in ("prefill_chunk", "prefill_chunk_parallel")
+              if hasattr(jmodel, c)]
+    assert chunks == ["prefill_chunk"] or cfg.xlstm is None
+    for chunk in chunks:
         jcache, _ = jmodel.init_cache(1, 24)
+        cache = model.init_cache(1, 24)
+        if begin:
+            jcache = jmodel.prefill_begin(a["jparams"], jbatch, jcache)
+            cache = model.prefill_begin(a["params"], cache, **begin)
         jlog, jcache = getattr(jmodel, chunk)(
             a["jparams"], jbatch, jcache, jnp.int32(0), jnp.int32(n))
-        cache = model.init_cache(1, 24)
         log, cache = getattr(model, chunk)(a["params"], t, cache, 0, n,
                                            **extra)
         np.testing.assert_allclose(log.numpy(), np.asarray(jlog), rtol=RTOL,
@@ -178,7 +207,8 @@ def test_logits_within_tolerance(arch):
                                    atol=ATOL, err_msg=f"decode after {chunk}")
     jcache, _ = jmodel.init_cache(1, n)
     jlog, _ = jmodel.prefill(a["jparams"], jbatch, jcache)
-    log, _ = model.prefill(a["params"], t, model.init_cache(1, n), **extra)
+    log, _ = model.prefill(a["params"], t, model.init_cache(1, n), **extra,
+                           **begin)
     np.testing.assert_allclose(log.numpy(), np.asarray(jlog), rtol=RTOL,
                                atol=ATOL, err_msg="prefill")
 
@@ -224,6 +254,7 @@ def _serve(arch, layout):
     return (runs["reference"], *runs[layout])
 
 
+@pytest.mark.parametrize("arch", ARCHS, indirect=True)
 @pytest.mark.parametrize("layout", ["dense", "paged"])
 def test_greedy_tokens_exact_vs_reference(arch, layout):
     """Greedy tokens of the staggered trace equal the reference engine's
@@ -238,6 +269,7 @@ def test_greedy_tokens_exact_vs_reference(arch, layout):
                                    rtol=RTOL)
 
 
+@pytest.mark.parametrize("arch", ARCHS, indirect=True)
 def test_paged_equals_dense_bitwise(arch):
     """Tier 2: the same trace's tokens and telemetry, paged vs dense."""
     _, dense, _ = _serve(arch, "dense")
@@ -248,17 +280,21 @@ def test_paged_equals_dense_bitwise(arch):
     assert engine.pages.free_count == engine.num_pages
 
 
-def test_loss_and_grads_within_tolerance(arch):
+@pytest.mark.parametrize("arch", ARCHS + FAMILIES, indirect=True)
+def test_loss_and_grads_within_tolerance(arch, monkeypatch):
     """Tier 3: the training loss and every gradient leaf (internvl with
-    its patch embeddings and the loss masked over them)."""
+    its patch embeddings and the loss masked over them, whisper with its
+    frames)."""
     a = arch
     cfg, jcfg = a["cfg"], a["jcfg"]
     vp = cfg.vision.n_patches if cfg.vision else 0
     data = JaxSyntheticLM(JaxDataConfig(
         vocab_size=cfg.vocab_size, seq_len=16, global_batch=2,
-        vision_patches=vp, d_model=cfg.d_model))
+        vision_patches=vp, d_model=cfg.d_model,
+        n_frames=cfg.encoder.n_frames if cfg.encoder else 0))
     batch = data.batch_at(0)
     assert ("vision_embeds" in batch) == bool(vp)
+    assert ("frames" in batch) == (cfg.encoder is not None)
     (jloss, jmet), jgrads = jax.value_and_grad(a["jmodel"].loss,
                                                has_aux=True)(
         a["jparams"], jax.tree.map(jnp.asarray, batch))
@@ -268,12 +304,16 @@ def test_loss_and_grads_within_tolerance(arch):
     grads = torch.autograd.grad(loss, T.leaves(params))
     np.testing.assert_allclose(float(loss.detach()), float(jloss), rtol=1e-6)
     assert float(met["tokens"]) == float(jmet["tokens"]) == 2 * (16 - vp)
-    assert float(met["dropped_frac"]) == float(jmet["dropped_frac"])
-    np.testing.assert_allclose(float(met["aux_loss"]),
-                               float(jmet["aux_loss"]), rtol=1e-6)
-    assert (float(met["dropped_frac"]) > 0) == (cfg.moe is not None)
+    assert sorted(met) == sorted(jmet)
+    if "dropped_frac" in met:
+        assert float(met["dropped_frac"]) == float(jmet["dropped_frac"])
+        np.testing.assert_allclose(float(met["aux_loss"]),
+                                   float(jmet["aux_loss"]), rtol=1e-6)
+        assert (float(met["dropped_frac"]) > 0) == (cfg.moe is not None)
     if cfg.moe is not None:
         jgrads, grads = _grads_in_float64(a, batch)
+    if cfg.xlstm is not None:
+        jgrads, grads = _grads_widened(a, batch, monkeypatch)
     for want, got in zip(jax.tree.leaves(jgrads), grads):
         want = np.asarray(want)
         np.testing.assert_allclose(got.numpy(), want, rtol=0,
@@ -301,6 +341,43 @@ def _grads_in_float64(arch, batch):
     assert loss.dtype == torch.float32 and jgrads["embed"]["table"].dtype == (
         np.float64)
     return jgrads, torch.autograd.grad(loss, T.leaves(params))
+
+
+def _grads_widened(arch, batch, monkeypatch):
+    """Both sides' gradients of ``batch``'s loss with every parameter,
+    the compute and every float32 cast of the model in float64 (the
+    reference's xLSTM modules see ``jnp.float32`` as float64, the port's
+    ``Tensor.float`` returns float64); the parameters skip the bridge,
+    which holds the gates' leaves to float32."""
+    from repro.models import common, layers, xlstm, xlstm_lm
+
+    kw = dict(param_dtype="float64", compute_dtype="float64")
+
+    class Wide:
+        def __getattr__(self, name):
+            return jnp.float64 if name == "float32" else getattr(jnp, name)
+
+    with jax.enable_x64(True):
+        jmodel = jax_build(arch["jcfg"].replace(**kw))
+        jparams, _ = jmodel.init(jax.random.key(0))
+        np_params = jax.tree.map(
+            lambda x: np.asarray(x, np.float64),
+            _perturb(jax.tree.map(np.asarray, jparams),
+                     np.random.default_rng(7)))
+        for module in (common, layers, xlstm, xlstm_lm):
+            monkeypatch.setattr(module, "jnp", Wide())
+        monkeypatch.setattr(torch.Tensor, "float", torch.Tensor.double)
+        _, jgrads = jax.jit(jax.value_and_grad(jmodel.loss, has_aux=True))(
+            jax.tree.map(jnp.asarray, np_params),
+            jax.tree.map(jnp.asarray, batch))
+        params = T.tree_map(
+            lambda x: torch.from_numpy(x.copy()).requires_grad_(), np_params)
+        loss, _ = build_model(arch["cfg"].replace(**kw), CPU).loss(
+            params, batch_to_device(batch, CPU))
+        grads = torch.autograd.grad(loss, T.leaves(params))
+        monkeypatch.undo()
+    assert loss.dtype == torch.float64
+    return jax.tree.map(np.asarray, jgrads), grads
 
 
 def test_bridge_refuses_a_tree_without_the_biases():
@@ -334,6 +411,7 @@ def test_vision_batches_bitwise(step):
     assert not got["loss_mask"][:, :8].any() and got["loss_mask"][:, 8:].all()
 
 
+@pytest.mark.parametrize("arch", ARCHS, indirect=True)
 def test_engine_refuses_extras_the_model_does_not_take(arch):
     cfg = arch["cfg"]
     engine = InferenceEngine(cfg, EngineConfig(max_slots=1, max_len=24),

@@ -1106,3 +1106,91 @@ def test_cuda_hymba_smoke_engine_matches_cpu(cuda_device):
         assert got["paged"][rid].telemetry == got["dense"][rid].telemetry
     assert solo.tokens == got["dense"][1].tokens
     assert solo.telemetry == got["dense"][1].telemetry
+
+
+@pytest.mark.cuda
+def test_cuda_xlstm_smoke_engine_matches_cpu(cuda_device):
+    """xlstm-1.3b's smoke config served on the card (recurrent state only:
+    paged asked for resolves dense; one slot, so the second request
+    reuses the first one's evicted slot): greedy tokens bitwise equal to
+    the CPU's on the same weights, the telemetry within rtol 1e-5; the
+    reused slot serves bitwise what a fresh engine serves on the card."""
+    import numpy as np
+
+    from repro_torch.configs import get_smoke
+    from repro_torch.core import tree as T
+    from repro_torch.kernels import engine
+    from repro_torch.models import build_model
+    from repro_torch.serve import (EngineConfig, InferenceEngine, Request,
+                                   SamplingParams)
+
+    cfg = get_smoke("xlstm-1.3b")
+    cpu = torch.device("cpu")
+    params = build_model(cfg, cpu).init(torch.Generator().manual_seed(0))
+    on_card = T.tree_map(lambda t: t.to(cuda_device), params)
+    rng = np.random.default_rng(0)
+    reqs = [Request(prompt=rng.integers(0, cfg.vocab_size, (p,)),
+                    sampling=SamplingParams(max_new_tokens=n), request_id=i)
+            for i, (p, n) in enumerate([(12, 4), (21, 3)])]
+
+    def serve(dev, p, requests):
+        ec = EngineConfig(max_slots=1, max_len=32, track_stats=True,
+                          prefill_chunk=4, kv_layout="paged", page_size=4)
+        eng = InferenceEngine(cfg, ec, model=build_model(cfg, dev), params=p)
+        assert eng.kv_layout == "dense"
+        return eng.run(requests)
+
+    want = serve(cpu, params, reqs)
+    before = engine.launch_counts()["sum_accumulators_batched"]
+    got = serve(cuda_device, on_card, reqs)
+    assert engine.launch_counts()["sum_accumulators_batched"] > before
+    fresh = serve(cuda_device, on_card, reqs[1:])[1]
+    for rid in want:
+        assert got[rid].tokens == want[rid].tokens
+        np.testing.assert_allclose(got[rid].telemetry, want[rid].telemetry,
+                                   rtol=1e-5)
+    assert fresh.tokens == got[1].tokens
+    assert fresh.telemetry == got[1].telemetry
+
+
+@pytest.mark.cuda
+def test_cuda_whisper_smoke_engine_matches_cpu(cuda_device):
+    """whisper-large-v3's smoke config served on the card under flash
+    prefill (each request with its frames): greedy tokens bitwise equal
+    to the CPU's on the same weights, the telemetry within rtol 1e-5;
+    paged (only the self-attention K/V) == dense and solo == interleaved
+    bitwise on the card."""
+    import numpy as np
+
+    from repro_torch.configs import get_smoke
+    from repro_torch.core import tree as T
+    from repro_torch.launch.serve import build_requests
+    from repro_torch.models import build_model
+    from repro_torch.serve import EngineConfig, InferenceEngine
+
+    cfg = get_smoke("whisper-large-v3")
+    cpu = torch.device("cpu")
+    params = build_model(cfg, cpu).init(torch.Generator().manual_seed(0))
+    on_card = T.tree_map(lambda t: t.to(cuda_device), params)
+    reqs, arrivals = build_requests(
+        cfg, [(0, 12, 4, 0.0), (1, 17, 3, 0.0), (3, 9, 5, 0.0)], seed=0)
+
+    def serve(dev, p, layout, requests, arr):
+        ec = EngineConfig(max_slots=2, max_len=24, track_stats=True,
+                          prefill_chunk=4, prefill_mode="flash",
+                          kv_layout=layout, page_size=4)
+        return InferenceEngine(cfg, ec, model=build_model(cfg, dev),
+                               params=p).run(requests, arr)
+
+    want = serve(cpu, params, "dense", reqs, arrivals)
+    got = {layout: serve(cuda_device, on_card, layout, reqs, arrivals)
+           for layout in ("dense", "paged")}
+    solo = serve(cuda_device, on_card, "dense", reqs[1:2], [0])[1]
+    for rid in want:
+        assert got["dense"][rid].tokens == want[rid].tokens
+        np.testing.assert_allclose(got["dense"][rid].telemetry,
+                                   want[rid].telemetry, rtol=1e-5)
+        assert got["paged"][rid].tokens == got["dense"][rid].tokens
+        assert got["paged"][rid].telemetry == got["dense"][rid].telemetry
+    assert solo.tokens == got["dense"][1].tokens
+    assert solo.telemetry == got["dense"][1].telemetry

@@ -25,8 +25,8 @@ The reference's compile-count guard has no analogue here: eager PyTorch
 compiles no program per chunk width or page placement. Its hybrid
 paging tests (ring buffers and SSM state kept dense beside paged global
 layers, an all-window hybrid falling back to dense) are replayed in
-``tests/test_torch_hybrid.py``; its xLSTM case waits for that family
-(ROADMAP A5).
+``tests/test_torch_hybrid.py``, its xLSTM case in
+``tests/test_torch_xlstm.py``.
 """
 
 import jax

@@ -204,19 +204,28 @@ def test_slot_cache_rows_and_eviction(served):
 
 def test_engine_rejects_later_slices(served):
     """What the port does not carry yet raises, naming the later slice:
-    the vmapped slot loop, and the families and features of ROADMAP A5
-    (the paged layout, the prefix cache, QKV bias, the VLM splice, the
-    MoE family, and the hybrid family with its SSM and sliding windows
-    are served since)."""
+    the vmapped slot loop (the families and features of ROADMAP A5 are
+    all served since: the paged layout, the prefix cache, QKV bias, the
+    VLM splice, the MoE family, the hybrid family with its SSM and
+    sliding windows, the xLSTM family, the encoder-decoder family and
+    the GELU MLP). ``build_model`` dispatches on the sub-configs in the
+    reference's order: ``xlstm``, then ``encoder``, then ``ssm``."""
     with pytest.raises(ValueError, match="later slice"):
         EngineConfig(slot_loop="vmap")
     EngineConfig(kv_layout="paged", prefix_cache=True)
     cfg = served["cfg"]
     build_model(cfg.replace(family="moe"), CPU)
-    for kw in (dict(mlp="gelu"), dict(encoder=EncoderConfig(n_layers=1)),
-               dict(xlstm=XLSTMConfig())):
-        with pytest.raises(NotImplementedError, match="later slice"):
-            build_model(cfg.replace(**kw), CPU)
+    for kw, kind in ((dict(mlp="gelu"), "TransformerLM"),
+                     (dict(encoder=EncoderConfig(n_layers=1)), "EncDecLM"),
+                     (dict(xlstm=XLSTMConfig(slstm_every=2)), "XLSTMLM"),
+                     (dict(xlstm=XLSTMConfig(slstm_every=2),
+                           encoder=EncoderConfig(n_layers=1),
+                           ssm=SSMConfig()), "XLSTMLM"),
+                     (dict(encoder=EncoderConfig(n_layers=1),
+                           ssm=SSMConfig()), "EncDecLM")):
+        assert type(build_model(cfg.replace(**kw), CPU)).__name__ == kind
+    assert "gate" not in build_model(cfg.replace(mlp="gelu"), CPU).block_spec(
+        "dense")["ffn"]
     build_model(cfg.replace(qkv_bias=True), CPU)
     # the reference dispatches on the sub-configs, not on the family name
     assert type(build_model(cfg.replace(family="hybrid"), CPU)).__name__ == (
