@@ -54,6 +54,15 @@ there is no CUDA device or no ``src/repro_torch`` beside it.
    keeps (1 - 2^-23) tiny (1 + 2^-23), and so must the card), and on
    bf16 subnormal operands into a float32 accumulate; B5 at M 3 and 37;
    B7 and B8 where ``exp`` underflows; the column scan; bit for bit.
+   The compute dtypes of every TPU kernel (``dtype_parity``): B5 in
+   bfloat16 compute (each op computed in float32 and rounded once) for
+   every scheme at M 1, 3, 8 (the rows path) and 9, 37, 64, 300 (the
+   tiles) x 1, 4 and 17 K-blocks, B6 in bfloat16 equal to its plain
+   version and a loop of B5, and B5 at OLMo-1B's q projection (M 1) and
+   its chunk gate/up (M 64); B7 and B8 in bfloat16 and in float64 for
+   every scheme, causal and not, G 1 and 2 (BH 4 and 16) at OLMo-1B's
+   head dim, B8 rows == B7 rows, and B8 at OLMo-1B's serving chunk; each
+   bit for bit against its plain version.
 3. Kernel times: each kernel at the shape its main path gives it (dot and
    sum at the paper's in-memory size n = 2^27 for every scheme, with each
    scheme's time over naive's, the paper's metric; batched dot and sum
@@ -86,7 +95,16 @@ there is no CUDA device or no ``src/repro_torch`` beside it.
    none), with the B5 time a step they add up to; B3 at the largest
    parameter leaf (2^28 float32); the column scan at the embedding's
    [51200, 2048] gradient and a [16, 2048, 8192] one
-   (``torch.linalg.vecdot(x, x, dim=0)`` as its library call).
+   (``torch.linalg.vecdot(x, x, dim=0)`` as its library call). The
+   compute dtypes (``dtype_times``, each row with its parity check): B7
+   at the entry shape and B8 at phase 14(c)'s chunk [16, 64, 128]
+   against 72 rows, B5 at the decode q/k/v/o (M 1) and chunk gate/up (M
+   64) shapes and B4 at the telemetry's [4, 57344], in bfloat16 and in
+   float64, B6 at the batched shape in bfloat16, and B5 at M 4 in
+   float32 (phase 14(b)'s vmapped tick). Their bounds count operations
+   at the peak for the dtype (bfloat16 989 TFLOP/s, float64 67 TFLOP/s
+   on the FP64 tensor cores: NVIDIA's H100 data sheet) and the library
+   call runs in the same dtype.
 4. The main path's paths, each with every launch count set to 0 just
    before it and read just after it. Serving OLMo-1B at its published
    width (random bf16 weights from a seeded generator, dense KV,
@@ -201,16 +219,16 @@ there is no CUDA device or no ``src/repro_torch`` beside it.
    line ``{"slice": {...}}``.
 10. The MoE family. deepseek-v2-lite-16b at its published width and
    depth (27 layers, MLA with a 512-wide latent, 64 experts top-6 and 2
-   shared, a dense first layer; bf16, random weights from seed 0) serves
-   phase 9's trace with flash prefill asked for, which the engine
+   shared, a dense first layer; bf16, random weights from seed 0) at
+   the first 4 of its 27 layers (a cut for the script's time limit)
+   serves phase 9's trace with flash prefill asked for, which the engine
    resolves to the scan body (MLA and capacity routing have no parallel
    chunk), the launch counts reset just before: B4 once a tick and
    finished prefill, nothing else; one tick's telemetry bitwise equal to
    the plain version; request 0 alone == interleaved, bitwise; the same
-   trace at the first 4 of the 27 layers (a cut for the script's time
-   limit) on the dense and on the paged layout (``page_size`` 16), paged
+   trace at that depth on the paged layout (``page_size`` 16), paged
    equal to dense bitwise, the pool free at the end, ``dropped_frac`` 0
-   at every single-position MoE call; the whole-prompt
+   at every single-position MoE call; at all 27 layers the whole-prompt
    ``TransformerLM.prefill`` of the 160-token
    prompt at capacity factor 16 against the scan chunk's last logits,
    in float32 compute on the bf16 weights within relative L2 2e-3 and
@@ -303,6 +321,30 @@ there is no CUDA device or no ``src/repro_torch`` beside it.
    decode-tick ms, prefill ms per position, the self-attention K/V dense
    against live pages and the cross K/V apart; one JSON line
    ``{"encdec": {...}}``.
+14. The vmap dispatch, the vmapped slot loop and the compute dtypes,
+   on OLMo-1B at its published width and depth with phase 4's weights
+   (run right after phase 5, each path with the launch counts reset just
+   before it). (a) ``torch.func.vmap`` of ``ops.dot`` and ``ops.asum``
+   over [8, 2^24] float32 and of ``ops.matmul`` over 4 chunks [64, 2048]
+   against one unbatched bf16 weight: exactly one B2, B4 and B6 launch,
+   equal to the batched entry point and to a loop of single calls,
+   bitwise. (b) Phase 4's trace with ``slot_loop="vmap"`` (dense, flash
+   prefill, ``kahan_matmul``, telemetry): B5 7 * 16 times a chunk and a
+   decode tick (one step for all running slots), B8 16 times a chunk, B4
+   once a tick and finished prefill; tokens/s and host ms a tick beside
+   phase 4's scan run of the same trace; the first tick's logits against
+   the scan run's (relative L2 below 5e-2, the same argmax, in every
+   running row); the telemetry and greedy tokens against scan's, logged;
+   one 4-slot tick profiled vmapped and scanned (host ms, device busy);
+   then ``0:16:12,0:16:2,0:16:12,3:256:2`` with one chunk a step, where
+   a slot is PREFILLING between two running ones: every vmapped tick
+   leaves the cache rows of the slots it does not run bitwise as they
+   were. (c) ``0:64:8`` under ``Policy(compute_dtype="bfloat16")`` and
+   again under "float64" (flash prefill, ``kahan_matmul``): every B5
+   and B8 launch in that compute dtype, the counts as phase 4's; and
+   phase 4's 2048-token ``TransformerLM.prefill`` under each (B7 16
+   times, in that dtype; logits finite, logged beside float32's); one
+   JSON line ``{"vmap": {...}}``.
 
 The last three lines are the card (``nvidia-smi`` name and power
 limit), one JSON object ``{"kernels": [...]}`` and
@@ -320,7 +362,11 @@ counts, "serve-<arch>" for each of phase 9's configs,
 "-matmul", and "-prefill" for the ring check's float32 prefills, B7);
 phase 12's "serve-xlstm-1.3b"; phase 13's "serve-whisper-large-v3" (and
 "-paged", "-matmul"), "whisper-encode-matmul" (the encoder alone, B5)
-and "whisper-prefill" (``EncDecLM.prefill``, B7):
+and "whisper-prefill" (``EncDecLM.prefill``, B7); phase 14's "vmap-dot",
+"vmap-asum" and "vmap-matmul" (timed at phase 3's batched shapes),
+"serve-vmap" (B5 timed at M 4), "serve-bf16" / "serve-f64" (B4, B5
+and B8 timed in that compute dtype, B5 at the decode q/k/v/o shape) and
+"prefill-bf16" / "prefill-f64" (B7 at the entry shape in that dtype):
 its ``launches`` are
 that path's count and its times were taken at that path's shape (B5 on "serve-matmul": the decode q/k/v/o
 shape at M 1, the one launched most; on "train-b" the up projection's
@@ -498,6 +544,14 @@ WHISPER_DECODE_ROW = "whisper-decode-qkvo"
 WHISPER_PREFILL_ROW = "whisper-prefill"
 
 #: the schemes with a device function, and the reduction wrappers
+#: phase 14: ``torch.func.vmap`` of the entry points over 8 rows of 2^24
+#: (phase 3's batched shape), a trace that keeps slot 1 PREFILLING (one
+#: chunk a step) between two running slots, and the short request served
+#: in bfloat16 and float64 compute
+VMAP_ROWS, VMAP_N = 8, 1 << 24
+VMAP_PREFILL_TRACE = "0:16:12,0:16:2,0:16:12,3:256:2"
+DTYPE_TRACE = "0:64:8"
+
 SCHEMES = ("naive", "kahan", "pairwise", "dot2")
 REDUCTIONS = ("dot_accumulators", "dot_accumulators_batched",
               "sum_accumulators", "sum_accumulators_batched")
@@ -590,11 +644,14 @@ def main() -> int:
     kernels.hybrid_parity(get_config(HYMBA))
     kernels.family_parity(get_config(XLSTM), get_config(WHISPER))
     kernels.matmul_times(cfg, PREFILL_LEN)
+    kernels.dtype_parity(cfg)
+    kernels.dtype_times(cfg, PREFILL_LEN, serve_max_len(DTYPE_TRACE))
     kernels.column_parity()
     kernels.subnormal_parity()
     kernels.train_times(cfg, TRAIN_BATCH // TRAIN_MICRO * TRAIN_SEQ)
     serve_stats = main_path(torch, kernels, cfg, PAPER_N)
     log(json.dumps({"serve": serve_stats}))
+    log(json.dumps({"vmap": vmap_path(torch, kernels, cfg)}))
     train_stats = train_path(torch, kernels, cfg)
     train_stats["b5_rows_per_step"] = kernels.train_b5
     log(json.dumps({"train": train_stats}))
@@ -679,15 +736,31 @@ def clock_under_load(torch, fn, launches: int = 20, replays: int = 300):
     return mhz, watts
 
 
-def bound_ms(n_bytes: float, n_ops: float):
+#: the H100 SXM's peak rate (TFLOP/s) for operations of each compute
+#: dtype other than float32 (whose 67 the machine model holds), dense, at
+#: 700 W: bfloat16 on the tensor cores, 989 (NVIDIA's H100
+#: data sheet); float64 on the FP64 tensor cores, 67 (NVIDIA's H100 data
+#: sheet); and float64 outside them, 34 (the same sheet), the rate of the
+#: CUDA cores that run the float64 chains
+PEAK_TFLOPS = {"bfloat16": 989.0, "float64": 67.0}
+F64_CORE_TFLOPS = 34.0
+
+
+def dtype_name(dtype) -> str:
+    return str(dtype).replace("torch.", "")
+
+
+def bound_ms(n_bytes: float, n_ops: float, dtype=None):
     """(least time in ms, what bounds it) for ``n_bytes`` moved once and
-    ``n_ops`` float32 operations on the H100: its published HBM rate and
-    float32 peak, as the machine model (``repro_torch.core.ecm.H100``)
-    holds them."""
+    ``n_ops`` operations of ``dtype`` (float32 by default) on the H100:
+    its published HBM rate and the peak for the operations' type
+    (``PEAK_TFLOPS``; float32's as the machine model,
+    ``repro_torch.core.ecm.H100``, holds it)."""
     from repro_torch.core.ecm import H100
 
+    rate = PEAK_TFLOPS.get(dtype_name(dtype), H100.fp32_tflops)
     bytes_ms = n_bytes / (H100.hbm_gbs * 1e6)
-    ops_ms = n_ops / (H100.fp32_tflops * 1e9)
+    ops_ms = n_ops / (rate * 1e9)
     return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms
                                    else "operations")
 
@@ -701,12 +774,16 @@ def flash_flops(bh: int, sq: int, skv: int, dh: int, q_off: int) -> int:
     return 4 * bh * pairs * dh
 
 
-def fma_ceiling_ms(flops: float) -> float:
-    """``flops`` at half the float32 peak: the mul+add ceiling of a chain
-    that may not fuse its products (no fma, no tensor cores)."""
+def fma_ceiling_ms(flops: float, dtype=None) -> float:
+    """``flops`` at half the CUDA cores' fma rate: the mul+add ceiling of
+    a chain that may not fuse its products (no fma, no tensor cores). A
+    float32 or bfloat16 chain (bfloat16 ops are float32 ops, rounded) at
+    half the float32 peak, a float64 one at half ``F64_CORE_TFLOPS``."""
     from repro_torch.core.ecm import H100
 
-    return flops / (H100.fp32_tflops / 2 * 1e9)
+    rate = F64_CORE_TFLOPS if dtype_name(dtype) == "float64" else \
+        H100.fp32_tflops
+    return flops / (rate / 2 * 1e9)
 
 
 class Kernels:
@@ -865,19 +942,23 @@ class Kernels:
         seen[name].add((fn.plan, fn.copy, rings))
 
     def flash_parity(self, dh: int,
-                     heads=((4, 1), (4, 2), (48, 1), (48, 2))):
+                     heads=((4, 1), (4, 2), (48, 1), (48, 2)), dtype=None):
         """B7 and B8 against their plain version, bitwise: Sq = 300 and
         Skv = 600 (blocks 256: Sq padded to 512, Skv to 768 = 3 k-blocks,
         60 padded keys masked), every built-in scheme, at each (BH,
         q_groups) of ``heads``: by default q_groups 1 and 2 at BH 4 (B7 in
         16-row tiles) and BH 48 (B7 in 64-row tiles, B8's 64-row chunks in
-        16-row tiles: rows equal across tile heights)."""
+        16-row tiles: rows equal across tile heights). ``dtype``: the
+        compute dtype (float32 by default; float64 and bfloat16 take
+        16-row tiles only)."""
         torch, fa = self.torch, self.fa
+        dtype = dtype or torch.float32
         sq, skv, bk = 300, 600, 256
         cases = 0
         plans = set()
         for bh, groups in heads:
-            eng = self.engine.CompensatedReduction(scheme="kahan")
+            eng = self.engine.CompensatedReduction(scheme="kahan",
+                                                   compute_dtype=dtype)
             q, k, v, bq, bk, _, _ = eng._flash_prep(
                 "flash_parity", self.normal((bh, sq, dh)),
                 self.normal((bh // groups, skv, dh)),
@@ -914,10 +995,11 @@ class Kernels:
                                fa.flash_chunk_accumulators.plan[0]))
                     cases += 1
         sync(torch, self.dev)
-        check(any(r7 == 64 and r8 == 16 for _, r7, r8 in plans),
+        check(dtype != torch.float32
+              or any(r7 == 64 and r8 == 16 for _, r7, r8 in plans),
               f"no parity case ran B7 in 64-row tiles beside B8 in 16-row "
               f"tiles: (BH, B7 rows, B8 rows) {sorted(plans)}")
-        log(f"# phase 2: {cases} flash parity cases (dh={dh}, Sq={sq}, "
+        log(f"# phase 2: {cases} {dtype} flash parity cases (dh={dh}, Sq={sq}, "
             f"Skv={skv}, block_k={bk}, (BH, G) {list(heads)}) bitwise equal "
             f"to the plain version; B8 rows at aligned offsets == B7 rows, "
             f"bitwise ((BH, B7 tile rows, B8 tile rows): {sorted(plans)})")
@@ -952,7 +1034,7 @@ class Kernels:
         in_bytes = len(args) * n_elem * args[0].element_size()
         mix = sch.instruction_mix
         ops = n_elem * (mix.flops if name.startswith("dot") else mix.adds)
-        least, by = bound_ms(in_bytes + grid_bytes, ops)
+        least, by = bound_ms(in_bytes + grid_bytes, ops, args[0].dtype)
         key = (name, label or scheme)
         before = REDUCE_BEFORE_MS.get(key)
         row = {"ms": ms, "events_ms": events_ms, "plain_ms": plain_ms,
@@ -961,6 +1043,7 @@ class Kernels:
                "plan": getattr(wrapper, "plan", None),
                "copy": getattr(wrapper, "copy", None),
                "shape": list(args[0].shape), "scheme": scheme,
+               "dtype": dtype_name(args[0].dtype),
                "gbytes_per_s": (in_bytes + grid_bytes) / ms / 1e6}
         self.timing[key] = row
         was = f"; before the ring {before:.4f}" if before else ""
@@ -1023,19 +1106,24 @@ class Kernels:
                       valid=(4, 50304))
         del a, b, a2, b2
 
-    def time_flash(self, name, label, q, k, v, q_off, reps, groups=1):
+    def time_flash(self, name, label, q, k, v, q_off, reps, groups=1,
+                   dtype=None):
         """One flash wrapper (scheme kahan) at the engine's padded shapes
         for q [BH, Sq, dh] and the cache k/v [BH / groups, Skv, dh] (GQA
-        through the kernel's ``bh // G`` row): kernel, plain and library
-        (float32 ``scaled_dot_product_attention``, the same causal mask on
-        absolute positions, on k/v repeated to BH rows beforehand) times,
-        and the parity check."""
+        through the kernel's ``bh // G`` row) in the compute ``dtype``
+        (float32 by default): kernel, plain and library
+        (``scaled_dot_product_attention`` in that dtype, the same causal
+        mask on absolute positions, on k/v repeated to BH rows beforehand)
+        times, and the parity check."""
         torch, fa = self.torch, self.fa
         F = torch.nn.functional
+        dtype = dtype or torch.float32
+        q, k, v = (x.to(dtype) for x in (q, k, v))
         sch = self.schemes.get("kahan")
         bh, sq, dh = q.shape
         skv = k.shape[1]
-        eng = self.engine.CompensatedReduction(scheme=sch)
+        eng = self.engine.CompensatedReduction(scheme=sch,
+                                               compute_dtype=dtype)
         qp, kp, vp, bq, bk, _, _ = eng._flash_prep(name, q, k, v, 256, 256,
                                                    groups)
         kw = dict(block_q=bq, block_k=bk, scheme=sch, kv_len=skv,
@@ -1069,12 +1157,12 @@ class Kernels:
         del kr, vr
         flops = flash_flops(bh, sq, skv, dh, q_off)
         # q, k, v read once and (l_s, l_c, a_s, a_c) written once, unpadded
-        n_bytes = 4 * (q.numel() + k.numel() + v.numel()
-                       + 2 * (bh * sq + q.numel()))
-        least, by = bound_ms(n_bytes, flops)
+        n_bytes = q.element_size() * (q.numel() + k.numel() + v.numel()
+                                      + 2 * (bh * sq + q.numel()))
+        least, by = bound_ms(n_bytes, flops, dtype)
         # the fixed chains' own ceiling: a separate rounded multiply and
         # add per term, at half the fma rate
-        ceiling = fma_ceiling_ms(flops)
+        ceiling = fma_ceiling_ms(flops, dtype)
         rows, smem = getattr(fa, name).plan
         row = {"ms": ms, "events_ms": events_ms, "plain_ms": plain_ms,
                "library_ms": library_ms, "bound_ms": least, "bound_by": by,
@@ -1083,19 +1171,21 @@ class Kernels:
                "smem_bytes": smem,
                "before_ms": FLASH_BEFORE_MS.get(label),
                "shape": [bh, sq, dh], "skv": skv, "q_groups": groups,
-               "scheme": "kahan", "tflops": flops / ms / 1e9}
+               "scheme": "kahan", "dtype": dtype_name(dtype),
+               "tflops": flops / ms / 1e9}
         self.timing[(name, label)] = row
         before = FLASH_BEFORE_MS.get(label)
         was = (f"; 16-row kernel before the redesign {before:.4f}" if before
                else "")
-        log(f"# {name} {label} q {[bh, sq, dh]} kv {skv} G={groups}: kernel "
+        log(f"# {name} {label} q {[bh, sq, dh]} kv {skv} G={groups} "
+            f"{dtype_name(dtype)}: kernel "
             f"{ms:.4f} ms device ({events_ms:.4f} back to back; "
-            f"{row['tflops']:.2f} TFLOP/s fp32{was}), {by} bound "
+            f"{row['tflops']:.2f} TFLOP/s{was}), {by} bound "
             f"{least:.4f} ms, "
             f"mul+add ceiling {ceiling:.4f} ms ({100 * ceiling / ms:.1f}%), "
             f"tile {rows} rows, {fa.RING_STAGES}-stage ring, {smem} B "
-            f"shared, plain {plain_ms:.1f} ms, library (sdpa f32) "
-            f"{library_ms:.4f} ms")
+            f"shared, plain {plain_ms:.1f} ms, library (sdpa "
+            f"{dtype_name(dtype)}) {library_ms:.4f} ms")
 
     def flash_times(self, cfg, prefill_len, serve_len, long_len):
         """B7 at the entry path's shape (every head of a 2048-token
@@ -1552,7 +1642,7 @@ class Kernels:
         return 1
 
     def time_matmul(self, label, m, k, n, batch=None, reps=20,
-                    dtypes=None, pads=False):
+                    dtypes=None, pads=False, compute_dtype=None):
         """B5 (or B6 with ``batch``) at ``[M, K] x [K, N]`` with bf16
         operands (or ``dtypes``: the backward's float32 gradient against
         bf16 weights and activations), as the projections give it (the
@@ -1565,13 +1655,16 @@ class Kernels:
         graph: a decode-shape launch is shorter than the wrapper's
         enqueue on the host. ``pads``: a K off ``block_k`` (11008), which
         the engine zero-pads; the kernel is timed on the padded operands
-        it gets."""
+        it gets. ``compute_dtype``: float32 by default; the library call
+        then runs in the compute dtype (bf16 on the tensor cores)."""
         torch, km = self.torch, self.km
+        cdt = compute_dtype or torch.float32
         lead = () if batch is None else (batch,)
         name = ("matmul_accumulators" if batch is None
                 else "matmul_accumulators_batched")
         wrapper = self.engine.WRAPPERS[name]
-        eng = self.engine.CompensatedReduction(scheme="kahan")
+        eng = self.engine.CompensatedReduction(scheme="kahan",
+                                               compute_dtype=cdt)
         a_dt, b_dt = dtypes or (torch.bfloat16, torch.bfloat16)
         a = self.normal((*lead, m, k)).to(a_dt)
         b = self.normal((*lead, k, n)).to(b_dt)
@@ -1585,14 +1678,14 @@ class Kernels:
               f"the engine widened operands at {label}")
         kpad, npad = ap.shape[-1], bp.shape[-1]
         kw = dict(scheme=eng.scheme, block_m=blocks[0], block_n=blocks[1],
-                  block_k=blocks[2], compute_dtype=torch.float32)
+                  block_k=blocks[2], compute_dtype=cdt)
         got = wrapper(ap, bp, **kw)
         sync(torch, self.dev)
         t0 = time.perf_counter()
         want = km.matmul_plain(ap.reshape(-1, m, kpad),
                                bp.reshape(-1, kpad, npad),
                                scheme=eng.scheme, block_k=blocks[2],
-                               compute_dtype=torch.float32)
+                               compute_dtype=cdt)
         sync(torch, self.dev)
         plain_ms = (time.perf_counter() - t0) * 1e3
         if batch is None:
@@ -1602,23 +1695,25 @@ class Kernels:
         operands = cold_copies(torch, (ap, bp))
         ms = graph_ms(torch, cycle(lambda x, y: wrapper(x, y, **kw),
                                    operands), reps)
-        promoted = cold_copies(torch, (ap.float(), bp.float()))
+        promoted = cold_copies(torch, (ap.to(cdt), bp.to(cdt)))
         library_ms = graph_ms(torch, cycle(torch.matmul, promoted), reps)
         del operands, promoted
         nb = 1 if batch is None else batch
         # the function's own bytes: the operands as given (not the padding
         # the engine adds), the (s, c) grids written once
         n_bytes = (a.numel() * a.element_size()
-                   + b.numel() * b.element_size() + 2 * nb * m * n * 4)
+                   + b.numel() * b.element_size()
+                   + 2 * nb * m * n * torch.empty((), dtype=cdt).element_size())
         flops = 2 * nb * m * n * k
-        least, by = bound_ms(n_bytes, flops)
+        least, by = bound_ms(n_bytes, flops, cdt)
         # the fixed chain's own ceiling: a separate multiply and add per
         # term, at half the fma rate
-        ceiling = fma_ceiling_ms(flops)
-        tm, tn, split = km.grid_plan(nb, m, npad, kpad, blocks[2])
+        ceiling = fma_ceiling_ms(flops, cdt)
+        tm, tn, split = km.grid_plan(nb, m, npad, kpad, blocks[2], cdt)
         row = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
                "bound_ms": least, "bound_by": by,
                "shape": [*lead, m, k, n], "scheme": "kahan",
+               "dtype": dtype_name(cdt),
                "operands": [str(a_dt)[6:], str(b_dt)[6:]],
                "block_k": blocks[2], "tflops": flops / ms / 1e9,
                "gbytes_per_s": n_bytes / ms / 1e6,
@@ -1628,11 +1723,12 @@ class Kernels:
         self.timing[(name, label)] = row
         plan = (f"tile {tm}x{tn}, cluster {split}" if tm
                 else "rows path (M <= 8)")
-        log(f"# {name} {label} {row['shape']}: kernel {ms:.4f} ms "
+        log(f"# {name} {label} {row['shape']} {dtype_name(cdt)} compute: "
+            f"kernel {ms:.4f} ms "
             f"({row['tflops']:.2f} TFLOP/s, {row['gbytes_per_s']:.0f} GB/s), "
             f"{by} bound {least:.4f} ms, mul+add ceiling {ceiling:.4f} ms "
             f"({100 * ceiling / ms:.1f}%), {plan}, plain {plain_ms:.1f} ms, "
-            f"library (f32 matmul) {library_ms:.4f} ms")
+            f"library ({dtype_name(cdt)} matmul) {library_ms:.4f} ms")
 
     def matmul_times(self, cfg, prefill_len):
         """B5 at every projection shape of OLMo-1B at decode (M 1, as
@@ -1667,6 +1763,130 @@ class Kernels:
             f"{t['chunk_mul_add_ceiling_ms']:.3f} ms, f32 matmul "
             f"{t['chunk_library_ms']:.3f} ms; per 32-token chunk "
             f"{t['chunk32_ms']:.3f} ms")
+
+    # -- the compute dtypes of this slice (phases 2 and 3) ---------------------
+    def dtype_parity(self, cfg):
+        """B5/B6 in bfloat16 compute and B7/B8 in bfloat16 and float64
+        against their plain versions, bitwise. Matmul, every scheme: M in
+        {1, 3, 8} (the rows path) and {9, 37, 64, 300} (the tiles) x 1, 4
+        and 17 K-blocks of 128 x N 200; B6 at [3, 37, 1024] x [3, 1024,
+        200] equal to its plain version and a loop of B5; OLMo-1B's
+        projections at M 1 ([1, d] x [d, H dh]) and in a 64-token chunk
+        ([64, d] x [d, d_ff]). Flash in each dtype: ``flash_parity`` at
+        OLMo-1B's head dim (every scheme, causal and not, G 1 and 2, B8
+        rows == B7 rows) and B8 at OLMo-1B's serving chunk [H, 64, dh]
+        against 112 cached rows."""
+        torch, km, fa = self.torch, self.km, self.fa
+        bf16, f64 = torch.bfloat16, torch.float64
+        cases = 0
+        for name in SCHEMES:
+            sch = self.schemes.get(name)
+            kw = dict(scheme=sch, block_m=8, block_n=200, block_k=128,
+                      compute_dtype=bf16)
+            for m in (1, 3, 8, 9, 37, 64, 300):
+                for steps in (1, 4, 17):
+                    a = self.normal((m, steps * 128)).to(bf16)
+                    b = self.normal((steps * 128, 200)).to(bf16)
+                    got = km.matmul_accumulators(a, b, **kw)
+                    want = km.matmul_plain(a[None], b[None], scheme=sch,
+                                           block_k=128, compute_dtype=bf16)
+                    self.compare("matmul_accumulators", got,
+                                 (want[0][0], want[1][0]),
+                                 f"{name} bfloat16 M={m} {steps} K-blocks")
+                    cases += 1
+            a = self.normal((3, 37, 1024)).to(bf16)
+            b = self.normal((3, 1024, 200)).to(bf16)
+            got = km.matmul_accumulators_batched(a, b, **kw)
+            want = km.matmul_plain(a, b, scheme=sch, block_k=128,
+                                   compute_dtype=bf16)
+            self.compare("matmul_accumulators_batched", got, want,
+                         f"{name} bfloat16 [3, 37, 1024] x [3, 1024, 200]")
+            for i in range(3):
+                one = km.matmul_accumulators(a[i], b[i], **kw)
+                check(all(torch.equal(g[i], o) for g, o in zip(got, one)),
+                      f"bfloat16 B6 != a loop of B5 ({name})")
+            cases += 1
+        eng = self.engine.CompensatedReduction(scheme="kahan",
+                                               compute_dtype=bf16)
+        d, hd = cfg.d_model, cfg.n_heads * cfg.head_dim
+        for m, k, n in ((1, d, hd), (64, d, cfg.d_ff)):
+            a = self.normal((m, k)).to(bf16)
+            b = self.normal((k, n)).to(bf16)
+            blocks = eng._matmul_blocks(m, n, k, None, None, None)
+            got = km.matmul_accumulators(
+                a, b, scheme=eng.scheme, block_m=blocks[0],
+                block_n=blocks[1], block_k=blocks[2], compute_dtype=bf16)
+            want = km.matmul_plain(a[None], b[None], scheme=eng.scheme,
+                                   block_k=blocks[2], compute_dtype=bf16)
+            self.compare("matmul_accumulators", got, (want[0][0], want[1][0]),
+                         f"kahan bfloat16 OLMo-1B [{m}, {k}] x [{k}, {n}]")
+            cases += 1
+        sync(torch, self.dev)
+        log(f"# phase 2: {cases} bfloat16 matmul parity cases bitwise equal "
+            f"to the plain version (B5 on both paths, B6 == its plain "
+            f"version and a loop of B5, OLMo-1B's q and chunk gate/up "
+            f"shapes)")
+        h, dh = cfg.n_heads, cfg.head_dim
+        for dtype in (bf16, f64):
+            self.flash_parity(dh, heads=((4, 1), (16, 2)), dtype=dtype)
+            sch = self.schemes.get("kahan")
+            ceng = self.engine.CompensatedReduction(scheme=sch,
+                                                    compute_dtype=dtype)
+            q, k, v, bq, bk, _, _ = ceng._flash_prep(
+                "dtype_parity", self.normal((h, 64, dh)),
+                self.normal((h, 112, dh)), self.normal((h, 112, dh)), 256,
+                256, 1)
+            got = fa.flash_chunk_accumulators(q, k, v, 48, block_q=bq,
+                                              block_k=bk, scheme=sch,
+                                              kv_len=112)
+            want = fa.flash_plain(q, k, v, scheme=sch, block_k=bk, kv_len=112,
+                                  causal=True, q_off=48)
+            self.compare("flash_chunk_accumulators", got, want,
+                         f"kahan {dtype} OLMo-1B chunk [{h}, 64, {dh}] at "
+                         f"48 against 112 rows")
+        sync(torch, self.dev)
+        log(f"# phase 2: B8 in bfloat16 and float64 at OLMo-1B's serving "
+            f"chunk [{h}, 64, {dh}] bitwise equal to the plain version")
+
+    def dtype_times(self, cfg, prefill_len, serve_len):
+        """Phase 3 in the compute dtypes of this slice, each with its
+        parity check, bound (operations at the dtype's peak,
+        ``PEAK_TFLOPS``) and library call in the same dtype: B7 at the
+        entry shape and B8 at the serving chunk in bfloat16 and float64;
+        B5 at the decode q/k/v/o shape (M 1) and the 64-token chunk's
+        gate/up in bfloat16 and float64 (float64 operands: the engine
+        widens bf16 weights for a float64 compute dtype), B6 at the
+        batched shape in bfloat16; B4 at the serving telemetry's [4,
+        57344] in both; and B5 at M 4 in float32, the decode shape of
+        phase 14's vmapped tick."""
+        torch = self.torch
+        h, dh, d = cfg.n_heads, cfg.head_dim, cfg.d_model
+        hd = h * dh
+        off = (serve_len - 64) // 64 * 64
+        self.time_matmul("decode4-qkvo", 4, d, hd, reps=50)
+        for dtype, tag in ((torch.bfloat16, "bf16"), (torch.float64, "f64")):
+            self.time_flash("flash_accumulators", f"entry-{tag}",
+                            self.normal((h, prefill_len, dh)),
+                            self.normal((h, prefill_len, dh)),
+                            self.normal((h, prefill_len, dh)), 0, reps=5,
+                            dtype=dtype)
+            self.time_flash("flash_chunk_accumulators", f"serve-{tag}",
+                            self.normal((h, 64, dh)),
+                            self.normal((h, serve_len, dh)),
+                            self.normal((h, serve_len, dh)), off, reps=50,
+                            dtype=dtype)
+            ops_dt = (dtype, dtype)
+            self.time_matmul(f"decode-qkvo-{tag}", 1, d, hd, reps=50,
+                             dtypes=ops_dt, compute_dtype=dtype)
+            self.time_matmul(f"chunk-gate-up-{tag}", 64, d, cfg.d_ff,
+                             reps=20, dtypes=ops_dt, compute_dtype=dtype)
+            x = self.data((4, 57344), dtype)
+            self.time_one("sum_accumulators_batched", "kahan", (x,),
+                          lambda s, x=x: self.ks.sum_plain(x, scheme=s),
+                          lambda x=x: torch.sum(x, dim=1), reps=200,
+                          label=f"serve-{tag}", valid=(4, 50304))
+        self.time_matmul("batched-bf16", 64, d, hd, batch=4, reps=10,
+                         compute_dtype=torch.bfloat16)
 
     def column_parity(self):
         """The column-scan kernel (``kahan_columns``) against its plain
@@ -2258,7 +2478,7 @@ def cycle(fn, operand_sets):
 
 def serve_run(torch, kernels, cfg, model, params, trace, prefill_mode,
               max_len=None, phase="4", prepare=None, body=None, max_slots=4,
-              **engine_kw):
+              policy=None, **engine_kw):
     """Serve ``trace`` once with every launch count reset just before and
     read just after; times every decode tick and prefill chunk. Checks
     what holds on every serving path: each request emits its tokens, the
@@ -2268,7 +2488,9 @@ def serve_run(torch, kernels, cfg, model, params, trace, prefill_mode,
     to the ``EngineConfig``; ``prepare(engine)`` runs before the trace;
     ``body`` is the chunk body the engine must resolve ``prefill_mode``
     to (default: ``prefill_mode`` itself); ``max_slots`` the decode
-    batch (default 4).
+    batch (default 4); ``policy`` the engine's (default: scheme kahan,
+    float32). ``captured`` holds the first and the last decode tick's
+    logits and telemetry.
     Under the paged layout the stats carry the peak pages in use and
     whether a live page table was ever scattered."""
     from repro_torch.kernels import Policy
@@ -2282,7 +2504,7 @@ def serve_run(torch, kernels, cfg, model, params, trace, prefill_mode,
     ec = EngineConfig(max_slots=max_slots,
                       max_len=max_len or serve_max_len(trace),
                       prefill_chunk=64, track_stats=True,
-                      policy=Policy(scheme="kahan"),
+                      policy=policy or Policy(scheme="kahan"),
                       prefill_mode=prefill_mode, **engine_kw)
     engine = InferenceEngine(cfg, ec, model=model, params=params)
     body = body or prefill_mode
@@ -2334,6 +2556,7 @@ def serve_run(torch, kernels, cfg, model, params, trace, prefill_mode,
         out = _orig(logits)
         if logits.shape[0] == ec.max_slots:       # a decode tick's batch
             captured["logits"], captured["norms"] = logits.clone(), out.clone()
+            captured.setdefault("first_logits", captured["logits"])
         return out
 
     engine._decode_tick = timed_tick
@@ -2382,6 +2605,8 @@ def serve_run(torch, kernels, cfg, model, params, trace, prefill_mode,
         "launches": counts,
         "max_memory_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
         "kv_layout": engine.kv_layout, "max_len": ec.max_len,
+        "slot_loop": ec.slot_loop,
+        "compute_dtype": dtype_name(ec.policy.compute_dtype),
     }
     if engine.kv_layout == "paged":
         stats.update(peak_pages=pages["peak"], scattered=pages["scattered"],
@@ -2389,7 +2614,9 @@ def serve_run(torch, kernels, cfg, model, params, trace, prefill_mode,
                      page_bytes=engine.slots.page_bytes)
     log(f"# phase {phase} {cfg.name} [{prefill_mode}, "
         f"kahan_attention={cfg.kahan_attention}, "
-        f"kahan_matmul={cfg.kahan_matmul}, {engine.kv_layout}] {trace}: "
+        f"kahan_matmul={cfg.kahan_matmul}, {engine.kv_layout}, "
+        f"slot_loop {ec.slot_loop}, {dtype_name(ec.policy.compute_dtype)}] "
+        f"{trace}: "
         f"{len(cells)} requests, {n_tok} tokens in {wall:.2f} s "
         f"({stats['tokens_per_s']:.1f} tokens/s); {len(chunk_ms)} prefill "
         f"chunks in {stats['prefill_s']:.2f} s "
@@ -2509,7 +2736,7 @@ def main_path(torch, kernels: Kernels, cfg, paper_n):
         f"per request (not checked): {agree}")
     matmul_cfg = flash_cfg.replace(kahan_matmul=True)
     matmul_model = build_model(matmul_cfg, dev)
-    mec, _, mserved, _, mm = serve_run(
+    mec, _, mserved, mcaptured, mm = serve_run(
         torch, kernels, matmul_cfg, matmul_model, params, TRACE, "flash")
     check_flash_launches(matmul_cfg, mm, "kahan_matmul serving")
     mm["decode_position"] = profile_decode_step(torch, matmul_model, params,
@@ -2629,11 +2856,326 @@ def main_path(torch, kernels: Kernels, cfg, paper_n):
                                ("kahan_matmul", matmul_cfg, matmul_model,
                                 mec, mserved)):
         check_solo(c, e, m, params, req0, out, what, "5")
+    # phase 14 serves the kahan_matmul run's trace again, vmapped
+    kernels.phase4 = {"cfg": matmul_cfg, "model": matmul_model,
+                      "params": params, "served": mserved, "stats": mm,
+                      "captured": mcaptured, "flash_model": flash_model,
+                      "prompt": prompt, "flash_logits": flash_logits}
     return {"scan": scan, "flash": flash, "matmul": mm, "flash_long": long,
             "entry_prefill_ms": prefill_ms, "entry_logits_rel_l2": rel,
             "entry_matmul_ms": matmul_ms, "entry_matmul_err": up_err,
             "b5_totals": kernels.matmul_totals,
             "reduce_clock": kernels.reduce_clock}
+
+
+def vmap_path(torch, kernels, cfg):
+    """Phase 14 (after phase 5, on phase 4's weights): the vmap dispatch,
+    the vmapped slot loop and the compute dtypes of this slice on
+    OLMo-1B. Returns the phase's stats."""
+    t0 = time.perf_counter()
+    out = {"entries": vmap_entries(torch, kernels, cfg)}
+    out["serve"] = vmap_serve(torch, kernels)
+    out["dtypes"] = dtype_serve(torch, kernels)
+    del kernels.phase4
+    out["seconds"] = time.perf_counter() - t0
+    log(f"# phase 14 took {out['seconds']:.1f} s")
+    return out
+
+
+def vmap_entries(torch, kernels, cfg):
+    """Phase 14(a): ``torch.func.vmap`` of ``ops.dot``, ``ops.asum`` and
+    ``ops.matmul`` on the card, each with the launch counts reset just
+    before it: exactly one launch of B2, B4 or B6 and none other, equal to
+    the batched entry point and to a loop of single calls, bitwise. dot
+    and asum over [8, 2^24] float32 rows; matmul over 4 chunks [64, d]
+    against one unbatched bf16 weight [d, H dh] (broadcast by the rule)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.engine import launch_counts, reset_launch_counts
+
+    a = kernels.data((VMAP_ROWS, VMAP_N), torch.float32)
+    b = kernels.data((VMAP_ROWS, VMAP_N), torch.float32)
+    x = kernels.normal((4, 64, cfg.d_model)).bfloat16()
+    w = kernels.normal((cfg.d_model, cfg.n_heads * cfg.head_dim)).bfloat16()
+    cases = (
+        ("vmap-dot", "dot_accumulators_batched",
+         lambda: torch.func.vmap(lambda p, q: ops.dot(p, q))(a, b),
+         lambda: ops.batched_dot(a, b),
+         lambda: torch.stack([ops.dot(a[i], b[i])
+                              for i in range(VMAP_ROWS)])),
+        ("vmap-asum", "sum_accumulators_batched",
+         lambda: torch.func.vmap(lambda p: ops.asum(p))(a),
+         lambda: ops.batched_asum(a),
+         lambda: torch.stack([ops.asum(a[i]) for i in range(VMAP_ROWS)])),
+        ("vmap-matmul", "matmul_accumulators_batched",
+         lambda: torch.func.vmap(lambda p: ops.matmul(p, w))(x),
+         lambda: ops.batched_matmul(x, w.expand(4, *w.shape)),
+         lambda: torch.stack([ops.matmul(x[i], w) for i in range(4)])))
+    stats = {}
+    for path, wrapper, vmapped, batched, loop in cases:
+        sync(torch, kernels.dev)
+        reset_launch_counts()
+        got = vmapped()
+        sync(torch, kernels.dev)
+        counts = launch_counts()
+        check(counts[wrapper] == 1 and sum(counts.values()) == 1,
+              f"{path}: torch.func.vmap launched {counts}, want one "
+              f"{wrapper}")
+        kernels.launches[path] = counts
+        check(torch.equal(got, batched()),
+              f"{path}: vmapped != the batched entry point")
+        check(torch.equal(got, loop()), f"{path}: vmapped != a loop of "
+              f"single calls")
+        stats[path] = {"launches": counts[wrapper],
+                       "shape": list(got.shape)}
+    kernels.path_labels[("matmul_accumulators_batched", "vmap-matmul")] = (
+        "batched")
+    log(f"# phase 14(a): torch.func.vmap of ops.dot and ops.asum over "
+        f"[{VMAP_ROWS}, {VMAP_N}] and of ops.matmul over [4, 64, "
+        f"{cfg.d_model}] x one [{cfg.d_model}, {w.shape[1]}] weight: one "
+        f"B2, B4 and B6 launch each, bitwise equal to the batched entry "
+        f"points and to loops of single calls")
+    return stats
+
+
+def check_vmap_launches(cfg, stats, what):
+    """The vmapped tick runs each projection ONCE for all running slots:
+    with ``kahan_matmul``, B5 7 * n_layers times a prefill chunk and a
+    decode TICK; B8 n_layers times a chunk of width > 1; nothing else but
+    the telemetry."""
+    counts = stats["launches"]
+    wide = sum(1 for w in stats["chunk_widths"] if w > 1)
+    units = stats["prefill_chunks"] + stats["decode_ticks"]
+    for name, want in (("flash_chunk_accumulators", cfg.n_layers * wide),
+                       ("matmul_accumulators",
+                        PROJECTIONS * cfg.n_layers * units),
+                       ("flash_accumulators", 0), ("dot_accumulators", 0),
+                       ("dot_accumulators_batched", 0),
+                       ("sum_accumulators", 0),
+                       ("matmul_accumulators_batched", 0)):
+        check(counts[name] == want, f"{what}: {name} launched "
+              f"{counts[name]} times, want {want}")
+
+
+def vmap_serve(torch, kernels):
+    """Phase 14(b): phase 4's trace served again with ``slot_loop="vmap"``
+    (dense layout, flash prefill, ``kahan_matmul``, telemetry) on phase
+    4's weights, beside phase 4's scan run of it in this call: tokens/s,
+    host ms a tick, the first tick's logits (relative L2 below 5e-2 and
+    the same argmax in every running row), the telemetry; one tick of 4
+    slots profiled both ways; then a trace that keeps a slot PREFILLING
+    between running slots (one chunk a step), where every vmapped tick
+    leaves the rows of the slots it does not run bitwise as they were."""
+    from repro_torch.kernels import Policy
+    from repro_torch.kernels.schemes import use_policy
+    from repro_torch.models.common import cache_leaves
+    from repro_torch.serve.slots import gather_row
+
+    p4 = kernels.phase4
+    cfg, model, params = p4["cfg"], p4["model"], p4["params"]
+    scan, sserved = p4["stats"], p4["served"]
+    ec, _, served, captured, st = serve_run(
+        torch, kernels, cfg, model, params, TRACE, "flash", phase="14",
+        slot_loop="vmap")
+    check_vmap_launches(cfg, st, "vmapped serving")
+    kernels.launches["serve-vmap"] = st["launches"]
+    kernels.path_labels[("matmul_accumulators", "serve-vmap")] = (
+        "decode4-qkvo")
+    first, sfirst = captured["first_logits"], p4["captured"]["first_logits"]
+    rows = [i for i in range(ec.max_slots) if bool(sfirst[i].any())]
+    rels, same = [], []
+    for i in range(ec.max_slots):
+        v = first[i, :cfg.vocab_size].double()
+        s = sfirst[i, :cfg.vocab_size].double()
+        if i in rows:
+            rels.append(float((v - s).norm() / s.norm()))
+            same.append(int(v.argmax()) == int(s.argmax()))
+        else:
+            check(not bool(v.any()), f"vmapped tick: logits in idle row {i}")
+    check(rows and max(rels) < 5e-2 and all(same),
+          f"vmapped first tick's logits vs scan's: relative L2 {rels}, "
+          f"same argmax {same}")
+    tel = {rid: max(abs(x - y) / abs(y) for x, y in zip(
+        served[rid].telemetry, sserved[rid].telemetry)) for rid in served}
+    agree = {rid: sum(x == y for x, y in zip(served[rid].tokens,
+                                             sserved[rid].tokens))
+             for rid in served}
+
+    # one tick of 4 running slots, profiled both ways
+    max_len = ec.max_len
+    cache = model.init_cache(4, max_len)
+    toks = torch.ones(4, dtype=torch.long, device=kernels.dev)
+    pos = torch.tensor([40, 60, 80, 100], device=kernels.dev)
+    one = [gather_row(cache, s) for s in range(4)]
+    with use_policy(Policy(scheme="kahan")):
+        ticks = {
+            "vmap": profile_step(
+                torch, kernels.dev,
+                lambda i: model.decode_step(params, cache, toks, pos),
+                "phase 14 vmapped tick (4 slots)"),
+            "scan": profile_step(
+                torch, kernels.dev,
+                lambda i: [model.decode_step(params, one[s], toks[s:s + 1],
+                                             int(pos[s]))
+                           for s in range(4)],
+                "phase 14 scanned tick (4 slots)")}
+    del cache, one
+
+    # a PREFILLING row between running rows keeps its bits across ticks
+    seen = {"ticks": 0, "between": 0}
+
+    def spy_on(engine):
+        orig = engine._vmapped_step
+
+        def spy(running, logits):
+            idle = [s for s in range(engine.ec.max_slots) if s not in running]
+            before = {s: [t.clone() for t in cache_leaves(
+                gather_row(engine.slots.cache, s))] for s in idle}
+            orig(running, logits)
+            for s in idle:
+                check(all(torch.equal(x, y) for x, y in zip(
+                    before[s], cache_leaves(gather_row(engine.slots.cache,
+                                                       s)))),
+                      f"a vmapped tick changed slot {s}'s row, which it does "
+                      f"not run")
+            seen["ticks"] += 1
+            pre = [s for s in engine.scheduler.prefilling]
+            seen["between"] += any(min(running) < s < max(running)
+                                   for s in pre)
+
+        engine._vmapped_step = spy
+
+    _, _, _, _, pst = serve_run(
+        torch, kernels, cfg, model, params, VMAP_PREFILL_TRACE, "flash",
+        phase="14", slot_loop="vmap", prefill_budget=1, prepare=spy_on)
+    check(seen["between"] > 0, f"no vmapped tick ran with a PREFILLING slot "
+          f"between running ones ({seen})")
+    stats = {"serve": st, "scan_tokens_per_s": scan["tokens_per_s"],
+             "scan_decode_tick_ms_mean": scan["decode_tick_ms_mean"],
+             "first_tick_rel_l2": rels, "first_tick_same_argmax": same,
+             "telemetry_max_rel_vs_scan": tel,
+             "greedy_tokens_equal_to_scan": agree, "tick_profile": ticks,
+             "prefilling_check": dict(seen, trace=VMAP_PREFILL_TRACE,
+                                      tokens_per_s=pst["tokens_per_s"])}
+    log(f"# phase 14(b) [vmap vs scan, flash + kahan_matmul, dense] {TRACE}: "
+        f"{st['tokens_per_s']:.1f} vs {scan['tokens_per_s']:.1f} tokens/s; "
+        f"decode tick {st['decode_tick_ms_mean']:.2f} vs "
+        f"{scan['decode_tick_ms_mean']:.2f} ms mean (host clock); a 4-slot "
+        f"tick {ticks['vmap']['host_ms']:.2f} vs {ticks['scan']['host_ms']:.2f}"
+        f" ms host, {ticks['vmap']['device_busy_ms'] or 0:.3f} vs "
+        f"{ticks['scan']['device_busy_ms'] or 0:.3f} ms device busy; first "
+        f"tick's logits vs scan's: relative L2 {rels}, same argmax {same}; "
+        f"telemetry max relative difference per request {tel}; greedy "
+        f"tokens equal to scan's per request {agree}; {seen['ticks']} "
+        f"vmapped ticks of {VMAP_PREFILL_TRACE} (one chunk a step) left "
+        f"every row they do not run bitwise as it was, {seen['between']} "
+        f"with a PREFILLING slot between running ones")
+    return stats
+
+
+def dtype_serve(torch, kernels):
+    """Phase 14(c): one short request (``DTYPE_TRACE``) on phase 4's
+    weights with flash prefill and ``kahan_matmul`` under
+    ``Policy(compute_dtype="bfloat16")`` and again under "float64", the
+    launch counts reset just before each: B5 7 times a layer and a chunk
+    or decode position, B8 n_layers times a chunk, B4 once a tick and
+    finished prefill, each of B5's and B8's launches in that compute
+    dtype (counted by wrapping their ``_launch``); then phase 4's
+    2048-token ``TransformerLM.prefill`` under the same policy (B7 once a
+    layer, in that dtype), its logits finite and beside phase 4's
+    float32 ones."""
+    from repro_torch.kernels import Policy
+    from repro_torch.kernels.engine import launch_counts, reset_launch_counts
+    from repro_torch.kernels.schemes import use_policy
+
+    p4 = kernels.phase4
+    cfg, model, params = p4["cfg"], p4["model"], p4["params"]
+    km, fa = kernels.km, kernels.fa
+    stats = {}
+    for dtype, tag in ((torch.bfloat16, "bf16"), (torch.float64, "f64")):
+        seen = {}
+        orig_mm, orig_fa = km._launch, fa._launch
+
+        def mm_spy(a, b, *, compute_dtype, counter, **kw):
+            key = ("matmul", dtype_name(compute_dtype))
+            seen[key] = seen.get(key, 0) + 1
+            return orig_mm(a, b, compute_dtype=compute_dtype,
+                           counter=counter, **kw)
+
+        def fa_spy(q, k, v, **kw):
+            key = ("flash", dtype_name(q.dtype))
+            seen[key] = seen.get(key, 0) + 1
+            return orig_fa(q, k, v, **kw)
+
+        km._launch, fa._launch = mm_spy, fa_spy
+        try:
+            _, requests, served, _, st = serve_run(
+                torch, kernels, cfg, model, params, DTYPE_TRACE, "flash",
+                phase="14", policy=Policy(scheme="kahan",
+                                          compute_dtype=dtype_name(dtype)))
+        finally:
+            km._launch, fa._launch = orig_mm, orig_fa
+        path = f"serve-{tag}"
+        check_flash_launches(cfg, st, path)
+        counts = st["launches"]
+        check(seen == {("matmul", dtype_name(dtype)):
+                       counts["matmul_accumulators"],
+                       ("flash", dtype_name(dtype)):
+                       counts["flash_chunk_accumulators"]}
+              and counts["matmul_accumulators"] > 0
+              and counts["flash_chunk_accumulators"] > 0,
+              f"{path}: B5 / B8 launches by compute dtype {seen}, counts "
+              f"{counts}")
+        kernels.launches[path] = counts
+        for name in ("sum_accumulators_batched", "flash_chunk_accumulators"):
+            kernels.path_labels[(name, path)] = path
+        kernels.path_labels[("matmul_accumulators", path)] = (
+            f"decode-qkvo-{tag}")
+        h = served[requests[0].request_id]
+        stats[tag] = {"serve": st, "tokens": h.tokens,
+                      "telemetry": h.telemetry,
+                      "launches_by_dtype": {f"{k[0]}:{k[1]}": n
+                                            for k, n in seen.items()}}
+        log(f"# phase 14(c) [{dtype_name(dtype)} compute] {DTYPE_TRACE}: "
+            f"tokens {h.tokens}, telemetry {h.telemetry[:3]}...; B5 and B8 "
+            f"launches by compute dtype {seen}")
+
+        fmodel, prompt = p4["flash_model"], p4["prompt"]
+        seen.clear()
+        fa._launch = fa_spy
+        try:
+            sync(torch, kernels.dev)
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            with use_policy(Policy(scheme="kahan",
+                                   compute_dtype=dtype_name(dtype))):
+                logits, _ = fmodel.prefill(
+                    params, prompt, fmodel.init_cache(1, prompt.shape[1]))
+            sync(torch, kernels.dev)
+            prefill_ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            fa._launch = orig_fa
+        counts = launch_counts()
+        ppath = f"prefill-{tag}"
+        check(counts["flash_accumulators"] == cfg.n_layers
+              and sum(counts.values()) == cfg.n_layers
+              and seen == {("flash", dtype_name(dtype)): cfg.n_layers},
+              f"{ppath}: launches {counts}, by compute dtype {seen}")
+        kernels.launches[ppath] = counts
+        kernels.path_labels[("flash_accumulators", ppath)] = f"entry-{tag}"
+        got = logits[0, :cfg.vocab_size].double()
+        ref = p4["flash_logits"][0, :cfg.vocab_size].double()
+        check(bool(torch.isfinite(got).all()),
+              f"{ppath}: prefill logits not finite")
+        rel = float((got - ref).norm() / ref.norm())
+        stats[tag].update(prefill_ms=prefill_ms, prefill_rel_l2_vs_f32=rel,
+                          prefill_same_argmax=int(got.argmax())
+                          == int(ref.argmax()))
+        log(f"# phase 14(c) [{dtype_name(dtype)} compute] the "
+            f"{prompt.shape[1]}-token TransformerLM.prefill: {prefill_ms:.1f} "
+            f"ms, B7 {cfg.n_layers} times in {dtype_name(dtype)}; logits vs "
+            f"phase 4's float32 compute: relative L2 {rel:.3e}, argmax "
+            f"{int(got.argmax())} vs {int(ref.argmax())}")
+    return stats
 
 
 def train_path(torch, kernels, cfg):
@@ -3522,11 +4064,11 @@ def moe_path(torch, kernels):
 def moe_deepseek(torch, kernels, cfg):
     """Phase 10 on deepseek-v2-lite-16b: phase 9's trace with flash
     prefill requested, resolved to the scan body (MLA and capacity
-    routing have no parallel chunk), no cut; request 0 alone ==
-    interleaved; the paged layout (``page_size`` 16) at the first
-    ``MOE_CUT_LAYERS`` layers == dense at that depth with the pool free
-    at the end and ``dropped_frac`` 0 on every single-position MoE call;
-    the
+    routing have no parallel chunk), at the first ``MOE_CUT_LAYERS``
+    layers (a cut for the script's time limit); request 0 alone ==
+    interleaved; the paged layout (``page_size`` 16) at that depth ==
+    dense with the pool free at the end and ``dropped_frac`` 0 on every
+    single-position MoE call; at the full depth, the
     whole-prompt prefill of the 160-token prompt against the scan chunk
     (gated in float32 compute, logged in bf16);
     one request with ``kahan_matmul`` at ``MOE_CUT_LAYERS`` layers (B5 at
@@ -3541,27 +4083,23 @@ def moe_deepseek(torch, kernels, cfg):
     max_len = slice_max_len(cfg)
     kernels.moe_times(cfg, path)
     model, params, params_gib, init_gib = moe_model(torch, dev, cfg)
-    ec, requests, served, captured, st = serve_run(
-        torch, kernels, cfg, model, params, SLICE_TRACE, "flash",
-        max_len=max_len, phase="10", body="scan")
-    check_scan_launches(model, st, path)
-    kernels.launches[path] = st["launches"]
-    kernels.path_labels[("sum_accumulators_batched", path)] = path
-    check_tick_telemetry(torch, kernels, cfg, ec, captured, "10")
-    check_solo(cfg, ec, model, params, requests[0], served, cfg.name, "10")
-
-    # the paged layout and kahan_matmul run the first MOE_CUT_LAYERS
-    # layers (the script's time limit); a dense run at that depth is the
-    # paged run's reference
+    # the trace, its solo check, the paged layout and kahan_matmul run the
+    # first MOE_CUT_LAYERS layers (the script's time limit); the dense run
+    # at that depth is the paged run's reference
     ccfg = cfg.replace(n_layers=MOE_CUT_LAYERS)
     cmodel = build_model(ccfg, dev)
     cparams = dict(params, moe_blocks=tree_map(
         lambda t: t[:MOE_CUT_LAYERS - cfg.moe.first_k_dense],
         params["moe_blocks"]))
-    _, _, cdense, _, cst = serve_run(
+    ec, requests, served, captured, st = serve_run(
         torch, kernels, ccfg, cmodel, cparams, SLICE_TRACE, "flash",
         max_len=max_len, phase="10", body="scan")
-    check_scan_launches(cmodel, cst, f"{path}-{MOE_CUT_LAYERS}l")
+    check_scan_launches(cmodel, st, path)
+    kernels.launches[path] = st["launches"]
+    kernels.path_labels[("sum_accumulators_batched", path)] = path
+    check_tick_telemetry(torch, kernels, ccfg, ec, captured, "10")
+    check_solo(ccfg, ec, cmodel, cparams, requests[0], served, ccfg.name,
+               "10")
     with moe_drops(torch, dev) as drops:
         _, _, paged, _, pst = serve_run(
             torch, kernels, ccfg, cmodel, cparams, SLICE_TRACE, "flash",
@@ -3571,8 +4109,8 @@ def moe_deepseek(torch, kernels, cfg):
     kernels.launches[f"{path}-paged"] = pst["launches"]
     kernels.path_labels[("sum_accumulators_batched", f"{path}-paged")] = path
     for rid in served:
-        check(paged[rid].tokens == cdense[rid].tokens
-              and paged[rid].telemetry == cdense[rid].telemetry,
+        check(paged[rid].tokens == served[rid].tokens
+              and paged[rid].telemetry == served[rid].telemetry,
               f"{cfg.name}: request {rid} differs, paged vs dense "
               f"({MOE_CUT_LAYERS} layers)")
     ps = pst["page_stats"]
@@ -3600,9 +4138,9 @@ def moe_deepseek(torch, kernels, cfg):
 
     f32 = cfg.replace(compute_dtype="float32")
     stats = {"params_gib": params_gib, "init_peak_gib": init_gib,
-             "serve": st, "cut": f"paged and kahan_matmul at "
-             f"{MOE_CUT_LAYERS} of {cfg.n_layers} layers",
-             "dense_cut": cst, "paged": pst, "kv_bytes_per_token": token_bytes,
+             "serve": st, "cut": f"the trace, solo, paged and kahan_matmul "
+             f"at {MOE_CUT_LAYERS} of {cfg.n_layers} layers",
+             "paged": pst, "kv_bytes_per_token": token_bytes,
              "dense_kv_bytes": dense_bytes, "paged_live_kv_bytes": live_bytes,
              "prefill_vs_scan": [prefill_vs_scan(
                  torch, kernels, c, params, requests[-1].prompt, gate)
@@ -3629,8 +4167,8 @@ def moe_deepseek(torch, kernels, cfg):
     log(f"# phase 10 {cfg.name}: {cfg.n_layers}L d={cfg.d_model} "
         f"H={cfg.n_heads} MLA r={cfg.mla.kv_lora_rank} "
         f"E={cfg.moe.n_experts} top-{cfg.moe.top_k} +{cfg.moe.n_shared} "
-        f"shared vocab={cfg.vocab_size} (paged and kahan_matmul runs at "
-        f"{MOE_CUT_LAYERS} layers): params "
+        f"shared vocab={cfg.vocab_size} (the trace, solo, paged and "
+        f"kahan_matmul runs at {MOE_CUT_LAYERS} layers): params "
         f"{params_gib:.2f} GiB, init peak {init_gib:.2f} GiB, peak "
         f"{stats['peak_gib']:.2f} GiB, {st['tokens_per_s']:.2f} tokens/s, "
         f"decode tick {st['decode_tick_ms_mean']:.2f} ms mean, prefill "

@@ -31,10 +31,30 @@
 // and every contraction is a single ascending chain of rounded products
 // and rounded adds, which the plain version in kernels/flash_attention.py
 // repeats op for op. expf is the accurate one (no __expf, no fast-math),
-// as torch.exp on the card. float32 only (the default compute dtype);
-// the wrappers raise TypeError for other dtypes on the card. A row's bits
-// depend on nothing but its own chains, so they do not depend on the tile
-// height: a B8 chunk and a B7 grid give the same rows.
+// as torch.exp on the card. A row's bits depend on nothing but its own
+// chains, so they do not depend on the tile height: a B8 chunk and a B7
+// grid give the same rows.
+//
+// Compute dtypes: the kernel is a template on T, the dtype of q, k, v, the
+// scores, m, l, acc and both compensations (the reference's compute dtype,
+// to which the engine promotes q, k and v):
+// - float: the tiles and vector paths below;
+// - double: exp() (libdevice, what torch.exp calls on a CUDA float64
+//   tensor), NEG_INF the double -1e30, the scale the float32-rounded
+//   dh^-0.5 widened exactly;
+// - Bf16 (schemes.cuh): every op computed in float and rounded to bfloat16
+//   once, as torch computes a bfloat16 op: the scale rounded to bfloat16,
+//   exp as expf of the widened value, then rounded. Under -ftz=true an
+//   expf result below 2^-126 is zero, where torch rounds a float32
+//   subnormal to bfloat16: the two differ only where the result rounds up
+//   to 2^-126, an exp argument within 2^-9 of -87.34.
+// double and Bf16 take the 16-row tile only (a double tile of 64 rows
+// would hold 192 registers of acc alone), up to dh 128 double with two acc
+// rows a thread (see P below: with four it spilled), and scalar
+// shared-memory reads;
+// the K/V ring copies 16-byte chunks, each 16 / sizeof(T) elements, and
+// every row stride is padded by 16 bytes. The k-block, and so the bits, is
+// the caller's whatever T is.
 //
 // What bounds it on the H100: the fixed chains. Each term is a rounded
 // product and a rounded add in a set order, so neither fma nor the tensor
@@ -51,14 +71,18 @@
 // CTAs per SM (B7: 512 CTAs), else 16 (a 64-row B8 chunk: 64 CTAs), and
 // 64 only for dh <= 128 (a thread's acc registers). Per k-block, K then V
 // stream through a ring of 2 stages of 64-key sub-tiles (row stride ld =
-// dh + 4, or dh + 1 when dh % 4 != 0). Shared memory, in floats, all
-// regions 16-byte aligned:
+// dh + 4, or dh + 1 when dh % 4 != 0; for double and Bf16 dh + 16 /
+// sizeof(T)). Shared memory, in elements of T (for double and Bf16,
+// round4 and the + 4 below stand for 16 bytes), all regions 16-byte
+// aligned:
 //   TQ * ld                      the q tile, rows padded like K's
 //   TQ * (round4(block_k) + 4)   the score / probability block
 //   2 * round4(min(64, block_k) * ld)    the K/V ring
 //   4 * TQ                       m, corr, l_s, l_c per row
 // At dh 128, block_k 256: TQ 64 168960 bytes (one CTA an SM), TQ 16
-// 92928; at dh 256, block_k 1024 only TQ 16 fits (215808 of 232448). The
+// 92928; at dh 256, block_k 1024 only TQ 16 fits (215808 of 232448).
+// double at dh 128, block_k 256: TQ 16 183296 bytes (block_k 1024 does
+// not fit; the host's plan refuses it). The
 // C entry recomputes the bytes and refuses a plan that disagrees or does
 // not fit.
 //
@@ -103,10 +127,12 @@
 //    no branch serialises the loads and exps of a row.
 // dh % 4 != 0 and a block_k tail that is not a multiple of 4 take scalar
 // forms of the same loops. The scheme is a runtime switch at the two
-// folds (once per cell and k-block), so there are two instantiations,
-// one per TQ.
+// folds (once per cell and k-block), so there are five instantiations:
+// float at TQ 64 and 16, Bf16 at TQ 16, double at TQ 16 with two acc rows
+// a thread (dh <= 128) and with four (dh > 128).
 
 #include <cstdint>
+#include <type_traits>
 
 #include <cuda_runtime.h>
 
@@ -124,7 +150,59 @@ constexpr int kMaxDh = 256;
 constexpr int kMaxBk = 1024;
 constexpr int kMaxTileOut = 8192;         // TQ * round4(dh): 32 acc a thread
 constexpr int kSmemLimit = 232448;
-constexpr float kNegInf = -1e30f;         // NEG_INF of the reference
+
+// What differs between the compute dtypes: NEG_INF of the reference in T,
+// exp as torch computes it on a CUDA tensor of T, the row maximum and the
+// warp shuffles.
+template <typename T> struct Num;
+template <> struct Num<float> {
+  static __device__ __forceinline__ float neg_inf() { return -1e30f; }
+  static __device__ __forceinline__ float exp(float x) { return expf(x); }
+  static __device__ __forceinline__ float max(float a, float b) {
+    return fmaxf(a, b);
+  }
+  static __device__ __forceinline__ float shfl_xor(float x, int o) {
+    return __shfl_xor_sync(0xffffffffu, x, o);
+  }
+  static __device__ __forceinline__ float shfl_down(float x, int o) {
+    return __shfl_down_sync(0xffffffffu, x, o);
+  }
+};
+template <> struct Num<double> {
+  static __device__ __forceinline__ double neg_inf() { return -1e30; }
+  static __device__ __forceinline__ double exp(double x) { return ::exp(x); }
+  static __device__ __forceinline__ double max(double a, double b) {
+    return fmax(a, b);
+  }
+  static __device__ __forceinline__ double shfl_xor(double x, int o) {
+    return __shfl_xor_sync(0xffffffffu, x, o);
+  }
+  static __device__ __forceinline__ double shfl_down(double x, int o) {
+    return __shfl_down_sync(0xffffffffu, x, o);
+  }
+};
+template <> struct Num<Bf16> {
+  static __device__ __forceinline__ Bf16 neg_inf() { return Bf16(-1e30f); }
+  static __device__ __forceinline__ Bf16 exp(Bf16 x) {
+    return Bf16(expf(x.f()));
+  }
+  static __device__ __forceinline__ Bf16 max(Bf16 a, Bf16 b) {
+    return a.f() < b.f() ? b : a;
+  }
+  static __device__ __forceinline__ Bf16 bits(unsigned u) {
+    Bf16 r;
+    r.v = __ushort_as_bfloat16(static_cast<unsigned short>(u));
+    return r;
+  }
+  static __device__ __forceinline__ Bf16 shfl_xor(Bf16 x, int o) {
+    return bits(__shfl_xor_sync(
+        0xffffffffu, (unsigned)__bfloat16_as_ushort(x.v), o));
+  }
+  static __device__ __forceinline__ Bf16 shfl_down(Bf16 x, int o) {
+    return bits(__shfl_down_sync(
+        0xffffffffu, (unsigned)__bfloat16_as_ushort(x.v), o));
+  }
+};
 
 __host__ __device__ inline int pow2_at_least(int n) {
   int p = 1;
@@ -134,35 +212,49 @@ __host__ __device__ inline int pow2_at_least(int n) {
 
 __host__ __device__ inline int round4(int n) { return (n + 3) / 4 * 4; }
 
-
-// row stride of the q tile and the K/V sub-tiles: dh + 4 keeps rows
-// 16-byte aligned for float4 reads and cp.async; dh + 1 otherwise
-__host__ __device__ inline int tile_ld(int dh) {
-  return dh % 4 == 0 ? dh + 4 : dh + 1;
+// elements of T in 16 bytes: one cp.async chunk, and the padding unit
+template <typename T> __host__ __device__ constexpr int vec_of() {
+  return 16 / (int)sizeof(T);
 }
 
-// row stride of the score block: float4 reads of p at any key multiple of
-// 4, whatever block_k
-__host__ __device__ inline int score_ld(int bk) { return round4(bk) + 4; }
+template <typename T> __host__ __device__ inline int round_vec(int n) {
+  return (n + vec_of<T>() - 1) / vec_of<T>() * vec_of<T>();
+}
 
-__host__ __device__ inline int stage_floats(int dh, int bk) {
-  return round4((bk < kKeys ? bk : kKeys) * tile_ld(dh));
+// row stride of the q tile and the K/V sub-tiles: dh + 16 bytes keeps rows
+// 16-byte aligned for float4 reads and cp.async; dh + 1 otherwise
+template <typename T> __host__ __device__ inline int tile_ld(int dh) {
+  return dh % vec_of<T>() == 0 ? dh + vec_of<T>() : dh + 1;
+}
+
+// row stride of the score block: 16-byte aligned reads of p at any key
+// multiple of 4, whatever block_k
+template <typename T> __host__ __device__ inline int score_ld(int bk) {
+  return round_vec<T>(bk) + vec_of<T>();
+}
+
+template <typename T>
+__host__ __device__ inline int stage_elems(int dh, int bk) {
+  return round_vec<T>((bk < kKeys ? bk : kKeys) * tile_ld<T>(dh));
 }
 
 // dynamic shared memory of one CTA (the layout in the note above)
+template <typename T>
 __host__ __device__ inline long long smem_bytes(int rows, int dh, int bk) {
-  return 4LL * ((long long)rows * tile_ld(dh) + (long long)rows * score_ld(bk) +
-                (long long)kStages * stage_floats(dh, bk) + 4LL * rows);
+  return (long long)sizeof(T) *
+         ((long long)rows * tile_ld<T>(dh) + (long long)rows * score_ld<T>(bk) +
+          (long long)kStages * stage_elems<T>(dh, bk) + 4LL * rows);
 }
 
+template <typename T>
 struct Args {
-  const float* q;
-  const float* k;
-  const float* v;
-  float* ls_out;
-  float* lc_out;
-  float* as_out;
-  float* ac_out;
+  const T* q;
+  const T* k;
+  const T* v;
+  T* ls_out;
+  T* lc_out;
+  T* as_out;
+  T* ac_out;
   int q_groups, sq, skv, dh, bk, kv_len, q_off, causal;
   float scale;
   int scheme;
@@ -183,7 +275,8 @@ __device__ __forceinline__ void cp_async_wait_all() {
 }
 
 // one fold of a compensated pair, the scheme chosen at run time
-__device__ __forceinline__ void fold(int scheme, float& s, float& c, float x,
+template <typename T>
+__device__ __forceinline__ void fold(int scheme, T& s, T& c, T x,
                                      long long kb) {
   switch (scheme) {
     case NAIVE: update<NAIVE>(s, c, x, kb); break;
@@ -207,10 +300,12 @@ struct Walk {
 // Stage item `item` of the CTA's walk into `slot`: k-block item / per_kb,
 // its K sub-tiles first, then its V sub-tiles, as one cp.async group
 // (nothing past the walk; plain loads land before it returns).
-__device__ __forceinline__ void stage_item(float* slot, const Args& a,
+template <typename T>
+__device__ __forceinline__ void stage_item(T* slot, const Args<T>& a,
                                            long long kvbase, int item,
                                            int n_items, int n_sub, int ld,
                                            const Walk& w) {
+  constexpr int V = vec_of<T>();
   if (item < n_items) {
     const int per_kb = 2 * n_sub;
     const int kb = item / per_kb;
@@ -219,10 +314,10 @@ __device__ __forceinline__ void stage_item(float* slot, const Args& a,
     if (is_v) t -= n_sub;
     const int key0 = kb * a.bk + t * kKeys;
     const int nk = min(kKeys, a.bk - t * kKeys);
-    const float* src = (is_v ? a.v : a.k) + kvbase + (long long)key0 * a.dh;
+    const T* src = (is_v ? a.v : a.k) + kvbase + (long long)key0 * a.dh;
     if (a.async_copy) {
       for (int j = w.row, c = w.col; j < nk;) {
-        cp_async16(slot + j * ld + 4 * c, src + (long long)j * a.dh + 4 * c);
+        cp_async16(slot + j * ld + V * c, src + (long long)j * a.dh + V * c);
         j += w.step_row;
         c += w.step_col;
         if (c >= w.width) { c -= w.width; ++j; }
@@ -241,25 +336,26 @@ __device__ __forceinline__ void stage_item(float* slot, const Args& a,
 
 // Scores of one K sub-tile: this thread's cells are rows ty + 16 r (r <
 // TQ / 16) x keys tx + 16 c (c < 4), each one ascending chain over d.
-template <int TQ, bool VEC>
-__device__ __forceinline__ void score_tile(float* sc, int lds,
-                                           const float* qs, const float* ks,
-                                           int ld, int dh, int kt, int nk,
-                                           int tid) {
+// VEC (float only): q and k read as float4 along d.
+template <int TQ, bool VEC, typename T>
+__device__ __forceinline__ void score_tile(T* sc, int lds, const T* qs,
+                                           const T* ks, int ld, int dh,
+                                           int kt, int nk, int tid) {
   constexpr int R = TQ / 16;
   const int ty = tid >> 4, tx = tid & 15;
-  const float* qr[R];
-  const float* kr[4];
+  const T* qr[R];
+  const T* kr[4];
 #pragma unroll
   for (int r = 0; r < R; ++r) qr[r] = qs + (ty + 16 * r) * ld;
 #pragma unroll
   for (int c = 0; c < 4; ++c) kr[c] = ks + min(tx + 16 * c, nk - 1) * ld;
-  float s[R][4];
+  T s[R][4];
 #pragma unroll
   for (int r = 0; r < R; ++r)
 #pragma unroll
-    for (int c = 0; c < 4; ++c) s[r][c] = 0.0f;
-  if (VEC) {
+    for (int c = 0; c < 4; ++c) s[r][c] = T(0.0f);
+  if constexpr (VEC) {
+    static_assert(std::is_same<T, float>::value, "float4 reads of float");
 #pragma unroll 4
     for (int d = 0; d < dh; d += 4) {
       float4 qv[R], kv[4];
@@ -288,7 +384,7 @@ __device__ __forceinline__ void score_tile(float* sc, int lds,
     }
   } else {
     for (int d = 0; d < dh; ++d) {
-      float qv[R], kv[4];
+      T qv[R], kv[4];
 #pragma unroll
       for (int r = 0; r < R; ++r) qv[r] = qr[r][d];
 #pragma unroll
@@ -317,45 +413,50 @@ struct PvMap {
   int col[4];
 };
 
+// Four adjacent elements of a shared row, 16-byte aligned for float: one
+// float4 read there, four scalar reads for double and Bf16.
+__device__ __forceinline__ void load4(const float* p, float (&x)[4]) {
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  x[0] = v.x;
+  x[1] = v.y;
+  x[2] = v.z;
+  x[3] = v.w;
+}
+template <typename T>
+__device__ __forceinline__ void load4(const T* p, T (&x)[4]) {
+#pragma unroll
+  for (int e = 0; e < 4; ++e) x[e] = p[e];
+}
+
 // pv[r][u] += p[row r][kt + j] * v[j][col u] over the sub-tile's keys j
 // in order, for NR rows (NR >= n_rows; rows past n_rows read row rg and
-// are never folded): float4 p along the keys, v as float4 (VEC) or 4
+// are never folded): four p along the keys, v as float4 (VEC) or 4
 // scalars. Each step of 4 keys runs key by key over every cell, so a
 // cell's adds are 4 * NR apart and none waits on the one before.
-template <int P, int NR, bool VEC>
-__device__ __forceinline__ void pv_tile(float (&pv)[P][4], const float* vs,
-                                        const float* sc, int ld, int lds,
+template <int P, int NR, bool VEC, typename T>
+__device__ __forceinline__ void pv_tile(T (&pv)[P][4], const T* vs,
+                                        const T* sc, int ld, int lds,
                                         int kt, int nk, const PvMap& m) {
-  const float* pr[NR];
+  const T* pr[NR];
 #pragma unroll
   for (int r = 0; r < NR; ++r)
     pr[r] = sc + (r < m.n_rows ? m.rg + r * m.RG : m.rg) * lds + kt;
   int j = 0;
 #pragma unroll 2
   for (; j + 4 <= nk; j += 4) {
-    float vv[4][4], pe[NR][4];
+    T vv[4][4], pe[NR][4];
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      const float* vj = vs + (j + e) * ld;
-      if (VEC) {
-        const float4 x = *reinterpret_cast<const float4*>(vj + 4 * m.quad);
-        vv[e][0] = x.x;
-        vv[e][1] = x.y;
-        vv[e][2] = x.z;
-        vv[e][3] = x.w;
+      const T* vj = vs + (j + e) * ld;
+      if constexpr (VEC) {
+        load4(vj + 4 * m.quad, vv[e]);
       } else {
 #pragma unroll
         for (int u = 0; u < 4; ++u) vv[e][u] = vj[m.col[u]];
       }
     }
 #pragma unroll
-    for (int r = 0; r < NR; ++r) {
-      const float4 p4 = *reinterpret_cast<const float4*>(pr[r] + j);
-      pe[r][0] = p4.x;
-      pe[r][1] = p4.y;
-      pe[r][2] = p4.z;
-      pe[r][3] = p4.w;
-    }
+    for (int r = 0; r < NR; ++r) load4(pr[r] + j, pe[r]);
 #pragma unroll
     for (int e = 0; e < 4; ++e)
 #pragma unroll
@@ -365,50 +466,54 @@ __device__ __forceinline__ void pv_tile(float (&pv)[P][4], const float* vs,
           pv[r][u] = pv[r][u] + pe[r][e] * vv[e][u];
   }
   for (; j < nk; ++j) {
-    float vv[4];
-    const float* vj = vs + j * ld;
+    T vv[4];
+    const T* vj = vs + j * ld;
 #pragma unroll
     for (int u = 0; u < 4; ++u) vv[u] = vj[VEC ? 4 * m.quad + u : m.col[u]];
 #pragma unroll
     for (int r = 0; r < NR; ++r) {
-      const float p = pr[r][j];
+      const T p = pr[r][j];
 #pragma unroll
       for (int u = 0; u < 4; ++u) pv[r][u] = pv[r][u] + p * vv[u];
     }
   }
 }
 
-// pv_tile with NR the least of P, P / 2, P / 4 that covers n_rows.
-template <int P, bool VEC>
-__device__ __forceinline__ void pv_rows(float (&pv)[P][4], const float* vs,
-                                        const float* sc, int ld, int lds,
+// pv_tile with NR the least of P, P / 2, P / 4 (P / 4 from P = 4) that
+// covers n_rows.
+template <int P, bool VEC, typename T>
+__device__ __forceinline__ void pv_rows(T (&pv)[P][4], const T* vs,
+                                        const T* sc, int ld, int lds,
                                         int kt, int nk, const PvMap& m) {
-  if (m.n_rows > P / 2)
-    pv_tile<P, P, VEC>(pv, vs, sc, ld, lds, kt, nk, m);
-  else if (m.n_rows > P / 4)
+  if constexpr (P >= 4) {
+    if (m.n_rows <= P / 4) {
+      pv_tile<P, P / 4, VEC>(pv, vs, sc, ld, lds, kt, nk, m);
+      return;
+    }
+  }
+  if (m.n_rows <= P / 2)
     pv_tile<P, P / 2, VEC>(pv, vs, sc, ld, lds, kt, nk, m);
   else
-    pv_tile<P, P / 4, VEC>(pv, vs, sc, ld, lds, kt, nk, m);
+    pv_tile<P, P, VEC>(pv, vs, sc, ld, lds, kt, nk, m);
 }
 
 // The acc fold at the end of k-block kb, then pv back to 0.
-template <int S, int P>
-__device__ __forceinline__ void fold_acc(float (&as)[P][4], float (&ac)[P][4],
-                                         float (&pv)[P][4],
-                                         const float* row_corr,
+template <int S, int P, typename T>
+__device__ __forceinline__ void fold_acc(T (&as)[P][4], T (&ac)[P][4],
+                                         T (&pv)[P][4], const T* row_corr,
                                          const PvMap& m, long long kb) {
 #pragma unroll
   for (int r = 0; r < P; ++r) {
     if (r < m.n_rows) {
-      const float corr = row_corr[m.rg + r * m.RG];
+      const T corr = row_corr[m.rg + r * m.RG];
 #pragma unroll
       for (int u = 0; u < 4; ++u) {
-        float s = as[r][u] * corr;
-        float c = ac[r][u] * corr;
+        T s = as[r][u] * corr;
+        T c = ac[r][u] * corr;
         update<S>(s, c, pv[r][u], kb);
         as[r][u] = s;
         ac[r][u] = c;
-        pv[r][u] = 0.0f;
+        pv[r][u] = T(0.0f);
       }
     }
   }
@@ -417,8 +522,8 @@ __device__ __forceinline__ void fold_acc(float (&as)[P][4], float (&ac)[P][4],
 // The rowsum tree's levels h = H, H / 2, .., 32 below 32 * M (= the row's
 // power of two p2): adds between a lane's own registers (t[m] holds j =
 // lane + 32 m), every index a constant so that t stays in registers.
-template <int H, int M>
-__device__ __forceinline__ void tree_levels(float (&t)[M]) {
+template <int H, int M, typename T>
+__device__ __forceinline__ void tree_levels(T (&t)[M]) {
   if constexpr (H >= 32) {
     if constexpr (H < 32 * M) {
 #pragma unroll
@@ -434,53 +539,55 @@ __device__ __forceinline__ void tree_levels(float (&t)[M]) {
 // = max(1, p2 / 32) a constant, so no branch splits the loops: keys past
 // block_k read key 0, are masked to NEG_INF (which leaves the maximum
 // alone, since it starts there) and give p = 0, rowsum_tree's padding.
-template <int TQ, int M, int RR>
-__device__ __forceinline__ void softmax_rows(float* sc, int lds, float* row_m,
-                                             float* row_corr, float* row_ls,
-                                             float* row_lc, const Args& a,
+template <int TQ, int M, int RR, typename T>
+__device__ __forceinline__ void softmax_rows(T* sc, int lds, T* row_m,
+                                             T* row_corr, T* row_ls,
+                                             T* row_lc, const Args<T>& a,
                                              int q0, int kb, int warp,
                                              int lane) {
+  using N = Num<T>;
   const int bk = a.bk;
   const int key0 = kb * bk;
   const int p2 = pow2_at_least(bk);
+  const T scale = T(a.scale);   // the reference's scale in T
   for (int i0 = warp; i0 < TQ; i0 += kWarps * RR) {
-    float t[RR][M], mx[RR], m_new[RR], corr[RR];
+    T t[RR][M], mx[RR], m_new[RR], corr[RR];
 #pragma unroll
     for (int rr = 0; rr < RR; ++rr) {
       const int i = i0 + rr * kWarps;
-      const float* si = sc + i * lds;
+      const T* si = sc + i * lds;
       const long long qpos = (long long)a.q_off + q0 + i;
       // (m_old >= NEG_INF, so starting the row maximum there gives the
       // reference's max(m_old, rowmax(s)))
-      mx[rr] = kNegInf;
+      mx[rr] = N::neg_inf();
 #pragma unroll
       for (int m = 0; m < M; ++m) {
         const int j = lane + 32 * m;
         const int kpos = key0 + j;
-        float s = si[j < bk ? j : 0] * a.scale;
+        T s = si[j < bk ? j : 0] * scale;
         bool valid = j < bk && kpos < a.kv_len;
         if (a.causal) valid = valid && qpos >= kpos;
-        s = valid ? s : kNegInf;
+        s = valid ? s : N::neg_inf();
         t[rr][m] = s;
-        mx[rr] = fmaxf(mx[rr], s);
+        mx[rr] = N::max(mx[rr], s);
       }
     }
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1)
 #pragma unroll
       for (int rr = 0; rr < RR; ++rr)
-        mx[rr] = fmaxf(mx[rr], __shfl_xor_sync(0xffffffffu, mx[rr], o));
+        mx[rr] = N::max(mx[rr], N::shfl_xor(mx[rr], o));
 #pragma unroll
     for (int rr = 0; rr < RR; ++rr) {
       const int i = i0 + rr * kWarps;
-      const float m_old = row_m[i];
-      m_new[rr] = fmaxf(m_old, mx[rr]);
-      corr[rr] = expf(m_old - m_new[rr]);
-      float* si = sc + i * lds;
+      const T m_old = row_m[i];
+      m_new[rr] = N::max(m_old, mx[rr]);
+      corr[rr] = N::exp(m_old - m_new[rr]);
+      T* si = sc + i * lds;
 #pragma unroll
       for (int m = 0; m < M; ++m) {
         const int j = lane + 32 * m;
-        const float p = j < bk ? expf(t[rr][m] - m_new[rr]) : 0.0f;
+        const T p = j < bk ? N::exp(t[rr][m] - m_new[rr]) : T(0.0f);
         if (j < bk) si[j] = p;
         t[rr][m] = p;
       }
@@ -492,7 +599,7 @@ __device__ __forceinline__ void softmax_rows(float* sc, int lds, float* row_m,
       if (h < p2) {
 #pragma unroll
         for (int rr = 0; rr < RR; ++rr)
-          t[rr][0] = t[rr][0] + __shfl_down_sync(0xffffffffu, t[rr][0], h);
+          t[rr][0] = t[rr][0] + N::shfl_down(t[rr][0], h);
       }
     }
     __syncwarp();   // every lane has read row_m
@@ -500,8 +607,8 @@ __device__ __forceinline__ void softmax_rows(float* sc, int lds, float* row_m,
 #pragma unroll
       for (int rr = 0; rr < RR; ++rr) {
         const int i = i0 + rr * kWarps;
-        float ls = row_ls[i] * corr[rr];
-        float lc = row_lc[i] * corr[rr];
+        T ls = row_ls[i] * corr[rr];
+        T lc = row_lc[i] * corr[rr];
         fold(a.scheme, ls, lc, t[rr][0], kb);
         row_ls[i] = ls;
         row_lc[i] = lc;
@@ -514,11 +621,11 @@ __device__ __forceinline__ void softmax_rows(float* sc, int lds, float* row_m,
 
 // softmax_rows with M = max(1, p2 / 32) for this block_k; two rows of a
 // warp at once up to 8 registers a row
-template <int TQ>
-__device__ __forceinline__ void softmax(float* sc, int lds, float* row_m,
-                                        float* row_corr, float* row_ls,
-                                        float* row_lc, const Args& a, int q0,
-                                        int kb, int warp, int lane) {
+template <int TQ, typename T>
+__device__ __forceinline__ void softmax(T* sc, int lds, T* row_m,
+                                        T* row_corr, T* row_ls, T* row_lc,
+                                        const Args<T>& a, int q0, int kb,
+                                        int warp, int lane) {
 #define REPRO_SOFTMAX(M, RR)                                                \
   softmax_rows<TQ, M, RR>(sc, lds, row_m, row_corr, row_ls, row_lc, a, q0, \
                           kb, warp, lane)
@@ -532,16 +639,21 @@ __device__ __forceinline__ void softmax(float* sc, int lds, float* row_m,
 #undef REPRO_SOFTMAX
 }
 
-template <int TQ>
+// P: the acc rows a thread holds, at most. The widest dh a tile takes
+// (128 at TQ 64 by kMaxTileOut, 256 at TQ 16) has nq = 32 or 64 column
+// quads, so RG = kThreads / nq = 8 or 4 row groups of TQ / RG rows: P = 8
+// at TQ 64, 4 at TQ 16. double takes P = 2 up to dh 128 (nq <= 32), where
+// P = 4 would spill (a double is two registers), and P = 4 above.
+template <typename T, int TQ, int P>
 __global__ void __launch_bounds__(kThreads, 1)
-kahan_flash_grid(const Args a) {
+kahan_flash_grid(const Args<T> a) {
   static_assert(TQ == 16 || TQ == 64, "TQ is 16 or 64");
-  // acc rows a thread holds, at most: the widest dh this TQ takes (128 at
-  // TQ 64 by kMaxTileOut, 256 at TQ 16) has nq = 32 or 64 column quads,
-  // so RG = kThreads / nq = 8 or 4 row groups of TQ / RG rows
-  constexpr int P = TQ == 64 ? 8 : 4;
+  constexpr bool kFloat = std::is_same<T, float>::value;
+  static_assert(TQ == 16 || kFloat, "double and Bf16 take the 16-row tile");
+  static_assert(P * kThreads / 32 >= TQ, "P covers a tile's rows at dh 128");
+  constexpr int V = vec_of<T>();
   extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
+  T* smem = reinterpret_cast<T*>(smem4);
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
@@ -549,18 +661,19 @@ kahan_flash_grid(const Args a) {
   const int q0 = blockIdx.x * TQ;
   const int rows = min(TQ, a.sq - q0);
   const int dh = a.dh, bk = a.bk;
-  const bool vec_d = dh % 4 == 0;
+  // float4 reads of the q, k and v rows (float only)
+  const bool vec_d = kFloat && dh % 4 == 0;
 
-  const int ld = tile_ld(dh);
-  const int lds = score_ld(bk);
-  const int stage = stage_floats(dh, bk);
-  float* qs = smem;                          // [TQ][ld]
-  float* sc = qs + TQ * ld;                  // [TQ][lds]
-  float* ring = sc + TQ * lds;               // kStages x [min(64, bk)][ld]
-  float* row_m = ring + kStages * stage;
-  float* row_corr = row_m + TQ;
-  float* row_ls = row_corr + TQ;
-  float* row_lc = row_ls + TQ;
+  const int ld = tile_ld<T>(dh);
+  const int lds = score_ld<T>(bk);
+  const int stage = stage_elems<T>(dh, bk);
+  T* qs = smem;                              // [TQ][ld]
+  T* sc = qs + TQ * ld;                      // [TQ][lds]
+  T* ring = sc + TQ * lds;                   // kStages x [min(64, bk)][ld]
+  T* row_m = ring + kStages * stage;
+  T* row_corr = row_m + TQ;
+  T* row_ls = row_corr + TQ;
+  T* row_lc = row_ls + TQ;
 
   const long long qrow0 = (long long)bh * a.sq + q0;
   const long long kvbase = (long long)(bh / a.q_groups) * a.skv * dh;
@@ -569,14 +682,14 @@ kahan_flash_grid(const Args a) {
 
   // the q tile (with item 0's cp.async group, or plain loads; rows past
   // sq are zero), then the ring's first sub-tile
-  const Walk walk(tid, a.async_copy ? dh / 4 : dh);
+  const Walk walk(tid, a.async_copy ? dh / V : dh);
   if (a.async_copy && a.q_aligned) {
     for (int i = walk.row, c = walk.col; i < TQ;) {
       if (i < rows)
-        cp_async16(qs + i * ld + 4 * c, a.q + (qrow0 + i) * dh + 4 * c);
+        cp_async16(qs + i * ld + V * c, a.q + (qrow0 + i) * dh + V * c);
       else
-        *reinterpret_cast<float4*>(qs + i * ld + 4 * c) =
-            make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        *reinterpret_cast<uint4*>(qs + i * ld + V * c) =
+            make_uint4(0u, 0u, 0u, 0u);
       i += walk.step_row;
       c += walk.step_col;
       if (c >= walk.width) { c -= walk.width; ++i; }
@@ -584,14 +697,14 @@ kahan_flash_grid(const Args a) {
   } else {
     for (int e = tid; e < TQ * dh; e += kThreads) {
       const int i = e / dh, d = e - (e / dh) * dh;
-      qs[i * ld + d] = i < rows ? a.q[qrow0 * dh + e] : 0.0f;
+      qs[i * ld + d] = i < rows ? a.q[qrow0 * dh + e] : T(0.0f);
     }
   }
   stage_item(ring, a, kvbase, 0, n_items, n_sub, ld, walk);
   if (tid < TQ) {
-    row_m[tid] = kNegInf;
-    row_ls[tid] = 0.0f;
-    row_lc[tid] = 0.0f;
+    row_m[tid] = Num<T>::neg_inf();
+    row_ls[tid] = T(0.0f);
+    row_lc[tid] = T(0.0f);
   }
 
   PvMap pm;
@@ -604,11 +717,11 @@ kahan_flash_grid(const Args a) {
 #pragma unroll
     for (int u = 0; u < 4; ++u) pm.col[u] = min(4 * pm.quad + u, dh - 1);
   }
-  float a_s[P][4], a_c[P][4], pv[P][4];
+  T a_s[P][4], a_c[P][4], pv[P][4];
 #pragma unroll
   for (int r = 0; r < P; ++r)
 #pragma unroll
-    for (int u = 0; u < 4; ++u) a_s[r][u] = a_c[r][u] = pv[r][u] = 0.0f;
+    for (int u = 0; u < 4; ++u) a_s[r][u] = a_c[r][u] = pv[r][u] = T(0.0f);
 
   for (int g = 0; g < n_items; ++g) {
     // item g has landed (this thread's copies), then everyone's are
@@ -617,17 +730,21 @@ kahan_flash_grid(const Args a) {
     __syncthreads();
     stage_item(ring + ((g + 1) & 1) * stage, a, kvbase, g + 1, n_items,
                n_sub, ld, walk);
-    const float* tile = ring + (g & 1) * stage;
+    const T* tile = ring + (g & 1) * stage;
     const int kb = g / (2 * n_sub);
     const int t = g - kb * 2 * n_sub;
     if (t < n_sub) {
       // 1. scores s[i][j] = sum_d q[i][d] * k[j][d], ascending d
       const int kt = t * kKeys;
       const int nk = min(kKeys, bk - kt);
-      if (vec_d)
-        score_tile<TQ, true>(sc, lds, qs, tile, ld, dh, kt, nk, tid);
-      else
+      if constexpr (kFloat) {
+        if (vec_d)
+          score_tile<TQ, true>(sc, lds, qs, tile, ld, dh, kt, nk, tid);
+        else
+          score_tile<TQ, false>(sc, lds, qs, tile, ld, dh, kt, nk, tid);
+      } else {
         score_tile<TQ, false>(sc, lds, qs, tile, ld, dh, kt, nk, tid);
+      }
       if (t == n_sub - 1) {
         // 2. the k-block's scores are formed: softmax and the l fold
         __syncthreads();
@@ -639,10 +756,14 @@ kahan_flash_grid(const Args a) {
       //    k-block, then the acc fold
       const int kt = (t - n_sub) * kKeys;
       const int nk = min(kKeys, bk - kt);
-      if (vec_d)
-        pv_rows<P, true>(pv, tile, sc, ld, lds, kt, nk, pm);
-      else
+      if constexpr (kFloat) {
+        if (vec_d)
+          pv_rows<P, true>(pv, tile, sc, ld, lds, kt, nk, pm);
+        else
+          pv_rows<P, false>(pv, tile, sc, ld, lds, kt, nk, pm);
+      } else {
         pv_rows<P, false>(pv, tile, sc, ld, lds, kt, nk, pm);
+      }
       if (t == 2 * n_sub - 1) {
         switch (a.scheme) {
           case NAIVE: fold_acc<NAIVE>(a_s, a_c, pv, row_corr, pm, kb); break;
@@ -677,54 +798,41 @@ kahan_flash_grid(const Args a) {
   }
 }
 
-template <int TQ>
-int launch(const Args& a, int bh, size_t smem, cudaStream_t st) {
+template <typename T, int TQ, int P>
+int launch(const Args<T>& a, int bh, size_t smem, cudaStream_t st) {
   // opt in to more than 48 KB of dynamic shared memory, once per tile
   static bool attr_set = false;
   if (!attr_set) {
     const cudaError_t err = cudaFuncSetAttribute(
-        kahan_flash_grid<TQ>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        kSmemLimit);
+        kahan_flash_grid<T, TQ, P>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemLimit);
     if (err != cudaSuccess) return (int)err;
     attr_set = true;
   }
   const dim3 grid((a.sq + TQ - 1) / TQ, bh);
-  kahan_flash_grid<TQ><<<grid, kThreads, smem, st>>>(a);
+  kahan_flash_grid<T, TQ, P><<<grid, kThreads, smem, st>>>(a);
   return (int)cudaGetLastError();
 }
 
-}  // namespace
-
-// C entry point. dtype: 0 = float32 (the only instantiation). q: [bh, sq,
-// dh]; k, v: [bh / q_groups, skv, dh]; l_s, l_c: [bh, sq]; a_s, a_c: [bh,
-// sq, dh]; all contiguous, skv a multiple of block_k. The plan (rows a
-// CTA, shared bytes) comes from the host's flash_plan; a plan that is not
-// one of the kernel's (rows 16 or 64, rows * round4(dh) <= 8192) or whose
-// bytes disagree with the layout or exceed 232448 is refused. Returns cudaGetLastError() after the launch
-// (0 = launched).
-extern "C" int kahan_flash_launch(int scheme, int dtype, const void* q,
-                                  const void* k, const void* v, void* l_s,
-                                  void* l_c, void* a_s, void* a_c, int bh,
-                                  int q_groups, int sq, int skv, int dh,
-                                  int block_k, int kv_len, int q_off,
-                                  int causal, float scale, int rows,
-                                  long long smem, void* stream) {
-  if (dtype != 0 || scheme < NAIVE || scheme > DOT2 || dh < 1 ||
-      dh > kMaxDh || block_k < 1 || block_k > kMaxBk || skv < block_k ||
-      skv % block_k != 0 || q_groups < 1 || bh < 1 || bh % q_groups != 0 ||
-      bh > 65535 || sq < 1)
+template <typename T>
+int launch_typed(int scheme, const void* q, const void* k, const void* v,
+                 void* l_s, void* l_c, void* a_s, void* a_c, int bh,
+                 int q_groups, int sq, int skv, int dh, int block_k,
+                 int kv_len, int q_off, int causal, float scale, int rows,
+                 long long smem, cudaStream_t st) {
+  constexpr bool kFloat = std::is_same<T, float>::value;
+  if ((rows != 16 && !(kFloat && rows == 64)) ||
+      rows * round4(dh) > kMaxTileOut ||
+      smem != smem_bytes<T>(rows, dh, block_k) || smem > kSmemLimit)
     return (int)cudaErrorInvalidValue;
-  if ((rows != 16 && rows != 64) || rows * round4(dh) > kMaxTileOut ||
-      smem != smem_bytes(rows, dh, block_k) || smem > kSmemLimit)
-    return (int)cudaErrorInvalidValue;
-  Args a;
-  a.q = static_cast<const float*>(q);
-  a.k = static_cast<const float*>(k);
-  a.v = static_cast<const float*>(v);
-  a.ls_out = static_cast<float*>(l_s);
-  a.lc_out = static_cast<float*>(l_c);
-  a.as_out = static_cast<float*>(a_s);
-  a.ac_out = static_cast<float*>(a_c);
+  Args<T> a;
+  a.q = static_cast<const T*>(q);
+  a.k = static_cast<const T*>(k);
+  a.v = static_cast<const T*>(v);
+  a.ls_out = static_cast<T*>(l_s);
+  a.lc_out = static_cast<T*>(l_c);
+  a.as_out = static_cast<T*>(a_s);
+  a.ac_out = static_cast<T*>(a_c);
   a.q_groups = q_groups;
   a.sq = sq;
   a.skv = skv;
@@ -735,11 +843,51 @@ extern "C" int kahan_flash_launch(int scheme, int dtype, const void* q,
   a.causal = causal;
   a.scale = scale;
   a.scheme = scheme;
-  a.async_copy = dh % 4 == 0 &&
+  a.async_copy = dh % vec_of<T>() == 0 &&
                  ((reinterpret_cast<std::uintptr_t>(k) |
                    reinterpret_cast<std::uintptr_t>(v)) % 16) == 0;
   a.q_aligned = reinterpret_cast<std::uintptr_t>(q) % 16 == 0;
+  if constexpr (kFloat) {
+    if (rows == 64) return launch<T, 64, 8>(a, bh, (size_t)smem, st);
+  }
+  if constexpr (std::is_same<T, double>::value) {
+    if (dh <= 128) return launch<T, 16, 2>(a, bh, (size_t)smem, st);
+  }
+  return launch<T, 16, 4>(a, bh, (size_t)smem, st);
+}
+
+}  // namespace
+
+// C entry point. dtype: 0 = float32, 1 = float64, 2 = bfloat16, the
+// compute dtype of every array. q: [bh, sq, dh]; k, v: [bh / q_groups,
+// skv, dh]; l_s, l_c: [bh, sq]; a_s, a_c: [bh, sq, dh]; all contiguous,
+// skv a multiple of block_k. The plan (rows a CTA, shared bytes) comes
+// from the host's flash_plan; a plan that is not one of the kernel's (rows
+// 16, or 64 for float32; rows * round4(dh) <= 8192) or whose bytes
+// disagree with the layout or exceed 232448 is refused. Returns
+// cudaGetLastError() after the launch (0 = launched).
+extern "C" int kahan_flash_launch(int scheme, int dtype, const void* q,
+                                  const void* k, const void* v, void* l_s,
+                                  void* l_c, void* a_s, void* a_c, int bh,
+                                  int q_groups, int sq, int skv, int dh,
+                                  int block_k, int kv_len, int q_off,
+                                  int causal, float scale, int rows,
+                                  long long smem, void* stream) {
+  if (scheme < NAIVE || scheme > DOT2 || dh < 1 || dh > kMaxDh ||
+      block_k < 1 || block_k > kMaxBk || skv < block_k ||
+      skv % block_k != 0 || q_groups < 1 || bh < 1 || bh % q_groups != 0 ||
+      bh > 65535 || sq < 1)
+    return (int)cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
-  return rows == 64 ? launch<64>(a, bh, (size_t)smem, st)
-                    : launch<16>(a, bh, (size_t)smem, st);
+#define REPRO_FLASH(T)                                                      \
+  launch_typed<T>(scheme, q, k, v, l_s, l_c, a_s, a_c, bh, q_groups, sq,    \
+                  skv, dh, block_k, kv_len, q_off, causal, scale, rows,     \
+                  smem, st)
+  switch (dtype) {
+    case 0: return REPRO_FLASH(float);
+    case 1: return REPRO_FLASH(double);
+    case 2: return REPRO_FLASH(Bf16);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef REPRO_FLASH
 }

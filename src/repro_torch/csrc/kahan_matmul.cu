@@ -27,12 +27,23 @@
 // Arithmetic: built with -fmad=false like the other sources, so the
 // product and the add round separately; no __fmaf_rn anywhere. Operands:
 // each is float32 or bfloat16 when the compute dtype is float32 (a dtype
-// code per operand), float64 when it is float64, and is widened to the
-// compute dtype when it is staged into shared memory. Widening is exact,
-// so the bits equal those of operands promoted first, and bf16 weights are
-// read as they are stored, never copied. The caller pads N and K to its
-// blocks with zeros and passes M as it is; the kernel masks the rows and
-// columns of its own tile past M and N.
+// code per operand), float64 when it is float64, bfloat16 when it is
+// bfloat16, and is widened to the compute dtype when it is staged into
+// shared memory. Widening is exact, so the bits equal those of operands
+// promoted first, and bf16 weights are read as they are stored, never
+// copied. The caller pads N and K to its blocks with zeros and passes M as
+// it is; the kernel masks the rows and columns of its own tile past M and
+// N.
+//
+// bfloat16 compute (T = Bf16 of schemes.cuh): every product, add and every
+// op of the scheme's fold is computed in float and rounded to bfloat16
+// once (with -ftz=true, a float result below 2^-126 is a zero of its sign
+// before it is rounded), at exactly the sites where the plain version
+// rounds: that is how torch computes a bfloat16 op, and it is not what the
+// native bf16 add and multiply do (they round the exact result once, which
+// differs from float-then-bfloat16 where the float result lies on a
+// bfloat16 midpoint). The stages and the fold buffers hold bfloat16; the
+// tile plan is float32's.
 //
 // Two paths, chosen by M; both give the bits above.
 //
@@ -151,6 +162,19 @@ template <> struct Quad<float> {
     return j == 0 ? v.x : j == 1 ? v.y : j == 2 ? v.z : v.w;
   }
 };
+template <> struct Quad<Bf16> {
+  uint2 v;   // element 2q in the low half of word q
+  __device__ __forceinline__ void load(const Bf16* p) {
+    v = *reinterpret_cast<const uint2*>(p);
+  }
+  __device__ __forceinline__ Bf16 operator[](int j) const {
+    const unsigned w = j < 2 ? v.x : v.y;
+    Bf16 r;
+    r.v = __ushort_as_bfloat16(
+        static_cast<unsigned short>(j % 2 ? w >> 16 : w & 0xffffu));
+    return r;
+  }
+};
 template <> struct Quad<double> {
   double2 v, w;
   __device__ __forceinline__ void load(const double* p) {
@@ -163,6 +187,13 @@ template <> struct Quad<double> {
 };
 __device__ __forceinline__ void store4(float* p, const float (&x)[4]) {
   *reinterpret_cast<float4*>(p) = make_float4(x[0], x[1], x[2], x[3]);
+}
+__device__ __forceinline__ void store4(Bf16* p, const Bf16 (&x)[4]) {
+  const auto bits = [](Bf16 b) {
+    return static_cast<unsigned>(__bfloat16_as_ushort(b.v));
+  };
+  *reinterpret_cast<uint2*>(p) = make_uint2(bits(x[0]) | bits(x[1]) << 16,
+                                            bits(x[2]) | bits(x[3]) << 16);
 }
 __device__ __forceinline__ void store4(double* p, const double (&x)[4]) {
   *reinterpret_cast<double2*>(p) = make_double2(x[0], x[1]);
@@ -226,6 +257,13 @@ template <> struct Raw4<__nv_bfloat16> {
     x[1] = __uint_as_float(v.x & 0xffff0000u);
     x[2] = __uint_as_float(v.y << 16);
     x[3] = __uint_as_float(v.y & 0xffff0000u);
+  }
+  // bf16 -> Bf16: the bits as they are
+  __device__ __forceinline__ void widen4(Bf16 (&x)[4]) const {
+    x[0].v = __ushort_as_bfloat16(static_cast<unsigned short>(v.x & 0xffffu));
+    x[1].v = __ushort_as_bfloat16(static_cast<unsigned short>(v.x >> 16));
+    x[2].v = __ushort_as_bfloat16(static_cast<unsigned short>(v.y & 0xffffu));
+    x[3].v = __ushort_as_bfloat16(static_cast<unsigned short>(v.y >> 16));
   }
 };
 
@@ -392,14 +430,14 @@ kahan_matmul_grid(const TA* __restrict__ a, const TB* __restrict__ b,
   const int lo = w.rank * slice;
   const int hi = min(cells, lo + slice);
   for (int e = lo + threadIdx.x; e < hi; e += kThreads) {
-    s_sh[e - lo] = T(0);
-    c_sh[e - lo] = T(0);
+    s_sh[e - lo] = T(0.0f);
+    c_sh[e - lo] = T(0.0f);
   }
   T p[RM][kRegN];
 #pragma unroll
   for (int i = 0; i < RM; ++i)
 #pragma unroll
-    for (int j = 0; j < kRegN; ++j) p[i][j] = T(0);
+    for (int j = 0; j < kRegN; ++j) p[i][j] = T(0.0f);
 
   // stage t lives in buffer t % 2; the registers carry stage t + 1 while
   // stage t is multiplied, so its loads from device memory overlap the chain
@@ -471,7 +509,7 @@ kahan_matmul_grid(const TA* __restrict__ a, const TB* __restrict__ b,
 #pragma unroll
     for (int i = 0; i < RM; ++i)
 #pragma unroll
-      for (int j = 0; j < kRegN; ++j) p[i][j] = T(0);
+      for (int j = 0; j < kRegN; ++j) p[i][j] = T(0.0f);
   }
   if (split == 1)
     __syncthreads();                // the slice is every thread's cells
@@ -498,6 +536,11 @@ template <typename T> __device__ __forceinline__ T widen(float x) { return T(x);
 template <typename T> __device__ __forceinline__ T widen(double x) { return T(x); }
 template <typename T> __device__ __forceinline__ T widen(__nv_bfloat16 x) {
   return T(__bfloat162float(x));
+}
+template <> __device__ __forceinline__ Bf16 widen<Bf16>(__nv_bfloat16 x) {
+  Bf16 r;
+  r.v = x;
+  return r;
 }
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
@@ -606,7 +649,7 @@ kahan_matmul_rows(const TA* __restrict__ a, const TB* __restrict__ b,
 
   T p[MR], s[MR], c[MR];
 #pragma unroll
-  for (int i = 0; i < MR; ++i) { p[i] = T(0); s[i] = T(0); c[i] = T(0); }
+  for (int i = 0; i < MR; ++i) { p[i] = T(0.0f); s[i] = T(0.0f); c[i] = T(0.0f); }
 
   for (int t = 0; t < kRowStages - 1; ++t)
     stage_row_tile(a_sh, b_sh, a, b, t, m, n, k, block_k, steps, groups,
@@ -652,7 +695,7 @@ kahan_matmul_rows(const TA* __restrict__ a, const TB* __restrict__ b,
         }
       }
 #pragma unroll
-      for (int i = 0; i < MR; ++i) p[i] = T(0);
+      for (int i = 0; i < MR; ++i) p[i] = T(0.0f);
     }
   }
   cp_async_wait<0>();
@@ -828,7 +871,7 @@ int launch_types(int scheme, const Args& x) {
 // C entry point. dtype codes: 0 = float32, 1 = float64, 2 = bfloat16.
 // dtype is the compute dtype of s, c and every operation; a_dtype and
 // b_dtype are the operands' (float32 or bfloat16 for a float32 compute
-// dtype, float64 for float64). a [batch, m, k] and b [batch, k, n] are
+// dtype, float64 for float64, bfloat16 for bfloat16). a [batch, m, k] and b [batch, k, n] are
 // row-major contiguous, k a multiple of block_k. Returns cudaGetLastError()
 // after the launch (0 = launched).
 extern "C" int kahan_matmul_launch(int scheme, int dtype, int a_dtype,
@@ -847,23 +890,26 @@ extern "C" int kahan_matmul_launch(int scheme, int dtype, int a_dtype,
     if (a_dtype == 2 && b_dtype == 2) return launch_types<float, __nv_bfloat16, __nv_bfloat16>(scheme, x);
   } else if (dtype == 1 && a_dtype == 1 && b_dtype == 1) {
     return launch_types<double, double, double>(scheme, x);
+  } else if (dtype == 2 && a_dtype == 2 && b_dtype == 2) {
+    return launch_types<Bf16, __nv_bfloat16, __nv_bfloat16>(scheme, x);
   }
   return (int)cudaErrorInvalidValue;
 }
 
 // The plan the M > 8 path takes for a call (dtype 0 = float32, 1 =
-// float64): rows a tile, columns a tile and the cluster size. M <= 8
+// float64, 2 = bfloat16): rows a tile, columns a tile and the cluster
+// size. M <= 8
 // runs kahan_matmul_rows and has no such plan (all three are 0).
 extern "C" int kahan_matmul_plan(int dtype, int batch, int m, int n, int k,
                                  int block_k, int* tm, int* tn, int* split) {
   *tm = *tn = *split = 0;
   if (batch < 1 || m < 1 || n < 1 || k < 1 || block_k < 1 ||
-      k % block_k != 0 || (dtype != 0 && dtype != 1))
+      k % block_k != 0 || dtype < 0 || dtype > 2)
     return (int)cudaErrorInvalidValue;
   if (m <= 8) return 0;
-  const GridPlan plan = dtype == 1
-                            ? grid_plan<double>(batch, m, n, k, block_k)
-                            : grid_plan<float>(batch, m, n, k, block_k);
+  const GridPlan plan = dtype == 1   ? grid_plan<double>(batch, m, n, k, block_k)
+                        : dtype == 2 ? grid_plan<Bf16>(batch, m, n, k, block_k)
+                                     : grid_plan<float>(batch, m, n, k, block_k);
   *tm = plan.tm;
   *tn = kTileN;
   *split = plan.split;

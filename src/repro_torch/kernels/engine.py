@@ -27,8 +27,18 @@ brings each operand to a dtype the kernel widens on load (bf16 weights
 stay as they are stored), zero-pads N and K where they are ragged (M
 goes as it is: the kernel masks it), launches the matmul grid and
 finalizes ``s + c``. ``matmul`` is differentiable: its backward runs the
-same compensated kernel with the same blocks; without a gradient to
-track it launches directly, with no autograd node.
+same compensated kernel with the same blocks.
+
+The vmap dispatch (``repro/kernels/engine.py:549-654``): ``dot``,
+``asum`` and ``matmul`` run through ``torch.autograd.Function``s with a
+``vmap`` rule, so ``torch.func.vmap`` of them (and of ``ops.dot``,
+``ops.asum``, ``ops.matmul``) never traces into a kernel launch: the rule
+moves the batched dim to the front, broadcasts an unbatched operand,
+flattens, and makes ONE batched launch (B2, B4 or B6), whose rows are
+bitwise a loop of single calls. ``torch.func.grad`` reaches the matmul's
+backward through the same Function. An eager call with no gradient to
+track launches directly, without the Function's overhead; its result is
+the Function's forward, bit for bit.
 """
 
 from __future__ import annotations
@@ -239,11 +249,17 @@ class CompensatedReduction:
 
     # -- collapsed results ---------------------------------------------------
     def dot(self, a: Tensor, b: Tensor) -> Tensor:
-        """Compensated dot of two tensors (raveled); compute-dtype scalar."""
+        """Compensated dot of two tensors (raveled); compute-dtype scalar.
+        Under ``torch.func.vmap``, one batched launch (B2)."""
+        if _transformed(a, b):
+            return _CompensatedDot.apply(a, b, self)
         return self.dot_accumulators(a, b).total()
 
     def asum(self, x: Tensor) -> Tensor:
-        """Compensated sum of a tensor (raveled); compute-dtype scalar."""
+        """Compensated sum of a tensor (raveled); compute-dtype scalar.
+        Under ``torch.func.vmap``, one batched launch (B4)."""
+        if _transformed(x):
+            return _CompensatedSum.apply(x, self)
         return self.sum_accumulators(x).total()
 
     def batched_dot(self, a: Tensor, b: Tensor) -> Tensor:
@@ -432,22 +448,24 @@ class CompensatedReduction:
                block_k: Optional[int] = None) -> Tensor:
         """``a @ b`` ``[M, K] x [K, N] -> [M, N]`` in the compute dtype,
         with compensated accumulation across K-blocks: one launch on
-        unpadded rows. Differentiable: when grad mode is on and an operand
-        requires grad, the autograd Function's backward (``da = g @ bᵀ``,
-        ``db = aᵀ @ g``) runs the same kernel with this call's clamped
-        blocks (``repro/kernels/engine.py:604-654``); otherwise the same
-        launch runs with no autograd node."""
+        unpadded rows. Differentiable (``torch.autograd`` and
+        ``torch.func.grad``): the backward (``da = g @ bᵀ``, ``db = aᵀ @
+        g``) runs the same kernel with this call's clamped blocks
+        (``repro/kernels/engine.py:604-654``). Under ``torch.func.vmap``,
+        one batched launch (B6) at the same blocks."""
         if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
             raise ValueError(f"matmul wants [M, K] x [K, N] operands, got "
                              f"{tuple(a.shape)} and {tuple(b.shape)}")
         blocks = self._matmul_blocks(a.shape[0], b.shape[1], a.shape[1],
                                      block_m, block_n, block_k)
-        if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
+        if _transformed(a, b) or (torch.is_grad_enabled()
+                                  and (a.requires_grad or b.requires_grad)):
             return _CompensatedMatmul.apply(a, b, self, blocks)
         return self._finalized_matmul(a, b, blocks)
 
     def _finalized_matmul(self, a: Tensor, b: Tensor,
                           blocks: Tuple[int, int, int]) -> Tensor:
+        """One launch of B5 (2-D operands) or B6 (3-D), finalized."""
         s, c = self._matmul_grids(a, b, blocks)
         return _sliced_cols(K.add(s, c), b.shape[-1])
 
@@ -463,18 +481,87 @@ class CompensatedReduction:
         return _sliced_cols(K.add(s, c), b.shape[-1])
 
 
-class _CompensatedMatmul(torch.autograd.Function):
-    """``eng._finalized_matmul`` with a backward through the same
-    compensated kernel (the reference's ``custom_vjp``,
-    ``repro/kernels/engine.py:640-653``). The backward products take the
-    forward's clamped ``blocks``, clamped again to their own shapes."""
+# ---------------------------------------------------------------------------
+# vmap dispatch: the scalar entry points batch onto the batched grids
+# ---------------------------------------------------------------------------
+
+def _transformed(*xs: Tensor) -> bool:
+    """Is an operand a ``torch.func`` transform's wrapper (a vmap batch,
+    a grad level)? Then the call must reach the Function's rules."""
+    return any(torch._C._functorch.is_functorch_wrapped_tensor(x)
+               for x in xs)
+
+
+def _batch_front(size: int, xs, in_dims):
+    """The operands of a vmap rule with the batched dim in front: moved
+    there, or (an unbatched operand) broadcast to ``size`` rows."""
+    return [x.expand(size, *x.shape) if d is None else x.movedim(d, 0)
+            for x, d in zip(xs, in_dims)]
+
+
+class _CompensatedDot(torch.autograd.Function):
+    """``eng.dot_accumulators(a, b).total()`` with the reference's
+    ``custom_vmap`` rule (``repro/kernels/engine.py:559-581``): vmapped, one
+    ``batched_dot`` launch over the flattened rows. No gradient, as the
+    reference's has none."""
 
     @staticmethod
-    def forward(ctx, a: Tensor, b: Tensor, eng: CompensatedReduction,
+    def forward(a: Tensor, b: Tensor, eng: CompensatedReduction):
+        return eng.dot_accumulators(a, b).total()
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def vmap(info, in_dims, a, b, eng):
+        a, b = _batch_front(info.batch_size, (a, b), in_dims[:2])
+        return eng.batched_dot(a.reshape(info.batch_size, -1),
+                               b.reshape(info.batch_size, -1)), 0
+
+
+class _CompensatedSum(torch.autograd.Function):
+    """``eng.sum_accumulators(x).total()`` with the reference's
+    ``custom_vmap`` rule (``repro/kernels/engine.py:583-601``): vmapped,
+    one ``batched_asum`` launch."""
+
+    @staticmethod
+    def forward(x: Tensor, eng: CompensatedReduction):
+        return eng.sum_accumulators(x).total()
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def vmap(info, in_dims, x, eng):
+        (x,) = _batch_front(info.batch_size, (x,), in_dims[:1])
+        return eng.batched_asum(x.reshape(info.batch_size, -1)), 0
+
+
+class _CompensatedMatmul(torch.autograd.Function):
+    """``eng._finalized_matmul`` with a backward through the same
+    compensated kernel (the reference's ``custom_vjp``) and the
+    reference's ``custom_vmap`` rule: vmapped, one B6 launch at the
+    forward's blocks (``repro/kernels/engine.py:603-654``). The backward
+    products take the forward's clamped ``blocks``, clamped again to their
+    own shapes."""
+
+    @staticmethod
+    def forward(a: Tensor, b: Tensor, eng: CompensatedReduction,
                 blocks: Tuple[int, int, int]):
+        return eng._finalized_matmul(a, b, blocks)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        a, b, eng, blocks = inputs
         ctx.save_for_backward(a, b)
         ctx.eng, ctx.blocks = eng, blocks
-        return eng._finalized_matmul(a, b, blocks)
+
+    @staticmethod
+    def vmap(info, in_dims, a, b, eng, blocks):
+        a, b = _batch_front(info.batch_size, (a, b), in_dims[:2])
+        return eng._finalized_matmul(a, b, blocks), 0
 
     @staticmethod
     def backward(ctx, g: Tensor):

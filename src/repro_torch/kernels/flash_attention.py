@@ -22,11 +22,17 @@ single ascending chains of rounded products and rounded adds, so kernel
 and plain version agree bit for bit; against the reference they agree to
 a tolerance (XLA's ``dot_general`` sums in its own order).
 
+Every compute dtype of the reference runs on the card: q, k and v arrive
+promoted to float32, float64 or bfloat16, and the kernel holds the
+scores, ``m``, ``l``, ``acc`` and the compensations in that dtype (a
+bfloat16 op computed in float32 and rounded once, as torch computes it;
+float64's exp is libdevice's, as torch.exp's). float64 and bfloat16 take
+the 16-row tile only (``flash_plan``).
+
 Which path runs depends only on where the tensors lie: on the CPU the
-plain version, on a CUDA tensor the kernel (float32 only; other dtypes
-raise ``TypeError``, a scheme without a device function raises
-``NotImplementedError``). Nothing falls back to the plain version on the
-card.
+plain version, on a CUDA tensor the kernel (a scheme without a device
+function raises ``NotImplementedError``). Nothing falls back to the plain
+version on the card.
 """
 
 from __future__ import annotations
@@ -51,9 +57,10 @@ NEG_INF = -1e30
 MAX_HEAD_DIM = 256
 MAX_BLOCK_K = 1024
 
-#: the kernel's tile heights (query rows a CTA), largest first; the depth
-#: of its K/V ring (64-key sub-tiles); at most TILE_OUTPUTS = rows *
-#: round4(dh) acc cells a CTA (32 a thread); its shared memory limit
+#: the kernel's tile heights (query rows a CTA), largest first (float32;
+#: float64 and bfloat16 take the 16-row tile only); the depth of its K/V
+#: ring (64-key sub-tiles); at most TILE_OUTPUTS = rows * round4(dh) acc
+#: cells a CTA (32 a thread); its shared memory limit
 TILE_ROWS = (64, 16)
 RING_STAGES = 2
 SUB_TILE_KEYS = 64
@@ -69,37 +76,46 @@ def softmax_scale(dh: int) -> float:
     return float(torch.tensor(dh ** -0.5, dtype=torch.float32))
 
 
+def _round_to(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
 def _round4(n: int) -> int:
-    return -(-n // 4) * 4
+    return _round_to(n, 4)
 
 
-def flash_smem_bytes(rows: int, dh: int, block_k: int) -> int:
+def flash_smem_bytes(rows: int, dh: int, block_k: int,
+                     itemsize: int = 4) -> int:
     """Dynamic shared memory of one CTA of ``kahan_flash_grid`` (the
-    layout in the source note), in bytes: the q tile ``[rows][ld]``, the
-    score block ``[rows][round4(block_k) + 4]``, ``RING_STAGES`` K/V
-    sub-tiles of ``round4(min(64, block_k) * ld)`` floats and 4
-    statistics a row, with ``ld = dh + 4`` when ``dh % 4 == 0``, else
-    ``dh + 1``."""
-    ld = dh + 4 if dh % 4 == 0 else dh + 1
-    stage = _round4(min(SUB_TILE_KEYS, block_k) * ld)
-    return 4 * (rows * ld + rows * (_round4(block_k) + 4)
-                + RING_STAGES * stage + 4 * rows)
+    layout in the source note), in bytes, for elements of ``itemsize``
+    bytes (the compute dtype's) and ``vec = 16 / itemsize`` of them in 16
+    bytes: the q tile ``[rows][ld]``, the score block ``[rows][round_vec(
+    block_k) + vec]``, ``RING_STAGES`` K/V sub-tiles of ``round_vec(min(64,
+    block_k) * ld)`` elements and 4 statistics a row, with ``ld = dh +
+    vec`` when ``dh % vec == 0``, else ``dh + 1``."""
+    vec = 16 // itemsize
+    ld = dh + vec if dh % vec == 0 else dh + 1
+    stage = _round_to(min(SUB_TILE_KEYS, block_k) * ld, vec)
+    return itemsize * (rows * ld + rows * (_round_to(block_k, vec) + vec)
+                       + RING_STAGES * stage + 4 * rows)
 
 
 @functools.lru_cache(maxsize=None)
 def flash_plan(bh: int, sq: int, dh: int, block_k: int,
-               sms: int = 132) -> Tuple[int, int]:
+               sms: int = 132, itemsize: int = 4) -> Tuple[int, int]:
     """``(rows, smem_bytes)`` of a launch on ``BH`` head-rows of ``Sq``
-    queries: the tallest tile of ``TILE_ROWS`` that leaves at least two
-    CTAs per SM (``ceil(Sq / rows) * BH >= 2 * sms``) and fits, else the
-    shortest that fits. A tile fits when ``rows * round4(dh) <=
-    TILE_OUTPUTS`` and its shared memory is at most ``SMEM_LIMIT``; 16
-    rows fit every dh and block_k within the kernel's limits. The row bits
-    do not depend on the plan. Cached: the wrapper asks at every
-    launch."""
+    queries in a compute dtype of ``itemsize`` bytes: the tallest tile of
+    ``TILE_ROWS`` (16 rows only for float64 and bfloat16) that leaves at
+    least two CTAs per SM (``ceil(Sq / rows) * BH >= 2 * sms``) and fits,
+    else the shortest that fits. A tile fits when ``rows * round4(dh) <=
+    TILE_OUTPUTS`` and its shared memory is at most ``SMEM_LIMIT``; in
+    float32 and bfloat16 16 rows fit every dh and block_k within the
+    kernel's limits, in float64 not all (dh 128 fits block_k up to 512):
+    a block_k that does not fit raises ``ValueError``. The row bits do not
+    depend on the plan. Cached: the wrapper asks at every launch."""
     plan = None
-    for rows in TILE_ROWS:
-        smem = flash_smem_bytes(rows, dh, block_k)
+    for rows in TILE_ROWS if itemsize == 4 else TILE_ROWS[-1:]:
+        smem = flash_smem_bytes(rows, dh, block_k, itemsize)
         if rows * _round4(dh) > TILE_OUTPUTS or smem > SMEM_LIMIT:
             continue
         plan = (rows, smem)
@@ -107,7 +123,7 @@ def flash_plan(bh: int, sq: int, dh: int, block_k: int,
             return plan
     if plan is None:
         raise ValueError(f"flash kernel: no tile fits dh={dh}, "
-                         f"block_k={block_k}")
+                         f"block_k={block_k} in {itemsize}-byte elements")
     return plan
 
 
@@ -249,9 +265,9 @@ def _launch(q: Tensor, k: Tensor, v: Tensor, *, block_q: int, block_k: int,
         raise NotImplementedError(
             f"scheme {scheme.name!r} has no CUDA device function (only the "
             f"built-in schemes do); it runs on CPU tensors only")
-    if q.dtype != torch.float32:
-        raise TypeError(f"flash kernel: no CUDA instantiation for {q.dtype} "
-                        f"(float32 only)")
+    if q.dtype not in _build.DTYPE_CODE:
+        raise ValueError(f"flash kernel: compute dtype {q.dtype} is not one "
+                         f"of {tuple(_build.DTYPE_CODE)}")
     if dh > MAX_HEAD_DIM or block_k > MAX_BLOCK_K or bh > 65535:
         raise ValueError(
             f"flash kernel: dh={dh}, block_k={block_k}, BH={bh} outside the "
@@ -264,7 +280,8 @@ def _launch(q: Tensor, k: Tensor, v: Tensor, *, block_q: int, block_k: int,
     a_s = torch.empty_like(q)
     a_c = torch.empty_like(q)
     if plan is None:
-        plan = flash_plan(bh, sq, dh, block_k, sms=_sm_count(q.device))
+        plan = flash_plan(bh, sq, dh, block_k, sms=_sm_count(q.device),
+                          itemsize=q.element_size())
     lib = _build.library("kahan_flash")
     counter.launches += 1
     counter.plan = plan

@@ -27,9 +27,13 @@ Operands may be stored in a narrower dtype than the compute dtype
 are widened where they are read; widening is exact, so the grids equal
 those of operands promoted first, and bf16 weights are never copied.
 
+Every compute dtype of the reference runs on the card: float32, float64
+and bfloat16. In bfloat16 each product, add and fold op is computed in
+float32 and rounded to bfloat16 once, as torch computes a bfloat16 op, so
+the kernel agrees with the plain version bit for bit.
+
 Which path runs depends only on where the tensors lie: on the CPU the
-plain version, on a CUDA tensor the kernel (compute dtype float32 or
-float64; bfloat16 raises ``TypeError``, a scheme without a device
+plain version, on a CUDA tensor the kernel (a scheme without a device
 function raises ``NotImplementedError``). Nothing falls back to the plain
 version on the card.
 """
@@ -99,7 +103,10 @@ def _launch(a: Tensor, b: Tensor, *, scheme: CompensationScheme,
             f"multiples of the blocks ({block_n}, {block_k}) (the engine "
             f"pads them; M, masked by the kernel, need not be a multiple of "
             f"{block_m})")
-    allowed = OPERAND_DTYPES.get(compute_dtype, ())
+    if compute_dtype not in OPERAND_DTYPES:
+        raise ValueError(f"matmul kernel: compute dtype {compute_dtype} is "
+                         f"not one of {tuple(OPERAND_DTYPES)}")
+    allowed = OPERAND_DTYPES[compute_dtype]
     if a.dtype not in allowed or b.dtype not in allowed:
         raise TypeError(
             f"matmul kernel: operands {a.dtype} and {b.dtype} for compute "
@@ -152,15 +159,16 @@ def grid_plan(batch: int, m: int, n: int, k: int, block_k: int,
 def check_device_call(scheme: CompensationScheme,
                       compute_dtype: torch.dtype) -> None:
     """What the kernel refuses before it launches on the card: a scheme
-    without a device function, and a compute dtype other than float32 or
-    float64 (bfloat16's in-block rounding is not pinned yet)."""
+    without a device function, and a compute dtype that is none of the
+    reference's (``OPERAND_DTYPES``: float32, float64 and bfloat16 each
+    have a CUDA instantiation)."""
     if scheme.device_id is None:
         raise NotImplementedError(
             f"scheme {scheme.name!r} has no CUDA device function (only the "
             f"built-in schemes do); it runs on CPU tensors only")
-    if compute_dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"matmul kernel: no CUDA instantiation for compute "
-                        f"dtype {compute_dtype} (float32 and float64 only)")
+    if compute_dtype not in OPERAND_DTYPES:
+        raise ValueError(f"matmul kernel: compute dtype {compute_dtype} is "
+                         f"not one of {tuple(OPERAND_DTYPES)}")
 
 
 def matmul_accumulators(a: Tensor, b: Tensor, *, scheme: CompensationScheme,

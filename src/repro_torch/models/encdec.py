@@ -56,6 +56,7 @@ from repro_torch.models.common import (
 )
 from repro_torch.models.layers import (
     AttnStatic,
+    Position,
     attention,
     attn_spec,
     dense,
@@ -262,10 +263,11 @@ class EncDecLM:
         x = self._dec_run(params, x, cache)
         return decode_logits(x[:, -1:, :], params, self.cfg), cache
 
-    def decode_step(self, params: Params, cache, tokens: Tensor, pos: int,
-                    ) -> Tensor:
-        """One position for a batch: ``tokens`` [B] at position ``pos`` ->
-        logits [B, V_pad] float32; K/V written into ``cache``."""
+    def decode_step(self, params: Params, cache, tokens: Tensor,
+                    pos: Position) -> Tensor:
+        """One position for a batch: ``tokens`` [B] at position ``pos`` (an
+        int, or a LongTensor [B] of one a row) -> logits [B, V_pad]
+        float32; K/V written into ``cache``."""
         x = embed_lookup(params["embed"], tokens[:, None], self.compute_dtype)
         return decode_logits(self._dec_run(params, x, cache, pos=pos),
                              params, self.cfg)

@@ -57,6 +57,7 @@ from repro_torch.models.common import (
 )
 from repro_torch.models.layers import (
     AttnStatic,
+    Position,
     attention,
     attn_spec,
     dtype_of,
@@ -260,10 +261,12 @@ class HymbaLM:
         x = self._run_blocks(params, cache, x)
         return decode_logits(x[:, -1:, :], params, self.cfg), cache
 
-    def decode_step(self, params: Params, cache, tokens: Tensor, pos: int,
-                    ) -> Tensor:
-        """One position for a batch: ``tokens`` [B] at position ``pos`` ->
-        logits [B, V_pad] float32; the caches advanced in place."""
+    def decode_step(self, params: Params, cache, tokens: Tensor,
+                    pos: Position) -> Tensor:
+        """One position for a batch: ``tokens`` [B] at position ``pos`` (an
+        int, or a LongTensor [B] of one a row: each row writes its own
+        ring row; the SSM state is row-local) -> logits [B, V_pad]
+        float32; the caches advanced in place."""
         x = embed_lookup(params["embed"], tokens[:, None], self.compute_dtype)
         x = self._run_blocks(params, cache, x, pos)
         return decode_logits(x, params, self.cfg)

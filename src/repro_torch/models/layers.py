@@ -31,13 +31,16 @@ matmul, as the reference computes it outside any kernel.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
 
 Params = Dict[str, Any]
 Tensor = torch.Tensor
+#: a decode call's position: one for every row, or a LongTensor [B] of
+#: one a row (the vmapped slot loop)
+Position = Union[int, Tensor]
 
 #: the reference masks keys outside the causal range by giving them this
 #: position (``jnp.iinfo(jnp.int32).max``)
@@ -236,11 +239,12 @@ def _flash_chunk_core(qg: Tensor, k: Tensor, v: Tensor, q_off: int,
 
 def _causal_bias(q_pos: Tensor, k_pos: Tensor, window: int = 0,
                  causal: bool = True) -> Tensor:
-    """[Sq, Sk] float32: 0 where the key's position is at or before the
+    """[Sq, Sk] float32 (``[B, Sq, Sk]`` for per-row positions ``[B, Sq]``
+    and ``[B, Sk]``): 0 where the key's position is at or before the
     query's (every key when ``causal`` is False; and, with ``window > 0``,
     fewer than ``window`` positions before it), -inf elsewhere
     (``repro/models/layers.py:182-195``)."""
-    diff = q_pos[:, None] - k_pos[None, :]
+    diff = q_pos[..., :, None] - k_pos[..., None, :]
     ok = diff >= 0 if causal else torch.ones_like(diff, dtype=torch.bool)
     if window > 0:
         ok = ok & (diff < window)
@@ -262,12 +266,15 @@ def _attn_core(q: Tensor, k: Tensor, v: Tensor, q_pos: Tensor,
     if chunked and q.shape[1] > ATTN_Q_CHUNK:
         return torch.cat([
             _attn_core(q[:, i:i + ATTN_Q_CHUNK], k, v,
-                       q_pos[i:i + ATTN_Q_CHUNK], k_pos, compute_dtype,
+                       q_pos[..., i:i + ATTN_Q_CHUNK], k_pos, compute_dtype,
                        window=window, causal=causal)
             for i in range(0, q.shape[1], ATTN_Q_CHUNK)], dim=1)
     scale = q.shape[-1] ** -0.5
     scores = torch.einsum("bqkgd,bskd->bkgqs", q.float(), k.float()) * scale
-    scores = scores + _causal_bias(q_pos, k_pos, window, causal)
+    bias = _causal_bias(q_pos, k_pos, window, causal)
+    if bias.dim() == 3:                     # per-row positions: [B, Sq, Sk]
+        bias = bias[:, None, None]
+    scores = scores + bias
     m = torch.amax(scores, dim=-1, keepdim=True).clamp_min(-1e30)
     p = torch.exp(scores - m)
     l = torch.sum(p, dim=-1, keepdim=True)
@@ -277,7 +284,7 @@ def _attn_core(q: Tensor, k: Tensor, v: Tensor, q_pos: Tensor,
 
 def attention(p: Params, st: AttnStatic, x: Tensor, *,
               cache: Optional[Tuple[Tensor, Tensor]] = None,
-              pos: Optional[int] = None,
+              pos: Optional[Position] = None,
               chunk_valid: Optional[int] = None,
               window: int = 0, causal: bool = True,
               cross_kv: Optional[Tuple[Tensor, Tensor]] = None) -> Tensor:
@@ -296,6 +303,10 @@ def attention(p: Params, st: AttnStatic, x: Tensor, *,
 
     decode          ``pos`` given, x [B,1,D]: write position ``pos``,
                     attend every cache row, keys past ``pos`` masked.
+                    ``pos`` may be a LongTensor [B] (a position per
+                    row, the vmapped slot loop's): row ``b`` writes
+                    ``pos[b]`` (``pos[b] % W`` in a ring) and masks keys
+                    past ``pos[b]``.
     prefill         ``pos`` None, x [B,S,D] at positions 0..S-1: fill the
                     cache prefix, attend the in-flight k/v causally.
     chunk prefill   ``pos`` and ``chunk_valid`` given, x [B,W,D] (W > 1)
@@ -326,8 +337,7 @@ def attention(p: Params, st: AttnStatic, x: Tensor, *,
     cd = st.compute_dtype
     cmp = st.kahan_matmul
     b, s, _ = x.shape
-    start = 0 if pos is None else pos
-    q_pos = torch.arange(start, start + s, device=x.device)
+    q_pos = _query_positions(pos, s, chunk_valid, x.device)
     groups = st.n_heads // st.n_kv
     if cross_kv is not None:                                # cross
         k, v = cross_kv
@@ -387,18 +397,42 @@ def attention(p: Params, st: AttnStatic, x: Tensor, *,
             out = _attn_core(qg, ck.to(cd), cv.to(cd), q_pos,
                              torch.arange(s_kv, device=x.device), cd)
     else:                                                   # decode
-        row = pos % s_kv if ring else pos
-        ck[:, row] = k[:, 0].to(ck.dtype)
-        cv[:, row] = v[:, 0].to(cv.dtype)
+        _write_position(ck, pos % s_kv if ring else pos, k[:, 0])
+        _write_position(cv, pos % s_kv if ring else pos, v[:, 0])
         j = torch.arange(s_kv, device=x.device)
+        last = pos[:, None] if isinstance(pos, Tensor) else pos
         if ring:
-            k_pos = pos - torch.remainder(pos - j, s_kv)
+            k_pos = last - torch.remainder(last - j, s_kv)
             k_pos = torch.where(k_pos >= 0, k_pos, _FAR)
         else:
-            k_pos = torch.where(j <= pos, j, _FAR)
+            k_pos = torch.where(j <= last, j, _FAR)
         out = _attn_core(qg, ck.to(cd), cv.to(cd), q_pos, k_pos, cd,
                          window=window)
     return dense(p["o"], out.reshape(b, s, -1), cd, compensated=cmp)
+
+
+def _query_positions(pos: Optional[Position], s: int,
+                     chunk_valid: Optional[int], device) -> Tensor:
+    """Absolute positions of the S queries: ``[S]`` from ``pos`` (0 when
+    None), or ``[B, 1]`` for a per-row position tensor ``pos`` [B], which
+    only a decode call (S = 1) takes."""
+    if isinstance(pos, Tensor):
+        if s != 1 or chunk_valid is not None:
+            raise ValueError("a per-row position tensor is a decode call's "
+                             "(one token a row)")
+        return pos[:, None]
+    start = 0 if pos is None else pos
+    return torch.arange(start, start + s, device=device)
+
+
+def _write_position(leaf: Tensor, row, value: Tensor) -> None:
+    """``leaf[:, row] = value`` for a cache leaf [B, S, ...]; with a row
+    tensor [B], row ``row[b]`` of batch row ``b``."""
+    if isinstance(row, Tensor):
+        leaf[torch.arange(leaf.shape[0], device=leaf.device), row] = (
+            value.to(leaf.dtype))
+    else:
+        leaf[:, row] = value.to(leaf.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -425,7 +459,7 @@ def mla_spec(cfg) -> Params:
 
 def mla_attention(p: Params, cfg, freqs: Tensor, x: Tensor, *,
                   cache: Optional[Tuple[Tensor, Tensor]] = None,
-                  pos: Optional[int] = None) -> Tensor:
+                  pos: Optional[Position] = None) -> Tensor:
     """MLA (``repro/models/layers.py:495-598``) with the cache holding the
     latent ``c_kv`` [B,S,r] and the shared rope key ``k_rope`` [B,S,dr],
     written in place; ``freqs`` are ``rope_freqs(dr, theta)``. Modes as in
@@ -434,7 +468,8 @@ def mla_attention(p: Params, cfg, freqs: Tensor, x: Tensor, *,
 
     decode          ``pos`` given, x [B,1,D]: the weight-absorbed form,
                     ``q_c = q_nope W_ukᵀ`` scored against the latent and
-                    the rope keys, the context through ``W_uv``.
+                    the rope keys, the context through ``W_uv``. ``pos``
+                    may be a LongTensor [B], a position per row.
     prefill         ``pos`` None with a cache: fill the prefix, expand K/V
                     from the latent once, attend the cache causally,
                     q-chunked at ``ATTN_Q_CHUNK``.
@@ -448,8 +483,7 @@ def mla_attention(p: Params, cfg, freqs: Tensor, x: Tensor, *,
     cmp = cfg.kahan_matmul
     b, s, _ = x.shape
     h, nope = cfg.n_heads, m.qk_nope_dim
-    start = 0 if pos is None else pos
-    q_pos = torch.arange(start, start + s, device=x.device)
+    q_pos = _query_positions(pos, s, None, x.device)
     q = dense(p["q"], x, cd, compensated=cmp)           # [B,S,H,nope+rope]
     q_nope = q[..., :nope]
     q_rope = rope_apply(q[..., nope:], q_pos, freqs)
@@ -468,8 +502,8 @@ def mla_attention(p: Params, cfg, freqs: Tensor, x: Tensor, *,
             cc[:, :s] = c_kv.to(cc.dtype)
             cr[:, :s] = k_rope.to(cr.dtype)
         elif s == 1:
-            cc[:, pos] = c_kv[:, 0].to(cc.dtype)
-            cr[:, pos] = k_rope[:, 0].to(cr.dtype)
+            _write_position(cc, pos, c_kv[:, 0])
+            _write_position(cr, pos, k_rope[:, 0])
         else:
             raise ValueError("mla_attention: a cached call at a position "
                              "takes one token (MLA has no chunk prefill)")
@@ -479,7 +513,10 @@ def mla_attention(p: Params, cfg, freqs: Tensor, x: Tensor, *,
     w_uv = p["uv"]["w"].to(cd)                            # [r,H,v]
     scale = (nope + m.qk_rope_dim) ** -0.5
     if pos is not None:                                   # absorbed decode
-        bias = _causal_bias(q_pos, torch.where(k_pos <= pos, k_pos, _FAR))
+        last = pos[:, None] if isinstance(pos, Tensor) else pos
+        bias = _causal_bias(q_pos, torch.where(k_pos <= last, k_pos, _FAR))
+        if bias.dim() == 3:                 # per-row positions: [B, 1, Sk]
+            bias = bias[:, None]
         q_c = torch.einsum("bqhn,rhn->bqhr", q_nope, w_uk)
         sc = (torch.einsum("bqhr,bsr->bhqs", q_c.float(), c_all.float())
               + torch.einsum("bqhd,bsd->bhqs", q_rope.float(),

@@ -80,6 +80,7 @@ from repro_torch.models.common import (
 )
 from repro_torch.models.layers import (
     AttnStatic,
+    Position,
     attn_spec,
     attention,
     dtype_of,
@@ -374,14 +375,16 @@ class TransformerLM:
         x = self._run_blocks(params, cache, x)
         return decode_logits(x[:, -1:, :], params, self.cfg), cache
 
-    def decode_step(self, params: Params, cache, tokens: Tensor, pos: int,
-                    ) -> Tensor:
+    def decode_step(self, params: Params, cache, tokens: Tensor,
+                    pos: Position) -> Tensor:
         """One position for a batch: ``tokens`` [B] at absolute position
-        ``pos`` -> logits [B, V_pad] float32; K/V written into ``cache``."""
+        ``pos`` (an int, or a LongTensor [B] of one a row: the vmapped
+        slot loop) -> logits [B, V_pad] float32; K/V written into
+        ``cache``."""
         x = embed_lookup(params["embed"], tokens[:, None], self.compute_dtype)
         return self._decode_x(params, cache, x, pos)
 
-    def _decode_x(self, params: Params, cache, x: Tensor, pos: int,
+    def _decode_x(self, params: Params, cache, x: Tensor, pos: Position,
                   ) -> Tensor:
         """One position from an already-embedded [B, 1, D] input (shared
         by ``decode_step`` and the scan chunk, which embeds per position

@@ -45,7 +45,12 @@ from repro_torch.models.common import (
     stack_spec,
     unbind_layers,
 )
-from repro_torch.models.layers import dtype_of, embed_lookup, norm_apply
+from repro_torch.models.layers import (
+    Position,
+    dtype_of,
+    embed_lookup,
+    norm_apply,
+)
 from repro_torch.models.xlstm import (
     NEG,
     mlstm_apply,
@@ -182,8 +187,8 @@ class XLSTMLM:
         x = self._run(params, x, cache)
         return decode_logits(x[:, -1:, :], params, self.cfg), cache
 
-    def decode_step(self, params: Params, cache, tokens: Tensor, pos: int,
-                    ) -> Tensor:
+    def decode_step(self, params: Params, cache, tokens: Tensor,
+                    pos: Position) -> Tensor:
         """One position for a batch: ``tokens`` [B] -> logits [B, V_pad]
         float32, the state advanced in place (``pos`` is unused: the
         state is positionless)."""

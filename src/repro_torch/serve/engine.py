@@ -34,6 +34,15 @@ traffic, and whether its prompt is prefilled in chunks or one-shot.
   decode step — the analogue of the reference's ``lax.scan`` over slots.
   A batched matmul would let the library pick its kernel by batch size,
   and a request's bits would then depend on its neighbours.
+  ``EngineConfig.slot_loop="vmap"`` opts out of that guarantee for
+  throughput, as the reference's does: the tick is ONE ``decode_step``
+  over the running slots' rows, each at its own position (a LongTensor
+  of positions, PyTorch's form of the reference's ``jax.vmap`` of its
+  one-slot body). Only the running rows are computed and written: free
+  and PREFILLING rows keep their bits (the reference keeps them through
+  an exact select, ``repro/serve/engine.py:563-577``). Its tokens and
+  telemetry then depend on which requests share a tick; ``"scan"`` stays
+  the default and the bitwise oracle.
 * Sampling draws from a generator seeded by (``sample_seed``, the
   request's seed, the emit index) only.
 * The telemetry (``track_stats``) is ONE ``batched_asum`` launch over the
@@ -88,9 +97,11 @@ EVICTION resets a slot to the model's initial row (``serve.slots``): an
 xLSTM's stabiliser state starts at -1e30, and a slot zeroed instead would
 serve a reused slot's next request other tokens.
 
-The reference's vmapped slot loop is ported in a later slice; asking for
-it raises. Its compile-count guard has no analogue here: eager PyTorch
-compiles nothing per chunk width or page placement.
+The vmapped slot loop serves the dense layout only: with
+``kv_layout="paged"`` it raises, as the reference's does (its paged tick
+threads the page pool through the slot scan). The reference's
+compile-count guard has no analogue here: eager PyTorch compiles nothing
+per chunk width or page placement.
 """
 
 from __future__ import annotations
@@ -117,9 +128,11 @@ from repro_torch.serve.scheduler import (
     RequestHandle,
     SlotScheduler,
 )
-from repro_torch.serve.slots import SlotKVCache, gather_row
-
-_LATER = "ported in a later slice — see ROADMAP"
+from repro_torch.serve.slots import (
+    SlotKVCache,
+    gather_row,
+    gather_rows,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -127,9 +140,7 @@ class EngineConfig:
     """Engine-level serving configuration.
 
     The fields are the reference's, so a caller written against the
-    reference's API runs unchanged. ``slot_loop`` accepts only "scan":
-    the reference's "vmap" raises, naming the later slice, instead of
-    being ignored.
+    reference's API runs unchanged.
 
     max_slots      decode batch width: concurrent requests per tick
     max_len        per-slot cache capacity (prompt + generated tokens)
@@ -137,7 +148,11 @@ class EngineConfig:
     policy         ONE Policy for the engine's compensated reductions;
                    None captures the ambient ``use_policy`` default
     sample_seed    engine-level sampling seed
-    slot_loop      "scan" only: slots run one at a time
+    slot_loop      "scan" (slots run one at a time through the batch-1
+                   decode step: the default and the bitwise oracle) or
+                   "vmap" (one decode step over the running slots, each
+                   at its own position; bits may depend on the
+                   neighbours). "vmap" takes the dense layout only
     prefill_chunk  prompt-chunk width; None = one-shot (whole prompt)
     prefill_budget max prefill chunks per ``step()``; None = unbounded
     max_finished   retain at most this many FINISHED handles in
@@ -178,10 +193,9 @@ class EngineConfig:
     prefix_cache: bool = False
 
     def __post_init__(self):
-        if self.slot_loop != "scan":
-            raise ValueError(
-                f"slot_loop={self.slot_loop!r}: only 'scan' is served (the "
-                f"reference's 'vmap' is {_LATER})")
+        if self.slot_loop not in ("scan", "vmap"):
+            raise ValueError(f"slot_loop must be 'scan' or 'vmap', got "
+                             f"{self.slot_loop!r}")
         if self.prefill_mode not in ("scan", "flash"):
             raise ValueError(f"prefill_mode must be 'scan' or 'flash', "
                              f"got {self.prefill_mode!r}")
@@ -205,6 +219,11 @@ class EngineConfig:
                 raise ValueError(
                     f"num_pages must be >= 1 (or None for dense parity), "
                     f"got {self.num_pages}")
+            if self.slot_loop == "vmap":
+                raise ValueError(
+                    "kv_layout='paged' requires slot_loop='scan' (the "
+                    "reference's paged decode tick threads the page pool "
+                    "through the slot scan)")
         if self.prefix_cache and self.kv_layout != "paged":
             raise ValueError(
                 "prefix_cache=True requires kv_layout='paged' (prefix "
@@ -559,13 +578,30 @@ class InferenceEngine:
 
     def _decode_tick(self, running: Dict[int, RequestHandle],
                      events: List[TokenEvent]) -> None:
-        """One decode position for every running slot, one slot at a time
-        through the batch-1 decode step under the engine's Policy (as a
-        prefill chunk runs); then ONE telemetry launch over the whole
-        [max_slots, vocab] logit batch (rows of idle slots are zero)."""
+        """One decode position for every running slot under the engine's
+        Policy (as a prefill chunk runs): one slot at a time through the
+        batch-1 decode step, or with ``slot_loop="vmap"`` one step over
+        them all; then ONE telemetry launch over the whole [max_slots,
+        vocab] logit batch (rows of idle slots are zero)."""
         logits = torch.zeros((self.ec.max_slots, self.cfg.padded_vocab),
                              dtype=torch.float32, device=self.device)
-        toks: Dict[int, int] = {}
+        if self.ec.slot_loop == "vmap":
+            self._vmapped_step(running, logits)
+        else:
+            self._scanned_step(running, logits)
+        toks = {slot: self._sample(logits[slot], h.seed, h.emitted,
+                                   h.request.sampling.temperature)
+                for slot, h in running.items()}
+        norms = self._norms(logits).cpu() if self.ec.track_stats else None
+        for slot, h in running.items():
+            h.pos += 1
+            self._record(h, toks[slot],
+                         None if norms is None else norms[slot], events)
+
+    def _scanned_step(self, running: Dict[int, RequestHandle],
+                      logits: torch.Tensor) -> None:
+        """The ``slot_loop="scan"`` tick: each running slot's row through
+        the batch-1 decode step in turn, its logits into ``logits``' row."""
         for slot, h in running.items():
             tok_in = torch.tensor([h.tokens[-1]], device=self.device)
             if self.pages is not None:
@@ -580,13 +616,25 @@ class InferenceEngine:
                 # the one page holding the position just written
                 self.slots.scatter_decode(row, lease.table_dev, h.pos)
             logits[slot] = row_logits[0]
-            toks[slot] = self._sample(row_logits[0], h.seed, h.emitted,
-                                      h.request.sampling.temperature)
-        norms = self._norms(logits).cpu() if self.ec.track_stats else None
-        for slot, h in running.items():
-            h.pos += 1
-            self._record(h, toks[slot],
-                         None if norms is None else norms[slot], events)
+
+    def _vmapped_step(self, running: Dict[int, RequestHandle],
+                      logits: torch.Tensor) -> None:
+        """The ``slot_loop="vmap"`` tick: ONE ``decode_step`` over the
+        running slots' rows, token ``tokens[-1]`` of each at its own
+        position ``pos`` (a LongTensor), written into ``logits``' rows.
+        Only those rows are gathered (views where the slots are
+        contiguous, else copies scattered back), so the rows of free and
+        PREFILLING slots keep their bits."""
+        slots = sorted(running)
+        handles = [running[s] for s in slots]
+        toks = torch.tensor([h.tokens[-1] for h in handles],
+                            device=self.device)
+        pos = torch.tensor([h.pos for h in handles], device=self.device)
+        rows, scatter = gather_rows(self.slots.cache, slots)
+        with _schemes.use_policy(self.policy):
+            out = self.model.decode_step(self.params, rows, toks, pos)
+        scatter()
+        logits[slots] = out
 
     def _record(self, h: RequestHandle, token: int, norm,
                 events: List[TokenEvent]) -> None:

@@ -575,16 +575,18 @@ def test_cuda_flash_engine_equals_oracle(cuda_device):
 
 @pytest.mark.cuda
 def test_cuda_flash_rejects_what_it_does_not_take(cuda_device):
-    """float64 has no flash instantiation (TypeError); a runtime scheme
-    has no device function (NotImplementedError); neither launches."""
+    """float16, none of the reference's compute dtypes, has no flash
+    instantiation (ValueError); a runtime scheme has no device function
+    (NotImplementedError); neither launches. float64, refused before,
+    launches once."""
     from repro_torch.kernels import engine
     from repro_torch.kernels import flash_attention as fa
 
     x = torch.zeros((2, 128, 16), device=cuda_device)
     kw = dict(block_q=128, block_k=128, kv_len=128, causal=True)
     before = engine.launch_counts()
-    with pytest.raises(TypeError, match="float32"):
-        fa.flash_accumulators(x.double(), x.double(), x.double(),
+    with pytest.raises(ValueError, match="compute dtype"):
+        fa.flash_accumulators(x.half(), x.half(), x.half(),
                               scheme=tschemes.KAHAN, **kw)
     mine = tschemes.CompensationScheme(
         name="test_torch_cuda_flash", update=lambda s, c, x, step: (s + x, c),
@@ -593,6 +595,10 @@ def test_cuda_flash_rejects_what_it_does_not_take(cuda_device):
     with pytest.raises(NotImplementedError, match="test_torch_cuda_flash"):
         fa.flash_accumulators(x, x, x, scheme=mine, **kw)
     assert engine.launch_counts() == before
+    fa.flash_accumulators(x.double(), x.double(), x.double(),
+                          scheme=tschemes.KAHAN, **kw)
+    assert engine.launch_counts()["flash_accumulators"] == (
+        before["flash_accumulators"] + 1)
 
 
 def _matmul_operands(gen, dev, m, k, n, dtype):
@@ -718,9 +724,10 @@ def test_cuda_matmul_backward_launches_the_kernel(cuda_device):
 
 @pytest.mark.cuda
 def test_cuda_matmul_rejects_what_it_does_not_take(cuda_device):
-    """A bfloat16 compute dtype has no matmul instantiation (TypeError); a
-    runtime scheme has no device function (NotImplementedError); neither
-    launches."""
+    """float16, none of the reference's compute dtypes, has no matmul
+    instantiation (ValueError); a runtime scheme has no device function
+    (NotImplementedError); neither launches. A bfloat16 compute dtype,
+    refused before, launches once."""
     from repro_torch.kernels import engine
     from repro_torch.kernels import kahan_matmul as km
 
@@ -728,9 +735,9 @@ def test_cuda_matmul_rejects_what_it_does_not_take(cuda_device):
     w = torch.zeros((128, 128), device=cuda_device, dtype=torch.bfloat16)
     kw = dict(block_m=8, block_n=128, block_k=128)
     before = engine.launch_counts()
-    with pytest.raises(TypeError, match="float32 and float64"):
-        km.matmul_accumulators(x, w, scheme=tschemes.KAHAN,
-                               compute_dtype=torch.bfloat16, **kw)
+    with pytest.raises(ValueError, match="compute dtype"):
+        km.matmul_accumulators(x.half(), w.half(), scheme=tschemes.KAHAN,
+                               compute_dtype=torch.float16, **kw)
     mine = tschemes.CompensationScheme(
         name="test_torch_cuda_matmul", update=lambda s, c, x, step: (s + x, c),
         instruction_mix=tschemes.InstructionMix(adds=1, muls=1),
@@ -738,6 +745,10 @@ def test_cuda_matmul_rejects_what_it_does_not_take(cuda_device):
     with pytest.raises(NotImplementedError, match="test_torch_cuda_matmul"):
         km.matmul_accumulators(x, w, scheme=mine, **kw)
     assert engine.launch_counts() == before
+    km.matmul_accumulators(x, w, scheme=tschemes.KAHAN,
+                           compute_dtype=torch.bfloat16, **kw)
+    assert engine.launch_counts()["matmul_accumulators"] == (
+        before["matmul_accumulators"] + 1)
 
 
 @pytest.mark.cuda
@@ -1194,3 +1205,192 @@ def test_cuda_whisper_smoke_engine_matches_cpu(cuda_device):
         assert got["paged"][rid].telemetry == got["dense"][rid].telemetry
     assert solo.tokens == got["dense"][1].tokens
     assert solo.telemetry == got["dense"][1].telemetry
+
+
+#: (BH, Sq, Skv, dh, block_k, offset of k/v in elements): the flash cases
+#: of the compute dtypes; dh 18 takes scalar loads, an offset of 1 element
+#: plain loads in the ring; dh 256 at block_k 1024 fits in bfloat16 only
+#: (float64's 16-row tile fits dh 128 up to block_k 512)
+DTYPE_FLASH_CASES = [
+    (4, 150, 300, 16, 128, 0),
+    (4, 150, 300, 18, 128, 0),
+    (48, 512, 600, 128, 256, 0),
+    (16, 300, 600, 128, 256, 1),
+    (4, 200, 1500, 256, 1024, 0),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float64])
+@pytest.mark.parametrize("case", DTYPE_FLASH_CASES,
+                         ids=lambda c: "bh{}-dh{}-bk{}-off{}".format(
+                             c[0], c[3], c[4], c[5]))
+def test_cuda_flash_bf16_and_f64_match_plain(cuda_device, dtype, case):
+    """Tier 2 on the card in bfloat16 and float64 compute: B7 (causal and
+    not, G 1 and 2) and B8 (at block-aligned offsets, equal to B7's rows)
+    equal their plain version bit for bit, every built-in scheme, in the
+    16-row tile."""
+    from repro_torch.kernels import flash_attention as fa
+
+    bh, sq, skv, dh, bk, offset = case
+    if dtype == torch.float64 and dh > 128:
+        with pytest.raises(ValueError, match="no tile fits"):
+            fa.flash_plan(bh, sq, dh, bk, itemsize=8)
+        return
+    gen = torch.Generator(device=cuda_device).manual_seed(7)
+    sq_pad, skv_pad = -(-sq // 64) * 64, -(-skv // bk) * bk
+
+    def data(rows, n, pad, off=0):
+        x = torch.randn((rows, n, dh), generator=gen, device=cuda_device)
+        x = torch.cat([x, x.new_zeros((rows, pad - n, dh))], 1).to(dtype)
+        buf = x.new_empty(x.numel() + off)
+        buf[off:] = x.reshape(-1)
+        return buf[off:].view(x.shape)
+
+    for groups in (1, 2):
+        q = data(bh, sq, sq_pad)
+        k = data(bh // groups, skv, skv_pad, offset)
+        v = data(bh // groups, skv, skv_pad, offset)
+        for scheme in SCHEMES:
+            sch = tschemes.get(scheme)
+            kw = dict(block_q=64, block_k=bk, scheme=sch, kv_len=skv,
+                      q_groups=groups)
+            for causal in (True, False):
+                got = fa.flash_accumulators(q, k, v, causal=causal, **kw)
+                want = fa.flash_plain(q, k, v, scheme=sch, block_k=bk,
+                                      kv_len=skv, causal=causal,
+                                      q_groups=groups)
+                torch.cuda.synchronize()
+                assert fa.flash_accumulators.plan[0] == 16
+                for g, w in zip(got, want):
+                    assert g.dtype == dtype and torch.equal(g, w), (
+                        scheme, causal, groups)
+            full = fa.flash_accumulators(q, k, v, causal=True, **kw)
+            for off in range(0, min(sq_pad, 128), 64):
+                chunk = fa.flash_chunk_accumulators(
+                    q[:, off:off + 64].contiguous(), k, v, off, **kw)
+                for g, w in zip(chunk, full):
+                    assert torch.equal(g, w[:, off:off + 64]), (scheme, off)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 3, 8, 9, 37, 64, 300])
+def test_cuda_matmul_bf16_matches_plain(cuda_device, m):
+    """Tier 2 on the card in bfloat16 compute: B5 (the rows path at M <=
+    8, the tiles above) at 1, 4 and 17 K-blocks of 128 and N 200, and B6
+    at batch 3, equal to the plain version bit for bit, every built-in
+    scheme; B6 equals a loop of B5."""
+    from repro_torch.kernels import kahan_matmul as km
+
+    gen = torch.Generator(device=cuda_device).manual_seed(8)
+    bf16 = torch.bfloat16
+    for scheme in SCHEMES:
+        sch = tschemes.get(scheme)
+        kw = dict(scheme=sch, block_m=8, block_n=200, block_k=128,
+                  compute_dtype=bf16)
+        for steps in (1, 4, 17):
+            a, b = _matmul_operands(gen, cuda_device, m, steps * 128, 200,
+                                    bf16)
+            got = km.matmul_accumulators(a, b, **kw)
+            want = km.matmul_plain(a[None], b[None], scheme=sch, block_k=128,
+                                   compute_dtype=bf16)
+            torch.cuda.synchronize()
+            for g, w in zip(got, want):
+                assert g.dtype == bf16 and torch.equal(g, w[0]), (scheme,
+                                                                  steps)
+        a = torch.randn((3, m, 1024), generator=gen, device=cuda_device).to(
+            bf16)
+        b = torch.randn((3, 1024, 200), generator=gen,
+                        device=cuda_device).to(bf16)
+        got = km.matmul_accumulators_batched(a, b, **kw)
+        want = km.matmul_plain(a, b, scheme=sch, block_k=128,
+                               compute_dtype=bf16)
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+        for i in range(3):
+            one = km.matmul_accumulators(a[i], b[i], **kw)
+            assert all(torch.equal(g[i], o) for g, o in zip(got, one))
+
+
+@pytest.mark.cuda
+def test_cuda_vmap_lands_on_one_batched_launch(cuda_device):
+    """``torch.func.vmap`` of ``ops.dot``, ``ops.asum`` and ``ops.matmul``
+    on the card: ONE launch of B2, B4 or B6 and none other, equal to the
+    batched entry point and to a loop of single calls bit for bit; a
+    runtime scheme raises under vmap too and launches nothing."""
+    from repro_torch.kernels import engine, ops
+
+    gen = torch.Generator(device=cuda_device).manual_seed(9)
+    a = torch.randn((6, 50000), generator=gen, device=cuda_device)
+    b = torch.randn((6, 50000), generator=gen, device=cuda_device)
+    x = torch.randn((4, 64, 512), generator=gen, device=cuda_device).bfloat16()
+    w = torch.randn((512, 384), generator=gen, device=cuda_device).bfloat16()
+    for wrapper, vmapped, batched, loop in (
+            ("dot_accumulators_batched",
+             lambda: torch.func.vmap(lambda p, q: ops.dot(p, q))(a, b),
+             lambda: ops.batched_dot(a, b),
+             lambda: torch.stack([ops.dot(a[i], b[i]) for i in range(6)])),
+            ("sum_accumulators_batched",
+             lambda: torch.func.vmap(lambda p: ops.asum(p), in_dims=1)(a.T),
+             lambda: ops.batched_asum(a),
+             lambda: torch.stack([ops.asum(a[i]) for i in range(6)])),
+            ("matmul_accumulators_batched",
+             lambda: torch.func.vmap(lambda p: ops.matmul(p, w))(x),
+             lambda: ops.batched_matmul(x, w.expand(4, 512, 384)),
+             lambda: torch.stack([ops.matmul(x[i], w) for i in range(4)]))):
+        before = engine.launch_counts()
+        got = vmapped()
+        after = engine.launch_counts()
+        assert {n: after[n] - before[n] for n in after
+                if after[n] != before[n]} == {wrapper: 1}
+        assert torch.equal(got, batched()) and torch.equal(got, loop())
+    mine = tschemes.CompensationScheme(
+        name="test_torch_cuda_vmap", update=lambda s, c, x, step: (s + x, c),
+        instruction_mix=tschemes.InstructionMix(adds=1, muls=1),
+        error_bound=tschemes.NAIVE.error_bound)
+    before = engine.launch_counts()
+    with pytest.raises(NotImplementedError, match="test_torch_cuda_vmap"):
+        torch.func.vmap(lambda p: ops.asum(p, scheme=mine))(a)
+    assert engine.launch_counts() == before
+
+
+@pytest.mark.cuda
+def test_cuda_vmap_engine_matches_the_cpu(cuda_device):
+    """A smoke ``slot_loop="vmap"`` engine on the card (flash prefill,
+    ``kahan_matmul``: B5 once a projection and tick for all running
+    slots) emits the greedy tokens of the same engine on the CPU."""
+    import numpy as np
+
+    from repro_torch.configs import get_smoke
+    from repro_torch.kernels import engine
+    from repro_torch.models import build_model
+    from repro_torch.serve import (EngineConfig, InferenceEngine, Request,
+                                   SamplingParams)
+
+    cfg = get_smoke("olmo-1b").replace(kahan_attention=True,
+                                       kahan_matmul=True)
+    cpu = torch.device("cpu")
+    params = build_model(cfg, cpu).init(torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(0)
+    reqs = [Request(prompt=rng.integers(0, cfg.vocab_size, (p,)),
+                    sampling=SamplingParams(max_new_tokens=n), request_id=i)
+            for i, (p, n) in enumerate([(9, 5), (14, 4), (3, 6)])]
+    ec = EngineConfig(max_slots=2, max_len=24, track_stats=True,
+                      prefill_chunk=4, prefill_mode="flash", slot_loop="vmap")
+    out = {}
+    for dev in (cpu, cuda_device):
+        p = params if dev == cpu else _to_device(params, dev)
+        before = engine.launch_counts()["matmul_accumulators"]
+        out[dev.type] = InferenceEngine(cfg, ec, model=build_model(cfg, dev),
+                                        params=p).run(reqs, [0, 1, 3])
+    assert engine.launch_counts()["matmul_accumulators"] > before
+    for req in reqs:
+        assert (out["cuda"][req.request_id].tokens
+                == out["cpu"][req.request_id].tokens)
+
+
+def _to_device(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to_device(v, dev) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to_device(v, dev) for v in tree)
+    return tree.to(dev)

@@ -422,6 +422,31 @@ def test_greedy_tokens_exact_vs_reference(wh, layout):
                                    rtol=RTOL)
 
 
+def test_vmap_slot_loop_against_the_reference_and_scan(wh):
+    """The vmapped slot loop (dense, flash prefill; each request's cross
+    K/V row filled by its first chunk): greedy tokens equal the
+    reference's vmapped engine's exactly and the port's scan engine's,
+    the telemetry within rtol 1e-5 of both."""
+    jout = JaxEngine(
+        wh["jcfg"], JaxEngineConfig(policy=JaxPolicy(scheme="kahan"),
+                                    prefill_mode="flash", slot_loop="vmap",
+                                    **SERVE),
+        model=wh["jmodel"], params=wh["jparams"]).run(
+        _trace(wh["jcfg"], JaxRequest, JaxSampling), ARRIVALS)
+    _, scan, _ = _serve(wh, "dense")
+    out = InferenceEngine(
+        wh["cfg"], EngineConfig(policy=Policy(scheme="kahan"),
+                                prefill_mode="flash", slot_loop="vmap",
+                                **SERVE),
+        model=wh["model"], params=wh["params"]).run(
+        _trace(wh["cfg"], Request, SamplingParams), ARRIVALS)
+    for rid, (_, new) in enumerate(SPEC):
+        assert len(out[rid].tokens) == new
+        assert out[rid].tokens == jout[rid].tokens == scan[rid].tokens, rid
+        for want in (jout[rid].telemetry, scan[rid].telemetry):
+            np.testing.assert_allclose(out[rid].telemetry, want, rtol=RTOL)
+
+
 def test_paged_pages_only_self_attention_bitwise(wh):
     """Tier 2: under the paged layout only the self-attention K/V page
     (the cross K/V keep dense slot rows); tokens and telemetry equal the

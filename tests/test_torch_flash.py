@@ -22,6 +22,8 @@ numpy seeds and go through both packages. Parity tiers:
   interleaved under flash.
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -211,6 +213,34 @@ def test_flash_plan_bytes_match_the_layout():
     assert tfa.flash_smem_bytes(16, 3, 10) == 1856
     # ld 2, one key, a stage rounded up to 4: 32 + 128 + 8 + 64 = 232
     assert tfa.flash_smem_bytes(16, 1, 1) == 928
+
+
+@pytest.mark.parametrize("itemsize", [2, 8])
+def test_flash_plan_in_bfloat16_and_float64(itemsize):
+    """bfloat16 (2 bytes) and float64 (8 bytes) take the 16-row tile only,
+    their layout padded by 16 bytes: ld = dh + 8 / dh + 2 elements, the
+    score row round(block_k) + 8 / + 2. bfloat16 fits every dh and
+    block_k; float64 fits OLMo-1B's dh 128 up to block_k 512, and a plan
+    that does not fit raises."""
+    for bh, sq in ((1, 1), (16, 2048), (64, 4096)):
+        rows, smem = tfa.flash_plan(bh, sq, 128, 256, itemsize=itemsize)
+        assert rows == 16
+        assert smem == tfa.flash_smem_bytes(16, 128, 256, itemsize)
+    if itemsize == 2:
+        # 16 * 136 + 16 * 264 + 2 * 64 * 136 + 4 * 16 = 23872 elements
+        assert tfa.flash_smem_bytes(16, 128, 256, 2) == 47744
+        for dh in (1, 18, 64, 128, 256):
+            for bk in (1, 100, 256, 1024):
+                assert tfa.flash_plan(4, 64, dh, bk, itemsize=2)[1] <= (
+                    tfa.SMEM_LIMIT)
+    else:
+        # 16 * 130 + 16 * 258 + 2 * 64 * 130 + 4 * 16 = 22912 elements
+        assert tfa.flash_smem_bytes(16, 128, 256, 8) == 183296
+        assert tfa.flash_plan(16, 64, 128, 512, itemsize=8) == (16, 216064)
+        with pytest.raises(ValueError, match="no tile fits"):
+            tfa.flash_plan(16, 64, 128, 1024, itemsize=8)
+        with pytest.raises(ValueError, match="no tile fits"):
+            tfa.flash_plan(16, 64, 256, 128, itemsize=8)
 
 
 # ---------------------------------------------------------------------------
@@ -474,8 +504,10 @@ def test_flash_tokens_exact_across_bodies_and_widths(tiny_flash, other):
 def test_prefill_body_resolution_and_errors(tiny_flash):
     """"flash" resolves to "scan" for a model without the parallel path;
     bad modes and GQA mismatches fail fast; a ``kahan_matmul`` model
-    builds, and its kernel refuses a bfloat16 compute dtype on the card
-    (the check it runs before a CUDA launch)."""
+    builds, and the check its kernel runs before a CUDA launch accepts
+    every compute dtype of the reference (bfloat16 among them) and
+    refuses any other (float16) and a scheme without a device
+    function."""
     s = tiny_flash
     model = build_model(s["cfg"], CPU)
     model.parallel_prefill_ok = False
@@ -497,8 +529,14 @@ def test_prefill_body_resolution_and_errors(tiny_flash):
                                causal=True, kv_len=128)
     assert build_model(s["cfg"].replace(kahan_matmul=True),
                        CPU).st.kahan_matmul
-    with pytest.raises(TypeError, match="float32 and float64 only"):
-        tkm.check_device_call(tschemes.KAHAN, torch.bfloat16)
+    for dtype in (torch.bfloat16, torch.float32, torch.float64):
+        assert tkm.check_device_call(tschemes.KAHAN, dtype) is None
+    with pytest.raises(ValueError, match="compute dtype"):
+        tkm.check_device_call(tschemes.KAHAN, torch.float16)
+    with pytest.raises(NotImplementedError, match="device function"):
+        tkm.check_device_call(dataclasses.replace(tschemes.KAHAN,
+                                                  device_id=None),
+                              torch.bfloat16)
 
 
 def test_launcher_serves_flash_on_cpu(capsys):

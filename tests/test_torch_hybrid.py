@@ -534,6 +534,30 @@ def test_greedy_tokens_exact_vs_reference(hymba, layout):
                                    rtol=RTOL)
 
 
+def test_vmap_slot_loop_against_the_reference_and_scan(hymba):
+    """The vmapped slot loop (dense) on the trace whose request 1 wraps
+    the rings: greedy tokens equal the reference's vmapped engine's
+    exactly and the port's scan engine's, the telemetry within rtol 1e-5
+    of both (the batched tick rounds the plain matmuls of the SSM and
+    the attention core per batch, not per row)."""
+    jout = JaxEngine(
+        hymba["jcfg"], JaxEngineConfig(policy=JaxPolicy(scheme="kahan"),
+                                       slot_loop="vmap", **SERVE),
+        model=hymba["jmodel"], params=hymba["jparams"]).run(
+        _trace(hymba["jcfg"], JaxRequest, JaxSampling), ARRIVALS)
+    _, scan, _ = _serve(hymba, "dense")
+    out = InferenceEngine(
+        hymba["cfg"], EngineConfig(policy=Policy(scheme="kahan"),
+                                   slot_loop="vmap", **SERVE),
+        model=hymba["model"], params=hymba["params"]).run(
+        _trace(hymba["cfg"], Request, SamplingParams), ARRIVALS)
+    for rid, (_, new) in enumerate(SPEC):
+        assert len(out[rid].tokens) == new
+        assert out[rid].tokens == jout[rid].tokens == scan[rid].tokens, rid
+        for want in (jout[rid].telemetry, scan[rid].telemetry):
+            np.testing.assert_allclose(out[rid].telemetry, want, rtol=RTOL)
+
+
 def test_paged_pages_global_layers_only_bitwise(hymba):
     """Tier 2: under the paged layout the global layers' K/V page, the
     rings and the SSM state keep dense slot rows; tokens and telemetry

@@ -34,6 +34,7 @@ from repro_torch.configs import get_smoke
 from repro_torch.configs.base import EncoderConfig, SSMConfig, XLSTMConfig
 from repro_torch.kernels.schemes import Policy
 from repro_torch.models import build_model
+from repro_torch.models.common import cache_leaves
 from repro_torch.models.layers import activation_sq_norm
 from repro_torch.serve import (
     EngineConfig,
@@ -41,6 +42,7 @@ from repro_torch.serve import (
     Request,
     SamplingParams,
 )
+from repro_torch.serve.slots import gather_row, gather_rows
 
 CPU = torch.device("cpu")
 #: (prompt_len, max_new_tokens) and arrival step of the staggered trace
@@ -186,7 +188,7 @@ def test_sampling_is_per_request(served):
 def test_slot_cache_rows_and_eviction(served):
     """A drained engine leaves every slot pristine (reset on eviction);
     ``gather_row`` views write through, ``scatter_row`` installs a row."""
-    from repro_torch.serve.slots import gather_row, scatter_row
+    from repro_torch.serve.slots import scatter_row
 
     engine = InferenceEngine(served["cfg"], _engine_config(),
                              model=served["model"], params=served["params"])
@@ -203,15 +205,21 @@ def test_slot_cache_rows_and_eviction(served):
 
 
 def test_engine_rejects_later_slices(served):
-    """What the port does not carry yet raises, naming the later slice:
-    the vmapped slot loop (the families and features of ROADMAP A5 are
-    all served since: the paged layout, the prefix cache, QKV bias, the
-    VLM splice, the MoE family, the hybrid family with its SSM and
-    sliding windows, the xLSTM family, the encoder-decoder family and
-    the GELU MLP). ``build_model`` dispatches on the sub-configs in the
-    reference's order: ``xlstm``, then ``encoder``, then ``ssm``."""
-    with pytest.raises(ValueError, match="later slice"):
-        EngineConfig(slot_loop="vmap")
+    """Every slice of the reference's engine is served: the vmapped slot
+    loop builds (on the dense layout; with the paged layout it raises, as
+    the reference's does), and so do the families and features of ROADMAP
+    A5: the paged layout, the prefix cache, QKV bias, the VLM splice, the
+    MoE family, the hybrid family with its SSM and sliding windows, the
+    xLSTM family, the encoder-decoder family and the GELU MLP.
+    ``build_model`` dispatches on the sub-configs in the reference's
+    order: ``xlstm``, then ``encoder``, then ``ssm``."""
+    assert EngineConfig(slot_loop="vmap").slot_loop == "vmap"
+    with pytest.raises(ValueError, match="slot_loop"):
+        EngineConfig(slot_loop="vmap", kv_layout="paged")
+    with pytest.raises(ValueError, match="slot_loop"):
+        JaxEngineConfig(slot_loop="vmap", kv_layout="paged")
+    with pytest.raises(ValueError, match="slot_loop"):
+        EngineConfig(slot_loop="loop")
     EngineConfig(kv_layout="paged", prefix_cache=True)
     cfg = served["cfg"]
     build_model(cfg.replace(family="moe"), CPU)
@@ -237,6 +245,120 @@ def test_engine_rejects_later_slices(served):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             InferenceEngine(cfg, _engine_config())
+
+
+def test_vmap_slot_loop_against_the_reference_and_scan(served):
+    """The vmapped slot loop on the staggered trace: greedy tokens equal
+    the reference's vmapped engine's exactly and the port's scan
+    engine's; the telemetry within rtol 1e-5 of both (a tick over several
+    rows lets the plain matmuls round a row other than the one-row body
+    does, so against the scan engine this is tier 3 too)."""
+    s = served
+    jec = JaxEngineConfig(max_slots=2, max_len=24, track_stats=True,
+                          prefill_chunk=4, policy=JaxPolicy(scheme="kahan"),
+                          slot_loop="vmap")
+    jreqs = [JaxRequest(prompt=p, sampling=JaxSampling(max_new_tokens=n),
+                        request_id=i)
+             for i, (p, (_, n)) in enumerate(zip(s["prompts"], SPEC))]
+    jout = JaxEngine(s["jcfg"], jec, model=s["jmodel"],
+                     params=s["jparams"]).run(jreqs, ARRIVALS)
+    out = InferenceEngine(s["cfg"], _engine_config(slot_loop="vmap"),
+                          model=s["model"], params=s["params"]).run(
+        _requests(s["prompts"]), ARRIVALS)
+    for rid, (_, new) in enumerate(SPEC):
+        assert len(out[rid].tokens) == new
+        assert out[rid].tokens == jout[rid].tokens == s["out"][rid].tokens
+        for want in (jout[rid].telemetry, s["out"][rid].telemetry):
+            np.testing.assert_allclose(out[rid].telemetry, want, rtol=RTOL)
+
+
+def test_vmapped_tick_keeps_the_rows_it_does_not_run(served):
+    """The vmapped tick writes the rows of its running slots only: with
+    one prefill chunk a step, slot 1 is PREFILLING between running slots
+    0 and 2 for several ticks (the rows gathered by copy and scattered
+    back), and every tick leaves the cache row of each slot it does not
+    run bitwise as it was; the trace's tokens equal the scan engine's."""
+    s = served
+    spec = [(3, 12), (3, 2), (3, 12), (20, 2)]
+    rng = np.random.default_rng(5)
+    reqs = [Request(prompt=rng.integers(0, s["cfg"].vocab_size, (p,)),
+                    sampling=SamplingParams(max_new_tokens=n), request_id=i)
+            for i, (p, n) in enumerate(spec)]
+    arrivals = [0, 0, 0, 3]
+    outs, seen = {}, {"ticks": 0, "between": 0}
+    for loop in ("scan", "vmap"):
+        engine = InferenceEngine(
+            s["cfg"], _engine_config(max_slots=4, prefill_budget=1,
+                                     slot_loop=loop),
+            model=s["model"], params=s["params"])
+        orig = engine._vmapped_step
+
+        def spy(running, logits, _engine=engine, _orig=orig):
+            idle = [i for i in range(4) if i not in running]
+            before = {i: [t.clone() for t in cache_leaves(
+                gather_row(_engine.slots.cache, i))] for i in idle}
+            _orig(running, logits)
+            for i in idle:
+                after = cache_leaves(gather_row(_engine.slots.cache, i))
+                assert all(torch.equal(x, y)
+                           for x, y in zip(before[i], after)), i
+            seen["ticks"] += 1
+            seen["between"] += any(min(running) < i < max(running)
+                                   for i in _engine.scheduler.prefilling)
+
+        engine._vmapped_step = spy
+        outs[loop] = engine.run(reqs, arrivals)
+    assert seen["between"] >= 3 and seen["ticks"] > seen["between"]
+    for rid in range(len(spec)):
+        assert outs["vmap"][rid].tokens == outs["scan"][rid].tokens
+
+
+def test_gather_rows_views_contiguous_slots_and_scatters_the_rest(served):
+    """``slots.gather_rows``: contiguous slots are views of the slot
+    cache; other slots are copies that the write-back returns to those
+    slots' rows and no other."""
+    cache = served["model"].init_cache(4, 8)
+    rows, write_back = gather_rows(cache, [1, 2])
+    rows["blocks"][0].fill_(1.0)
+    write_back()
+    assert bool((cache["blocks"][0][:, 1:3] == 1).all())
+    rows, write_back = gather_rows(cache, [0, 3])
+    rows["blocks"][0].fill_(2.0)
+    assert not bool((cache["blocks"][0][:, 0] == 2).any())
+    write_back()
+    k = cache["blocks"][0]
+    assert bool((k[:, 0] == 2).all() and (k[:, 3] == 2).all()
+                and (k[:, 1:3] == 1).all())
+
+
+def test_per_row_decode_positions_match_per_row_calls(served):
+    """``decode_step`` with a position tensor: rows at positions 5 and 9
+    of a batch-2 cache give the logits of two batch-1 steps at those
+    positions (rtol 1e-5: the batch rounds its plain matmuls its own
+    way) and write K/V at row ``pos[b]`` of batch row ``b`` only."""
+    s = served
+    model, params = s["model"], s["params"]
+    rng = np.random.default_rng(9)
+    prompts = [rng.integers(0, s["cfg"].vocab_size, (n,)) for n in (5, 9)]
+    caches = []
+    for p in prompts:
+        c = model.init_cache(1, 24)
+        model.prefill_chunk(params, torch.from_numpy(p[None]), c, 0, len(p))
+        caches.append(c)
+    both = model.init_cache(2, 24)
+    for b, c in enumerate(caches):
+        for big, one in zip(cache_leaves(both), cache_leaves(c)):
+            big[:, b] = one[:, 0]
+    toks = torch.tensor([3, 7])
+    got = model.decode_step(params, both, toks, torch.tensor([5, 9]))
+    for b, (c, pos) in enumerate(zip(caches, (5, 9))):
+        want = model.decode_step(params, c, toks[b:b + 1], pos)
+        np.testing.assert_allclose(got[b].numpy(), want[0].numpy(),
+                                   rtol=RTOL, atol=ATOL)
+        for big, one in zip(cache_leaves(both), cache_leaves(c)):
+            np.testing.assert_allclose(big[:, b].numpy(), one[:, 0].numpy(),
+                                       rtol=RTOL, atol=ATOL)
+            assert not big[:, b, pos + 1:].any()
 
 
 def test_bridge_rejects_mismatched_tree(served):

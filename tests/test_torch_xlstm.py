@@ -445,6 +445,29 @@ def test_greedy_tokens_exact_vs_reference(xl):
                                    rtol=RTOL)
 
 
+def test_vmap_slot_loop_against_the_reference_and_scan(xl):
+    """The vmapped slot loop (dense; xLSTM's state is row-local and its
+    decode step ignores the positions): greedy tokens equal the
+    reference's vmapped engine's exactly and the port's scan engine's,
+    the telemetry within rtol 1e-5 of both."""
+    jout = JaxEngine(
+        xl["jcfg"], JaxEngineConfig(policy=JaxPolicy(scheme="kahan"),
+                                    slot_loop="vmap", **SERVE),
+        model=xl["jmodel"], params=xl["jparams"]).run(
+        _trace(xl["jcfg"], JaxRequest, JaxSampling), ARRIVALS)
+    _, scan, _ = _serve(xl)
+    out = InferenceEngine(
+        xl["cfg"], EngineConfig(policy=Policy(scheme="kahan"),
+                                slot_loop="vmap", **SERVE),
+        model=xl["model"], params=xl["params"]).run(
+        _trace(xl["cfg"], Request, SamplingParams), ARRIVALS)
+    for rid, (_, new) in enumerate(SPEC):
+        assert len(out[rid].tokens) == new
+        assert out[rid].tokens == jout[rid].tokens == scan[rid].tokens, rid
+        for want in (jout[rid].telemetry, scan[rid].telemetry):
+            np.testing.assert_allclose(out[rid].telemetry, want, rtol=RTOL)
+
+
 def test_paged_resolves_dense(xl):
     """Replay of the reference's ``test_recurrent_families_fall_back_
     dense`` (its xLSTM case): no leaf pages, so ``kv_layout="paged"``
