@@ -552,6 +552,27 @@ VMAP_ROWS, VMAP_N = 8, 1 << 24
 VMAP_PREFILL_TRACE = "0:16:12,0:16:2,0:16:12,3:256:2"
 DTYPE_TRACE = "0:64:8"
 
+#: phase 15: the sharded steps that ``launch.specs.build_cell`` and the
+#: sharding rules make, on two gloo ranks sharing the one card. OLMo-1B
+#: at its published width, cut to SHARD_LAYERS of its 16 layers (the
+#: script's time limit; phases 4-8 keep the full depth): a train step on
+#: a (data 2, model 1) mesh over a global batch of SHARD_TRAIN (batch,
+#: tokens), and a prefill of SHARD_PROMPT then SHARD_DECODE decode steps
+#: on a (data 1, model 2) mesh against a cache of SHARD_MAX_LEN positions
+#: sharded on them. Then the dry run of SHARD_DRYRUN's cells (arch,
+#: shape, both meshes) in a subprocess limited to SHARD_DRYRUN_S seconds
+SHARD_LAYERS = 2
+SHARD_TRAIN = (4, 512)
+SHARD_PROMPT = (2, 512)
+SHARD_DECODE = 4
+SHARD_MAX_LEN = 1024
+SHARD_DRYRUN = (("xlstm-1.3b", "decode_32k", True),
+                ("olmo-1b", "train_4k", False))
+SHARD_DRYRUN_S = 300
+#: the serving logits' limit against the unsharded steps (float32
+#: compute: PERF.md §2's)
+SHARD_SERVE_RTOL = 2e-3
+
 SCHEMES = ("naive", "kahan", "pairwise", "dot2")
 REDUCTIONS = ("dot_accumulators", "dot_accumulators_batched",
               "sum_accumulators", "sum_accumulators_batched")
@@ -662,6 +683,8 @@ def main() -> int:
     log(json.dumps({"hybrid": hybrid_path(torch, kernels)}))
     log(json.dumps({"xlstm": xlstm_path(torch, kernels)}))
     log(json.dumps({"encdec": whisper_path(torch, kernels)}))
+    log(json.dumps({"sharded": shard_path(torch, kernels,
+                                          shard_spec(cfg))}))
     log(f"# chip_smoke took {time.perf_counter() - started:.1f} s")
     log(card)
     log(json.dumps({"kernels": kernels.rows()}))
@@ -2096,6 +2119,28 @@ class Kernels:
         m, k, n = spec["matmul"]
         self.time_matmul("sharded", m, k // DIST_RANKS, n,
                          dtypes=(f32, f32))
+
+    def shard_times(self, spec, flash_call):
+        """Phase 15's rows at a rank's shapes: the sharded norm's largest
+        local leaf (the embedding's [V_pad, d / 2] on the (data 2, model
+        1) mesh) through B3 (its squares) and the column scan, and B7 on
+        one rank's head-rows of the prefill."""
+        torch, ks = self.torch, self.ks
+        cfg = spec["cfg"]
+        shape = (cfg.padded_vocab, cfg.d_model // DIST_RANKS)
+        sq = self.data((math.prod(shape),), torch.float32) ** 2
+        self.time_one("sum_accumulators", "kahan", (sq,),
+                      lambda s: [t[0] for t in ks.sum_plain(sq[None],
+                                                            scheme=s)],
+                      lambda: torch.sum(sq), reps=5, label="sharded-norm")
+        del sq
+        self.time_columns("sharded-norm", shape)
+        q, k = flash_call["q"], flash_call["k"]
+        self.time_flash("flash_accumulators", "sharded-heads",
+                        self.normal(tuple(q.shape)),
+                        self.normal(tuple(k.shape)),
+                        self.normal(tuple(k.shape)), 0, reps=10,
+                        groups=q.shape[0] // k.shape[0])
 
     def train_times(self, cfg, tokens):
         """Phase 3's training rows: B5 at every (shape, operand pair) a
@@ -5179,6 +5224,541 @@ def dist_expected(torch, kernels, dev, spec):
                              scheme=sch, unroll=u)
         plain["act"].append(engine.Accumulator(*grids).total())
     return kernel, plain
+
+
+# ---------------------------------------------------------------------------
+# Phase 15: the sharded steps (DeviceMesh / DTensor) and the dry run
+# ---------------------------------------------------------------------------
+
+def shard_spec(cfg, device="cuda"):
+    """What phase 15's ranks run: OLMo-1B cut to SHARD_LAYERS layers, the
+    shapes, the device."""
+    return {"cfg": cfg.replace(n_layers=SHARD_LAYERS), "device": device,
+            "train": SHARD_TRAIN, "prompt": SHARD_PROMPT,
+            "decode": SHARD_DECODE, "max_len": SHARD_MAX_LEN,
+            "lr": TRAIN_LR}
+
+
+def shard_batch(torch, dev, cfg, spec):
+    """The train batch (every rank the whole global batch) and the
+    prompt tokens, from seeds."""
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.train.trainer import batch_to_device
+
+    b, s = spec["train"]
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=s,
+                                  global_batch=b))
+    gen = torch.Generator(device=dev).manual_seed(15)
+    prompt = torch.randint(0, cfg.vocab_size, spec["prompt"], generator=gen,
+                           device=dev)
+    return batch_to_device(data.batch_at(0), dev), prompt
+
+
+def shard_models(spec):
+    """(train config, serve config): the cut OLMo-1B, and the same with
+    ``kahan_attention`` and float32 compute."""
+    cfg = spec["cfg"]
+    return cfg, cfg.replace(kahan_attention=True, compute_dtype="float32")
+
+
+def shard_params(torch, model, dev):
+    """Random weights from seed 0 (the same bits on every rank and in the
+    parent)."""
+    return model.init(torch.Generator(device=dev).manual_seed(0))
+
+
+def shard_opt(kahan_norm, lr):
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import TrainConfig
+
+    return TrainConfig(steps=1, warmup=1,
+                       opt=AdamWConfig(lr=lr, kahan_norm=kahan_norm))
+
+
+@contextlib.contextmanager
+def flash_capture(torch, calls):
+    """Record every B7 call (``flash_attention``'s q, k, v and output, on
+    the host) into ``calls``."""
+    from repro_torch.kernels import flash_attention as fa
+
+    inner = fa.flash_attention
+
+    def recording(q, k, v, **kw):
+        out = inner(q, k, v, **kw)
+        calls.append({"q": q.cpu(), "k": k.cpu(), "v": v.cpu(),
+                      "out": out.cpu(), "kw": kw})
+        return out
+
+    fa.flash_attention = recording
+    try:
+        yield calls
+    finally:
+        fa.flash_attention = inner
+
+
+def comm_host_ms(torch, prof):
+    """Host ms of the collectives in a profiled step, by kind."""
+    kinds = {"all-gather": ("all_gather", "allgather"),
+             "reduce-scatter": ("reduce_scatter",),
+             "all-reduce": ("all_reduce", "allreduce"),
+             "wait": ("wait_tensor",)}
+    out = {k: 0.0 for k in kinds}
+    for e in prof.key_averages():
+        for kind, names in kinds.items():
+            if any(n in e.key for n in names):
+                out[kind] += e.cpu_time_total / 1e3
+    return out
+
+
+@contextlib.contextmanager
+def gloo_cuda_all_gather(torch):
+    """DTensor's all-gathers through c10d's ``all_gather_into_tensor``:
+    gloo's functional all-gather crashes on CUDA tensors in the card's
+    torch (SIGSEGV on both ranks under torch 2.11, where c10d's
+    all-gather and the functional reduce-scatter and all-reduce work:
+    ``scripts/gloo_cuda_probe.py``)."""
+    import torch.distributed as dist
+    import torch.distributed._functional_collectives as funcol
+    from torch.distributed.device_mesh import DeviceMesh
+
+    def pg(group):
+        if isinstance(group, tuple):
+            return group[0].get_group(group[1])
+        if isinstance(group, DeviceMesh):
+            return group.get_group()
+        if isinstance(group, str):
+            return dist.distributed_c10d._resolve_process_group(group)
+        return group
+
+    def all_gather_tensor(self, gather_dim, group, tag=""):
+        group = pg(group)
+        n = dist.get_world_size(group)
+        x = self.contiguous()
+        out = x.new_empty((n * x.shape[0], *x.shape[1:]))
+        dist.all_gather_into_tensor(out, x, group=group)
+        if gather_dim:
+            out = torch.cat(torch.chunk(out, n, dim=0), dim=gather_dim)
+        return out
+
+    inner = funcol.all_gather_tensor
+    funcol.all_gather_tensor = all_gather_tensor
+    try:
+        yield
+    finally:
+        funcol.all_gather_tensor = inner
+
+
+def shard_rank(rank, store, out, spec):
+    """One rank of phase 15, in its own process on the one card: a gloo
+    world of 2 over a ``FileStore``. (a) the train step that
+    ``build_cell`` and TRAIN_RULES make on a (data 2, model 1) mesh, with
+    the column-scan norm and with B3's, twice each (launch counts reset
+    just before, read just after each), then one more profiled for the
+    collectives' host time; (b) on a (data 1, model 2) mesh under
+    SERVE_RULES the prefill (B7 on the rank's heads, each call recorded)
+    and SHARD_DECODE decode steps. Writes its results to ``out``."""
+    import faulthandler
+
+    import torch
+    import torch.distributed as dist
+
+    faulthandler.enable()
+    sys.path.insert(0, str(ROOT / "src"))
+
+    dev = torch.device(spec["device"])
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(store, DIST_RANKS),
+                            rank=rank, world_size=DIST_RANKS)
+    with gloo_cuda_all_gather(torch) if cuda else contextlib.nullcontext():
+        shard_steps(rank, out, spec, dev)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def shard_steps(rank, out, spec, dev):
+    """``shard_rank``'s work in its initialised world."""
+    import gc
+
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.kernels import engine
+    from repro_torch.launch.specs import (build_cell, distribute_args,
+                                          run_sharded)
+    from repro_torch.models import build_model
+    from repro_torch.optim import init as opt_init
+
+    cuda = dev.type == "cuda"
+    names = ("data", "model")
+    cfg, scfg = shard_models(spec)
+    batch, prompt = shard_batch(torch, dev, cfg, spec)
+    res = {"train": {}}
+
+    # (a) the train step, data-parallel with FSDP weights
+    mesh = init_device_mesh(dev.type, (DIST_RANKS, 1), mesh_dim_names=names)
+    model = build_model(cfg, dev)
+    b, s = spec["train"]
+    shape = ShapeSpec("shard-train", "train", s, b)
+    for kahan_norm in (True, False):
+        runs = []
+        for _ in range(2):
+            tc = shard_opt(kahan_norm, spec["lr"])
+            cell = build_cell(cfg, shape, tc, model=model)
+            params = shard_params(torch, model, dev)
+            args = distribute_args(mesh, shd.TRAIN_RULES, cell,
+                                   (params, opt_init(tc.opt, params), batch))
+            del params
+            if cuda:
+                torch.cuda.reset_peak_memory_stats(dev)
+            engine.reset_launch_counts()
+            sync(torch, dev)
+            t0 = time.perf_counter()
+            _, _, m = run_sharded(cell, mesh, shd.TRAIN_RULES, args)
+            sync(torch, dev)
+            runs.append({"loss": m["loss"].full_tensor().float().cpu(),
+                         "grad_norm": m["grad_norm"].float().cpu(),
+                         "launches": engine.launch_counts(),
+                         "seconds": time.perf_counter() - t0,
+                         "peak_bytes": torch.cuda.max_memory_allocated(dev)
+                         if cuda else 0})
+            del args, m, cell
+            gc.collect()
+        res["train"][kahan_norm] = runs
+        log(f"# phase 15 rank {rank}: train step (kahan_norm={kahan_norm}) "
+            f"twice, {runs[-1]['seconds']:.2f} s the second")
+    from torch.profiler import ProfilerActivity, profile
+
+    tc = shard_opt(True, spec["lr"])
+    cell = build_cell(cfg, shape, tc, model=model)
+    params = shard_params(torch, model, dev)
+    args = distribute_args(mesh, shd.TRAIN_RULES, cell,
+                           (params, opt_init(tc.opt, params), batch))
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        run_sharded(cell, mesh, shd.TRAIN_RULES, args)
+        sync(torch, dev)
+    res["comm_ms"] = comm_host_ms(torch, prof)
+    log(f"# phase 15 rank {rank}: profiled step done")
+    del args, params, cell, model, prof
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # (b) prefill and decode, heads and the cache's positions on "model"
+    smesh = init_device_mesh(dev.type, (1, DIST_RANKS), mesh_dim_names=names)
+    rules = shd.SERVE_RULES
+    smodel = build_model(scfg, dev)
+    pb = spec["prompt"][0]
+    pcell = build_cell(scfg, ShapeSpec("p", "prefill", spec["max_len"], pb),
+                       model=smodel)
+    dcell = build_cell(scfg, ShapeSpec("d", "decode", spec["max_len"], pb),
+                       model=smodel)
+    params, tokens, cache = distribute_args(
+        smesh, rules, pcell, (shard_params(torch, smodel, dev),
+                              {"tokens": prompt},
+                              smodel.init_cache(pb, spec["max_len"])))
+    res["cache_placements"] = str(cache["blocks"][0].placements)
+    calls = []
+    engine.reset_launch_counts()
+    with flash_capture(torch, calls):
+        logits, cache = run_sharded(pcell, smesh, rules,
+                                    (params, tokens, cache))
+    sync(torch, dev)
+    res["prefill_launches"] = engine.launch_counts()
+    log(f"# phase 15 rank {rank}: prefill done")
+    res["flash"] = calls
+    res["logits"] = [logits.full_tensor().cpu()]
+    t0 = time.perf_counter()
+    for i in range(spec["decode"]):
+        tok = torch.argmax(res["logits"][-1][:, :scfg.vocab_size], -1)
+        tok = distribute_args(smesh, rules, dcell,
+                              (None, None, tok.to(dev), None))[2]
+        logits, cache = run_sharded(dcell, smesh, rules,
+                                    (params, cache, tok,
+                                     spec["prompt"][1] + i))
+        res["logits"].append(logits.full_tensor().cpu())
+    sync(torch, dev)
+    res["decode_ms"] = (time.perf_counter() - t0) / spec["decode"] * 1e3
+    torch.save(res, out)
+
+
+def shard_unsharded(torch, kernels, spec):
+    """The same steps on this process, unsharded: the train step under
+    both norms (loss, grad norm, peak memory), the prefill and decode
+    steps (logits)."""
+    import gc
+
+    from repro_torch.core import tree as T
+    from repro_torch.models import build_model
+    from repro_torch.optim import init as opt_init
+    from repro_torch.train import make_train_step
+    from repro_torch.train.serve import make_decode_step, make_prefill_step
+
+    dev = kernels.dev
+    cfg, scfg = shard_models(spec)
+    batch, prompt = shard_batch(torch, dev, cfg, spec)
+    out = {"train": {}}
+    model = build_model(cfg, dev)
+    for kahan_norm in (True, False):
+        tc = shard_opt(kahan_norm, spec["lr"])
+        params = T.tree_map(lambda p: p.requires_grad_(),
+                            shard_params(torch, model, dev))
+        state = opt_init(tc.opt, params)
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        _, _, m = make_train_step(model, cfg, tc)(params, state, batch)
+        sync(torch, dev)
+        out["train"][kahan_norm] = {
+            "loss": m["loss"].float().cpu(),
+            "grad_norm": m["grad_norm"].float().cpu(),
+            "peak_bytes": torch.cuda.max_memory_allocated(dev)
+            if dev.type == "cuda" else 0}
+        del params, state, m
+        gc.collect()
+    smodel = build_model(scfg, dev)
+    params = shard_params(torch, smodel, dev)
+    cache = smodel.init_cache(spec["prompt"][0], spec["max_len"])
+    logits, cache = make_prefill_step(smodel)(params, {"tokens": prompt},
+                                              cache)
+    out["logits"] = [logits.cpu()]
+    decode = make_decode_step(smodel)
+    for i in range(spec["decode"]):
+        tok = torch.argmax(logits[:, :scfg.vocab_size], -1)
+        logits, cache = decode(params, cache, tok, spec["prompt"][1] + i)
+        out["logits"].append(logits.cpu())
+    del params, cache, smodel, model
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def shard_dryrun(torch):
+    """Phase 15(c): the dry run of SHARD_DRYRUN's cells in a subprocess
+    (the host's CPU, fake tensors, a fake world of 256 or 512 ranks),
+    SHARD_DRYRUN_S seconds for all of them; each cell must reach ``status:
+    ok``. Returns their terms."""
+    import shutil
+    import tempfile
+
+    outdir = Path(tempfile.mkdtemp(prefix="dryrun-", dir=ROOT / "build"))
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    deadline = time.perf_counter() + SHARD_DRYRUN_S
+    cells = []
+    try:
+        for arch, shape, both in SHARD_DRYRUN:
+            left = deadline - time.perf_counter()
+            check(left > 0, "phase 15(c): the dry run ran out of time")
+            cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
+                   "--arch", arch, "--shape", shape, "--out", str(outdir)]
+            try:
+                proc = subprocess.run(
+                    cmd + (["--both-meshes"] if both else []), env=env,
+                    cwd=ROOT, capture_output=True, text=True, timeout=left)
+            except subprocess.TimeoutExpired:
+                raise RuntimeError(f"chip_smoke: phase 15(c): the dry run "
+                                   f"of {arch} x {shape} passed the "
+                                   f"{SHARD_DRYRUN_S} s limit")
+            check(proc.returncode == 0, f"phase 15(c): the dry run of {arch} "
+                  f"x {shape} exited with {proc.returncode}: "
+                  f"{proc.stderr[-1500:]}")
+            for mesh in (("16x16", "2x16x16") if both else ("16x16",)):
+                cell = json.loads((outdir / f"{arch}__{shape}__{mesh}.json")
+                                  .read_text())
+                check(cell["status"] == "ok", f"phase 15(c): {arch} x {shape}"
+                      f" x {mesh}: status {cell['status']}")
+                keep = ("arch", "shape", "mesh", "chips", "flops_per_device",
+                        "bytes_per_device", "collective_bytes_per_device",
+                        "compute_s", "memory_s", "collective_s", "dominant",
+                        "roofline_fraction", "peak_memory_bytes",
+                        "kernel_work", "step_s")
+                cells.append({k: cell[k] for k in keep})
+                log(f"# phase 15(c): {arch} x {shape} x {mesh} "
+                    f"({cell['chips']} fake ranks): compute "
+                    f"{cell['compute_s'] * 1e3:.3f} ms, memory "
+                    f"{cell['memory_s'] * 1e3:.3f} ms, collective "
+                    f"{cell['collective_s'] * 1e3:.3f} ms, dominant "
+                    f"{cell['dominant']}, roofline fraction "
+                    f"{cell['roofline_fraction']:.4f}; step {cell['step_s']}"
+                    f" s on the host")
+    finally:
+        shutil.rmtree(outdir, ignore_errors=True)
+    return cells
+
+
+def shard_path(torch, kernels, spec):
+    """Phase 15: the sharded steps on two gloo ranks sharing the card,
+    against the unsharded steps of this process, then the dry run.
+    Gates: (a) the train step's loss within STEP1_LOSS_RTOL and its grad
+    norm within STEP1_GRAD_NORM_RTOL of the unsharded step's (relative),
+    under the column-scan norm and under B3's; the loss and the norm the
+    same bits on both ranks and in both runs; the column scan launched
+    under the first, B3 under the second. (b) the prefill and every
+    decode step's logits within SHARD_SERVE_RTOL (relative L2) of the
+    unsharded steps' with the same argmax on every row, the same bits on
+    both ranks; B7 launched once a layer on each rank, its outputs on the
+    rank's heads bitwise equal to one unsharded launch over both ranks'
+    heads. (c) every dry-run cell ``status: ok``."""
+    import gc
+    import shutil
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    t_start = time.perf_counter()
+    dev = kernels.dev
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    scratch = Path(tempfile.mkdtemp(prefix="shard-", dir=ROOT / "build"))
+    try:
+        ctx = mp.get_context("spawn")
+        procs = [ctx.Process(target=shard_rank, args=(
+            r, str(scratch / "store"), str(scratch / f"rank{r}.pt"), spec))
+            for r in range(DIST_RANKS)]
+        for p in procs:
+            p.start()
+        for p in procs:
+            p.join(timeout=600)
+        for r, p in enumerate(procs):
+            if p.is_alive():
+                p.kill()
+            check(p.exitcode == 0, f"phase 15: rank {r} exited with "
+                  f"{p.exitcode}")
+        ranks = [torch.load(scratch / f"rank{r}.pt", weights_only=False)
+                 for r in range(DIST_RANKS)]
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
+    t_ranks = time.perf_counter() - t_start
+    want = shard_unsharded(torch, kernels, spec)
+
+    def same(x, y):
+        return (x.dtype == y.dtype and x.shape == y.shape and torch.equal(
+            x.reshape(-1).view(torch.uint8), y.reshape(-1).view(torch.uint8)))
+
+    # (a) the train step
+    rel = {}
+    for kahan_norm in (True, False):
+        ref = ranks[0]["train"][kahan_norm][0]
+        for r, res in enumerate(ranks):
+            for i, run in enumerate(res["train"][kahan_norm]):
+                for q in ("loss", "grad_norm"):
+                    check(same(run[q], ref[q]), f"phase 15(a): {q} "
+                          f"(kahan_norm={kahan_norm}) on rank {r} run {i} != "
+                          f"rank 0 run 0's")
+        for q, limit in (("loss", STEP1_LOSS_RTOL),
+                         ("grad_norm", STEP1_GRAD_NORM_RTOL)):
+            u = float(want["train"][kahan_norm][q])
+            got = float(ref[q])
+            rel[(kahan_norm, q)] = abs(got - u) / abs(u)
+            check(rel[(kahan_norm, q)] <= limit,
+                  f"phase 15(a): the sharded {q} {got:.6f} "
+                  f"(kahan_norm={kahan_norm}) is "
+                  f"{rel[(kahan_norm, q)]:.2e} from the unsharded step's "
+                  f"{u:.6f}, over {limit}")
+    ca = ranks[0]["train"][True][0]["launches"]
+    cb = ranks[0]["train"][False][0]["launches"]
+    check(ca["column_sq_accumulators"] > 0, "phase 15(a): the column scan "
+          "never launched under kahan_norm")
+    check(cb["sum_accumulators"] > 0, "phase 15(a): B3 never launched under "
+          "kahan_norm=False")
+    for name, n in list(ca.items()) + list(cb.items()):
+        check(n == 0 or name in ("sum_accumulators",
+                                 "column_sq_accumulators"),
+              f"phase 15(a): the sharded step launched {name} {n} times")
+    # (b) prefill and decode
+    serve_rel = []
+    for i, u in enumerate(want["logits"]):
+        u = u[:, :spec["cfg"].vocab_size].double()
+        for r, res in enumerate(ranks):
+            check(same(res["logits"][i], ranks[0]["logits"][i]),
+                  f"phase 15(b): step {i}'s logits on rank {r} != rank 0's")
+        g = ranks[0]["logits"][i][:, :spec["cfg"].vocab_size].double()
+        serve_rel.append(float((g - u).norm() / u.norm()))
+        check(serve_rel[-1] <= SHARD_SERVE_RTOL,
+              f"phase 15(b): step {i}'s sharded logits are "
+              f"{serve_rel[-1]:.2e} (relative L2) from the unsharded step's")
+        check(bool((g.argmax(-1) == u.argmax(-1)).all()),
+              f"phase 15(b): step {i}'s argmax differs from the unsharded "
+              f"step's")
+    layers = spec["cfg"].n_layers
+    pc = ranks[0]["prefill_launches"]
+    check(pc["flash_accumulators"] == layers,
+          f"phase 15(b): B7 launched {pc['flash_accumulators']} times in the "
+          f"prefill on rank 0, not once a layer ({layers})")
+    check(len(ranks[0]["flash"]) == layers and len(ranks[1]["flash"])
+          == layers, "phase 15(b): B7 not recorded once a layer")
+    from repro_torch.kernels import flash_attention as fa
+
+    b = spec["prompt"][0]
+    for layer in range(layers):
+        # a rank's head-rows are [batch, its heads]-major: the unsharded
+        # launch takes every rank's heads in rank order within each row
+        calls = [res["flash"][layer] for res in ranks]
+        q, k, v = (torch.cat([c[n].view(b, -1, *c[n].shape[1:])
+                              for c in calls], 1).flatten(0, 1).to(dev)
+                   for n in ("q", "k", "v"))
+        one = fa.flash_attention(q, k, v, **calls[0]["kw"]).cpu()
+        one = one.view(b, DIST_RANKS, -1, *one.shape[1:])
+        for r, c in enumerate(calls):
+            check(same(c["out"], one[:, r].flatten(0, 1).contiguous()),
+                  f"phase 15(b): layer {layer}: B7 on rank {r}'s heads != "
+                  f"the unsharded launch's")
+    kernels.launches["sharded-train-a"] = ca
+    kernels.launches["sharded-train-b"] = cb
+    kernels.launches["sharded-serve"] = pc
+    kernels.path_labels.update({
+        ("column_sq_accumulators", "sharded-train-a"): "sharded-norm",
+        ("sum_accumulators", "sharded-train-b"): "sharded-norm",
+        ("flash_accumulators", "sharded-serve"): "sharded-heads"})
+    kernels.shard_times(spec, ranks[0]["flash"][0])
+    t_dry = time.perf_counter()
+    cells = shard_dryrun(torch)
+    t_dry = time.perf_counter() - t_dry
+    seconds = time.perf_counter() - t_start
+    tr = {str(k): {"sharded": [run["peak_bytes"] for res in ranks
+                               for run in res["train"][k]],
+                   "unsharded": want["train"][k]["peak_bytes"],
+                   "seconds": [run["seconds"] for run in
+                               ranks[0]["train"][k]]}
+          for k in (True, False)}
+    out = {"seconds": seconds, "ranks_seconds": t_ranks,
+           "dryrun_seconds": t_dry, "layers": layers,
+           "train_rel": {f"{k[1]}_{k[0]}": v for k, v in rel.items()},
+           "train_loss": float(ranks[0]["train"][True][0]["loss"]),
+           "grad_norm": {str(k): float(ranks[0]["train"][k][0]["grad_norm"])
+                         for k in (True, False)},
+           "train": tr, "comm_host_ms": ranks[0]["comm_ms"],
+           "serve_rel": serve_rel, "decode_ms": ranks[0]["decode_ms"],
+           "cache_placements": ranks[0]["cache_placements"],
+           "launches": {"train-a": ca, "train-b": cb, "serve": pc},
+           "dryrun": cells}
+    log(f"# phase 15(a): OLMo-1B ({layers} of 16 layers) train step on a "
+        f"(data 2, model 1) mesh, batch {list(spec['train'])}: loss and "
+        f"grad norm the same bits on both ranks and in two runs; against "
+        f"the unsharded step loss {rel[(True, 'loss')]:.2e} / "
+        f"{rel[(False, 'loss')]:.2e}, grad norm "
+        f"{rel[(True, 'grad_norm')]:.2e} / {rel[(False, 'grad_norm')]:.2e}"
+        f" (column scan / B3: {ca['column_sq_accumulators']} / "
+        f"{cb['sum_accumulators']} launches a step); peak "
+        f"{max(tr['True']['sharded']) / 2**30:.2f} GiB a rank against "
+        f"{tr['True']['unsharded'] / 2**30:.2f} unsharded; collectives "
+        f"{ {k: round(v, 2) for k, v in out['comm_host_ms'].items()} } "
+        f"host ms a step")
+    log(f"# phase 15(b): prefill {list(spec['prompt'])} then "
+        f"{spec['decode']} decode steps on a (data 1, model 2) mesh, cache "
+        f"{out['cache_placements']}: logits within "
+        f"{max(serve_rel):.2e} of the unsharded steps', the same argmax, "
+        f"the same bits on both ranks; B7 {layers} times a rank on its "
+        f"{ranks[0]['flash'][0]['q'].shape[0]} head-rows, bitwise equal to "
+        f"the unsharded launch's; {out['decode_ms']:.1f} ms a decode step")
+    log(f"# phase 15 took {seconds:.1f} s (ranks {t_ranks:.1f}, dry run "
+        f"{t_dry:.1f})")
+    return out
 
 
 if __name__ == "__main__":

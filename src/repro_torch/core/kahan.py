@@ -368,7 +368,8 @@ def _fma(a: Tensor, b: Tensor, c: Tensor) -> Tensor:
         # a dimensioned float64 ``p`` widens ``c`` inside the add
         s = p + (c.double() if p.dim() == 0 else c)
         mid = (s.view(torch.int64) & _LOW29) == _HALF29
-        if bool(mid.any()):
+        # a fake tensor (the dry run) has no values: the common branch
+        if type(mid) is Tensor and bool(mid.any()):
             at = lambda x: x.expand(mid.shape)[mid]  # noqa: E731
             s[mid] = _add_round_to_odd(at(p), at(c).double())
         return _wide_flush(s, torch.float32)
@@ -610,6 +611,25 @@ def column_sq_plain(g: Tensor) -> Tuple[Tensor, Tensor]:
     return s, c
 
 
+def kahan_sq_pair(leaves, device=None) -> Tuple[Tensor, Tensor]:
+    """The float32 ``(s, c)`` pair of ``tree_kahan_sq_norm`` over a list
+    of tensors (a rank's local shards, in the sharded norm); zeros on
+    ``device`` for an empty list."""
+    from repro_torch.kernels.kahan_columns import column_sq_accumulators
+
+    s = torch.zeros((), dtype=torch.float32,
+                    device=leaves[0].device if leaves else device)
+    c = torch.zeros_like(s)
+    for leaf in leaves:
+        if leaf.dim() >= 2 and leaf.shape[0] > 1:
+            acc_s, acc_c = column_sq_accumulators(leaf)
+            s, c = kahan_combine(s, c, torch.sum(acc_s), torch.sum(acc_c))
+        else:
+            g = flush(leaf.float())
+            s, c = kahan_step(s, c, torch.sum(mul(g, g)))
+    return s, c
+
+
 def tree_kahan_sq_norm(tree: Any) -> Tensor:
     """Compensated global squared L2 norm of a tree (float32 scalar),
     ``repro/core/kahan.py:378-411``: a leaf of two or more axes with a
@@ -619,21 +639,7 @@ def tree_kahan_sq_norm(tree: Any) -> Tensor:
     and its two column vectors sum to one partial pair folded by
     two-sum; any other leaf adds its plain sum of squares by one Kahan
     step. Leaves fold in the reference's order."""
-    from repro_torch.kernels.kahan_columns import column_sq_accumulators
-
-    s = c = None
-    for leaf in _tree.leaves(tree):
-        if s is None:
-            s = torch.zeros((), dtype=torch.float32, device=leaf.device)
-            c = torch.zeros_like(s)
-        if leaf.dim() >= 2 and leaf.shape[0] > 1:
-            acc_s, acc_c = column_sq_accumulators(leaf)
-            s, c = kahan_combine(s, c, torch.sum(acc_s), torch.sum(acc_c))
-        else:
-            g = flush(leaf.float())
-            s, c = kahan_step(s, c, torch.sum(mul(g, g)))
-    if s is None:
-        return torch.zeros((), dtype=torch.float32)
+    s, c = kahan_sq_pair(_tree.leaves(tree))
     return s + c
 
 

@@ -43,7 +43,7 @@ from typing import Optional, Tuple, Union
 import torch
 
 from repro_torch.core import kahan as K
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, abstract
 from repro_torch.kernels.schemes import CompensationScheme
 
 Tensor = torch.Tensor
@@ -224,6 +224,17 @@ def flash_plain(q: Tensor, k: Tensor, v: Tensor, *,
     return l_s, l_c, a_s, a_c
 
 
+def kept_pairs(sq: int, kv_len: int, q_off: int, causal: bool) -> int:
+    """(query, key) pairs a launch computes: under the causal mask query
+    ``i`` (at ``q_off + i``) sees ``min(q_off + i + 1, kv_len)`` keys,
+    else every one of ``kv_len``."""
+    if not causal:
+        return sq * kv_len
+    full = max(0, min(sq, kv_len - q_off))        # rows before the cap
+    first = q_off + 1
+    return full * (2 * first + full - 1) // 2 + (sq - full) * kv_len
+
+
 def _launch(q: Tensor, k: Tensor, v: Tensor, *, block_q: int, block_k: int,
             scheme: CompensationScheme, kv_len: int, causal: bool,
             q_off: int, q_groups: int, counter,
@@ -255,6 +266,13 @@ def _launch(q: Tensor, k: Tensor, v: Tensor, *, block_q: int, block_k: int,
     if not (q.device == k.device == v.device):
         raise ValueError(f"flash kernel: operands on {q.device}, "
                          f"{k.device}, {v.device}")
+    if type(q) is not Tensor and abstract.screen(counter.__name__, q, k, v):
+        out = (q.new_empty((bh, sq, 1)), q.new_empty((bh, sq, 1)),
+               q.new_empty(q.shape), q.new_empty(q.shape))
+        abstract.record(counter.__name__,
+                        4 * bh * dh * kept_pairs(sq, kv_len, q_off, causal),
+                        abstract.nbytes(q, k, v, *out))
+        return out
     if q.device.type == "cpu":
         return flash_plain(q, k, v, scheme=scheme, block_k=block_k,
                            kv_len=kv_len, causal=causal, q_off=q_off,

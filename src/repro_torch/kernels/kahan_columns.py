@@ -25,7 +25,7 @@ from typing import Tuple
 import torch
 
 from repro_torch.core.kahan import column_sq_plain
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, abstract
 
 Tensor = torch.Tensor
 
@@ -42,6 +42,12 @@ def column_sq_accumulators(x: Tensor) -> Tuple[Tensor, Tensor]:
                          f"more axes, got {tuple(x.shape)}")
     if x.dtype not in KERNEL_DTYPES:
         x = x.float()
+    if type(x) is not Tensor and abstract.screen("column_sq_accumulators", x):
+        s, c = (x.new_empty(x.shape[1:], dtype=torch.float32)
+                for _ in range(2))
+        abstract.record("column_sq_accumulators", 2 * x.numel(),
+                        abstract.nbytes(x, s, c))
+        return s, c
     if x.device.type == "cpu":
         return column_sq_plain(x.float())
     if x.device.type != "cuda":

@@ -26,7 +26,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.core.kahan import flush
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, abstract
 from repro_torch.kernels.schemes import CompensationScheme
 
 Tensor = torch.Tensor
@@ -147,6 +147,11 @@ def _launch(a: Tensor, b: Tensor, scheme: CompensationScheme, unroll: int,
     if n == 0 or n % cells:
         raise ValueError(f"dot kernel: n={n} must be a positive multiple of "
                          f"8*unroll*128={cells} (the caller pads)")
+    if type(a) is not Tensor and abstract.screen(counter.__name__, a, b):
+        s, c = (a.new_empty((batch, rows, LANES)) for _ in range(2))
+        abstract.record(counter.__name__, 2 * batch * n,
+                        abstract.nbytes(a, b, s, c))
+        return s, c
     if a.device.type == "cpu":
         return dot_plain(a, b, scheme=scheme, unroll=unroll)
     if a.device.type != "cuda":

@@ -45,7 +45,7 @@ from typing import Tuple
 import torch
 
 from repro_torch.core.kahan import add, flush, mul, promote
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, abstract
 from repro_torch.kernels.schemes import CompensationScheme
 
 Tensor = torch.Tensor
@@ -114,6 +114,12 @@ def _launch(a: Tensor, b: Tensor, *, scheme: CompensationScheme,
     if a.device != b.device:
         raise ValueError(f"matmul kernel: operands on {a.device} and "
                          f"{b.device}")
+    if type(a) is not Tensor and abstract.screen(counter.__name__, a, b):
+        s, c = (a.new_empty((batch, m, n), dtype=compute_dtype)
+                for _ in range(2))
+        abstract.record(counter.__name__, 2 * batch * m * n * k,
+                        abstract.nbytes(a, b, s, c))
+        return s, c
     if a.device.type == "cpu":
         return matmul_plain(a, b, scheme=scheme, block_k=block_k,
                             compute_dtype=compute_dtype)

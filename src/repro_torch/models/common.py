@@ -14,7 +14,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.kahan import kahan_step
-from repro_torch.models.layers import dtype_of
+from repro_torch.models.layers import Leaf, dtype_of, project
 
 Params = Dict[str, Any]
 Tensor = torch.Tensor
@@ -164,11 +164,13 @@ def chunked_ce_loss(x: Tensor, head_w: Tensor, labels: Tensor, mask: Tensor,
     bias = vocab_bias(cfg, x.device)
 
     def chunk_loss(xc, lc, mc):
-        logits = torch.matmul(xc.float(), head_w.to(xc.dtype).float()) + bias
-        lse = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1, lc[..., None].long())[..., 0]
+        logits = project(xc.float(), head_w.to(xc.dtype).float()) + bias
+        # the gold logit stays [B, chunk, 1] until the subtraction: a
+        # vocab-sharded DTensor's gather is a masked partial of that shape
+        lse = torch.logsumexp(logits, dim=-1, keepdim=True)
+        gold = torch.gather(logits, -1, lc[..., None].long())
         mcf = mc.float()
-        return torch.sum((lse - gold) * mcf), torch.sum(mcf)
+        return torch.sum((lse - gold)[..., 0] * mcf), torch.sum(mcf)
 
     s_acc = torch.zeros((), dtype=torch.float32, device=x.device)
     c_acc = torch.zeros_like(s_acc)
@@ -219,41 +221,52 @@ def decode_logits(x_last: Tensor, params: Params, cfg: ArchConfig,
     float32, as ``preferred_element_type=float32`` does in the reference;
     padded vocabulary rows get -1e30."""
     w = lm_head_weight(params, cfg)
-    logits = torch.matmul(x_last[:, 0, :].float(), w.float())
+    logits = project(x_last[:, 0, :].float(), w.float())
     return logits + vocab_bias(cfg, logits.device)
 
 
 def embed_and_head_spec(cfg: ArchConfig) -> Dict[str, Any]:
-    """Shapes and init scales of the embedding / final norm / head."""
-    out: Dict[str, Any] = {"embed": {"table": ((cfg.padded_vocab, cfg.d_model),
-                                              0.02)}}
+    """The embedding / final norm / head ``Leaf``s."""
+    out: Dict[str, Any] = {"embed": {"table": Leaf(
+        (cfg.padded_vocab, cfg.d_model), 0.02, ("vocab", "embed"))}}
     out["final_norm"] = norm_shapes(cfg.d_model, cfg.norm)
     if not cfg.tie_embeddings:
-        out["head"] = {"w": ((cfg.d_model, cfg.padded_vocab), 0.02)}
+        out["head"] = {"w": Leaf((cfg.d_model, cfg.padded_vocab), 0.02,
+                                 ("embed", "vocab"))}
     return out
 
 
 def norm_shapes(d: int, kind: str) -> Dict[str, Any]:
-    """Norm parameters as (shape, init): "ones" / "zeros" for the affine
-    terms; layernorm_np has none."""
+    """Norm parameters as ``Leaf``s: "ones" / "zeros" for the affine
+    terms, replicated; layernorm_np has none."""
     if kind == "rmsnorm":
-        return {"scale": ((d,), "ones")}
+        return {"scale": Leaf((d,), "ones", (None,))}
     if kind == "layernorm":
-        return {"scale": ((d,), "ones"), "bias": ((d,), "zeros")}
+        return {"scale": Leaf((d,), "ones", (None,)),
+                "bias": Leaf((d,), "zeros", (None,))}
     if kind == "layernorm_np":
         return {}
     raise ValueError(kind)
 
 
-def leaf_dtype(leaf, cfg: ArchConfig) -> torch.dtype:
-    """The dtype of a (shape, init[, dtype]) leaf: its own where it names
-    one (the MoE router's float32), else ``cfg.param_dtype``."""
-    return dtype_of(leaf[2] if len(leaf) > 2 else cfg.param_dtype)
+def leaf_dtype(leaf: Leaf, cfg: ArchConfig) -> torch.dtype:
+    """The dtype of a ``Leaf``: its own where it names one (the MoE
+    router's float32), else ``cfg.param_dtype``."""
+    return dtype_of(leaf.dtype or cfg.param_dtype)
+
+
+def logical_specs(spec: Dict[str, Any]) -> Dict[str, Any]:
+    """The logical axes of every ``Leaf`` of a spec tree, in its
+    structure: a model's ``param_specs()`` (the reference's spec tree
+    that ``init`` returns beside the params)."""
+    if isinstance(spec, dict):
+        return {k: logical_specs(v) for k, v in spec.items()}
+    return spec.axes
 
 
 def init_params(spec: Dict[str, Any], cfg: ArchConfig,
                 generator: torch.Generator, device) -> Params:
-    """Materialize a nested dict of (shape, init[, dtype]) leaves: a float
+    """Materialize a nested dict of ``Leaf``s: a float
     scale draws ``scale * N(0, 1)`` in float32 from ``generator`` (in the
     dict's order), scaled in place, "ones"/"zeros" are constants, a
     callable ``init(shape)`` returns the float32 values (the SSM's fixed
@@ -282,11 +295,12 @@ def init_params(spec: Dict[str, Any], cfg: ArchConfig,
 
 
 def stack_spec(node, n: int):
-    """A spec tree of (shape, init[, dtype]) leaves with a leading layer
-    axis of ``n`` on every shape: a stacked segment's parameters."""
+    """A spec tree of ``Leaf``s with a leading layer axis of ``n`` on every
+    shape, unsharded (None) in the logical axes, as the reference's
+    ``stack_specs``: a stacked segment's parameters."""
     if isinstance(node, dict):
         return {k: stack_spec(v, n) for k, v in node.items()}
-    return ((n, *node[0]), *node[1:])
+    return node.stacked(n)
 
 
 def unbind_layers(tree, n: int):

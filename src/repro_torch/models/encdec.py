@@ -40,6 +40,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed.sharding import constrain
 from repro_torch.models.common import (
     Params,
     chunked_ce_loss,
@@ -48,6 +49,7 @@ from repro_torch.models.common import (
     init_embed_and_head,
     init_params,
     lm_head_weight,
+    logical_specs,
     norm_shapes,
     parallel_chunk_logits,
     prefill_chunk_scan,
@@ -66,6 +68,7 @@ from repro_torch.models.layers import (
     mlp_spec,
     norm_apply,
     rope_freqs,
+    tp_axis,
 )
 
 Tensor = torch.Tensor
@@ -113,10 +116,15 @@ class EncDecLM:
                                       self.cfg.n_layers)}
 
     def param_spec(self) -> Dict[str, Any]:
-        """(shape, init) of every parameter."""
+        """The ``Leaf``s of every parameter."""
         spec = embed_and_head_spec(self.cfg)
         spec.update(self.stack_specs())
         return spec
+
+    def param_specs(self) -> Dict[str, Any]:
+        """The logical axes of every parameter, in ``init``'s structure,
+        stacked leaves under a leading None (the reference's spec tree)."""
+        return logical_specs(self.param_spec())
 
     def init(self, generator: torch.Generator) -> Params:
         """Random parameters drawn from ``generator`` (on the model's
@@ -146,8 +154,9 @@ class EncDecLM:
         """Each cache leaf's axis names: the self-attention K/V's
         position-addressed ``"kv_seq"`` (pageable), the cross K/V's frame
         axis unnamed (dense per slot)."""
-        kv = ("layers", "batch", "kv_seq", "kv_heads", None)
-        x = ("layers", "batch", None, "kv_heads", None)
+        kv_axis = tp_axis(self.cfg.n_kv_heads, "kv_heads")
+        kv = (None, "batch", "kv_seq", kv_axis, None)
+        x = (None, "batch", None, kv_axis, None)
         return {"kv": (kv, kv), "xk": x, "xv": x}
 
     # --------------------------------------------------------------- encoder
@@ -224,6 +233,7 @@ class EncDecLM:
         cfg = self.cfg
         enc_out = self.encode(params, batch["frames"])
         x = embed_lookup(params["embed"], batch["tokens"], self.compute_dtype)
+        x = constrain(x, "batch", "seq", None)
 
         def block(p, x):
             return self._dec_block(p, x, *self._cross_kv(p, enc_out))

@@ -42,6 +42,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed.sharding import constrain
 from repro_torch.models.common import (
     Params,
     chunked_ce_loss,
@@ -50,6 +51,7 @@ from repro_torch.models.common import (
     init_embed_and_head,
     init_params,
     lm_head_weight,
+    logical_specs,
     norm_shapes,
     prefill_chunk_scan,
     stack_spec,
@@ -66,6 +68,7 @@ from repro_torch.models.layers import (
     mlp_spec,
     norm_apply,
     rope_freqs,
+    tp_axis,
 )
 from repro_torch.models.ssm import ssm_apply, ssm_cache_shapes, ssm_spec
 
@@ -122,7 +125,7 @@ class HymbaLM:
 
     # ------------------------------------------------------------------ init
     def block_spec(self) -> Dict[str, Any]:
-        """(shape, init) of one layer's parameters, without the layer
+        """The ``Leaf``s of one layer's parameters, without the layer
         axis (the reference's ``_block_init``)."""
         cfg = self.cfg
         d = cfg.d_model
@@ -140,10 +143,15 @@ class HymbaLM:
                 else block for seg in self.segments}
 
     def param_spec(self) -> Dict[str, Any]:
-        """(shape, init) of every parameter, the segments included."""
+        """The ``Leaf``s of every parameter, the segments included."""
         spec = embed_and_head_spec(self.cfg)
         spec.update(self.segment_spec())
         return spec
+
+    def param_specs(self) -> Dict[str, Any]:
+        """The logical axes of every parameter, in ``init``'s structure,
+        stacked leaves under a leading None (the reference's spec tree)."""
+        return logical_specs(self.param_spec())
 
     def init(self, generator: torch.Generator) -> Params:
         """Random parameters drawn from ``generator`` (on the model's
@@ -189,13 +197,14 @@ class HymbaLM:
         """Each cache leaf's axis names, in ``init_cache``'s structure:
         ``"kv_ring"`` on a window segment's K/V (modular rows: the
         pageable=False flag), ``"kv_seq"`` on a global one's."""
+        kv_axis = tp_axis(self.cfg.n_kv_heads, "kv_heads")
         out = {}
         for seg in self.segments:
             axis = "kv_ring" if seg.window > 0 else "kv_seq"
-            kv = ("layers", "batch", axis, "kv_heads", None)
+            kv = (None, "batch", axis, kv_axis, None)
             out[seg.name] = {"kv": (kv, kv),
-                             "ssm": (("layers", "batch", "mlp", None),
-                                     ("layers", "batch", None, "mlp"))}
+                             "ssm": ((None, "batch", "mlp", None),
+                                     (None, "batch", None, "mlp"))}
         return out
 
     def cache_layers(self, cache):
@@ -234,6 +243,7 @@ class HymbaLM:
         backward pass (the reference's ``remat``)."""
         cfg = self.cfg
         x = embed_lookup(params["embed"], batch["tokens"], self.compute_dtype)
+        x = constrain(x, "batch", "seq", None)
         for seg, p in self.layers(params):
             x = checkpoint(self._block, p, x, seg.window,
                            use_reentrant=False, preserve_rng_state=False)

@@ -36,6 +36,11 @@ from typing import Any, Dict, Optional, Tuple, Union
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import (gather_inner, is_dtensor,
+                                              local_lookup, local_matmul,
+                                              on_local_heads, splittable,
+                                              write_rows)
+
 Params = Dict[str, Any]
 Tensor = torch.Tensor
 #: a decode call's position: one for every row, or a LongTensor [B] of
@@ -49,6 +54,45 @@ _FAR = 2 ** 31 - 1
 
 def dtype_of(name: str) -> torch.dtype:
     return getattr(torch, name)
+
+
+class Leaf(tuple):
+    """One parameter of a model's spec tree: the tuple ``(shape, init)``
+    or ``(shape, init, dtype)`` (init a float scale of N(0, 1), "ones",
+    "zeros" or a callable ``init(shape)``; dtype where it is not
+    ``cfg.param_dtype``), carrying its logical axes on ``.axes``, one
+    entry a dimension (the reference's ``PartitionSpec``, read by
+    ``distributed.sharding``)."""
+
+    def __new__(cls, shape, init, axes, dtype: Optional[str] = None):
+        items = (tuple(shape), init) + (() if dtype is None else (dtype,))
+        leaf = super().__new__(cls, items)
+        leaf.axes = tuple(axes)
+        return leaf
+
+    @property
+    def shape(self) -> Tuple[int, ...]:
+        return self[0]
+
+    @property
+    def init(self):
+        return self[1]
+
+    @property
+    def dtype(self) -> Optional[str]:
+        return self[2] if len(self) > 2 else None
+
+    def stacked(self, n: int) -> "Leaf":
+        """The leaf with a leading layer axis of ``n``, unsharded."""
+        return Leaf((n, *self.shape), self.init, (None, *self.axes),
+                    self.dtype)
+
+
+def tp_axis(n: int, name: str) -> Optional[str]:
+    """``name`` when the production 16-way model axis divides ``n`` heads,
+    else None (replicated): the reference's ``hspec`` / ``kvspec``
+    (hymba's 25 heads, whisper's 20)."""
+    return name if n % 16 == 0 else None
 
 
 # ---------------------------------------------------------------------------
@@ -65,17 +109,37 @@ def dense(p: Params, x: Tensor, compute_dtype: torch.dtype, *,
     cast to the compute dtype (``repro/models/layers.py:63-87``)."""
     w = p["w"].to(compute_dtype)
     w2 = w.reshape(w.shape[0], -1)
+    if is_dtensor(x):
+        y = local_matmul(gather_inner(x), w2, lambda a, b: _product(
+            a, b, compute_dtype, compensated))
+    else:
+        y = _product(x, w2, compute_dtype, compensated)
+    y = y.reshape(*x.shape[:-1], *w.shape[1:])
+    if "b" in p:
+        y = y + p["b"].to(compute_dtype)
+    return y
+
+
+def project(x: Tensor, w: Tensor) -> Tensor:
+    """``x @ w`` over the last axis of ``x`` (the weight's dtype as it
+    is); a DTensor ``x`` through ``local_matmul``, laid out as ``dense``
+    lays out its projections."""
+    if is_dtensor(x):
+        return local_matmul(gather_inner(x), w, torch.matmul)
+    return torch.matmul(x, w)
+
+
+def _product(x: Tensor, w2: Tensor, compute_dtype, compensated: bool,
+             ) -> Tensor:
+    """``x @ w2`` [..., N] in the compute dtype: torch's matmul, or with
+    ``compensated`` the engine's (B5 on the card) on the flattened rows."""
     if compensated:
         from repro_torch.kernels import ops
 
         x2 = x.to(compute_dtype).reshape(-1, x.shape[-1])
         y = ops.matmul(x2, w2).to(compute_dtype)
-    else:
-        y = torch.matmul(x.to(compute_dtype), w2)
-    y = y.reshape(*x.shape[:-1], *w.shape[1:])
-    if "b" in p:
-        y = y + p["b"].to(compute_dtype)
-    return y
+        return y.reshape(*x.shape[:-1], -1)
+    return torch.matmul(x.to(compute_dtype), w2)
 
 
 def norm_apply(p: Params, x: Tensor, kind: str) -> Tensor:
@@ -98,9 +162,15 @@ def embed_lookup(p: Params, tokens: Tensor, compute_dtype) -> Tensor:
     """Rows ``tokens`` of the table in the compute dtype. Differentiable
     with a deterministic backward (``_Lookup``)."""
     table = p["table"]
+    if is_dtensor(tokens):
+        return local_lookup(table, tokens, _lookup).to(compute_dtype)
+    return _lookup(table, tokens).to(compute_dtype)
+
+
+def _lookup(table: Tensor, tokens: Tensor) -> Tensor:
     if torch.is_grad_enabled() and table.requires_grad:
-        return _Lookup.apply(table, tokens).to(compute_dtype)
-    return table[tokens].to(compute_dtype)
+        return _Lookup.apply(table, tokens)
+    return table[tokens]
 
 
 class _Lookup(torch.autograd.Function):
@@ -122,8 +192,8 @@ class _Lookup(torch.autograd.Function):
     def backward(ctx, g: Tensor):
         (tokens,) = ctx.saved_tensors
         flat = tokens.reshape(-1, 1).long()
-        onehot = torch.zeros((flat.shape[0], ctx.rows), dtype=g.dtype,
-                             device=g.device).scatter_(1, flat, 1.0)
+        onehot = flat.new_zeros((flat.shape[0], ctx.rows),
+                                dtype=g.dtype).scatter_(1, flat, 1.0)
         return onehot.T @ g.reshape(flat.shape[0], -1), None
 
 
@@ -159,21 +229,24 @@ def rope_apply(x: Tensor, pos: Tensor, freqs: Tensor) -> Tensor:
 # ---------------------------------------------------------------------------
 
 def attn_spec(cfg) -> Params:
-    """(shape, init) of one GQA attention's parameters, scaled as the
+    """The ``Leaf``s of one GQA attention's parameters, scaled as the
     reference's ``attn_init`` (``repro/models/layers.py:161-179``): q/k/v
     ``w`` ``[d, heads, dh]`` (with a zero ``b`` of ``[heads, dh]`` under
     ``qkv_bias``), o ``w`` ``[H * dh, d]``."""
     d, h, kv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     deep = (2 * cfg.n_layers) ** 0.5
 
-    def proj(heads):
-        out = {"w": ((d, heads, dh), d ** -0.5)}
+    def proj(heads, axis):
+        out = {"w": Leaf((d, heads, dh), d ** -0.5, ("embed", axis, None))}
         if cfg.qkv_bias:
-            out["b"] = ((heads, dh), "zeros")
+            out["b"] = Leaf((heads, dh), "zeros", (axis, None))
         return out
 
-    return {"q": proj(h), "k": proj(kv), "v": proj(kv),
-            "o": {"w": ((h * dh, d), (h * dh) ** -0.5 / deep)}}
+    kv_axis = tp_axis(kv, "kv_heads")
+    return {"q": proj(h, tp_axis(h, "heads")), "k": proj(kv, kv_axis),
+            "v": proj(kv, kv_axis),
+            "o": {"w": Leaf((h * dh, d), (h * dh) ** -0.5 / deep,
+                            ("heads", "embed"))}}
 
 
 @dataclasses.dataclass
@@ -219,6 +292,9 @@ def _flash_core(qg: Tensor, k: Tensor, v: Tensor, compute_dtype) -> Tensor:
     dtype (``repro/models/layers.py:201-224``)."""
     from repro_torch.kernels.flash_attention import flash_attention
 
+    if is_dtensor(qg):
+        return on_local_heads(
+            lambda q, k, v: _flash_core(q, k, v, compute_dtype), qg, k, v)
     qf, kf, vf = _flatten_heads(qg, k, v)
     out = flash_attention(qf, kf, vf, causal=True, q_groups=qg.shape[3])
     return _unflatten_heads(out, qg, compute_dtype)
@@ -263,6 +339,10 @@ def _attn_core(q: Tensor, k: Tensor, v: Tensor, q_pos: Tensor,
     >= 1e-30``: a ring slot not filled yet masks a whole row's keys only
     before the first position). Returns [B,Sq,KV,G,dh] in the compute
     dtype."""
+    if is_dtensor(q):
+        return on_local_heads(
+            lambda q, k, v: _attn_core(q, k, v, q_pos, k_pos, compute_dtype,
+                                       chunked, window, causal), q, k, v)
     if chunked and q.shape[1] > ATTN_Q_CHUNK:
         return torch.cat([
             _attn_core(q[:, i:i + ATTN_Q_CHUNK], k, v,
@@ -341,8 +421,8 @@ def attention(p: Params, st: AttnStatic, x: Tensor, *,
     groups = st.n_heads // st.n_kv
     if cross_kv is not None:                                # cross
         k, v = cross_kv
-        qg = dense(p["q"], x, cd, compensated=cmp).reshape(
-            b, s, st.n_kv, groups, st.d_head)
+        qg = splittable(dense(p["q"], x, cd, compensated=cmp), 2,
+                        st.n_kv).reshape(b, s, st.n_kv, groups, st.d_head)
         out = _attn_core(qg, k, v, q_pos,
                          torch.arange(k.shape[1], device=x.device), cd,
                          chunked=False, causal=False)
@@ -352,7 +432,8 @@ def attention(p: Params, st: AttnStatic, x: Tensor, *,
     k = rope_apply(dense(p["k"], x, cd, compensated=cmp), q_pos,
                    st.freqs)                                # [B,S,KV,dh]
     v = dense(p["v"], x, cd, compensated=cmp)
-    qg = q.reshape(b, s, st.n_kv, groups, st.d_head)
+    qg = splittable(q, 2, st.n_kv).reshape(b, s, st.n_kv, groups,
+                                           st.d_head)
     if cache is None:                                       # training
         if pos is not None:
             raise ValueError("attention: training mode (no cache) runs "
@@ -377,8 +458,8 @@ def attention(p: Params, st: AttnStatic, x: Tensor, *,
             ck.copy_(torch.where(filled, k[:, src].to(ck.dtype), 0))
             cv.copy_(torch.where(filled, v[:, src].to(cv.dtype), 0))
         else:
-            ck[:, :s] = k.to(ck.dtype)
-            cv[:, :s] = v.to(cv.dtype)
+            _write_rows(ck, 0, k)
+            _write_rows(cv, 0, v)
         if st.kahan_attention and window <= 0:
             out = _flash_core(qg, k, v, cd)
         else:
@@ -389,8 +470,8 @@ def attention(p: Params, st: AttnStatic, x: Tensor, *,
                 "chunk-parallel prefill does not support ring-buffer "
                 "caches; window layers' families must fall back to the "
                 "per-position scan body")
-        ck[:, pos:pos + chunk_valid] = k[:, :chunk_valid].to(ck.dtype)
-        cv[:, pos:pos + chunk_valid] = v[:, :chunk_valid].to(cv.dtype)
+        _write_rows(ck, pos, k[:, :chunk_valid])
+        _write_rows(cv, pos, v[:, :chunk_valid])
         if st.kahan_attention:
             out = _flash_chunk_core(qg, ck.to(cd), cv.to(cd), pos, cd)
         else:
@@ -425,10 +506,23 @@ def _query_positions(pos: Optional[Position], s: int,
     return torch.arange(start, start + s, device=device)
 
 
+def _write_rows(leaf: Tensor, start: int, value: Tensor) -> None:
+    """``leaf[:, start:start + n] = value`` for a cache leaf [B, S, ...] and
+    ``value`` [B, n, ...]; a DTensor leaf through ``write_rows``."""
+    if is_dtensor(leaf):
+        write_rows(leaf, 1, start, value)
+    else:
+        leaf[:, start:start + value.shape[1]] = value.to(leaf.dtype)
+
+
 def _write_position(leaf: Tensor, row, value: Tensor) -> None:
     """``leaf[:, row] = value`` for a cache leaf [B, S, ...]; with a row
     tensor [B], row ``row[b]`` of batch row ``b``."""
-    if isinstance(row, Tensor):
+    if is_dtensor(leaf):
+        if isinstance(row, Tensor):
+            raise NotImplementedError("per-row positions on a sharded cache")
+        write_rows(leaf, 1, row, value[:, None])
+    elif isinstance(row, Tensor):
         leaf[torch.arange(leaf.shape[0], device=leaf.device), row] = (
             value.to(leaf.dtype))
     else:
@@ -440,20 +534,25 @@ def _write_position(leaf: Tensor, row, value: Tensor) -> None:
 # ---------------------------------------------------------------------------
 
 def mla_spec(cfg) -> Params:
-    """(shape, init) of one MLA block's parameters, scaled as the
+    """The ``Leaf``s of one MLA block's parameters, scaled as the
     reference's ``mla_init`` (``repro/models/layers.py:469-492``): q ``[d,
     H, nope + rope]``, dkv ``[d, r]``, kr ``[d, dr]``, uk ``[r, H, nope]``,
     uv ``[r, H, v]``, o ``[H * v, d]`` and the latent's rmsnorm scale."""
     m, d, h = cfg.mla, cfg.d_model, cfg.n_heads
     r, hv = m.kv_lora_rank, h * m.v_head_dim
+    ha = tp_axis(h, "heads")
     return {
-        "q": {"w": ((d, h, m.qk_nope_dim + m.qk_rope_dim), d ** -0.5)},
-        "dkv": {"w": ((d, r), d ** -0.5)},
-        "kr": {"w": ((d, m.qk_rope_dim), d ** -0.5)},
-        "uk": {"w": ((r, h, m.qk_nope_dim), r ** -0.5)},
-        "uv": {"w": ((r, h, m.v_head_dim), r ** -0.5)},
-        "o": {"w": ((hv, d), hv ** -0.5 / (2 * cfg.n_layers) ** 0.5)},
-        "kv_norm": {"scale": ((r,), "ones")},
+        "q": {"w": Leaf((d, h, m.qk_nope_dim + m.qk_rope_dim), d ** -0.5,
+                        ("embed", ha, None))},
+        "dkv": {"w": Leaf((d, r), d ** -0.5, ("embed", "kv_lora"))},
+        "kr": {"w": Leaf((d, m.qk_rope_dim), d ** -0.5, ("embed", None))},
+        "uk": {"w": Leaf((r, h, m.qk_nope_dim), r ** -0.5,
+                         ("kv_lora", ha, None))},
+        "uv": {"w": Leaf((r, h, m.v_head_dim), r ** -0.5,
+                         ("kv_lora", ha, None))},
+        "o": {"w": Leaf((hv, d), hv ** -0.5 / (2 * cfg.n_layers) ** 0.5,
+                        ("heads", "embed"))},
+        "kv_norm": {"scale": Leaf((r,), "ones", (None,))},
     }
 
 
@@ -499,8 +598,8 @@ def mla_attention(p: Params, cfg, freqs: Tensor, x: Tensor, *,
     else:
         cc, cr = cache
         if pos is None:
-            cc[:, :s] = c_kv.to(cc.dtype)
-            cr[:, :s] = k_rope.to(cr.dtype)
+            _write_rows(cc, 0, c_kv)
+            _write_rows(cr, 0, k_rope)
         elif s == 1:
             _write_position(cc, pos, c_kv[:, 0])
             _write_position(cr, pos, k_rope[:, 0])
@@ -549,17 +648,17 @@ def mla_attention(p: Params, cfg, freqs: Tensor, x: Tensor, *,
 # ---------------------------------------------------------------------------
 
 def mlp_spec(cfg, d_ff: int) -> Params:
-    """(shape, init) of an MLP of width ``d_ff`` (the reference's
+    """The ``Leaf``s of an MLP of width ``d_ff`` (the reference's
     ``mlp_init``): SwiGLU's gate, up and down, or with ``cfg.mlp ==
     "gelu"`` only up and down."""
     d = cfg.d_model
     deep = (2 * cfg.n_layers) ** 0.5
     if cfg.mlp not in ("swiglu", "gelu"):
         raise ValueError(f"mlp {cfg.mlp!r}")
-    out = {"gate": {"w": ((d, d_ff), d ** -0.5)}} if cfg.mlp == "swiglu" \
-        else {}
-    out["up"] = {"w": ((d, d_ff), d ** -0.5)}
-    out["down"] = {"w": ((d_ff, d), d_ff ** -0.5 / deep)}
+    up = Leaf((d, d_ff), d ** -0.5, ("embed", "mlp"))
+    out = {"gate": {"w": up}} if cfg.mlp == "swiglu" else {}
+    out["up"] = {"w": up}
+    out["down"] = {"w": Leaf((d_ff, d), d_ff ** -0.5 / deep, ("mlp", "embed"))}
     return out
 
 

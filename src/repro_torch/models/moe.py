@@ -43,23 +43,28 @@ from typing import Any, Dict, NamedTuple, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import dtype_of, mlp_apply, mlp_spec
+from repro_torch.distributed.sharding import constrain, on_local_experts
+from repro_torch.models.layers import (Leaf, dtype_of, mlp_apply, mlp_spec,
+                                      project)
 
 Params = Dict[str, Any]
 Tensor = torch.Tensor
 
 
 def moe_spec(cfg) -> Params:
-    """(shape, init[, dtype]) of one MoE layer, scaled as the reference's
+    """The ``Leaf``s of one MoE layer, scaled as the reference's
     ``moe_init``: the router ``[d, E]`` in float32, gate/up ``[E, d, f]``,
     down ``[E, f, d]`` and the shared experts' MLP."""
     mo, d = cfg.moe, cfg.d_model
     f = mo.d_ff_expert
     deep = (2 * cfg.n_layers) ** 0.5
-    spec = {"router": {"w": ((d, mo.n_experts), d ** -0.5, "float32")},
-            "gate": ((mo.n_experts, d, f), d ** -0.5),
-            "up": ((mo.n_experts, d, f), d ** -0.5),
-            "down": ((mo.n_experts, f, d), f ** -0.5 / deep)}
+    e = mo.n_experts
+    spec = {"router": {"w": Leaf((d, e), d ** -0.5, ("embed", None),
+                                 "float32")},
+            "gate": Leaf((e, d, f), d ** -0.5, ("expert", "embed", "mlp")),
+            "up": Leaf((e, d, f), d ** -0.5, ("expert", "embed", "mlp")),
+            "down": Leaf((e, f, d), f ** -0.5 / deep,
+                         ("expert", "mlp", "embed"))}
     if mo.n_shared:
         spec["shared"] = mlp_spec(cfg, mo.n_shared * (mo.d_ff_shared or f))
     return spec
@@ -118,7 +123,7 @@ def route(p: Params, cfg, xg: Tensor, s: int) -> Routing:
     mo = cfg.moe
     g, tg, _ = xg.shape
     k = mo.top_k
-    logits = torch.matmul(xg.float(), p["router"]["w"].float())
+    logits = project(xg.float(), p["router"]["w"].float())
     probs = torch.softmax(logits, dim=-1)
     top, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
     gates, expert_idx = top[..., :k], idx[..., :k]
@@ -162,7 +167,7 @@ def moe_apply(p: Params, cfg, x: Tensor) -> Tuple[Tensor, Dict[str, Tensor]]:
     t = b * s
     g = n_groups(t, b)
     tg = t // g
-    xg = x.reshape(g, tg, d)
+    xg = constrain(x.reshape(g, tg, d), "moe_group", None, None)
     r = route(p, cfg, xg, s)
 
     # load-balance auxiliary loss over the whole call: top-1 counts as a
@@ -183,17 +188,28 @@ def moe_apply(p: Params, cfg, x: Tensor) -> Tuple[Tensor, Dict[str, Tensor]]:
     buf = x.new_zeros((g, mo.n_experts, cap + 1, d), dtype=cd)
     buf[gi, r.expert, rows] = gathered
     buf = buf[:, :, :cap]
+    # two-stage resharding: the scatter stays group-local, then a local
+    # slice to the expert-parallel layout (``moe.py:148-153``)
+    buf = constrain(buf, "moe_group", None, None, None)
+    buf = constrain(buf, "moe_group", "expert", None, None)
 
     # the expert FFN over every expert's rows
-    gt = torch.einsum("gecd,edf->gecf", buf, p["gate"].to(cd))
-    up = torch.einsum("gecd,edf->gecf", buf, p["up"].to(cd))
+    def experts(buf, gate, up, down):
+        # each weight cast at its use: one compute-dtype copy at a time
+        gt = torch.einsum("gecd,edf->gecf", buf, gate.to(cd))
+        up = torch.einsum("gecd,edf->gecf", buf, up.to(cd))
+        h = F.silu(gt.float()).to(cd) * up
+        return torch.einsum("gecf,efd->gecd", h, down.to(cd))
 
-    h = F.silu(gt.float()).to(cd) * up
-    out = torch.einsum("gecf,efd->gecd", h, p["down"].to(cd))
+    out = on_local_experts(experts, buf, p["gate"], p["up"], p["down"])
+    out = constrain(out, "moe_group", "expert", None, None)
+    # the expert outputs back to the group-local layout for the combine
+    out = constrain(out, "moe_group", None, None, None)
 
     picked = out[gi, r.expert, rows.clamp_max(cap - 1)]          # [G,Tk,D]
     y = combine(picked * (r.gate * r.keep).to(cd)[..., None], r.order,
                 mo.top_k)
+    y = constrain(y, "moe_group", None, None)
 
     if mo.n_shared:
         y = y + mlp_apply(p["shared"], xg.to(cd), cd,

@@ -25,7 +25,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import dtype_of
+from repro_torch.models.layers import Leaf, dtype_of, project
 
 Params = Dict[str, Any]
 Tensor = torch.Tensor
@@ -50,22 +50,25 @@ def _dt_bias(shape) -> Tensor:
 
 
 def ssm_spec(cfg) -> Params:
-    """(shape, init[, dtype]) of one SSM's parameters, scaled as the
+    """The ``Leaf``s of one SSM's parameters, scaled as the
     reference's ``ssm_init`` (``repro/models/ssm.py:28-54``): ``A_log``
     and ``D`` in float32, everything else in ``cfg.param_dtype``."""
     s, d = cfg.ssm, cfg.d_model
     d_in, r = s.expand * d, dt_rank(cfg)
     return {
-        "in_x": {"w": ((d, d_in), d ** -0.5)},
-        "in_z": {"w": ((d, d_in), d ** -0.5)},
-        "conv_w": ((s.d_conv, d_in), s.d_conv ** -0.5),
-        "conv_b": ((d_in,), "zeros"),
-        "x_proj": {"w": ((d_in, r + 2 * s.d_state), d_in ** -0.5)},
-        "dt_proj": {"w": ((r, d_in), r ** -0.5), "b": ((d_in,), _dt_bias)},
-        "A_log": ((d_in, s.d_state), _a_log, "float32"),
-        "D": ((d_in,), "ones", "float32"),
-        "out": {"w": ((d_in, d),
-                      d_in ** -0.5 / (2 * cfg.n_layers) ** 0.5)},
+        "in_x": {"w": Leaf((d, d_in), d ** -0.5, ("embed", "mlp"))},
+        "in_z": {"w": Leaf((d, d_in), d ** -0.5, ("embed", "mlp"))},
+        "conv_w": Leaf((s.d_conv, d_in), s.d_conv ** -0.5, (None, "mlp")),
+        "conv_b": Leaf((d_in,), "zeros", ("mlp",)),
+        "x_proj": {"w": Leaf((d_in, r + 2 * s.d_state), d_in ** -0.5,
+                             ("mlp", None))},
+        "dt_proj": {"w": Leaf((r, d_in), r ** -0.5, (None, "mlp")),
+                    "b": Leaf((d_in,), _dt_bias, ("mlp",))},
+        "A_log": Leaf((d_in, s.d_state), _a_log, ("mlp", None), "float32"),
+        "D": Leaf((d_in,), "ones", ("mlp",), "float32"),
+        "out": {"w": Leaf((d_in, d),
+                          d_in ** -0.5 / (2 * cfg.n_layers) ** 0.5,
+                          ("mlp", "embed"))},
     }
 
 
@@ -154,8 +157,8 @@ def ssm_apply(p: Params, cfg, x: Tensor, *,
     r = dt_rank(cfg)
 
     xc = x.to(cd)
-    x_in = torch.matmul(xc, p["in_x"]["w"].to(cd))
-    z = torch.matmul(xc, p["in_z"]["w"].to(cd))
+    x_in = project(xc, p["in_x"]["w"].to(cd))
+    z = project(xc, p["in_z"]["w"].to(cd))
 
     decode = cache is not None and s == 1
     if decode:
@@ -170,12 +173,12 @@ def ssm_apply(p: Params, cfg, x: Tensor, *,
                               p["conv_b"].to(cd)).float())
 
     u = u.float()
-    dbc = torch.matmul(u.to(cd), p["x_proj"]["w"].to(cd)).float()
+    dbc = project(u.to(cd), p["x_proj"]["w"].to(cd)).float()
     dt_in = dbc[..., :r]
     b_ssm = dbc[..., r:r + s_cfg.d_state]
     c_ssm = dbc[..., r + s_cfg.d_state:]
     dt = torch.logaddexp(
-        torch.matmul(dt_in, p["dt_proj"]["w"].float())
+        project(dt_in, p["dt_proj"]["w"].float())
         + p["dt_proj"]["b"].float(), torch.zeros((), dtype=f32,
                                                  device=x.device))
 
@@ -218,4 +221,4 @@ def ssm_apply(p: Params, cfg, x: Tensor, *,
             conv_buf.copy_(tail[:, tail.shape[1] - k1:])
 
     y = y.to(cd) * silu(z.float()).to(cd)
-    return torch.matmul(y, p["out"]["w"].to(cd))
+    return project(y, p["out"]["w"].to(cd))

@@ -62,6 +62,7 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed.sharding import constrain
 from repro_torch.models import moe as moe_lib
 
 from repro_torch.models.common import (
@@ -72,6 +73,7 @@ from repro_torch.models.common import (
     init_embed_and_head,
     init_params,
     lm_head_weight,
+    logical_specs,
     norm_shapes,
     parallel_chunk_logits,
     prefill_chunk_scan,
@@ -91,6 +93,7 @@ from repro_torch.models.layers import (
     mlp_spec,
     norm_apply,
     rope_freqs,
+    tp_axis,
 )
 
 Tensor = torch.Tensor
@@ -158,7 +161,7 @@ class TransformerLM:
 
     # ------------------------------------------------------------------ init
     def block_spec(self, kind: str) -> Dict[str, Any]:
-        """(shape, init) of one block's parameters, without the layer
+        """The ``Leaf``s of one block's parameters, without the layer
         axis; init scales as the reference's ``attn_init`` / ``mla_init``
         / ``mlp_init`` / ``moe_init``. ``kind`` "super" pairs a dense and
         a MoE block as ``{"a", "b"}``."""
@@ -177,7 +180,7 @@ class TransformerLM:
         }
 
     def segment_spec(self) -> Dict[str, Any]:
-        """(shape, init) of every segment's parameters, a stacked
+        """The ``Leaf``s of every segment's parameters, a stacked
         segment's with its leading layer axis."""
         return {seg.name: (stack_spec(self.block_spec(seg.kind),
                                       seg.n_layers)
@@ -185,10 +188,15 @@ class TransformerLM:
                 for seg in self.segments}
 
     def param_spec(self) -> Dict[str, Any]:
-        """(shape, init) of every parameter, the segments included."""
+        """The ``Leaf``s of every parameter, the segments included."""
         spec = embed_and_head_spec(self.cfg)
         spec.update(self.segment_spec())
         return spec
+
+    def param_specs(self) -> Dict[str, Any]:
+        """The logical axes of every parameter, in ``init``'s structure,
+        stacked leaves under a leading None (the reference's spec tree)."""
+        return logical_specs(self.param_spec())
 
     def init(self, generator: torch.Generator) -> Params:
         """Random parameters drawn from ``generator`` (which must live on
@@ -243,9 +251,10 @@ class TransformerLM:
         pages (``models.common.cache_page_axes``): MLA's latent leaves
         page as K/V do."""
         if self.cfg.mla is not None:
-            leaf = ("layers", "batch", "kv_seq", None)
+            leaf = (None, "batch", "kv_seq", None)
         else:
-            leaf = ("layers", "batch", "kv_seq", "kv_heads", None)
+            leaf = (None, "batch", "kv_seq",
+                    tp_axis(self.cfg.n_kv_heads, "kv_heads"), None)
         out = {}
         for seg in self.segments:
             pair = (leaf, leaf)
@@ -336,11 +345,11 @@ class TransformerLM:
         config has a vision stub and they are given (the reference's
         ``_embed``)."""
         x = embed_lookup(params["embed"], tokens, self.compute_dtype)
-        if vision_embeds is None:
-            return x
-        npch = self._n_patches(vision_embeds)
-        vis = vision_embeds.to(self.compute_dtype)
-        return torch.cat([vis, x[:, npch:, :]], dim=1)
+        if vision_embeds is not None:
+            npch = self._n_patches(vision_embeds)
+            vis = vision_embeds.to(self.compute_dtype)
+            x = torch.cat([vis, x[:, npch:, :]], dim=1)
+        return constrain(x, "batch", "seq", None)
 
     def _n_patches(self, vision_embeds: Tensor) -> int:
         """The config's patch count, checked against ``vision_embeds``:

@@ -33,7 +33,9 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import Params, dtype_of, norm_apply
+from repro_torch.distributed.sharding import on_local_rows, unshard
+from repro_torch.models.layers import (Leaf, Params, dtype_of, norm_apply,
+                                      project)
 
 Tensor = torch.Tensor
 
@@ -61,25 +63,28 @@ def _if_bias(shape) -> Tensor:
 
 
 def mlstm_spec(cfg) -> Params:
-    """(shape, init[, dtype]) of one mLSTM block, scaled as the
+    """The ``Leaf``s of one mLSTM block, scaled as the
     reference's ``mlstm_init`` (``repro/models/xlstm.py:50-77``); the
     gate projection and its bias in float32."""
     d, h = cfg.d_model, cfg.n_heads
     d_in, d_qk, _, _ = _dims(cfg)
+    xi = "xl_inner"
     return {
-        "norm": {"scale": ((d,), "ones")},
-        "up_u": {"w": ((d, d_in), d ** -0.5)},
-        "up_z": {"w": ((d, d_in), d ** -0.5)},
-        "conv_w": ((cfg.xlstm.conv_kernel, d_in), 0.5),
-        "conv_b": ((d_in,), "zeros"),
-        "wq": {"w": ((d_in, d_qk), d_in ** -0.5)},
-        "wk": {"w": ((d_in, d_qk), d_in ** -0.5)},
-        "wv": {"w": ((d_in, d_in), d_in ** -0.5)},
-        "w_if": {"w": ((d_in, 2 * h), d_in ** -0.5, "float32"),
-                 "b": ((2 * h,), _if_bias, "float32")},
-        "out_norm": {"scale": ((d_in,), "ones")},
-        "down": {"w": ((d_in, d),
-                       d_in ** -0.5 / (2 * cfg.n_layers) ** 0.5)},
+        "norm": {"scale": Leaf((d,), "ones", (None,))},
+        "up_u": {"w": Leaf((d, d_in), d ** -0.5, ("embed", xi))},
+        "up_z": {"w": Leaf((d, d_in), d ** -0.5, ("embed", xi))},
+        "conv_w": Leaf((cfg.xlstm.conv_kernel, d_in), 0.5, (None, xi)),
+        "conv_b": Leaf((d_in,), "zeros", (xi,)),
+        "wq": {"w": Leaf((d_in, d_qk), d_in ** -0.5, (xi, None))},
+        "wk": {"w": Leaf((d_in, d_qk), d_in ** -0.5, (xi, None))},
+        "wv": {"w": Leaf((d_in, d_in), d_in ** -0.5, (xi, xi))},
+        "w_if": {"w": Leaf((d_in, 2 * h), d_in ** -0.5, (xi, None),
+                           "float32"),
+                 "b": Leaf((2 * h,), _if_bias, (None,), "float32")},
+        "out_norm": {"scale": Leaf((d_in,), "ones", (xi,))},
+        "down": {"w": Leaf((d_in, d),
+                           d_in ** -0.5 / (2 * cfg.n_layers) ** 0.5,
+                           (xi, "embed"))},
     }
 
 
@@ -159,8 +164,8 @@ def mlstm_apply(p: Params, cfg, x: Tensor, *,
     d_in, _, kq, kv = _dims(cfg)
 
     xn = norm_apply(p["norm"], x, "rmsnorm").to(cd)
-    u = torch.matmul(xn, p["up_u"]["w"].to(cd))
-    z = torch.matmul(xn, p["up_z"]["w"].to(cd))
+    u = project(xn, p["up_u"]["w"].to(cd))
+    z = project(xn, p["up_z"]["w"].to(cd))
 
     decode = cache is not None and s == 1
     if decode:
@@ -173,15 +178,15 @@ def mlstm_apply(p: Params, cfg, x: Tensor, *,
         cu = F.silu(_conv_causal(u, p["conv_w"].to(cd), p["conv_b"].to(cd))
                     .float()).to(cd)
 
-    q = torch.matmul(cu, p["wq"]["w"].to(cd))
-    k = torch.matmul(cu, p["wk"]["w"].to(cd))
-    v = torch.matmul(u, p["wv"]["w"].to(cd))
-    gates = torch.matmul(cu.float(), p["w_if"]["w"]) + p["w_if"]["b"]
+    q = project(cu, p["wq"]["w"].to(cd))
+    k = project(cu, p["wk"]["w"].to(cd))
+    v = project(u, p["wv"]["w"].to(cd))
+    gates = project(cu.float(), p["w_if"]["w"]) + p["w_if"]["b"]
     i_raw = gates[..., :nh].transpose(1, 2)          # [B,H,S]
     f_raw = gates[..., nh:].transpose(1, 2)
 
     def heads(t, dh):
-        return t.reshape(b, s, nh, dh).transpose(1, 2).float()
+        return unshard(t, -1).reshape(b, s, nh, dh).transpose(1, 2).float()
 
     qh, kh, vh = heads(q, kq), heads(k, kq), heads(v, kv)
 
@@ -219,10 +224,10 @@ def mlstm_apply(p: Params, cfg, x: Tensor, *,
             conv_buf.copy_(torch.cat([conv_buf, u], dim=1)
                            [:, -conv_buf.shape[1]:])
 
-    h_flat = h.transpose(1, 2).reshape(b, s, d_in).to(cd)
+    h_flat = unshard(h, -1).transpose(1, 2).reshape(b, s, d_in).to(cd)
     h_flat = norm_apply(p["out_norm"], h_flat, "rmsnorm")
     h_gated = h_flat * F.silu(z.float()).to(cd)
-    return torch.matmul(h_gated, p["down"]["w"].to(cd))
+    return project(h_gated, p["down"]["w"].to(cd))
 
 
 # ---------------------------------------------------------------------------
@@ -243,30 +248,32 @@ def _slstm_bias(cfg):
 
 
 def slstm_spec(cfg) -> Params:
-    """(shape, init[, dtype]) of one sLSTM block, scaled as the
+    """The ``Leaf``s of one sLSTM block, scaled as the
     reference's ``slstm_init`` (``xlstm.py:244-275``); the gate bias and
     the recurrent matrices in float32."""
     d, h = cfg.d_model, cfg.n_heads
     dh = d // h
     f = int(cfg.xlstm.slstm_proj_factor * d)
     return {
-        "norm": {"scale": ((d,), "ones")},
-        "w": {"w": ((d, 4 * d), d ** -0.5),
-              "b": ((4 * d,), _slstm_bias(cfg), "float32")},
-        "r": ((h, dh, 4 * dh), dh ** -0.5, "float32"),
-        "up_g": {"w": ((d, f), d ** -0.5)},
-        "up_u": {"w": ((d, f), d ** -0.5)},
-        "down": {"w": ((f, d), f ** -0.5 / (2 * cfg.n_layers) ** 0.5)},
+        "norm": {"scale": Leaf((d,), "ones", (None,))},
+        "w": {"w": Leaf((d, 4 * d), d ** -0.5, ("embed", None)),
+              "b": Leaf((4 * d,), _slstm_bias(cfg), (None,), "float32")},
+        "r": Leaf((h, dh, 4 * dh), dh ** -0.5, (None, None, None), "float32"),
+        "up_g": {"w": Leaf((d, f), d ** -0.5, ("embed", "mlp"))},
+        "up_u": {"w": Leaf((d, f), d ** -0.5, ("embed", "mlp"))},
+        "down": {"w": Leaf((f, d), f ** -0.5 / (2 * cfg.n_layers) ** 0.5,
+                           ("mlp", "embed"))},
     }
 
 
-def _slstm_step(p: Params, heads: int, carry, wx_t: Tensor):
+def _slstm_step(r: Tensor, heads: int, carry, wx_t: Tensor):
     """One sLSTM position (``xlstm.py:278-300``): carry (c, n, m, h) each
-    [B, d] float32, ``wx_t`` [B, 4d]. Returns the new carry."""
+    [B, d] float32, ``wx_t`` [B, 4d], ``r`` the recurrent matrices.
+    Returns the new carry."""
     c, n, m, h = carry
     b, d = h.shape
     dh = d // heads
-    rh = torch.einsum("bhd,hdg->bhg", h.reshape(b, heads, dh), p["r"])
+    rh = torch.einsum("bhd,hdg->bhg", h.reshape(b, heads, dh), r)
     rh = rh.reshape(b, heads, 4, dh).transpose(1, 2).reshape(b, 4 * d)
     pre = wx_t + rh                                   # [z | i | f | o]
     z_t = torch.tanh(pre[:, :d])
@@ -291,23 +298,28 @@ def slstm_apply(p: Params, cfg, x: Tensor, *,
     cd = dtype_of(cfg.compute_dtype)
     b, s, d = x.shape
     xn = norm_apply(p["norm"], x, "rmsnorm").to(cd)
-    wx = torch.matmul(xn, p["w"]["w"].to(cd)).float() + p["w"]["b"]
+    wx = project(xn, p["w"]["w"].to(cd)).float() + p["w"]["b"]
     if cache is None:
         zero = wx.new_zeros((b, d))
         carry = (zero, zero, wx.new_full((b, d), NEG), zero)
     else:
         carry = tuple(cache)
-    hs = []
-    for t in range(s):
-        carry = _slstm_step(p, cfg.n_heads, carry, wx[:, t])
-        hs.append(carry[3])
+
+    def scan(wx, c, n, m, h, r):
+        carry, hs = (c, n, m, h), []
+        for t in range(s):
+            carry = _slstm_step(r, cfg.n_heads, carry, wx[:, t])
+            hs.append(carry[3])
+        return carry, torch.stack(hs, dim=1)
+
+    carry, h_seq = on_local_rows(scan, (wx, *carry), (p["r"],))
     if cache is not None:
         for dst, src in zip(cache, carry):
             dst.copy_(src)
-    h_seq = torch.stack(hs, dim=1).to(cd)             # [B,S,d]
-    g = F.silu(torch.matmul(h_seq, p["up_g"]["w"].to(cd)).float()).to(cd)
-    u = torch.matmul(h_seq, p["up_u"]["w"].to(cd))
-    return torch.matmul(g * u, p["down"]["w"].to(cd))
+    h_seq = h_seq.to(cd)                              # [B,S,d]
+    g = F.silu(project(h_seq, p["up_g"]["w"].to(cd)).float()).to(cd)
+    u = project(h_seq, p["up_u"]["w"].to(cd))
+    return project(g * u, p["down"]["w"].to(cd))
 
 
 def slstm_cache_shapes(cfg, batch_size: int):

@@ -33,6 +33,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed.sharding import constrain
 from repro_torch.models.common import (
     Params,
     chunked_ce_loss,
@@ -41,6 +42,7 @@ from repro_torch.models.common import (
     init_embed_and_head,
     init_params,
     lm_head_weight,
+    logical_specs,
     prefill_chunk_scan,
     stack_spec,
     unbind_layers,
@@ -92,10 +94,15 @@ class XLSTMLM:
                 "slstm": stack_spec(slstm_spec(cfg), g)}
 
     def param_spec(self) -> Dict[str, Any]:
-        """(shape, init) of every parameter."""
+        """The ``Leaf``s of every parameter."""
         spec = embed_and_head_spec(self.cfg)
         spec["groups"] = self.group_spec()
         return spec
+
+    def param_specs(self) -> Dict[str, Any]:
+        """The logical axes of every parameter, in ``init``'s structure,
+        stacked leaves under a leading None (the reference's spec tree)."""
+        return logical_specs(self.param_spec())
 
     def init(self, generator: torch.Generator) -> Params:
         """Random parameters drawn from ``generator`` (on the model's
@@ -142,11 +149,11 @@ class XLSTMLM:
     def cache_specs(self) -> Dict[str, Any]:
         """Each cache leaf's axis names: the request axis "batch" behind
         the layer axis; no sequence axis (nothing pages)."""
-        return {"mlstm": (("layers", "batch", None, None, "xl_inner"),
-                          ("layers", "batch", None, None),
-                          ("layers", "batch", None),
-                          ("layers", "batch", None, "xl_inner")),
-                "slstm": (("layers", "batch", None),) * 4}
+        return {"mlstm": ((None, "batch", None, None, "xl_inner"),
+                          (None, "batch", None, None),
+                          (None, "batch", None),
+                          (None, "batch", None, "xl_inner")),
+                "slstm": ((None, "batch", None),) * 4}
 
     # --------------------------------------------------------------- forward
     def _block(self, kind: str, p: Params, x: Tensor, cache=None) -> Tensor:
@@ -167,6 +174,7 @@ class XLSTMLM:
         recomputed in the backward pass (the reference's ``remat``)."""
         cfg = self.cfg
         x = embed_lookup(params["embed"], batch["tokens"], self.compute_dtype)
+        x = constrain(x, "batch", "seq", None)
         for kind, p, _ in self.blocks(params):
             x = checkpoint(self._block, kind, p, x, use_reentrant=False,
                            preserve_rng_state=False)

@@ -1,5 +1,5 @@
 """Optimizers: AdamW and Kahan-compensated AdamW, schedules (counterpart
-of ``repro/optim``; ``opt_state_specs`` waits for the mesh work)."""
+of ``repro/optim``)."""
 
 from repro_torch.optim.adamw import (  # noqa: F401
     AdamWConfig,
@@ -9,5 +9,6 @@ from repro_torch.optim.adamw import (  # noqa: F401
     global_norm,
     global_norm_ref,
     init,
+    opt_state_specs,
 )
 from repro_torch.optim import schedule  # noqa: F401

@@ -8,8 +8,15 @@ parameter, against fp32 master weights' 4) that carries the dropped bits
 across steps: the paper's compensated accumulation applied over time.
 
 States:
-  AdamW      : m, v (fp32), params in their own dtype
-  KahanAdamW : m, v (fp32), params + comp in the param dtype
+  AdamW      : m, v (``moment_dtype``: fp32, or bf16 under kahan),
+               params in their own dtype
+  KahanAdamW : m, v (``moment_dtype``), params + comp in the param dtype
+
+Sharded (DTensor) parameters: every leaf of params, grads and state is
+a DTensor laid out by ``opt_state_specs``. The global norm is one
+compensated reduction over every rank's local shards (``global_norm``),
+bitwise the same on every rank; the update is elementwise, so it runs on
+each leaf's local shard and gives each element its unsharded update.
 
 The step updates params, m, v and comp IN PLACE: the reference's train
 step donates them, so XLA reuses their buffers; eager PyTorch says so
@@ -26,9 +33,12 @@ from typing import Any, NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.core import tree as _tree
-from repro_torch.core.kahan import (_fma, add, div, flush, kahan_step_, mul,
-                                    sub, tree_kahan_sq_norm)
-from repro_torch.kernels.engine import CompensatedReduction, merge_accumulators
+from repro_torch.distributed.sharding import is_dtensor
+from repro_torch.core.kahan import (_fma, add, div, flush, gather_ranks,
+                                    kahan_sq_pair, kahan_step_, mul, sub,
+                                    tree_kahan_sq_norm)
+from repro_torch.kernels.engine import (LANES, SUBLANES, CompensatedReduction,
+                                        merge_accumulators)
 
 Tensor = torch.Tensor
 
@@ -42,7 +52,13 @@ class AdamWConfig:
     weight_decay: float = 0.1
     grad_clip: float = 1.0
     kahan: bool = True               # compensated bf16 parameter updates
+    moment_dtype: str = "float32"    # bf16 moments are viable under kahan
     kahan_norm: bool = True          # compensated global-norm computation
+
+    def __post_init__(self):
+        if self.moment_dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"moment_dtype {self.moment_dtype!r}: float32 "
+                             f"or bfloat16")
 
 
 class OptState(NamedTuple):
@@ -60,8 +76,9 @@ def init(cfg: AdamWConfig, params: Any) -> OptState:
     its other state, as flushed values: every value it writes is."""
     for p in _tree.leaves(params):
         p.copy_(flush(p))
+    mdt = getattr(torch, cfg.moment_dtype)
     zeros = lambda: _tree.tree_map(  # noqa: E731
-        lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device),
+        lambda p: torch.zeros_like(p, dtype=mdt, requires_grad=False),
         params)
     comp = None
     if cfg.kahan:
@@ -73,23 +90,87 @@ def init(cfg: AdamWConfig, params: Any) -> OptState:
                     m=zeros(), v=zeros(), comp=comp)
 
 
+def opt_state_specs(params_specs: Any, cfg: AdamWConfig) -> OptState:
+    """Logical specs matching ``init``: moments and comp shard like the
+    params, the step is replicated (``repro/optim/adamw.py:63-68``)."""
+    comp = params_specs if cfg.kahan else None
+    return OptState(step=(), m=params_specs, v=params_specs, comp=comp)
+
+
+def _square_sums(eng: CompensatedReduction, leaves) -> Tuple[Tensor, Tensor]:
+    """Each leaf's squares through ``sum_accumulators`` (B3), the (s, c)
+    grids flattened and concatenated in leaf order."""
+    accs = []
+    for g in leaves:
+        gf = flush(g.float())
+        accs.append(eng.sum_accumulators(_sliced(mul, gf, gf)))
+    return (torch.cat([a.s.reshape(-1) for a in accs]),
+            torch.cat([a.c.reshape(-1) for a in accs]))
+
+
 def engine_sq_norm(grads: Any) -> Tensor:
     """Sum of squares of every leaf through the engine's compensated fold
     (``repro/optim/adamw.py:71-85``): each leaf's squares go through
     ``sum_accumulators`` (B3, one launch a leaf on the card), the
     per-leaf ``(s, c)`` grids concatenate in leaf order, and ONE
     ``merge_accumulators`` tree collapses them."""
-    eng = CompensatedReduction()
-    accs = []
-    for g in _tree.leaves(grads):
-        gf = flush(g.float())
-        accs.append(eng.sum_accumulators(_sliced(mul, gf, gf)))
-    s = torch.cat([a.s.reshape(-1) for a in accs])
-    c = torch.cat([a.c.reshape(-1) for a in accs])
-    return merge_accumulators(s, c)
+    return merge_accumulators(*_square_sums(CompensatedReduction(),
+                                            _tree.leaves(grads)))
+
+
+def _owned_shard(t) -> Optional[Tensor]:
+    """A DTensor's local shard where this rank holds its first copy
+    (coordinate 0 on every mesh dimension it is replicated over), else
+    None: each element then counts once in a sharded norm."""
+    coord = t.device_mesh.get_coordinate()
+    if any(c and pl.is_replicate() for c, pl in zip(coord, t.placements)):
+        return None
+    return t.to_local().contiguous()
+
+
+def sharded_sq_norm(cfg: AdamWConfig, grads: Any) -> Tensor:
+    """The squared global norm of DTensor ``grads`` whose mesh spans the
+    world. Every rank reduces the shards it owns (``_owned_shard``; the
+    other leaves count zero), with ``kahan_norm`` as ``kahan_sq_pair``
+    (the column scan) into one (s, c) pair, without it through B3 into
+    one (s, c) grid a leaf. The pairs or grids are gathered in rank order
+    (``core.kahan.gather_ranks``) and folded by the engine's two-sum tree
+    (``merge_accumulators``), as ``distributed.collectives.sharded_asum``
+    folds: bitwise the same on every rank and from run to run."""
+    flat = _tree.leaves(grads)
+    owned = [_owned_shard(g) for g in flat]
+    device = flat[0].to_local().device
+    if cfg.kahan_norm:
+        s, c = kahan_sq_pair([x for x in owned if x is not None], device)
+    else:
+        eng = CompensatedReduction()
+        grid = SUBLANES * eng.unroll * LANES
+        mine = [x for x in owned if x is not None]
+        s, c = (torch.zeros(grid * len(flat), dtype=torch.float32,
+                            device=device) for _ in range(2))
+        if mine:
+            done = torch.tensor([x is not None for x in owned],
+                                device=device).repeat_interleave(grid)
+            s[done], c[done] = _square_sums(eng, mine)
+    return merge_accumulators(gather_ranks(s.reshape(1, -1)),
+                              gather_ranks(c.reshape(1, -1)))
+
+
+def _like_param(g, p):
+    """A DTensor gradient redistributed to its parameter's placements."""
+    if tuple(g.placements) == tuple(p.placements):
+        return g
+    return g.redistribute(p.device_mesh, p.placements)
+
+
+def _local(leaves: list) -> list:
+    """DTensor leaves as their local shards (views: writes go through)."""
+    return [t.to_local() if is_dtensor(t) else t for t in leaves]
 
 
 def global_norm(cfg: AdamWConfig, grads: Any) -> Tensor:
+    if is_dtensor(_tree.leaves(grads)[0]):
+        return torch.sqrt(sharded_sq_norm(cfg, grads))
     if cfg.kahan_norm:
         return torch.sqrt(tree_kahan_sq_norm(grads))
     return torch.sqrt(engine_sq_norm(grads))
@@ -157,8 +238,15 @@ def apply_update(cfg: AdamWConfig, params: Any, grads: Any, state: OptState,
     """One optimizer step (``repro/optim/adamw.py:95-159``). ``grads`` may
     be any float dtype (upcast to fp32 for the moment math). Updates
     ``params`` and the state's tensors in place and returns (params, the
-    new state, metrics)."""
+    new state, metrics). DTensor gradients are first laid out as their
+    params (the reduce-scatter of ZeRO: ``grads`` in the params' specs)."""
+    if is_dtensor(state.step):
+        grads = _tree.tree_map(_like_param, grads, params)
     step = state.step + 1
+    if is_dtensor(step):
+        step = step.to_local()
+    if is_dtensor(lr_scale):
+        lr_scale = lr_scale.to_local()
     gnorm = global_norm(cfg, grads)
     clip_scale = 1.0
     if cfg.grad_clip > 0:
@@ -170,11 +258,12 @@ def apply_update(cfg: AdamWConfig, params: Any, grads: Any, state: OptState,
     c2 = 1.0 - b2 ** step.to(torch.float32)
     lr = cfg.lr * lr_scale
 
-    flat_p = _tree.leaves(params)
-    flat_g = _tree.leaves(grads)
-    flat_m = _tree.leaves(state.m)
-    flat_v = _tree.leaves(state.v)
-    flat_c = _tree.leaves(state.comp) if cfg.kahan else [None] * len(flat_p)
+    flat_p = _local(_tree.leaves(params))
+    flat_g = _local(_tree.leaves(grads))
+    flat_m = _local(_tree.leaves(state.m))
+    flat_v = _local(_tree.leaves(state.v))
+    flat_c = (_local(_tree.leaves(state.comp)) if cfg.kahan
+              else [None] * len(flat_p))
     for p, g, m, v, c in zip(flat_p, flat_g, flat_m, flat_v, flat_c):
         # every float32 op flushes as the reference's does (C2); the
         # grads are the one input from outside, flushed here once
@@ -211,6 +300,9 @@ def apply_update(cfg: AdamWConfig, params: Any, grads: Any, state: OptState,
             kahan_step_(p, c, delta.to(p.dtype))
         else:
             p.copy_(_sliced(add, p.float(), delta).to(p.dtype))
+    if is_dtensor(state.step):
+        state.step.to_local().copy_(step)
+        step = state.step
     new_state = OptState(step=step, m=state.m, v=state.v,
                          comp=state.comp if cfg.kahan else None)
     lr_out = torch.as_tensor(lr, dtype=torch.float32, device=gnorm.device)

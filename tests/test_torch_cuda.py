@@ -1394,3 +1394,144 @@ def _to_device(tree, dev):
     if isinstance(tree, (list, tuple)):
         return type(tree)(_to_device(v, dev) for v in tree)
     return tree.to(dev)
+
+
+# ---------------------------------------------------------------------------
+# The sharded norm and B7 on a rank's heads (the sharded steps)
+# ---------------------------------------------------------------------------
+
+#: the sharded norm's tree: leaves sharded on rows over "data", one
+#: replicated (norm scales), one on columns
+_NORM_SHAPES = {"emb": (1000, 64), "w": (4, 96, 48), "scale": (64,),
+                "cols": (3, 130)}
+_NORM_SPECS = {"emb": ("vocab", "embed"), "w": (None, "embed", "mlp"),
+               "scale": (None,), "cols": (None, "embed")}
+
+_NORM_RANK = """
+import sys, torch, torch.distributed as dist
+from torch.distributed.device_mesh import init_device_mesh
+from repro_torch.distributed import sharding as shd
+from repro_torch.kernels import engine
+from repro_torch.optim import AdamWConfig
+from repro_torch.optim.adamw import sharded_sq_norm
+rank, store, out = int(sys.argv[1]), sys.argv[2], sys.argv[3]
+shapes, specs = eval(sys.argv[4]), eval(sys.argv[5])
+dist.init_process_group("gloo", store=dist.FileStore(store, 2), rank=rank,
+                        world_size=2)
+mesh = init_device_mesh("cuda", (2, 1), mesh_dim_names=("data", "model"))
+gen = torch.Generator(device="cuda").manual_seed(28)
+grads = {k: torch.randn(s, generator=gen, device="cuda")
+         for k, s in sorted(shapes.items())}
+dgrads = shd.distribute_tree(mesh, shd.TRAIN_RULES, specs, grads)
+res = {}
+for kahan_norm in (True, False):
+    engine.reset_launch_counts()
+    got = sharded_sq_norm(AdamWConfig(kahan_norm=kahan_norm), dgrads)
+    res[kahan_norm] = {"sq": got.cpu(), "launches": engine.launch_counts(),
+                       "local": {k: g.to_local().cpu()
+                                 for k, g in dgrads.items()},
+                       "placements": {k: str(g.placements)
+                                      for k, g in dgrads.items()}}
+torch.save(res, out)
+dist.barrier()
+dist.destroy_process_group()
+"""
+
+
+@pytest.mark.cuda
+def test_cuda_sharded_norm_two_ranks(cuda_device, tmp_path):
+    """Two gloo ranks on the card, a tree of DTensor gradients on a (data
+    2, model 1) mesh: the sharded squared norm is the same bits on both
+    ranks, launches the column scan (``kahan_norm``) or B3 once a leaf a
+    rank owns, and equals the fold of the per-rank partials computed here:
+    under B3, each rank's grids from the CPU's plain version on the same
+    shards, gathered and folded on the CPU, bit for bit; under the column
+    scan, each rank's (s, c) pair from the kernel on the same shards
+    folded by the same tree (the column vectors are the plain loop's,
+    ``test_cuda_column_scan_matches_loop``)."""
+    from repro_torch.core.kahan import kahan_sq_pair
+    from repro_torch.kernels import engine
+    from repro_torch.optim.adamw import _square_sums
+
+    root = Path(__file__).resolve().parents[1]
+    ranks = [subprocess.Popen(
+        [sys.executable, "-c", _NORM_RANK, str(r), str(tmp_path / "store"),
+         str(tmp_path / f"rank{r}.pt"), repr(_NORM_SHAPES),
+         repr(_NORM_SPECS)], cwd=root,
+        env=dict(os.environ, PYTHONPATH=str(root / "src")),
+        stderr=subprocess.PIPE, text=True) for r in range(2)]
+    for p in ranks:
+        _, err = p.communicate(timeout=300)
+        assert p.returncode == 0, err[-3000:]
+    res = [torch.load(tmp_path / f"rank{r}.pt") for r in range(2)]
+    keys = sorted(_NORM_SHAPES)
+    # rank 1 owns no copy of a replicated leaf ("scale")
+    owned = [[res[r][True]["local"][k] for k in keys
+              if r == 0 or "Shard" in res[r][True]["placements"][k]]
+             for r in range(2)]
+    eng = engine.CompensatedReduction()
+    grid = 8 * eng.unroll * 128
+    s_all, c_all, pairs = [], [], []
+    for r in range(2):
+        s = torch.zeros(grid * len(keys))
+        c = torch.zeros_like(s)
+        mine = [k for k in keys
+                if r == 0 or "Shard" in res[r][True]["placements"][k]]
+        ps, pc = _square_sums(eng, [res[r][True]["local"][k] for k in mine])
+        for j, k in enumerate(mine):
+            i = keys.index(k)
+            s[i * grid:(i + 1) * grid] = ps[j * grid:(j + 1) * grid]
+            c[i * grid:(i + 1) * grid] = pc[j * grid:(j + 1) * grid]
+        s_all.append(s)
+        c_all.append(c)
+        pairs.append(kahan_sq_pair([x.to(cuda_device) for x in owned[r]]))
+    want_b3 = engine.merge_accumulators(torch.stack(s_all),
+                                        torch.stack(c_all))
+    want_col = engine.merge_accumulators(
+        torch.stack([p[0] for p in pairs]).reshape(2, 1),
+        torch.stack([p[1] for p in pairs]).reshape(2, 1))
+    for r in range(2):
+        assert torch.equal(res[r][False]["sq"], res[0][False]["sq"])
+        assert torch.equal(res[r][True]["sq"], res[0][True]["sq"])
+        assert torch.equal(res[r][False]["sq"], want_b3)
+        assert torch.equal(res[r][True]["sq"], want_col.cpu())
+        assert res[r][False]["launches"]["sum_accumulators"] == len(owned[r])
+        assert res[r][True]["launches"]["column_sq_accumulators"] == sum(
+            x.dim() >= 2 and x.shape[0] > 1 for x in owned[r])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("heads,groups", [(16, 1), (8, 4)])
+def test_cuda_flash_on_local_heads_equals_full_launch(cuda_device, heads,
+                                                      groups):
+    """B7 on one rank's heads (the sharded prefill's local launch): its
+    grids equal those heads' rows of one launch over every head, bit for
+    bit, and the plain version on the same heads; so do the finalized
+    outputs of ``flash_attention``."""
+    from repro_torch.kernels import flash_attention as fa
+
+    gen = torch.Generator(device=cuda_device).manual_seed(15)
+    b, s, dh, ranks = 2, 512, 128, 2
+    q = torch.randn(b, heads, s, dh, generator=gen, device=cuda_device)
+    kv = torch.randn(2, b, heads // groups, s, dh, generator=gen,
+                     device=cuda_device)
+    sch = tschemes.get("kahan")
+    kw = dict(block_q=256, block_k=256, scheme=sch, kv_len=s,
+              q_groups=groups)
+    flat = (q.flatten(0, 1), kv[0].flatten(0, 1), kv[1].flatten(0, 1))
+    full = fa.flash_accumulators(*flat, causal=True, **kw)
+    out = fa.flash_attention(*flat, causal=True, q_groups=groups)
+    per_q, per_kv = heads // ranks, heads // groups // ranks
+    for r in range(ranks):
+        ql = q[:, r * per_q:(r + 1) * per_q].flatten(0, 1).contiguous()
+        kl, vl = (t[:, r * per_kv:(r + 1) * per_kv].flatten(0, 1)
+                  .contiguous() for t in kv)
+        local = fa.flash_accumulators(ql, kl, vl, causal=True, **kw)
+        plain = fa.flash_plain(ql, kl, vl, scheme=sch, block_k=256,
+                               kv_len=s, causal=True, q_groups=groups)
+        for g, f, w in zip(local, full, plain):
+            mine = f.view(b, ranks, per_q, *f.shape[1:])[:, r].flatten(0, 1)
+            assert torch.equal(g, mine) and torch.equal(g, w)
+        got = fa.flash_attention(ql, kl, vl, causal=True, q_groups=groups)
+        assert torch.equal(got, out.view(b, ranks, per_q, s, dh)[:, r]
+                           .flatten(0, 1))
