@@ -9,7 +9,9 @@ script exits non-zero. It exits non-zero before doing anything when
 there is no CUDA device or no ``src/repro_torch`` beside it.
 
 1. The card (``nvidia-smi`` name and power limit) and the kernel build:
-   one ``nvcc`` per source, all started together.
+   one ``nvcc`` per source, all started together, each waited for just
+   before the first step that needs it (``kahan_matmul.cu``, the
+   longest, builds on beside phases 2-3's reduction and flash steps).
 2. Kernel parity. Reductions: for every built-in scheme x U in {1, 8} x
    {float32, float64, bfloat16}, the (s, c) grids of ``kahan_dot_grid``
    and ``kahan_sum_grid`` -- single and batched -- equal their plain
@@ -36,13 +38,15 @@ there is no CUDA device or no ``src/repro_torch`` beside it.
    same rows, and the autograd backward of ``ops.matmul`` launches B5
    twice and equals B5 on (g, bT) and (aT, g). The M <= 8 path on
    unpadded rows: M in {1, 3, 8} x 1, 4 and 16 K-blocks x N a multiple of
-   the CTA's 16 columns and not, for every scheme, float32 (bf16 and
-   float32 operands) and float64, equal to ``matmul_plain`` bit for bit;
-   operands whose rows are not 16-byte aligned (staged without cp.async);
-   B6 at batch 4 and M 1 equal to a loop of B5. The M > 8 path: M in {9,
-   32, 37, 64, 100, 300} x 1, 3, 4, 16 and 17 K-blocks x N 200, every
-   scheme, float32 (bf16 and float32 operands) and float64, equal to
-   ``matmul_plain`` bit for bit; B6 at batch 3 equal to a loop of B5; rows
+   the CTA's 16 columns and not, for every scheme, float32 (float32
+   operands, and bf16 ones up to 4 K-blocks) and float64, equal to
+   ``matmul_plain`` bit for bit; operands whose rows are not 16-byte
+   aligned (staged without cp.async); B6 at batch 4 and M 1 equal to a
+   loop of B5. The M > 8 path: M in {9, 32, 37, 64, 100, 300} x 1, 3 and
+   4 K-blocks and M in {9, 37, 300} x 16 and 17 K-blocks (not on bf16
+   operands), x N 200, every scheme, float32 (bf16 and float32
+   operands) and float64, equal to ``matmul_plain`` bit for bit; B6 at
+   batch 3 equal to a loop of B5; rows
    0, 8, 31 and M - 1 of M in {9, 64, 300} equal M = 1 products. The
    column scan of the compensated global norm (``kahan_sq_columns``)
    against its plain loop, bit for bit, on float32 and bf16 leaves
@@ -144,8 +148,9 @@ there is no CUDA device or no ``src/repro_torch`` beside it.
    ``STEP1_GRAD_NORM_RTOL`` of run A's, B5
    launched 4 * 7 * 16 * 2 = 896 times a step and B3 once a parameter
    leaf in run B, the column scan once a leaf in run A, nothing else;
-   the tree norm as the kernel and as the plain loop on a tree of the
-   gradients' shapes, every leaf's (s, c) bitwise equal; and at the
+   the tree norm as the kernel on a tree of the gradients' shapes, and
+   as the plain loop on its embedding leaf, its (s, c) bitwise equal to
+   the kernel's; and at the
    smoke config, a run that crashes after step 2 resumes to step 4 with
    params and optimizer state bitwise equal to the uninterrupted run.
    Logged per run: wall ms a step after the first, tokens/s, device-busy
@@ -178,8 +183,9 @@ there is no CUDA device or no ``src/repro_torch`` beside it.
    K split 2 (B5), ``activation_sq_norm`` at [4, 57344] on the
    batch-sharded mesh (B4, 2 requests a rank), ``deterministic_mean``
    and ``compressed_psum`` on a [2048, 8192] leaf, twice, then OLMo-1B
-   at full width and depth on ``make_local_mesh()`` (phase 6's run A,
-   2 steps, twice), its loss folded through ``sharded_asum``. Checked:
+   at full width, CUT to 2 of its 16 layers (``DIST_LAYERS``), on
+   ``make_local_mesh()`` (phase 6's run A, 2 steps, twice), its loss
+   folded through ``sharded_asum``. Checked:
    every result the same bits on both ranks and in both runs, equal to
    the same kernels' per-shard grids folded here by
    ``merge_accumulators`` / ``merge_accumulator_grids`` and to the plain
@@ -228,18 +234,18 @@ there is no CUDA device or no ``src/repro_torch`` beside it.
    the plain version; request 0 alone == interleaved, bitwise; the same
    trace at that depth on the paged layout (``page_size`` 16), paged
    equal to dense bitwise, the pool free at the end, ``dropped_frac`` 0
-   at every single-position MoE call; at all 27 layers the whole-prompt
-   ``TransformerLM.prefill`` of the 160-token
+   at every single-position MoE call; at the same 4 layers the
+   whole-prompt ``TransformerLM.prefill`` of the 160-token
    prompt at capacity factor 16 against the scan chunk's last logits,
    in float32 compute on the bf16 weights within relative L2 2e-3 and
    the same argmax, and in bf16 logged with the tokens routed to other
    experts; one request with ``kahan_matmul`` at the same 4 layers (B5
    28 times a position: MLA's q, dkv, kr and o, the dense layer's MLP
-   and the shared experts) and, at all 27, a 16-token scan chunk's
-   logits against the cuBLAS path, in
+   and the shared experts) and a 16-token scan chunk's logits against
+   the cuBLAS path, in
    float32 compute within relative L2 5e-2 and the same argmax, in bf16
-   logged with the tokens routed to other experts; one profiled decode
-   position (host ms,
+   logged with the tokens routed to other experts; at all 27 layers one
+   profiled decode position (host ms,
    device-busy ms, kernels). Then llama4-maverick-400b-a17b at its
    published width CUT to 2 of its 48 layers (one dense+MoE superblock;
    d 5120, 40/8 heads, 128 experts top-1, vocabulary 202048): one
@@ -254,50 +260,49 @@ there is no CUDA device or no ``src/repro_torch`` beside it.
    layers, d 1600, 25 heads over 5, attention and a selective SSM in
    every layer, 1024-token sliding-window rings on 29 layers, global
    layers {0, 15, 31}; bf16, random weights from seed 0, no cut) serves
-   phase 9's trace with flash prefill asked for, which the engine
+   ``SCAN_TRACE`` (prompts of 16, 32 and 80 tokens: phase 9's trace cut
+   in depth) with flash prefill asked for, which the engine
    resolves to the scan body (the SSM recurrence and the rings have no
    parallel chunk), the launch counts reset just before: B4 once a tick
    and finished prefill, nothing else; one tick's telemetry bitwise
-   equal to the plain version; request 0 alone == interleaved, bitwise;
-   the same trace on the paged layout (``page_size`` 16: the global
-   layers page, the rings and the SSM state stay dense slot rows) equal
-   to dense bitwise, the pool free at the end; one request with
-   ``kahan_matmul`` (B5 7 times a layer and position: q, k, v, o, gate,
-   up, down; the SSM's contractions stay plain, as in the reference).
+   equal to the plain version; request 0 alone == interleaved, bitwise
+   (the paged layout, held to dense on the CPU, is cut for time); one
+   request with ``kahan_matmul`` (B5 7 times a layer and position: q,
+   k, v, o, gate, up, down; the SSM's contractions stay plain, as in
+   the reference).
    Then the rings wrap at the published window: ``HymbaLM.prefill`` of a
    1088-token prompt under ``kahan_attention`` (B7 on the 3 global
    layers, [25, S, 64] over 5 KV heads) and 8 greedy ``decode_step``s
    against the wrapped rings, each step's logits against a prefill of
    the prompt and the tokens so far: in float32 compute on the bf16
    weights within relative L2 2e-3 (the reference test's tolerance) and
-   the same argmax, in bf16 logged; B7 3 times a prefill. One profiled
+   the same argmax; B7 3 times a prefill. One profiled
    decode position. Phase 2 first holds B4 on [4, 32001] (every scheme),
    B7/B8 at dh 64 with GQA groups of 5 and B5 at M 1 and 64 on hymba's
    projections (K 1600 and 5504, N 320, all padded by the engine),
    bitwise. Logged: params, init peak and peak GiB, tokens/s, decode-tick
-   ms, prefill ms per position, the KV held (rings, global layers dense
-   against live pages, SSM state); one JSON line ``{"hybrid": {...}}``.
+   ms, prefill ms per position, the KV held (rings, global layers, SSM
+   state); one JSON line ``{"hybrid": {...}}``.
 12. The xLSTM family. xlstm-1.3b at its published width and depth (48
    blocks: 6 groups of 7 mLSTM and one sLSTM, d 2048, 4 heads, chunk
-   512; bf16, random weights from seed 0, no cut) serves phase 9's trace
+   512; bf16, random weights from seed 0, no cut) serves ``SCAN_TRACE``
    with flash prefill and the paged layout asked for, which the engine
    resolves to the scan body and the dense layout (recurrent state
    only), the launch counts reset just before: B4 once a tick and
    finished prefill, nothing else (its projections are einsums, as in
    the reference); one tick's telemetry bitwise equal to the plain
-   version; request 0 alone == interleaved, bitwise; three 16-token
-   requests on 2 slots, the third on a slot reset on eviction to the
-   model's initial row (every stabiliser ``m`` at -1e30), equal to its
-   solo run bitwise. Then ``XLSTMLM.prefill`` of a 640-token prompt (two
-   512-token chunks, the second padded) and 8 greedy ``decode_step``s,
-   each step's logits against a prefill of the prompt and the tokens so
-   far: with the bf16 weights, the compute and every float32 cast in
-   float64 within relative L2 2e-3 and the same argmax; 2 steps in bf16
-   and float32 compute logged (rounding alone parts the two bodies
-   there, amplified block by block: ``scripts/xlstm_conditioning.py``);
-   no kernel launched. One profiled decode position. Logged: params, init peak and
-   peak GiB, the state bytes, tokens/s, decode-tick ms, prefill ms per
-   position; one JSON line ``{"xlstm": {...}}``.
+   version; request 0 alone == interleaved, bitwise (a slot reused
+   after an eviction is held to a fresh engine on the CPU,
+   ``tests/test_torch_xlstm.py``). Then ``XLSTMLM.prefill`` of a
+   640-token prompt (two 512-token chunks, the second padded) and 8
+   greedy ``decode_step``s, each step's logits against a prefill of the
+   prompt and the tokens so far: with the bf16 weights, the compute and
+   every float32 cast in float64 within relative L2 2e-3 and the same
+   argmax (in bf16 and float32 compute rounding alone parts the two
+   bodies, amplified block by block: ``scripts/xlstm_conditioning.py``);
+   no kernel launched. One profiled decode position. Logged: params,
+   init peak and peak GiB, the state bytes, tokens/s, decode-tick ms,
+   prefill ms per position; one JSON line ``{"xlstm": {...}}``.
 13. The encoder-decoder family. whisper-large-v3 at its published width
    and depth (32 encoder and 32 decoder layers, d 1280, 20 heads of 64,
    GELU MLP of 5120, 1500 frames; bf16, random weights from seed 0, no
@@ -345,6 +350,22 @@ there is no CUDA device or no ``src/repro_torch`` beside it.
    phase 4's 2048-token ``TransformerLM.prefill`` under each (B7 16
    times, in that dtype; logits finite, logged beside float32's); one
    JSON line ``{"vmap": {...}}``.
+15. The sharded steps and the dry run (``shard_path``).
+16. The contract tooling's SASS level (``cost_path``): the cost auditor
+   (``repro_torch.analysis.costmodel`` with ``register_sass``, what
+   ``python -m repro_torch.analysis --cost --sass --strict`` runs) on the
+   card's toolkit. ``csrc/cost_probe.cu`` (one kernel a built-in scheme x
+   float32 / float64 / bfloat16 x dot / sum path, each applying the
+   scheme's ``update<S>`` / ``mul_update<S>`` of ``schemes.cuh`` to one
+   loaded element; built in phase 1's pool with the kernels' flags) is
+   disassembled with ``cuobjdump``: one line a probe with its FADD /
+   FMUL / FFMA (DADD / DMUL / DFMA) counts beside the scheme's declared
+   mix and the ECM time of that mix over naive's on the H100 model (2^27
+   elements, U = 8); then one census line of the shipping libraries
+   (kahan_reduce, kahan_matmul, kahan_flash as phase 1 built them): no
+   tensor-core opcode in B1-B6 and no FFMA in the B3/B4 sum
+   instantiations. Any finding of the audit (the CPU cost cells
+   included) fails the phase.
 
 The last three lines are the card (``nvidia-smi`` name and power
 limit), one JSON object ``{"kernels": [...]}`` and
@@ -358,7 +379,7 @@ counts, "serve-<arch>" for each of phase 9's configs,
 "serve-qwen2.5-3b-matmul" for its ``kahan_matmul`` request and
 "serve-deepseek-7b-paged" for the paged trace; phase 10's
 "serve-deepseek-v2-lite" (and "-paged", "-matmul") and
-"serve-llama4-maverick-2l"; phase 11's "serve-hymba-1.5b" (and "-paged",
+"serve-llama4-maverick-2l"; phase 11's "serve-hymba-1.5b" (and
 "-matmul", and "-prefill" for the ring check's float32 prefills, B7);
 phase 12's "serve-xlstm-1.3b"; phase 13's "serve-whisper-large-v3" (and
 "-paged", "-matmul"), "whisper-encode-matmul" (the encoder alone, B5)
@@ -391,6 +412,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import faulthandler
 import gc
 import json
 import math
@@ -408,6 +430,11 @@ LONG_TRACE = "0:1920:64"
 PAPER_N = 1 << 27
 PREFILL_LEN = 2048          # OLMo-1B's published context
 LIBRARIES = ("kahan_reduce", "kahan_flash", "kahan_matmul")
+#: seconds after which every thread's stack goes to standard error: a run
+#: past its 1200 s limit then shows where it was
+STACKS_AFTER_S = 1140
+#: phase 16's probe source (built with the libraries, never launched)
+COST_PROBE = "cost_probe"
 #: dense projections per layer with kahan_matmul (q, k, v, o, gate, up,
 #: down), each one B5 launch per prefill chunk and per decode position
 PROJECTIONS = 7
@@ -456,13 +483,19 @@ LADDER_CONDS = (1e0, 1e1, 1e4, 1e6, 1e8, 1e10, 1e12)
 #: asum and dot at the paper's n (2^26 a rank), a matmul with K split 2,
 #: the serving telemetry's shape (2 requests a rank), a [2048, 8192]
 #: leaf through the compressed all-reduce, and OLMo-1B trained on the
-#: mesh (phase 6's run A, 2 steps, twice)
+#: mesh (phase 6's run A, 2 steps, twice, cut to DIST_LAYERS layers)
 DIST_RANKS = 2
+#: seconds the two ranks of phase 8 or of phase 15 have, together, to end
+#: (they take under a minute on the H100)
+RANKS_S = 240
 DIST_N = 1 << 27
 DIST_MATMUL = (1024, 2048, 8192)
 DIST_ACT = (4, 57344)
 DIST_LEAF = (2048, 8192)
 DIST_TRAIN_STEPS = 2
+#: the layers of phase 8's OLMo-1B (of 16: the script's time limit; phase
+#: 6 trains all 16 on one rank)
+DIST_LAYERS = 2
 
 #: phase 9: the dense family at published width and depth, the trace
 #: each serves (a VLM's prompts are its patches plus SLICE_VLM_TEXT text
@@ -470,6 +503,10 @@ DIST_TRAIN_STEPS = 2
 SLICE_ARCHS = ("deepseek-7b", "stablelm-3b", "qwen2.5-3b", "internvl2-2b")
 SLICE_NEW = 8
 SLICE_TRACE = f"0:48:{SLICE_NEW},1:96:{SLICE_NEW},2:160:{SLICE_NEW}"
+#: phase 9's trace cut in depth for the families whose prefill resolves to
+#: the scan body (hymba, xlstm: one position at a time on the host): the
+#: third prompt still spans two 64-token chunks
+SCAN_TRACE = f"0:16:{SLICE_NEW},1:32:{SLICE_NEW},2:80:{SLICE_NEW}"
 SLICE_VLM_TEXT = 32
 PAGE_SIZE = 16
 #: phase 10: the MoE family. deepseek-v2-lite at its published width and
@@ -480,9 +517,10 @@ LLAMA4 = "llama4-maverick-400b-a17b"
 LLAMA4_LAYERS = 2
 LLAMA4_TRACE = "0:32:4"
 MOE_CHECK_CAPACITY = 16.0
-#: deepseek-v2-lite's paged and kahan_matmul runs take its first
-#: MOE_CUT_LAYERS layers (the dense prefix and 3 MoE layers): the
-#: script's time limit; its dense run keeps all 27
+#: deepseek-v2-lite's trace, paged and kahan_matmul runs and its prefill
+#: and cuBLAS comparisons take its first MOE_CUT_LAYERS layers (the dense
+#: prefix and 3 MoE layers): the script's time limit; its decode profile
+#: keeps all 27
 MOE_CUT_LAYERS = 4
 #: the gate of a MoE config's prefill against its scan chunk, in float32
 #: compute on the bf16 weights: the reference test's tolerance. In bf16
@@ -496,12 +534,12 @@ MOE_PREFILL_REL = 2e-3
 MOE_B5_ROW = "dsv2-decode-shared-gate-up"
 
 #: phase 11: the hybrid family. hymba-1.5b at its published width and
-#: depth serves phase 9's trace; its rings wrap in a whole-prompt prefill
+#: depth serves SCAN_TRACE; its rings wrap in a whole-prompt prefill
 #: of HYMBA_RING_PROMPT tokens (past the 1024-token window) and
 #: HYMBA_RING_STEPS greedy decode steps after it, each step's logits held
 #: to a prefill of the prompt and the tokens so far within relative L2
 #: HYMBA_RING_REL (the reference test's tolerance) in float32 compute on
-#: the bf16 weights; bf16 is logged
+#: the bf16 weights
 HYMBA = "hymba-1.5b"
 HYMBA_RING_PROMPT = 1088
 HYMBA_RING_STEPS = 8
@@ -510,27 +548,20 @@ HYMBA_RING_REL = 2e-3
 HYMBA_B5_ROW = "hymba-decode-qo"
 
 #: phase 12: the xLSTM family. xlstm-1.3b at its published width and
-#: depth serves phase 9's trace (and XLSTM_REUSE_TRACE on 2 slots, so
-#: that the third request reuses an evicted slot); a whole-prompt prefill of
+#: depth serves SCAN_TRACE; a whole-prompt prefill of
 #: XLSTM_PROMPT tokens crosses the 512-token chunk and takes the pad path,
 #: then XLSTM_STEPS greedy decode steps, each step's logits held to a
 #: prefill of the prompt and the tokens so far within relative L2
 #: XLSTM_REL (the reference test's tolerance) with the bf16 weights, the
-#: compute and every float32 cast of the model in float64; bf16 and
-#: float32 compute are logged. At this width and depth with random
-#: weights each mLSTM block amplifies a perturbation of its input, and
-#: float32 rounding alone parts the two bodies by about 0.2
-#: (``scripts/xlstm_conditioning.py``): only float64 separates a fault
-#: from rounding
+#: compute and every float32 cast of the model in float64. At this width
+#: and depth with random weights each mLSTM block amplifies a
+#: perturbation of its input, and float32 rounding alone parts the two
+#: bodies by about 0.2 (``scripts/xlstm_conditioning.py``): only float64
+#: separates a fault from rounding
 XLSTM = "xlstm-1.3b"
 XLSTM_PROMPT = 640
 XLSTM_STEPS = 8
 XLSTM_REL = 2e-3
-#: the logged compute dtypes' decode steps (the script's time limit)
-XLSTM_LOGGED_STEPS = 2
-#: three requests on 2 slots: the third waits for an eviction and
-#: reuses the freed slot
-XLSTM_REUSE_TRACE = "0:16:8,0:16:8,1:16:8"
 #: phase 13: the encoder-decoder family. whisper-large-v3 at its
 #: published width and depth serves phase 9's trace with each request's
 #: frames; its whole-prompt prefill (B7) is held to the chunked path over
@@ -555,12 +586,13 @@ DTYPE_TRACE = "0:64:8"
 #: phase 15: the sharded steps that ``launch.specs.build_cell`` and the
 #: sharding rules make, on two gloo ranks sharing the one card. OLMo-1B
 #: at its published width, cut to SHARD_LAYERS of its 16 layers (the
-#: script's time limit; phases 4-8 keep the full depth): a train step on
+#: script's time limit; phases 4-7 keep the full depth): a train step on
 #: a (data 2, model 1) mesh over a global batch of SHARD_TRAIN (batch,
 #: tokens), and a prefill of SHARD_PROMPT then SHARD_DECODE decode steps
 #: on a (data 1, model 2) mesh against a cache of SHARD_MAX_LEN positions
 #: sharded on them. Then the dry run of SHARD_DRYRUN's cells (arch,
-#: shape, both meshes) in a subprocess limited to SHARD_DRYRUN_S seconds
+#: shape, both meshes), a subprocess a row, started beside the build and
+#: limited to SHARD_DRYRUN_S seconds from the start
 SHARD_LAYERS = 2
 SHARD_TRAIN = (4, 512)
 SHARD_PROMPT = (2, 512)
@@ -617,10 +649,36 @@ def sync(torch, dev) -> None:
         torch.cuda.synchronize(dev)
 
 
+#: when the script started (``stamp`` counts from here)
+STARTED = time.perf_counter()
+
+
+def stamp(what: str) -> None:
+    """One line on standard error: the seconds since the start and the
+    step about to run, so that a run stopped at its limit shows how far it
+    got."""
+    print(f"# chip_smoke at {time.perf_counter() - STARTED:.1f} s: {what}",
+          file=sys.stderr, flush=True)
+
+
+class Steps:
+    """Runs the script's steps in order, each stamped and timed;
+    ``seconds`` maps each step to its time."""
+
+    def __init__(self):
+        self.seconds = {}
+
+    def __call__(self, what: str, fn, *args):
+        stamp(what)
+        t0 = time.perf_counter()
+        out = fn(*args)
+        self.seconds[what] = round(time.perf_counter() - t0, 1)
+        return out
+
+
 def main() -> int:
     import torch
 
-    started = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -639,59 +697,101 @@ def main() -> int:
         capture_output=True, text=True, check=True).stdout.strip()
     card = card.splitlines()[0]
     log(f"# card: {card}; torch {torch.__version__} cuda {torch.version.cuda}")
+    faulthandler.dump_traceback_later(STACKS_AFTER_S, exit=False)
+    dryrun = DryRun()
+    try:
+        run_all(torch, card, dryrun)
+    finally:
+        dryrun.stop()
+        faulthandler.cancel_dump_traceback_later()
+    return 0
+
+
+def run_all(torch, card: str, dryrun) -> None:
+    """Phases 1-16 and the closing lines (``main``)."""
+    with ThreadPoolExecutor(len(LIBRARIES) + 1) as pool:
+        run_phases(torch, card, dryrun, pool)
+
+
+def run_phases(torch, card: str, dryrun, pool) -> None:
     from repro_torch.kernels import _build
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(LIBRARIES)) as pool:
-        list(pool.map(_build.build, LIBRARIES))
-    for name in LIBRARIES:
-        _build.library(name)
-    log(f"# phase 1: built {', '.join(f'{n}.cu' for n in LIBRARIES)} in "
-        f"{time.perf_counter() - t0:.1f} s (one nvcc each, in parallel)")
+    sources = LIBRARIES + (COST_PROBE,)
+
+    def build(name):
+        _build.build(name)
+        return f"{name}.cu {time.perf_counter() - t0:.1f} s"
+
+    built = {name: pool.submit(build, name) for name in sources}
+
+    def ready(name):
+        """Waits for ``name``'s build, loads it, logs its time."""
+        done = built[name].result()
+        if name in LIBRARIES:
+            _build.library(name)
+        log(f"# phase 1: built {done} after the build started (one nvcc a "
+            f"source, all started together, beside the dry run of phase "
+            f"15(c); each waited for where it is first needed)")
 
     from repro_torch.configs import get_config
 
     dev = torch.device("cuda")
     cfg = get_config("olmo-1b")
     kernels = Kernels(torch, dev)
-    kernels.parity()
-    kernels.flash_parity(cfg.head_dim)
-    kernels.times(PAPER_N)
-    kernels.flash_times(cfg, PREFILL_LEN, serve_max_len(TRACE),
-                        serve_max_len(LONG_TRACE))
-    kernels.matmul_parity()
-    kernels.slice_parity([get_config(name) for name in SLICE_ARCHS])
-    kernels.moe_parity([get_config(MOE_ARCH), get_config(LLAMA4)])
-    kernels.hybrid_parity(get_config(HYMBA))
-    kernels.family_parity(get_config(XLSTM), get_config(WHISPER))
-    kernels.matmul_times(cfg, PREFILL_LEN)
-    kernels.dtype_parity(cfg)
-    kernels.dtype_times(cfg, PREFILL_LEN, serve_max_len(DTYPE_TRACE))
-    kernels.column_parity()
-    kernels.subnormal_parity()
-    kernels.train_times(cfg, TRAIN_BATCH // TRAIN_MICRO * TRAIN_SEQ)
-    serve_stats = main_path(torch, kernels, cfg, PAPER_N)
+    run = Steps()
+    run("phase 1 kahan_reduce.cu", ready, "kahan_reduce")
+    run("phase 2 parity", kernels.parity)
+    run("phase 1 kahan_flash.cu", ready, "kahan_flash")
+    run("phase 2 flash parity", kernels.flash_parity, cfg.head_dim)
+    run("phase 3 times", kernels.times, PAPER_N)
+    run("phase 3 flash times", kernels.flash_times, cfg, PREFILL_LEN,
+        serve_max_len(TRACE), serve_max_len(LONG_TRACE))
+    run("phase 1 kahan_matmul.cu", ready, "kahan_matmul")
+    run("phase 2 matmul parity", kernels.matmul_parity)
+    run("phase 2 slice parity", kernels.slice_parity,
+        [get_config(name) for name in SLICE_ARCHS])
+    run("phase 2 moe parity", kernels.moe_parity,
+        [get_config(MOE_ARCH), get_config(LLAMA4)])
+    run("phase 2 hybrid parity", kernels.hybrid_parity, get_config(HYMBA))
+    run("phase 2 family parity", kernels.family_parity, get_config(XLSTM),
+        get_config(WHISPER))
+    run("phase 3 matmul times", kernels.matmul_times, cfg, PREFILL_LEN)
+    run("phase 2 dtype parity", kernels.dtype_parity, cfg)
+    run("phase 3 dtype times", kernels.dtype_times, cfg, PREFILL_LEN,
+        serve_max_len(DTYPE_TRACE))
+    run("phase 2 column parity", kernels.column_parity)
+    run("phase 2 subnormal parity", kernels.subnormal_parity)
+    run("phase 3 train times", kernels.train_times, cfg,
+        TRAIN_BATCH // TRAIN_MICRO * TRAIN_SEQ)
+    serve_stats = run("phases 4-5", main_path, torch, kernels, cfg, PAPER_N)
     log(json.dumps({"serve": serve_stats}))
-    log(json.dumps({"vmap": vmap_path(torch, kernels, cfg)}))
-    train_stats = train_path(torch, kernels, cfg)
+    log(json.dumps({"vmap": run("phase 14", vmap_path, torch, kernels,
+                                cfg)}))
+    train_stats = run("phase 6", train_path, torch, kernels, cfg)
     train_stats["b5_rows_per_step"] = kernels.train_b5
     log(json.dumps({"train": train_stats}))
-    log(json.dumps(paper_path(torch, kernels, card)))
-    log(json.dumps({"dist": dist_path(torch, kernels, dist_spec(cfg))}))
-    log(json.dumps({"slice": slice_path(torch, kernels)}))
-    log(json.dumps({"moe": moe_path(torch, kernels)}))
-    log(json.dumps({"hybrid": hybrid_path(torch, kernels)}))
-    log(json.dumps({"xlstm": xlstm_path(torch, kernels)}))
-    log(json.dumps({"encdec": whisper_path(torch, kernels)}))
-    log(json.dumps({"sharded": shard_path(torch, kernels,
-                                          shard_spec(cfg))}))
-    log(f"# chip_smoke took {time.perf_counter() - started:.1f} s")
+    log(json.dumps(run("phase 7", paper_path, torch, kernels, card)))
+    log(json.dumps({"dist": run("phase 8", dist_path, torch, kernels,
+                                dist_spec(cfg))}))
+    log(json.dumps({"slice": run("phase 9", slice_path, torch, kernels)}))
+    log(json.dumps({"moe": run("phase 10", moe_path, torch, kernels)}))
+    log(json.dumps({"hybrid": run("phase 11", hybrid_path, torch,
+                                  kernels)}))
+    log(json.dumps({"xlstm": run("phase 12", xlstm_path, torch, kernels)}))
+    log(json.dumps({"encdec": run("phase 13", whisper_path, torch,
+                                  kernels)}))
+    log(json.dumps({"sharded": run("phase 15", shard_path, torch, kernels,
+                                   shard_spec(cfg), dryrun)}))
+    run("phase 1 cost_probe.cu", ready, COST_PROBE)
+    log(json.dumps({"cost": run("phase 16", cost_path)}))
+    log(f"# chip_smoke steps, seconds each: {json.dumps(run.seconds)}")
+    log(f"# chip_smoke took {time.perf_counter() - STARTED:.1f} s")
     log(card)
     log(json.dumps({"kernels": kernels.rows()}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
-    return 0
 
 
 def serve_max_len(trace: str) -> int:
@@ -1550,9 +1650,12 @@ class Kernels:
 
     def matmul_grid_parity(self):
         """The M > 8 path against ``matmul_plain``, bitwise: M in {9, 32,
-        37, 64, 100, 300} (every tile height, masked rows) x 1, 3, 4, 16
-        and 17 K-blocks of 128 (cluster splits that do and do not divide
-        the K-blocks, and more rounds than ranks) x N = 200 (ragged), for
+        37, 64, 100, 300} (every tile height, masked rows) x 1, 3 and 4
+        K-blocks of 128, and M in {9, 37, 300} (one a tile height) x 16 and
+        17 (cluster splits that do and do not divide the K-blocks, and more
+        rounds than ranks; the plain chain's time grows with K; bf16
+        operands, widened on load, at the first three only) x N = 200
+        (ragged), for
         every scheme, float32 (bf16 and float32 operands) and float64; B6
         at batch 3 equal to a loop of B5; rows 0, 8, 31 and M - 1 of M in
         {9, 64, 300} equal M = 1 products (across the rows / grid
@@ -1565,20 +1668,23 @@ class Kernels:
                 sch = self.schemes.get(name)
                 kw = dict(scheme=sch, block_m=8, block_n=200, block_k=128,
                           compute_dtype=dtype)
+                shallow = [(m, steps) for m in (9, 32, 37, 64, 100, 300)
+                           for steps in (1, 3, 4)]
+                deep = [(m, steps) for m in (9, 37, 300)
+                        for steps in (16, 17)]
                 for odt in ((f32, bf16) if dtype == f32 else (f64,)):
-                    for m in (9, 32, 37, 64, 100, 300):
-                        for steps in (1, 3, 4, 16, 17):
-                            a = self.normal((m, steps * 128)).to(odt)
-                            b = self.normal((steps * 128, 200)).to(odt)
-                            got = km.matmul_accumulators(a, b, **kw)
-                            want = km.matmul_plain(a[None], b[None],
-                                                   scheme=sch, block_k=128,
-                                                   compute_dtype=dtype)
-                            self.compare("matmul_accumulators", got,
-                                         (want[0][0], want[1][0]),
-                                         f"{name} {dtype} operands {odt} "
-                                         f"M={m} {steps} K-blocks, N=200")
-                            cases += 1
+                    for m, steps in shallow + (deep if odt != bf16 else []):
+                        a = self.normal((m, steps * 128)).to(odt)
+                        b = self.normal((steps * 128, 200)).to(odt)
+                        got = km.matmul_accumulators(a, b, **kw)
+                        want = km.matmul_plain(a[None], b[None], scheme=sch,
+                                               block_k=128,
+                                               compute_dtype=dtype)
+                        self.compare("matmul_accumulators", got,
+                                     (want[0][0], want[1][0]),
+                                     f"{name} {dtype} operands {odt} M={m} "
+                                     f"{steps} K-blocks, N=200")
+                        cases += 1
                 for m in (9, 64, 300):
                     a = self.normal((3, m, 2048)).to(dtype)
                     b = self.normal((3, 2048, 200)).to(dtype)
@@ -1601,10 +1707,11 @@ class Kernels:
 
     def matmul_rows_parity(self):
         """The M <= 8 path on unpadded rows against ``matmul_plain``,
-        bitwise: M in {1, 3, 8} x 1, 4 and 16 K-blocks of 128 x N = 256
-        and 200 (a multiple of the CTA's 16 columns and not) for every
-        scheme and dtype; rows that are not 16-byte aligned (N 131, K-blocks
-        of 100); B6 at batch 4, M 1 == a loop of B5."""
+        bitwise: M in {1, 3, 8} x 1, 4 and 16 K-blocks of 128 (bf16
+        operands 1 and 4) x N = 256 and 200 (a multiple of the CTA's 16
+        columns and not) for every scheme and dtype; rows that are not
+        16-byte aligned (N 131, K-blocks of 100); B6 at batch 4, M 1 == a
+        loop of B5."""
         torch, km = self.torch, self.km
         f32, f64, bf16 = torch.float32, torch.float64, torch.bfloat16
         cases = 0
@@ -1613,7 +1720,9 @@ class Kernels:
                 sch = self.schemes.get(name)
                 for odt in ((f32, bf16) if dtype == f32 else (f64,)):
                     shapes = [(m, steps * 128, n, 128) for m in (1, 3, 8)
-                              for steps in (1, 4, 16) for n in (256, 200)]
+                              for steps in ((1, 4) if odt == bf16
+                                            else (1, 4, 16))
+                              for n in (256, 200)]
                     for m, k, n, bk in shapes + [(3, 300, 131, 100)]:
                         a = self.normal((m, k)).to(odt)
                         b = self.normal((k, n)).to(odt)
@@ -2538,6 +2647,8 @@ def serve_run(torch, kernels, cfg, model, params, trace, prefill_mode,
     logits and telemetry.
     Under the paged layout the stats carry the peak pages in use and
     whether a live page table was ever scattered."""
+    stamp(f"phase {phase} {cfg.name}: serve {trace} ({prefill_mode}, "
+          f"kahan_matmul={cfg.kahan_matmul})")
     from repro_torch.kernels import Policy
     from repro_torch.kernels.engine import launch_counts, reset_launch_counts
     from repro_torch.launch.serve import build_requests, parse_trace
@@ -2674,6 +2785,8 @@ def serve_run(torch, kernels, cfg, model, params, trace, prefill_mode,
 def check_tick_telemetry(torch, kernels, cfg, ec, captured, phase):
     """One decode tick's telemetry (``captured`` by ``serve_run``) against
     the plain version on the same logits, bitwise."""
+    stamp(f"phase {phase} {cfg.name}: the telemetry against the plain "
+          f"version")
     from repro_torch.kernels.engine import Accumulator, CompensatedReduction
 
     logits = captured["logits"][:, :cfg.vocab_size]
@@ -2689,6 +2802,7 @@ def check_tick_telemetry(torch, kernels, cfg, ec, captured, phase):
 def check_solo(cfg, ec, model, params, req, served, what, phase):
     """``req`` served alone emits bitwise the tokens and telemetry it
     emitted interleaved in ``served``."""
+    stamp(f"phase {phase} {what}: request {req.request_id} alone")
     from repro_torch.serve import InferenceEngine
 
     solo = InferenceEngine(cfg, ec, model=model, params=params).run(
@@ -3277,6 +3391,7 @@ def train_path(torch, kernels, cfg):
         f"step, the column scan {tall}; losses fall in both runs")
     kernels.launches["train-a"] = ca
     kernels.launches["train-b"] = cb
+    stamp("phase 6: the crash-restart")
     resume = resume_check(torch, dev)
     return {"A": a, "B": b, "step1_loss_rel": rel,
             "step1_grad_norm_rel": rel_g, "resume": resume,
@@ -3313,8 +3428,10 @@ def train_run(torch, kernels, cfg, opt, name):
         sync(torch, dev)
         marks.append(time.perf_counter())
 
+    stamp(f"phase 6 run {name}: the trainer")
     trainer = Trainer(cfg, tc, data, failure_hook=mark, seed=0, device=dev)
     sync(torch, dev)
+    stamp(f"phase 6 run {name}: {TRAIN_STEPS} steps")
     reset_launch_counts()
     trainer.run()
     sync(torch, dev)
@@ -3327,6 +3444,7 @@ def train_run(torch, kernels, cfg, opt, name):
     t0 = time.perf_counter()
     batch = batch_to_device(data.batch_at(TRAIN_STEPS), dev)
     data_ms = (time.perf_counter() - t0) * 1e3
+    stamp(f"phase 6 run {name}: the profiled step")
     prof = profile_once(torch, dev, lambda: trainer.step_fn(
         trainer.params, trainer.opt_state, batch))
     # the optimizer step alone, on a tree of the gradients' shapes (the
@@ -3372,6 +3490,7 @@ def train_run(torch, kernels, cfg, opt, name):
         f"{opt_prof['host_ms']:.1f} ms, {opt_prof['busy_ms']:.1f} ms of it "
         f"on the device, top {opt_prof['top']}")
     if name == "A":
+        stamp("phase 6: the norm as a loop and as a kernel")
         out["norm"] = norm_loop_vs_kernel(torch, kernels, trainer.opt_state.m)
     del trainer, batch
     gc.collect()
@@ -3386,13 +3505,15 @@ PORT_KERNELS = {"kahan_matmul": "B5", "kahan_sum_grid": "B3",
 
 def device_events(torch, dev, fn):
     """One call of ``fn`` under ``torch.profiler``: its host ms and the
-    device kernels it ran, ``[(ms, name, count)]`` (none on the CPU)."""
+    device kernels it ran, ``[(ms, name, count)]`` (none on the CPU). On
+    the card it records the device's activity alone: what is read here,
+    without the host operators whose recording and sorting took most of
+    a profiled train step's time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    activities = [ProfilerActivity.CPU]
-    if dev.type == "cuda":
-        activities.append(ProfilerActivity.CUDA)
+    activities = [ProfilerActivity.CUDA if dev.type == "cuda"
+                  else ProfilerActivity.CPU]
     sync(torch, dev)
     with profile(activities=activities) as prof:
         t0 = time.perf_counter()
@@ -3425,9 +3546,11 @@ def profile_once(torch, dev, fn):
 def norm_loop_vs_kernel(torch, kernels, tree):
     """The compensated tree norm of a float32 tree of the gradients'
     shapes (run A's first moments) as the kernel runs it
-    (``tree_kahan_sq_norm``: one column-scan launch a leaf) and as the
-    plain loop over each leaf's rows; the (s, c) vectors bitwise equal.
-    Fills in the plain time of the [V_pad, d] column row (phase 3)."""
+    (``tree_kahan_sq_norm``: one column-scan launch a leaf), and the
+    plain loop over the rows of the leaf phase 3's train row is timed at
+    (the embedding's [V_pad, d]; phase 2 holds the scan to its loop on
+    the other kinds of leaf): its (s, c) vectors bitwise equal the
+    kernel's, and its time is that row's plain time."""
     from repro_torch.core import tree as T
     from repro_torch.core.kahan import column_sq_plain, tree_kahan_sq_norm
     from repro_torch.kernels.kahan_columns import column_sq_accumulators
@@ -3442,28 +3565,26 @@ def norm_loop_vs_kernel(torch, kernels, tree):
     end.record()
     sync(torch, dev)
     kernel_ms = start.elapsed_time(end)
-    loop_ms = 0.0
-    for leaf in T.leaves(tree):
-        if not (leaf.dim() >= 2 and leaf.shape[0] > 1):
-            continue
-        want = column_sq_accumulators(leaf)
-        sync(torch, dev)
-        t0 = time.perf_counter()
-        got = column_sq_plain(leaf)
-        sync(torch, dev)
-        ms = (time.perf_counter() - t0) * 1e3
-        loop_ms += ms
-        kernels.compare("column_sq_accumulators", want, got,
-                        f"run A's {list(leaf.shape)} leaf")
-        if tuple(leaf.shape) == tuple(kernels.timing[
-                ("column_sq_accumulators", "train")]["shape"]):
-            kernels.timing[("column_sq_accumulators", "train")][
-                "plain_ms"] = ms
+    row = kernels.timing[("column_sq_accumulators", "train")]
+    tall = [leaf for leaf in T.leaves(tree)
+            if leaf.dim() >= 2 and leaf.shape[0] > 1]
+    leaf = next(x for x in tall if list(x.shape) == list(row["shape"]))
+    want = column_sq_accumulators(leaf)
+    sync(torch, dev)
+    t0 = time.perf_counter()
+    got = column_sq_plain(leaf)
+    sync(torch, dev)
+    loop_ms = (time.perf_counter() - t0) * 1e3
+    kernels.compare("column_sq_accumulators", want, got,
+                    f"run A's {list(leaf.shape)} leaf")
+    row["plain_ms"] = loop_ms
     log(f"# phase 6: the compensated tree norm ({float(norm):.6e}) "
-        f"{kernel_ms:.3f} ms a step through the column-scan kernel, "
-        f"{loop_ms:.1f} ms as the plain loop over the rows; every leaf's "
-        f"(s, c) bitwise equal")
-    return {"kernel_ms": kernel_ms, "loop_ms": loop_ms}
+        f"{kernel_ms:.3f} ms a step through the column-scan kernel "
+        f"({len(tall)} leaves); the plain loop over the rows of its "
+        f"{list(leaf.shape)} leaf {loop_ms:.1f} ms, (s, c) bitwise equal to "
+        f"the kernel's")
+    return {"kernel_ms": kernel_ms, "loop_ms": loop_ms,
+            "loop_shape": list(leaf.shape), "tall_leaves": len(tall)}
 
 
 def resume_check(torch, dev):
@@ -3609,6 +3730,7 @@ def profile_decode_step(torch, model, params, dev, max_len, prepare=None):
     """One batch-1 decode position: the unit a decode tick runs per slot
     and scan prefill per prompt position. ``prepare(cache)`` fills the
     cache first (an encoder-decoder's ``prefill_begin``)."""
+    stamp(f"a profiled decode position of {type(model).__name__}")
     cache = model.init_cache(1, max_len)
     if prepare is not None:
         prepare(cache)
@@ -3643,10 +3765,15 @@ def _leaves(tree):
 # -- 9. the dense family and the paged layout ---------------------------------
 
 def slice_max_len(cfg) -> int:
-    """The cache length phase 9 serves ``cfg``'s trace with: fitted to
-    the trace, rounded up to a page (the paged run on deepseek-7b must
-    match the dense one's cache length)."""
-    return -(-serve_max_len(slice_trace(cfg)) // PAGE_SIZE) * PAGE_SIZE
+    """The cache length phase 9 serves ``cfg``'s trace with (the paged run
+    on deepseek-7b must match the dense one's cache length)."""
+    return page_max_len(slice_trace(cfg))
+
+
+def page_max_len(trace: str) -> int:
+    """The cache length a trace is served with: fitted to the trace,
+    rounded up to a page."""
+    return -(-serve_max_len(trace) // PAGE_SIZE) * PAGE_SIZE
 
 
 def slice_trace(cfg) -> str:
@@ -3675,6 +3802,7 @@ def slice_path(torch, kernels):
     for name in SLICE_ARCHS:
         cfg = get_config(name).replace(kahan_attention=True)
         max_len = slice_max_len(cfg)
+        stamp(f"phase 9 {name}")
         kernels.slice_times(cfg, max_len)
         # an engine and its timing wrappers form a reference cycle that
         # holds the last config's params until a collection
@@ -3967,6 +4095,7 @@ def moe_model(torch, dev, cfg):
     """``cfg``'s model and random weights from seed 0 on the card, all
     earlier memory freed first; (model, params, params GiB, init peak
     GiB)."""
+    stamp(f"{cfg.name}: the model and its weights")
     from repro_torch.models import build_model
 
     gc.collect()
@@ -4113,13 +4242,12 @@ def moe_deepseek(torch, kernels, cfg):
     layers (a cut for the script's time limit); request 0 alone ==
     interleaved; the paged layout (``page_size`` 16) at that depth ==
     dense with the pool free at the end and ``dropped_frac`` 0 on every
-    single-position MoE call; at the full depth, the
-    whole-prompt prefill of the 160-token prompt against the scan chunk
-    (gated in float32 compute, logged in bf16);
-    one request with ``kahan_matmul`` at ``MOE_CUT_LAYERS`` layers (B5 at
-    every projection but the routed experts' a position); the full
-    depth's 16-token chunk with ``kahan_matmul`` against the cuBLAS path;
-    one profiled decode position."""
+    single-position MoE call; the whole-prompt prefill of the 160-token
+    prompt against the scan chunk (gated in float32 compute, logged in
+    bf16); one request with ``kahan_matmul`` (B5 at every projection but
+    the routed experts' a position); a 16-token chunk with
+    ``kahan_matmul`` against the cuBLAS path, all at ``MOE_CUT_LAYERS``
+    layers; one profiled decode position at the full depth."""
     from repro_torch.core.tree import tree_map
     from repro_torch.models import build_model
 
@@ -4181,15 +4309,16 @@ def moe_deepseek(torch, kernels, cfg):
         f"MiB ({ec.max_slots} x {max_len} rows) vs paged live "
         f"{live_bytes / 2**20:.1f} MiB at peak ({pst['peak_pages']} pages)")
 
-    f32 = cfg.replace(compute_dtype="float32")
+    cf32 = ccfg.replace(compute_dtype="float32")
     stats = {"params_gib": params_gib, "init_peak_gib": init_gib,
-             "serve": st, "cut": f"the trace, solo, paged and kahan_matmul "
-             f"at {MOE_CUT_LAYERS} of {cfg.n_layers} layers",
+             "serve": st, "cut": f"the trace, solo, paged, kahan_matmul "
+             f"and the prefill and cuBLAS comparisons at {MOE_CUT_LAYERS} of "
+             f"{cfg.n_layers} layers",
              "paged": pst, "kv_bytes_per_token": token_bytes,
              "dense_kv_bytes": dense_bytes, "paged_live_kv_bytes": live_bytes,
              "prefill_vs_scan": [prefill_vs_scan(
-                 torch, kernels, c, params, requests[-1].prompt, gate)
-                 for c, gate in ((cfg, None), (f32, MOE_PREFILL_REL))]}
+                 torch, kernels, c, cparams, requests[-1].prompt, gate)
+                 for c, gate in ((ccfg, None), (cf32, MOE_PREFILL_REL))]}
 
     mcfg = ccfg.replace(kahan_matmul=True)
     mmodel = build_model(mcfg, dev)
@@ -4203,9 +4332,9 @@ def moe_deepseek(torch, kernels, cfg):
     kernels.path_labels[("matmul_accumulators", mpath)] = MOE_B5_ROW
     stats["matmul"] = mst
     stats["matmul_vs_cublas"] = [
-        matmul_vs_cublas(torch, kernels, c, params, requests[0].prompt[:16],
+        matmul_vs_cublas(torch, kernels, c, cparams, requests[0].prompt[:16],
                          gate)
-        for c, gate in ((cfg, None), (f32, 5e-2))]
+        for c, gate in ((ccfg, None), (cf32, 5e-2))]
     stats["decode_profile"] = profile_decode_step(torch, model, params, dev,
                                                   max_len)
     stats["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
@@ -4213,7 +4342,8 @@ def moe_deepseek(torch, kernels, cfg):
         f"H={cfg.n_heads} MLA r={cfg.mla.kv_lora_rank} "
         f"E={cfg.moe.n_experts} top-{cfg.moe.top_k} +{cfg.moe.n_shared} "
         f"shared vocab={cfg.vocab_size} (the trace, solo, paged and "
-        f"kahan_matmul runs at {MOE_CUT_LAYERS} layers): params "
+        f"kahan_matmul runs and the prefill and cuBLAS comparisons at "
+        f"{MOE_CUT_LAYERS} layers): params "
         f"{params_gib:.2f} GiB, init peak {init_gib:.2f} GiB, peak "
         f"{stats['peak_gib']:.2f} GiB, {st['tokens_per_s']:.2f} tokens/s, "
         f"decode tick {st['decode_tick_ms_mean']:.2f} ms mean, prefill "
@@ -4264,8 +4394,10 @@ def decode_vs_prefill(torch, cfg, model, params, prompt, prefill, steps,
     """``prefill(tokens)`` -> (last logits, cache) of ``prompt``, then
     ``steps`` greedy ``decode_step``s, each step's logits against
     ``prefill`` of the prompt and the tokens so far: relative L2 and
-    argmax, gated below ``rel_max`` unless it is None. Returns the steps'
-    errors and the first prefill's ms."""
+    argmax, gated below ``rel_max``. Returns the steps' errors and the
+    first prefill's ms."""
+    stamp(f"phase {phase} {cfg.name}: decode vs prefill, "
+          f"{cfg.compute_dtype} compute")
     dev = model.device
     n = len(prompt)
     seq = [int(t) for t in prompt]
@@ -4291,29 +4423,26 @@ def decode_vs_prefill(torch, cfg, model, params, prompt, prefill, steps,
     log(f"# phase {phase} {cfg.name}: prefill of {n} tokens "
         f"({cfg.compute_dtype} compute) in {prefill_ms:.1f} ms, then {steps} "
         f"decode steps vs a prefill of prompt + tokens: relative L2 "
-        f"[{rels}], worst {worst:.3e}"
-        f"{' (logged)' if rel_max is None else f' (gate {rel_max})'}, "
-        f"argmax equal {[st['same_argmax'] for st in out]}")
+        f"[{rels}], worst {worst:.3e} (gate {rel_max}), argmax equal "
+        f"{[st['same_argmax'] for st in out]}")
     check(all(st["finite"] for st in out),
           f"{cfg.name}: decode-vs-prefill logits not finite "
           f"({cfg.compute_dtype})")
-    if rel_max is not None:
-        check(worst < rel_max and all(st["same_argmax"] for st in out),
-              f"{cfg.name} ({cfg.compute_dtype}): decode vs prefill relative "
-              f"L2 {worst:.3e}, argmax {[st['same_argmax'] for st in out]}")
+    check(worst < rel_max and all(st["same_argmax"] for st in out),
+          f"{cfg.name} ({cfg.compute_dtype}): decode vs prefill relative L2 "
+          f"{worst:.3e}, argmax {[st['same_argmax'] for st in out]}")
     return {"compute_dtype": cfg.compute_dtype, "prompt": n,
             "prefill_ms": prefill_ms, "steps": out, "worst_rel_l2": worst,
             "gate": rel_max}
 
 
 @contextlib.contextmanager
-def widened_casts(torch, on=True):
-    """While active (and ``on``), ``Tensor.float`` returns float64: the
-    model's float32 casts (the gates, the states, the norms) widen with
-    its compute, as the CPU tests widen both sides' gradients."""
+def widened_casts(torch):
+    """While active, ``Tensor.float`` returns float64: the model's float32
+    casts (the gates, the states, the norms) widen with its compute, as
+    the CPU tests widen both sides' gradients."""
     orig = torch.Tensor.float
-    if on:
-        torch.Tensor.float = torch.Tensor.double
+    torch.Tensor.float = torch.Tensor.double
     try:
         yield
     finally:
@@ -4369,9 +4498,11 @@ def ring_wrap(torch, kernels, cfg, params, prompt, rel_max):
     ``HYMBA_RING_STEPS`` greedy ``decode_step``s against the wrapped
     rings, each step's logits against a whole-prompt prefill of the
     prompt and the tokens so far (``decode_vs_prefill``, gated below
-    ``rel_max`` unless it is None). The launch counts are reset just
+    ``rel_max``). The launch counts are reset just
     before and read just after. Returns the step errors, the counts and
     the prefill's ms."""
+    stamp(f"phase 11 {cfg.name}: the ring wrap, {cfg.compute_dtype} "
+          f"compute")
     from repro_torch.kernels.engine import launch_counts, reset_launch_counts
     from repro_torch.models import build_model
 
@@ -4407,14 +4538,13 @@ def hybrid_path(torch, kernels):
     """Phase 11: hymba-1.5b at its published width and depth, no cut
     (bf16, random weights from seed 0, ``max_slots=4``,
     ``prefill_chunk=64``, telemetry, kahan, U = 8), each path with the
-    launch counts reset just before it: phase 9's trace with flash asked
+    launch counts reset just before it: ``SCAN_TRACE`` with flash asked
     for and the scan body resolved (B4 once a tick and finished prefill,
     nothing else), its telemetry against the plain version, request 0
-    alone == interleaved, the paged layout (``page_size`` 16: the global
-    layers page, the rings and SSM state stay dense) == dense, one
-    request with ``kahan_matmul`` (B5 7 times a layer and position); the
-    ring wrap of ``ring_wrap`` in bf16 (logged) and float32 compute
-    (gated); one profiled decode position. Returns the phase's stats."""
+    alone == interleaved, one request with ``kahan_matmul`` (B5 7 times
+    a layer and position); the ring wrap of ``ring_wrap`` in float32
+    compute (gated); one profiled decode position. Returns the phase's
+    stats."""
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
 
@@ -4422,12 +4552,12 @@ def hybrid_path(torch, kernels):
     dev = kernels.dev
     cfg = get_config(HYMBA)
     path = f"serve-{cfg.name}"
-    max_len = slice_max_len(cfg)
+    max_len = page_max_len(SCAN_TRACE)
     kernels.hybrid_times(cfg, path, HYMBA_RING_PROMPT)
     model, params, params_gib, init_gib = moe_model(torch, dev, cfg)
-    dense_state, paged_state = {}, {}
+    dense_state = {}
     ec, requests, served, captured, st = serve_run(
-        torch, kernels, cfg, model, params, SLICE_TRACE, "flash",
+        torch, kernels, cfg, model, params, SCAN_TRACE, "flash",
         max_len=max_len, phase="11", body="scan",
         prepare=lambda e: dense_state.update(hybrid_state_bytes(e)))
     check_scan_launches(model, st, path)
@@ -4435,43 +4565,20 @@ def hybrid_path(torch, kernels):
     kernels.path_labels[("sum_accumulators_batched", path)] = path
     check_tick_telemetry(torch, kernels, cfg, ec, captured, "11")
     check_solo(cfg, ec, model, params, requests[0], served, cfg.name, "11")
-    _, _, paged, _, pst = serve_run(
-        torch, kernels, cfg, model, params, SLICE_TRACE, "flash",
-        max_len=max_len, phase="11", body="scan", kv_layout="paged",
-        page_size=PAGE_SIZE,
-        prepare=lambda e: paged_state.update(hybrid_state_bytes(e)))
-    check(pst["kv_layout"] == "paged", f"{cfg.name}: the paged layout "
-          f"resolved to {pst['kv_layout']}")
-    check_scan_launches(model, pst, f"{path}-paged")
-    kernels.launches[f"{path}-paged"] = pst["launches"]
-    kernels.path_labels[("sum_accumulators_batched", f"{path}-paged")] = path
-    for rid in served:
-        check(paged[rid].tokens == served[rid].tokens
-              and paged[rid].telemetry == served[rid].telemetry,
-              f"{cfg.name}: request {rid} differs, paged vs dense")
-    ps = pst["page_stats"]
-    check(ps["free_pages"] == ps["num_pages"],
-          f"{cfg.name}: {ps['free_pages']} pages free of {ps['num_pages']} "
-          f"after the paged run")
-    token_bytes = pst["page_bytes"] // PAGE_SIZE
-    live_bytes = pst["peak_pages"] * pst["page_bytes"]
     n_ring = sum(seg.n_layers for seg in model.segments if seg.window > 0)
-    log(f"# phase 11 {cfg.name} paged (page_size {PAGE_SIZE}): tokens and "
-        f"telemetry == dense, bitwise; pool free at the end. KV held over "
-        f"{ec.max_slots} slots: rings {dense_state['ring'] / 2**20:.1f} MiB "
-        f"({n_ring} layers x {cfg.sliding_window} rows, dense in both "
-        f"layouts), "
-        f"global layers dense {dense_state['global_dense'] / 2**20:.2f} MiB "
-        f"({ec.max_slots} x {max_len} rows, {token_bytes} B a token) vs "
-        f"paged live {live_bytes / 2**20:.2f} MiB at peak "
-        f"({pst['peak_pages']} pages), SSM state "
-        f"{dense_state['ssm'] / 2**20:.2f} MiB")
+    log(f"# phase 11 {cfg.name}: KV held over {ec.max_slots} slots: rings "
+        f"{dense_state['ring'] / 2**20:.1f} MiB ({n_ring} layers x "
+        f"{cfg.sliding_window} rows), global layers "
+        f"{dense_state['global_dense'] / 2**20:.2f} MiB ({ec.max_slots} x "
+        f"{max_len} rows), SSM state {dense_state['ssm'] / 2**20:.2f} MiB; "
+        f"the paged layout is held to dense on the CPU only "
+        f"(tests/test_torch_hybrid.py)")
 
     mcfg = cfg.replace(kahan_matmul=True)
     mmodel = build_model(mcfg, dev)
     mpath = f"{path}-matmul"
     _, _, _, _, mst = serve_run(torch, kernels, mcfg, mmodel, params,
-                                SLICE_TRACE.split(",")[0], "flash",
+                                SCAN_TRACE.split(",")[0], "flash",
                                 max_len=max_len, phase="11", body="scan")
     check_scan_launches(mmodel, mst, mpath)
     kernels.launches[mpath] = mst["launches"]
@@ -4481,20 +4588,15 @@ def hybrid_path(torch, kernels):
 
     prompt = torch.randint(0, cfg.vocab_size, (HYMBA_RING_PROMPT,),
                            generator=torch.Generator().manual_seed(0))
-    ring = [ring_wrap(torch, kernels, c, params, prompt, gate)
-            for c, gate in ((cfg, None),
-                            (cfg.replace(compute_dtype="float32"),
-                             HYMBA_RING_REL))]
+    ring = [ring_wrap(torch, kernels, cfg.replace(compute_dtype="float32"),
+                      params, prompt, HYMBA_RING_REL)]
     ppath = f"{path}-prefill"
     kernels.launches[ppath] = ring[-1]["launches"]
     kernels.path_labels[("flash_accumulators", ppath)] = ppath
     profile = profile_decode_step(torch, model, params, dev, max_len)
     stats = {"params_gib": params_gib, "init_peak_gib": init_gib,
-             "serve": st, "paged": pst, "matmul": mst,
-             "kv_bytes_per_token_global": token_bytes,
-             "state_bytes_dense": dense_state,
-             "state_bytes_paged": paged_state,
-             "paged_live_kv_bytes": live_bytes, "ring_wrap": ring,
+             "serve": st, "matmul": mst,
+             "state_bytes_dense": dense_state, "ring_wrap": ring,
              "decode_profile": profile,
              "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30}
     del model, params
@@ -4506,8 +4608,8 @@ def hybrid_path(torch, kernels):
         f"global {list(cfg.global_attn_layers)}, SSM d_state "
         f"{cfg.ssm.d_state} (no cut): params {params_gib:.2f} GiB, init peak "
         f"{init_gib:.2f} GiB, peak {stats['peak_gib']:.2f} GiB, "
-        f"{st['tokens_per_s']:.2f} tokens/s (paged "
-        f"{pst['tokens_per_s']:.2f}, kahan_matmul {mst['tokens_per_s']:.2f}),"
+        f"{st['tokens_per_s']:.2f} tokens/s (kahan_matmul "
+        f"{mst['tokens_per_s']:.2f}),"
         f" decode tick {st['decode_tick_ms_mean']:.2f} ms mean, prefill "
         f"{st['prefill_ms_per_position']:.3f} ms per position (scan); one "
         f"decode position {profile['host_ms']:.2f} ms host, "
@@ -4534,17 +4636,15 @@ def xlstm_path(torch, kernels):
     """Phase 12: xlstm-1.3b at its published width and depth, no cut
     (bf16, random weights from seed 0, ``prefill_chunk=64``, telemetry,
     kahan, U = 8), each path with the launch counts reset just before it:
-    phase 9's trace with flash and the paged layout asked for, the scan
+    ``SCAN_TRACE`` with flash and the paged layout asked for, the scan
     body and the dense layout resolved (B4 once a tick and finished
     prefill, nothing else: the projections are einsums, as in the
     reference), its telemetry against the plain version, request 0 alone
-    == interleaved; three short requests on 2 slots, the third on a slot
-    reused after an eviction, equal to its solo run bitwise; the
-    whole-prompt ``XLSTMLM.prefill`` of ``XLSTM_PROMPT`` tokens (two
-    512-token chunks, the second padded) and ``XLSTM_STEPS`` greedy decode
-    steps against prefills of the prompt and the tokens so far, in bf16
-    and float32 compute (logged) and in float64 with the casts widened
-    (gated); one profiled decode position. Returns the phase's stats."""
+    == interleaved; the whole-prompt ``XLSTMLM.prefill`` of
+    ``XLSTM_PROMPT`` tokens (two 512-token chunks, the second padded) and
+    ``XLSTM_STEPS`` greedy decode steps against prefills of the prompt
+    and the tokens so far, in float64 with the casts widened (gated); one
+    profiled decode position. Returns the phase's stats."""
     from repro_torch.configs import get_config
     from repro_torch.core.tree import tree_map
     from repro_torch.kernels.engine import launch_counts, reset_launch_counts
@@ -4555,12 +4655,12 @@ def xlstm_path(torch, kernels):
     dev = kernels.dev
     cfg = get_config(XLSTM)
     path = f"serve-{cfg.name}"
-    max_len = slice_max_len(cfg)
+    max_len = page_max_len(SCAN_TRACE)
     kernels.telemetry_times(cfg, path)
     model, params, params_gib, init_gib = moe_model(torch, dev, cfg)
     state = {}
     ec, requests, served, captured, st = serve_run(
-        torch, kernels, cfg, model, params, SLICE_TRACE, "flash",
+        torch, kernels, cfg, model, params, SCAN_TRACE, "flash",
         max_len=max_len, phase="12", body="scan", kv_layout="paged",
         page_size=PAGE_SIZE,
         prepare=lambda e: state.update(bytes=state_bytes(e)))
@@ -4571,56 +4671,27 @@ def xlstm_path(torch, kernels):
     kernels.path_labels[("sum_accumulators_batched", path)] = path
     check_tick_telemetry(torch, kernels, cfg, ec, captured, "12")
     check_solo(cfg, ec, model, params, requests[0], served, cfg.name, "12")
-    resets = []
-
-    def count_resets(engine):
-        orig = engine.slots.reset
-
-        def reset(slot):
-            resets.append(slot)
-            orig(slot)
-
-        engine.slots.reset = reset
-
-    rec, rreqs, reused, _, rst = serve_run(
-        torch, kernels, cfg, model, params, XLSTM_REUSE_TRACE, "scan",
-        max_len=max_len, phase="12", max_slots=2, prepare=count_resets)
-    check(len(resets) == len(rreqs) == 3,
-          f"{cfg.name}: {len(resets)} evictions on 2 slots for "
-          f"{len(rreqs)} requests")
-    check_solo(cfg, rec, model, params, rreqs[2], reused,
-               f"{cfg.name}, a slot reused after eviction {resets}", "12")
-
     reset_launch_counts()
     prompt = torch.randint(0, cfg.vocab_size, (XLSTM_PROMPT,),
                            generator=torch.Generator().manual_seed(0))
-    entry = []
-    for dtype, gate, steps in (("bfloat16", None, XLSTM_LOGGED_STEPS),
-                               ("float32", None, XLSTM_LOGGED_STEPS),
-                               ("float64", XLSTM_REL, XLSTM_STEPS)):
-        c = cfg.replace(compute_dtype=dtype)
-        m = build_model(c, dev)
-        wide = dtype == "float64"
-        p = tree_map(lambda t: t.double(), params) if wide else params
+    c = cfg.replace(compute_dtype="float64")
+    m = build_model(c, dev)
+    p = tree_map(lambda t: t.double(), params)
 
-        def prefill(tokens, m=m, p=p, wide=wide):
-            toks = torch.as_tensor(tokens, dtype=torch.long,
-                                   device=dev)[None]
-            cache = m.init_cache(1, 0)
-            if wide:
-                cache = map_cache_leaves(lambda t: t.double(), cache)
-            return m.prefill(p, toks, cache)
+    def prefill(tokens):
+        toks = torch.as_tensor(tokens, dtype=torch.long, device=dev)[None]
+        cache = map_cache_leaves(lambda t: t.double(), m.init_cache(1, 0))
+        return m.prefill(p, toks, cache)
 
-        with widened_casts(torch, wide):
-            entry.append(decode_vs_prefill(torch, c, m, p, prompt.tolist(),
-                                           prefill, steps, gate, "12"))
-        del p
+    with widened_casts(torch):
+        entry = [decode_vs_prefill(torch, c, m, p, prompt.tolist(), prefill,
+                                   XLSTM_STEPS, XLSTM_REL, "12")]
+    del p
     sync(torch, dev)
     check_no_kernels(launch_counts(), f"{cfg.name} prefill check")
     profile = profile_decode_step(torch, model, params, dev, max_len)
     stats = {"params_gib": params_gib, "init_peak_gib": init_gib,
-             "serve": st, "two_slots": rst, "evictions": resets,
-             "state_bytes": state["bytes"],
+             "serve": st, "state_bytes": state["bytes"],
              "state_bytes_per_slot": state["bytes"] // ec.max_slots,
              "prefill_check": entry, "decode_profile": profile,
              "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30}
@@ -4844,9 +4915,11 @@ def whisper_path(torch, kernels):
 # -- 8. the sharded slice on two ranks ----------------------------------------
 
 def dist_spec(cfg, device="cuda"):
-    """What phase 8's ranks run, passed to each (its sizes, the model)."""
+    """What phase 8's ranks run, passed to each (its sizes, the model:
+    ``cfg`` cut to DIST_LAYERS layers)."""
     return {"device": device, "n": DIST_N, "matmul": DIST_MATMUL,
-            "act": DIST_ACT, "leaf": DIST_LEAF, "cfg": cfg,
+            "act": DIST_ACT, "leaf": DIST_LEAF,
+            "cfg": cfg.replace(n_layers=DIST_LAYERS),
             "steps": DIST_TRAIN_STEPS, "micro": TRAIN_MICRO,
             "seq": TRAIN_SEQ, "batch": TRAIN_BATCH, "lr": TRAIN_LR}
 
@@ -5028,8 +5101,9 @@ def dist_path(torch, kernels, spec):
             for r in range(DIST_RANKS)]
         for p in procs:
             p.start()
+        deadline = time.perf_counter() + RANKS_S
         for p in procs:
-            p.join(timeout=600)
+            p.join(timeout=max(0.0, deadline - time.perf_counter()))
         for r, p in enumerate(procs):
             if p.is_alive():
                 p.kill()
@@ -5136,8 +5210,9 @@ def dist_path(torch, kernels, spec):
         f"[64, 128] grid, host clock); the sharded sum at n = {spec['n']} "
         f"{out['sharded_sum_ms']} ms (events, both ranks on one card) "
         f"against the single-rank B3 row {b3} ms (recorded, not gated)")
-    log(f"# phase 8: OLMo-1B trained on the 2-rank mesh at full width and "
-        f"depth, {steps} steps twice: loss "
+    log(f"# phase 8: OLMo-1B trained on the 2-rank mesh at full width, "
+        f"CUT to {spec['cfg'].n_layers} of 16 layers, {steps} steps twice: "
+        f"loss "
         f"{[round(x, 4) for x in out['train_loss']]} the same bits on both "
         f"ranks and run to run, equal to the sharded fold of its microbatch "
         f"losses recomputed here, within {max(local_rel):.1e} of the local "
@@ -5490,6 +5565,7 @@ def shard_unsharded(torch, kernels, spec):
     """The same steps on this process, unsharded: the train step under
     both norms (loss, grad norm, peak memory), the prefill and decode
     steps (logits)."""
+    stamp("phase 15: the unsharded steps")
     import gc
 
     from repro_torch.core import tree as T
@@ -5537,45 +5613,59 @@ def shard_unsharded(torch, kernels, spec):
     return out
 
 
-def shard_dryrun(torch):
-    """Phase 15(c): the dry run of SHARD_DRYRUN's cells in a subprocess
-    (the host's CPU, fake tensors, a fake world of 256 or 512 ranks),
-    SHARD_DRYRUN_S seconds for all of them; each cell must reach ``status:
-    ok``. Returns their terms."""
-    import shutil
-    import tempfile
+class DryRun:
+    """Phase 15(c): the dry run of SHARD_DRYRUN's cells, each row of it in
+    a subprocess of its own (the host's CPU, fake tensors, a fake world of
+    256 or 512 ranks). It needs no kernel and no card, so the script starts
+    it beside the build, and phase 15 reads it: SHARD_DRYRUN_S seconds from
+    the start for all of them; each cell must reach ``status: ok``.
+    ``stop`` ends what still runs and removes the outputs."""
 
-    outdir = Path(tempfile.mkdtemp(prefix="dryrun-", dir=ROOT / "build"))
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    deadline = time.perf_counter() + SHARD_DRYRUN_S
-    cells = []
-    try:
-        for arch, shape, both in SHARD_DRYRUN:
-            left = deadline - time.perf_counter()
-            check(left > 0, "phase 15(c): the dry run ran out of time")
+    def __init__(self):
+        import tempfile
+
+        (ROOT / "build").mkdir(parents=True, exist_ok=True)
+        self.outdir = Path(tempfile.mkdtemp(prefix="dryrun-",
+                                            dir=ROOT / "build"))
+        self.deadline = time.perf_counter() + SHARD_DRYRUN_S
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+        self.procs = []
+        for i, (arch, shape, both) in enumerate(SHARD_DRYRUN):
             cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
-                   "--arch", arch, "--shape", shape, "--out", str(outdir)]
+                   "--arch", arch, "--shape", shape, "--out",
+                   str(self.outdir)] + (["--both-meshes"] if both else [])
+            err = open(self.outdir / f"stderr{i}.txt", "w")
+            self.procs.append(subprocess.Popen(
+                cmd, env=env, cwd=ROOT, stdout=subprocess.DEVNULL,
+                stderr=err))
+            err.close()
+
+    def cells(self):
+        """Waits for every cell (until the deadline), checks each and logs
+        its terms; returns them."""
+        cells = []
+        for i, ((arch, shape, both), proc) in enumerate(zip(SHARD_DRYRUN,
+                                                            self.procs)):
+            left = max(0.0, self.deadline - time.perf_counter())
             try:
-                proc = subprocess.run(
-                    cmd + (["--both-meshes"] if both else []), env=env,
-                    cwd=ROOT, capture_output=True, text=True, timeout=left)
+                rc = proc.wait(timeout=left)
             except subprocess.TimeoutExpired:
                 raise RuntimeError(f"chip_smoke: phase 15(c): the dry run "
                                    f"of {arch} x {shape} passed the "
                                    f"{SHARD_DRYRUN_S} s limit")
-            check(proc.returncode == 0, f"phase 15(c): the dry run of {arch} "
-                  f"x {shape} exited with {proc.returncode}: "
-                  f"{proc.stderr[-1500:]}")
+            err = (self.outdir / f"stderr{i}.txt").read_text()
+            check(rc == 0, f"phase 15(c): the dry run of {arch} x {shape} "
+                  f"exited with {rc}: {err[-1500:]}")
             for mesh in (("16x16", "2x16x16") if both else ("16x16",)):
-                cell = json.loads((outdir / f"{arch}__{shape}__{mesh}.json")
-                                  .read_text())
+                cell = json.loads((self.outdir / f"{arch}__{shape}__{mesh}"
+                                   f".json").read_text())
                 check(cell["status"] == "ok", f"phase 15(c): {arch} x {shape}"
                       f" x {mesh}: status {cell['status']}")
                 keep = ("arch", "shape", "mesh", "chips", "flops_per_device",
                         "bytes_per_device", "collective_bytes_per_device",
                         "compute_s", "memory_s", "collective_s", "dominant",
                         "roofline_fraction", "peak_memory_bytes",
-                        "kernel_work", "step_s")
+                        "kernel_work", "setup_s", "step_s")
                 cells.append({k: cell[k] for k in keep})
                 log(f"# phase 15(c): {arch} x {shape} x {mesh} "
                     f"({cell['chips']} fake ranks): compute "
@@ -5583,16 +5673,25 @@ def shard_dryrun(torch):
                     f"{cell['memory_s'] * 1e3:.3f} ms, collective "
                     f"{cell['collective_s'] * 1e3:.3f} ms, dominant "
                     f"{cell['dominant']}, roofline fraction "
-                    f"{cell['roofline_fraction']:.4f}; step {cell['step_s']}"
-                    f" s on the host")
-    finally:
-        shutil.rmtree(outdir, ignore_errors=True)
-    return cells
+                    f"{cell['roofline_fraction']:.4f}; setup "
+                    f"{cell['setup_s']} s and step {cell['step_s']} s on the "
+                    f"host, beside the build and phases 2-14")
+        return cells
+
+    def stop(self):
+        import shutil
+
+        for proc in self.procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(self.outdir, ignore_errors=True)
 
 
-def shard_path(torch, kernels, spec):
+def shard_path(torch, kernels, spec, dryrun):
     """Phase 15: the sharded steps on two gloo ranks sharing the card,
-    against the unsharded steps of this process, then the dry run.
+    against the unsharded steps of this process, then the dry run
+    (``dryrun``, a ``DryRun`` started with the script).
     Gates: (a) the train step's loss within STEP1_LOSS_RTOL and its grad
     norm within STEP1_GRAD_NORM_RTOL of the unsharded step's (relative),
     under the column-scan norm and under B3's; the loss and the norm the
@@ -5614,6 +5713,7 @@ def shard_path(torch, kernels, spec):
     gc.collect()
     if dev.type == "cuda":
         torch.cuda.empty_cache()
+    stamp("phase 15: the two ranks")
     scratch = Path(tempfile.mkdtemp(prefix="shard-", dir=ROOT / "build"))
     try:
         ctx = mp.get_context("spawn")
@@ -5622,8 +5722,9 @@ def shard_path(torch, kernels, spec):
             for r in range(DIST_RANKS)]
         for p in procs:
             p.start()
+        deadline = time.perf_counter() + RANKS_S
         for p in procs:
-            p.join(timeout=600)
+            p.join(timeout=max(0.0, deadline - time.perf_counter()))
         for r, p in enumerate(procs):
             if p.is_alive():
                 p.kill()
@@ -5715,9 +5816,11 @@ def shard_path(torch, kernels, spec):
         ("column_sq_accumulators", "sharded-train-a"): "sharded-norm",
         ("sum_accumulators", "sharded-train-b"): "sharded-norm",
         ("flash_accumulators", "sharded-serve"): "sharded-heads"})
+    stamp("phase 15: the rows' times")
     kernels.shard_times(spec, ranks[0]["flash"][0])
+    stamp("phase 15: the dry run's end")
     t_dry = time.perf_counter()
-    cells = shard_dryrun(torch)
+    cells = dryrun.cells()
     t_dry = time.perf_counter() - t_dry
     seconds = time.perf_counter() - t_start
     tr = {str(k): {"sharded": [run["peak_bytes"] for res in ranks
@@ -5756,8 +5859,89 @@ def shard_path(torch, kernels, spec):
         f"the same bits on both ranks; B7 {layers} times a rank on its "
         f"{ranks[0]['flash'][0]['q'].shape[0]} head-rows, bitwise equal to "
         f"the unsharded launch's; {out['decode_ms']:.1f} ms a decode step")
-    log(f"# phase 15 took {seconds:.1f} s (ranks {t_ranks:.1f}, dry run "
-        f"{t_dry:.1f})")
+    log(f"# phase 15 took {seconds:.1f} s (ranks {t_ranks:.1f}, waiting "
+        f"for the dry run {t_dry:.1f})")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 16: the cost auditor's SASS level
+# ---------------------------------------------------------------------------
+
+def cost_path():
+    """Phase 16: ``costmodel.audit`` with the SASS level registered (the
+    probes of ``csrc/cost_probe.cu`` and the census of the shipping
+    libraries, from phase 1's builds), its probe lines and census line
+    logged. Gate: no finding. Returns the per-probe counts and the
+    census totals."""
+    from repro_torch.analysis import costmodel, targets
+    from repro_torch.core import ecm
+    from repro_torch.kernels import schemes
+    from repro_torch.perf import sass_analysis
+
+    t0 = time.perf_counter()
+    costmodel.register_sass()
+    report = costmodel.audit()
+    for v in report.violations:
+        log(f"# phase 16 finding: {v.format()}")
+    out = {"probes": {}, "findings": len(report.violations),
+           "cells": report.files}
+    naive = {}
+    probes = sorted(t for t in targets.names()
+                    if t.startswith("sass.probe."))
+    arts = {t: targets.get(t).build() for t in probes}
+    for tid, art in arts.items():
+        if art.scheme == "naive":
+            naive[(art.path, art.dtype)] = art.adds + art.muls
+    for tid, art in arts.items():
+        want = costmodel.declared_probe_mix(art)
+        streams = 2 if art.path == "dot" else 1
+        elem = {"f32": 4, "f64": 8, "bf16": 2}[art.dtype]
+        flops = art.adds + art.muls
+        dep = ecm.CHAIN_OPS.get(schemes.get(art.scheme).device_id, flops)
+        kernel = ecm.GPUKernel(name=tid, streams=streams, elem_bytes=elem,
+                               flops=flops, dep_ops=dep)
+        base = dataclasses.replace(kernel, flops=naive[(art.path,
+                                                        art.dtype)],
+                                   dep_ops=1)
+        r = ecm.ecm_gpu(ecm.H100, kernel, costmodel.RATIO_N,
+                        costmodel.RATIO_UNROLL)
+        b = ecm.ecm_gpu(ecm.H100, base, costmodel.RATIO_N,
+                        costmodel.RATIO_UNROLL)
+        ratio = r.pred_ms / b.pred_ms
+        moves = {op: n for op, n in art.opcodes.items()
+                 if op in sass_analysis.CONVERSION_OPS}
+        log(f"# phase 16 probe {art.path} {art.scheme} {art.dtype}: SASS "
+            f"{art.adds} adds + {art.muls} muls "
+            f"{sass_analysis.float_ops(art.opcodes)}, declared {want[0]} + "
+            f"{want[1]}; conversions {moves or 'none'}; ECM {ratio:.4f}x "
+            f"naive ({r.bound}-bound)")
+        out["probes"][tid] = {"adds": art.adds, "muls": art.muls,
+                              "declared": list(want), "ecm_ratio": ratio,
+                              "bound": r.bound, "conversions": moves}
+    census = targets.get("sass.census").build()
+    tally = {}
+    for fn, ops in census.functions.items():
+        kernel = sass_analysis.kernel_of(fn)
+        row = tally.setdefault(kernel, {"functions": 0, "tensor_core": 0,
+                                        "FFMA": 0, "DFMA": 0, "FADD": 0,
+                                        "DADD": 0, "FMUL": 0})
+        row["functions"] += 1
+        row["tensor_core"] += sum(n for op, n in ops.items()
+                                  if op in sass_analysis.TENSOR_CORE_OPS)
+        for op in ("FFMA", "DFMA", "FADD", "DADD", "FMUL"):
+            row[op] += ops.get(op, 0)
+    log(f"# phase 16 census: {len(census.functions)} kernel functions in "
+        f"{', '.join(costmodel.SHIPPING)}: "
+        + "; ".join(f"{k} {v}" for k, v in sorted(tally.items())))
+    out["census"] = tally
+    seconds = time.perf_counter() - t0
+    out["seconds"] = seconds
+    log(f"# phase 16 took {seconds:.1f} s ({report.files} audited cells, "
+        f"{len(report.violations)} findings)")
+    check(not report.violations,
+          f"phase 16: {len(report.violations)} cost finding(s): "
+          + "; ".join(v.format() for v in report.violations[:5]))
     return out
 
 

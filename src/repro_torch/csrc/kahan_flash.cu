@@ -40,8 +40,8 @@
 // to which the engine promotes q, k and v):
 // - float: the tiles and vector paths below;
 // - double: exp() (libdevice, what torch.exp calls on a CUDA float64
-//   tensor), NEG_INF the double -1e30, the scale the float32-rounded
-//   dh^-0.5 widened exactly;
+//   tensor), NEG_INF the double -1e30, the scale dh^-0.5 as the host's
+//   double (the reference's weakly typed Python float);
 // - Bf16 (schemes.cuh): every op computed in float and rounded to bfloat16
 //   once, as torch computes a bfloat16 op: the scale rounded to bfloat16,
 //   exp as expf of the widened value, then rounded. Under -ftz=true an
@@ -256,7 +256,7 @@ struct Args {
   T* as_out;
   T* ac_out;
   int q_groups, sq, skv, dh, bk, kv_len, q_off, causal;
-  float scale;
+  double scale;     // dh^-0.5, rounded to T where it is used
   int scheme;
   int async_copy;   // k, v rows 16-byte aligned: cp.async, else plain
   int q_aligned;    // q rows 16-byte aligned too
@@ -818,7 +818,7 @@ template <typename T>
 int launch_typed(int scheme, const void* q, const void* k, const void* v,
                  void* l_s, void* l_c, void* a_s, void* a_c, int bh,
                  int q_groups, int sq, int skv, int dh, int block_k,
-                 int kv_len, int q_off, int causal, float scale, int rows,
+                 int kv_len, int q_off, int causal, double scale, int rows,
                  long long smem, cudaStream_t st) {
   constexpr bool kFloat = std::is_same<T, float>::value;
   if ((rows != 16 && !(kFloat && rows == 64)) ||
@@ -871,7 +871,7 @@ extern "C" int kahan_flash_launch(int scheme, int dtype, const void* q,
                                   void* l_c, void* a_s, void* a_c, int bh,
                                   int q_groups, int sq, int skv, int dh,
                                   int block_k, int kv_len, int q_off,
-                                  int causal, float scale, int rows,
+                                  int causal, double scale, int rows,
                                   long long smem, void* stream) {
   if (scheme < NAIVE || scheme > DOT2 || dh < 1 || dh > kMaxDh ||
       block_k < 1 || block_k > kMaxBk || skv < block_k ||

@@ -70,5 +70,6 @@ def compressed_psum(x: Tensor, group=None) -> Tensor:
     dist.all_reduce(scale, op=dist.ReduceOp.MAX, group=group)
     scale = scale.reshape(())
     total = quantize(x, scale).to(torch.int32)
+    # contract: allow-no-raw-psum(int32 payload — integer sum is exact and order-independent, as the reference's compression.py:70)
     dist.all_reduce(total, op=dist.ReduceOp.SUM, group=group)
     return dequantize(total, scale)

@@ -59,7 +59,7 @@ _SIGNATURES = {
         #  skv, dh, block_k, kv_len, q_off, causal, scale, rows,
         #  smem_bytes, stream)
         "kahan_flash_launch": (_I, _I, _V, _V, _V, _V, _V, _V, _V, _I, _I,
-                               _I, _I, _I, _I, _I, _I, _I, ctypes.c_float,
+                               _I, _I, _I, _I, _I, _I, _I, ctypes.c_double,
                                _I, _LL, _V),
     },
     "kahan_matmul": {

@@ -68,12 +68,12 @@ TILE_OUTPUTS = 8192
 SMEM_LIMIT = 232448
 
 
-@functools.lru_cache(maxsize=None)
 def softmax_scale(dh: int) -> float:
-    """``dh ** -0.5`` rounded to float32 (the reference multiplies float32
-    scores by it; the kernel takes it as a float). Cached: the wrapper
-    asks at every launch."""
-    return float(torch.tensor(dh ** -0.5, dtype=torch.float32))
+    """``dh ** -0.5`` as a Python float, rounded to the compute dtype
+    where it multiplies the scores (by ``scalar_like`` here, by ``T(scale)``
+    in the kernel, which takes it as a double), as the reference's weakly
+    typed ``dh ** -0.5`` is."""
+    return dh ** -0.5
 
 
 def _round_to(n: int, m: int) -> int:

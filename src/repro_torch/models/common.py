@@ -170,6 +170,7 @@ def chunked_ce_loss(x: Tensor, head_w: Tensor, labels: Tensor, mask: Tensor,
         lse = torch.logsumexp(logits, dim=-1, keepdim=True)
         gold = torch.gather(logits, -1, lc[..., None].long())
         mcf = mc.float()
+        # contract: allow-no-uncompensated-reduction(chunk-local partial; the kahan_loss fold carries the compensation, as the reference's common.py:286)
         return torch.sum((lse - gold)[..., 0] * mcf), torch.sum(mcf)
 
     s_acc = torch.zeros((), dtype=torch.float32, device=x.device)

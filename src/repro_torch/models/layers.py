@@ -126,6 +126,7 @@ def project(x: Tensor, w: Tensor) -> Tensor:
     lays out its projections."""
     if is_dtensor(x):
         return local_matmul(gather_inner(x), w, torch.matmul)
+    # contract: allow-no-uncompensated-reduction(projection fast path: the reference's per-site projection exemptions (router logits moe.py:101, logit projections common.py:277/320, the SSM and xLSTM cd-accumulate projections))
     return torch.matmul(x, w)
 
 
@@ -139,6 +140,7 @@ def _product(x: Tensor, w2: Tensor, compute_dtype, compensated: bool,
         x2 = x.to(compute_dtype).reshape(-1, x.shape[-1])
         y = ops.matmul(x2, w2).to(compute_dtype)
         return y.reshape(*x.shape[:-1], -1)
+    # contract: allow-no-uncompensated-reduction(Policy-selected fast path; compensated branch above is the default, as the reference's layers.py:82)
     return torch.matmul(x.to(compute_dtype), w2)
 
 
@@ -147,10 +149,13 @@ def norm_apply(p: Params, x: Tensor, kind: str) -> Tensor:
     float32 statistics."""
     xf = x.float()
     if kind == "rmsnorm":
+        # contract: allow-no-uncompensated-reduction(rmsnorm variance; d_model fp32 terms feeding an rsqrt, as the reference's layers.py:104)
         var = torch.mean(torch.square(xf), dim=-1, keepdim=True)
         y = xf * torch.rsqrt(var + 1e-6) * p["scale"].float()
     else:
+        # contract: allow-no-uncompensated-reduction(layernorm mean; d_model fp32 terms, as the reference's layers.py:107)
         mean = torch.mean(xf, dim=-1, keepdim=True)
+        # contract: allow-no-uncompensated-reduction(layernorm variance; d_model fp32 terms, the reference's jnp.var beside its layernorm-mean exemption layers.py:107)
         var = torch.mean(torch.square(xf - mean), dim=-1, keepdim=True)
         y = (xf - mean) * torch.rsqrt(var + 1e-5)
         if kind == "layernorm":
@@ -194,6 +199,7 @@ class _Lookup(torch.autograd.Function):
         flat = tokens.reshape(-1, 1).long()
         onehot = flat.new_zeros((flat.shape[0], ctx.rows),
                                 dtype=g.dtype).scatter_(1, flat, 1.0)
+        # contract: allow-no-uncompensated-reduction(embedding gradient as a fixed-order one-hot product; the reference's counterpart is the scatter-add transpose of its take (layers.py embed_lookup), outside its rule's name list)
         return onehot.T @ g.reshape(flat.shape[0], -1), None
 
 
@@ -350,6 +356,7 @@ def _attn_core(q: Tensor, k: Tensor, v: Tensor, q_pos: Tensor,
                        window=window, causal=causal)
             for i in range(0, q.shape[1], ATTN_Q_CHUNK)], dim=1)
     scale = q.shape[-1] ** -0.5
+    # contract: allow-no-uncompensated-reduction(attention scores; fp32 over head_dim terms, flash path owns the compensated variant, as the reference's layers.py:274)
     scores = torch.einsum("bqkgd,bskd->bkgqs", q.float(), k.float()) * scale
     bias = _causal_bias(q_pos, k_pos, window, causal)
     if bias.dim() == 3:                     # per-row positions: [B, Sq, Sk]
@@ -357,8 +364,10 @@ def _attn_core(q: Tensor, k: Tensor, v: Tensor, q_pos: Tensor,
     scores = scores + bias
     m = torch.amax(scores, dim=-1, keepdim=True).clamp_min(-1e30)
     p = torch.exp(scores - m)
+    # contract: allow-no-uncompensated-reduction(softmax normalizer; fp32, bounded by seq chunk, as the reference's layers.py:282)
     l = torch.sum(p, dim=-1, keepdim=True)
     p = (p / l.clamp_min(1e-30)).to(compute_dtype)
+    # contract: allow-no-uncompensated-reduction(prob-weighted value mix; probs sum to 1, as the reference's layers.py:284)
     return torch.einsum("bkgqs,bskd->bqkgd", p, v)
 
 
@@ -616,24 +625,34 @@ def mla_attention(p: Params, cfg, freqs: Tensor, x: Tensor, *,
         bias = _causal_bias(q_pos, torch.where(k_pos <= last, k_pos, _FAR))
         if bias.dim() == 3:                 # per-row positions: [B, 1, Sk]
             bias = bias[:, None]
+        # contract: allow-no-uncompensated-reduction(MLA absorbed projection; nope_dim terms in fp32, as the reference's layers.py:548)
         q_c = torch.einsum("bqhn,rhn->bqhr", q_nope, w_uk)
+        # contract: allow-no-uncompensated-reduction(MLA latent scores; fp32 over rank r terms, as the reference's layers.py:549)
         sc = (torch.einsum("bqhr,bsr->bhqs", q_c.float(), c_all.float())
+              # contract: allow-no-uncompensated-reduction(MLA rope scores; fp32 over rope_dim terms, as the reference's layers.py:551)
               + torch.einsum("bqhd,bsd->bhqs", q_rope.float(),
                              r_all.float())) * scale + bias
         probs = torch.softmax(sc, dim=-1).to(cd)
+        # contract: allow-no-uncompensated-reduction(prob-weighted latent mix; probs sum to 1, as the reference's layers.py:556)
         ctx_c = torch.einsum("bhqs,bsr->bqhr", probs, c_all)
+        # contract: allow-no-uncompensated-reduction(MLA value up-projection; rank r terms in fp32, as the reference's layers.py:557)
         ctx = torch.einsum("bqhr,rhv->bqhv", ctx_c, w_uv)
     else:                                                 # expanded K/V
+        # contract: allow-no-uncompensated-reduction(MLA K expansion; rank r terms in fp32, as the reference's layers.py:560)
         k_nope = torch.einsum("bsr,rhn->bshn", c_all, w_uk)
+        # contract: allow-no-uncompensated-reduction(MLA V expansion; rank r terms in fp32, as the reference's layers.py:561)
         v = torch.einsum("bsr,rhv->bshv", c_all, w_uv)
 
         def one_chunk(lo, hi):
+            # contract: allow-no-uncompensated-reduction(MLA nope scores; fp32 over nope_dim terms, as the reference's layers.py:564)
             sc = (torch.einsum("bqhn,bshn->bhqs", q_nope[:, lo:hi].float(),
                                k_nope.float())
+                  # contract: allow-no-uncompensated-reduction(MLA rope scores; fp32 over rope_dim terms, as the reference's layers.py:566)
                   + torch.einsum("bqhd,bsd->bhqs", q_rope[:, lo:hi].float(),
                                  r_all.float())) * scale
             sc = sc + _causal_bias(q_pos[lo:hi], k_pos)
             pr = torch.softmax(sc, dim=-1).to(cd)
+            # contract: allow-no-uncompensated-reduction(prob-weighted value mix; probs sum to 1, as the reference's layers.py:570)
             return torch.einsum("bhqs,bshv->bqhv", pr, v)
 
         chunk = s if cache is None else ATTN_Q_CHUNK

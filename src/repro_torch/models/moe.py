@@ -128,6 +128,7 @@ def route(p: Params, cfg, xg: Tensor, s: int) -> Routing:
     top, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
     gates, expert_idx = top[..., :k], idx[..., :k]
     if k > 1:
+        # contract: allow-no-uncompensated-reduction(gate renormalizer; top_k<=8 fp32 terms, as the reference's moe.py:106)
         gates = gates / torch.sum(gates, dim=-1, keepdim=True)
     tk = tg * k
     e_flat = expert_idx.reshape(g, tk)
@@ -174,8 +175,11 @@ def moe_apply(p: Params, cfg, x: Tensor) -> Tuple[Tensor, Dict[str, Tensor]]:
     # one-hot sum (exact; unlike ``bincount`` it waits on no host sync)
     top1 = r.expert_idx[..., 0].reshape(-1, 1)
     experts = torch.arange(mo.n_experts, device=x.device)
+    # contract: allow-no-uncompensated-reduction(expert counts of a {0,1} mask, exact in fp32; the reference's scatter-add counts beside its aux-statistic exemptions moe.py:112-113)
     counts = torch.sum((top1 == experts).float(), dim=0)
+    # contract: allow-no-uncompensated-reduction(router load statistic; feeds the diagnostic aux loss only, as the reference's moe.py:112)
     frac_probs = torch.mean(r.probs, dim=(0, 1))
+    # contract: allow-no-uncompensated-reduction(aux-loss statistic; n_experts fp32 terms, diagnostic only, as the reference's moe.py:113)
     aux = mo.n_experts * torch.sum(counts / t * frac_probs)
 
     # dispatch into [G, E, C + 1, D]: the spare row C takes the dropped
@@ -196,9 +200,12 @@ def moe_apply(p: Params, cfg, x: Tensor) -> Tuple[Tensor, Dict[str, Tensor]]:
     # the expert FFN over every expert's rows
     def experts(buf, gate, up, down):
         # each weight cast at its use: one compute-dtype copy at a time
+        # contract: allow-no-uncompensated-reduction(expert FFN contraction; cd accumulate, d_model terms, as the reference's moe.py:157)
         gt = torch.einsum("gecd,edf->gecf", buf, gate.to(cd))
+        # contract: allow-no-uncompensated-reduction(expert FFN contraction; cd accumulate, d_model terms, as the reference's moe.py:158)
         up = torch.einsum("gecd,edf->gecf", buf, up.to(cd))
         h = F.silu(gt.float()).to(cd) * up
+        # contract: allow-no-uncompensated-reduction(expert FFN down-projection; cd accumulate, d_ff terms, as the reference's moe.py:163)
         return torch.einsum("gecf,efd->gecd", h, down.to(cd))
 
     out = on_local_experts(experts, buf, p["gate"], p["up"], p["down"])
@@ -215,5 +222,6 @@ def moe_apply(p: Params, cfg, x: Tensor) -> Tuple[Tensor, Dict[str, Tensor]]:
         y = y + mlp_apply(p["shared"], xg.to(cd), cd,
                           compensated=cfg.kahan_matmul)
     metrics = {"aux_loss": aux,
+               # contract: allow-no-uncompensated-reduction(capacity-drop diagnostic; fraction of a {0,1} mask, as the reference's moe.py:182)
                "dropped_frac": 1.0 - torch.mean(r.keep.float())}
     return y.reshape(b, s, d), metrics

@@ -136,6 +136,7 @@ def _ssm_chunk(h0: Tensor, a: Tensor, bx: Tensor, c: Tensor, du: Tensor):
     last state, y [B,L,dI])."""
     a_cum, b_cum = associative_scan(a, bx)
     h = b_cum + a_cum * h0[:, None]
+    # contract: allow-no-uncompensated-reduction(SSM output readout; fp32 over d_state<=64 terms, as the reference's ssm.py:90)
     y = torch.einsum("blds,bls->bld", h, c) + du
     return h[:, -1], y
 
@@ -164,6 +165,7 @@ def ssm_apply(p: Params, cfg, x: Tensor, *,
     if decode:
         h_prev, conv_buf = cache
         window = torch.cat([conv_buf, x_in], dim=1)           # [B,k,dI]
+        # contract: allow-no-uncompensated-reduction(depthwise conv window; fp32, kernel-width terms, as the reference's ssm.py:113)
         u = (torch.einsum("bki,ki->bi", window.float(),
                           p["conv_w"].float())
              + p["conv_b"].float())
@@ -189,6 +191,7 @@ def ssm_apply(p: Params, cfg, x: Tensor, *,
 
     if decode:
         h = decay[:, 0] * h_prev + drive[:, 0]                # [B,dI,dS]
+        # contract: allow-no-uncompensated-reduction(SSM decode readout; fp32 over d_state<=64 terms, as the reference's ssm.py:139)
         y = (torch.einsum("bds,bs->bd", h, c_ssm[:, 0])[:, None, :]
              + du)
         h_prev.copy_(h)

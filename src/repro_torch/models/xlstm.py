@@ -115,6 +115,7 @@ def _mlstm_chunk(state, q, k, v, i_raw, f_raw):
     c_in, n_in, m_in = state
     scale = q.shape[-1] ** -0.5
     lf = F.logsigmoid(f_raw)
+    # contract: allow-no-uncompensated-reduction(log-domain forget-gate prefix; chunk-length fp32 terms defining the decay, as the reference's xlstm.py:110)
     b_cum = torch.cumsum(lf, dim=-1)                  # [B,H,L]
     total_g = b_cum[..., -1:]
     # intra-chunk decay logD[j, t] = i[t] + b[j] - b[t], t <= j
@@ -128,13 +129,18 @@ def _mlstm_chunk(state, q, k, v, i_raw, f_raw):
     m_new = torch.maximum(m_intra, m_inter).clamp_min(NEG)
 
     d_mat = torch.exp(logd - m_new[..., None])        # [B,H,L,L]
+    # contract: allow-no-uncompensated-reduction(mLSTM intra-chunk scores; fp32 over head_dim terms, as the reference's xlstm.py:125)
     s_mat = torch.einsum("bhld,bhtd->bhlt", q, k) * scale * d_mat
+    # contract: allow-no-uncompensated-reduction(mLSTM intra-chunk mix; fp32, chunk-bounded terms, as the reference's xlstm.py:126)
     h_intra = torch.einsum("bhlt,bhtv->bhlv", s_mat, v)
     inter_scale = torch.exp(m_inter - m_new)
+    # contract: allow-no-uncompensated-reduction(mLSTM state readout; fp32 over head_dim terms, as the reference's xlstm.py:129)
     h_inter = (torch.einsum("bhld,bhdv->bhlv", q, c_in) * scale
                * inter_scale[..., None])
     num = h_intra + h_inter
+    # contract: allow-no-uncompensated-reduction(mLSTM normalizer; fp32, chunk-bounded terms, as the reference's xlstm.py:134)
     n_intra = torch.sum(s_mat, dim=-1)
+    # contract: allow-no-uncompensated-reduction(mLSTM normalizer readout; fp32 over head_dim terms, as the reference's xlstm.py:135)
     n_inter = torch.einsum("bhld,bhd->bhl", q, n_in) * scale * inter_scale
     denom = torch.maximum(torch.abs(n_intra + n_inter), torch.exp(-m_new))
     h = num / denom[..., None]
@@ -144,7 +150,9 @@ def _mlstm_chunk(state, q, k, v, i_raw, f_raw):
     w_t = torch.exp(i_raw + total_g - b_cum - m_out[..., None])
     carry = torch.exp(m_in + total_g[..., 0] - m_out)
     c_out = (carry[..., None, None] * c_in
+             # contract: allow-no-uncompensated-reduction(mLSTM state update; fp32, chunk-bounded terms, as the reference's xlstm.py:144)
              + torch.einsum("bhl,bhld,bhlv->bhdv", w_t, k, v))
+    # contract: allow-no-uncompensated-reduction(mLSTM normalizer update; fp32, chunk-bounded terms, as the reference's xlstm.py:146)
     n_out = carry[..., None] * n_in + torch.einsum("bhl,bhld->bhd", w_t, k)
     return (c_out, n_out, m_out), h
 
@@ -171,6 +179,7 @@ def mlstm_apply(p: Params, cfg, x: Tensor, *,
     if decode:
         c_st, n_st, m_st, conv_buf = cache
         win = torch.cat([conv_buf, u], dim=1)
+        # contract: allow-no-uncompensated-reduction(depthwise conv window; fp32, kernel-width terms, as the reference's xlstm.py:171)
         cu = (torch.einsum("bki,ki->bi", win.float(),
                            p["conv_w"].float()) + p["conv_b"].float())
         cu = F.silu(cu)[:, None, :].to(cd)
@@ -273,6 +282,7 @@ def _slstm_step(r: Tensor, heads: int, carry, wx_t: Tensor):
     c, n, m, h = carry
     b, d = h.shape
     dh = d // heads
+    # contract: allow-no-uncompensated-reduction(sLSTM recurrent product; fp32 over head_dim terms, as the reference's xlstm.py:284)
     rh = torch.einsum("bhd,hdg->bhg", h.reshape(b, heads, dh), r)
     rh = rh.reshape(b, heads, 4, dh).transpose(1, 2).reshape(b, 4 * d)
     pre = wx_t + rh                                   # [z | i | f | o]

@@ -178,6 +178,7 @@ def global_norm(cfg: AdamWConfig, grads: Any) -> Tensor:
 
 def global_norm_ref(grads: Any) -> Tensor:
     """Uncompensated oracle for the engine-folded global norm."""
+    # contract: allow-no-uncompensated-reduction(reference oracle for engine_sq_norm; not a hot path, as the reference's adamw.py:98)
     return torch.sqrt(sum(torch.sum(torch.square(g.float()))
                           for g in _tree.leaves(grads)))
 

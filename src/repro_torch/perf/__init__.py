@@ -1,2 +1,3 @@
 """Performance accounting of the port: the dry run's roofline terms
-(``roofline``; counterpart of ``repro/perf``)."""
+(``roofline``) and the opcode inventory of the kernels' SASS
+(``sass_analysis``); counterpart of ``repro/perf``."""

@@ -99,16 +99,22 @@ serve a reused slot's next request other tokens.
 
 The vmapped slot loop serves the dense layout only: with
 ``kv_layout="paged"`` it raises, as the reference's does (its paged tick
-threads the page pool through the slot scan). The reference's
-compile-count guard has no analogue here: eager PyTorch compiles nothing
-per chunk width or page placement.
+threads the page pool through the slot scan). Eager PyTorch compiles
+nothing per chunk width or page placement, but the engine keeps the
+reference's prefill keys (``prefill_programs``, bounded by
+``prefill_program_bound``), and its audit surface (``trace_tick``,
+``trace_prefill``) hands the contract auditor (``repro_torch.analysis``)
+the device work of one tick and one chunk: ``_tick`` and ``_chunk``,
+split from the host emit point ``_emit`` where tokens and telemetry are
+read back.
 """
 
 from __future__ import annotations
 
 import collections
 import dataclasses
-from typing import Deque, Dict, Iterator, List, Optional, Sequence, Tuple
+from typing import (Callable, Deque, Dict, Iterator, List, Optional,
+                    Sequence, Tuple)
 
 import numpy as np
 import torch
@@ -126,6 +132,7 @@ from repro_torch.serve.scheduler import (
     QUEUED,
     Request,
     RequestHandle,
+    SamplingParams,
     SlotScheduler,
 )
 from repro_torch.serve.slots import (
@@ -272,6 +279,44 @@ def _next_chunk(prompt_len: int, offset: int, chunk: Optional[int],
     return _bucket(remaining, chunk), remaining
 
 
+def prefill_program_family(max_len: int, chunk: Optional[int],
+                           needs_begin: bool) -> frozenset:
+    """Every (width, runs_begin) prefill key ANY traffic can need: the
+    ``_next_chunk`` schedule swept over all prompt lengths 1..max_len
+    (``repro/serve/engine.py:288``). ``chunk=None`` (one-shot admit) yields
+    one width per prompt length. The port compiles nothing per key, but
+    the key set is still the reference's program family, and the trace
+    auditor's ``trace-program-count`` bounds it."""
+    keys = set()
+    for plen in range(1, max_len + 1):
+        offset = 0
+        first = needs_begin
+        while offset < plen:
+            width, nvalid = _next_chunk(plen, offset, chunk)
+            keys.add((width, first))
+            offset += nvalid
+            first = False
+    return frozenset(keys)
+
+
+def prefill_program_bound(chunk: int, needs_begin: bool) -> int:
+    """The O(#buckets) cap on the prefill key set
+    (``repro/serve/engine.py:362``): the power-of-two tail buckets up to
+    ``chunk`` plus ``chunk`` itself, twice for a family with a one-time
+    ``prefill_begin``. One-shot admit (``chunk=None``) has no such bound:
+    this raises."""
+    if chunk is None:
+        raise ValueError(
+            "one-shot admit (prefill_chunk=None) has no O(#buckets) "
+            "program bound — its key set is O(#distinct prompt lengths)")
+    widths = {chunk}
+    b = 1
+    while b <= chunk:
+        widths.add(b)
+        b *= 2
+    return len(widths) * (2 if needs_begin else 1)
+
+
 _MASK64 = (1 << 64) - 1
 
 
@@ -339,6 +384,7 @@ class InferenceEngine:
         self.model = model
         self.device = model.device
         if params is None:
+            # contract: allow-no-raw-prngkey(engine-owned init generator from the config seed — the serving boundary, as the reference's engine.py:709)
             gen = torch.Generator(device=self.device).manual_seed(seed)
             params = model.init(gen)
         self.params = params
@@ -387,6 +433,8 @@ class InferenceEngine:
         # (request_id, width, body) of every prefill chunk the most recent
         # step() ran
         self.last_chunks: List[Tuple[int, int, str]] = []
+        # (width, runs_begin) of every prefill chunk this engine has run
+        self._used_prefill: set = set()
         self.t = 0
         self.handles: Dict[int, RequestHandle] = {}
         # request ids of the retained finished handles, oldest first
@@ -398,6 +446,14 @@ class InferenceEngine:
         "flash"`` and the model's ``parallel_prefill_ok``; otherwise
         "scan"."""
         return self._prefill_body
+
+    @property
+    def prefill_programs(self) -> Tuple[Tuple[int, bool], ...]:
+        """(chunk_width, runs_begin) of every prefill chunk this engine's
+        traffic has run (the reference's compiled prefill programs,
+        ``repro/serve/engine.py::prefill_programs``): O(#buckets) when
+        chunked."""
+        return tuple(sorted(self._used_prefill))
 
     # ------------------------------------------------------------ submission
     def submit(self, request: Request) -> RequestHandle:
@@ -491,6 +547,7 @@ class InferenceEngine:
         own (seed, emit index) stream."""
         if temperature <= 0:
             return int(torch.argmax(logits_row))
+        # contract: allow-no-raw-prngkey(the engine IS the sampling boundary — each draw seeds from the engine seed, request seed and emit index, as the reference's engine.py:443)
         gen = torch.Generator().manual_seed(
             sampling_seed(self.ec.sample_seed, seed, emit_index))
         u = torch.rand(logits_row.shape, generator=gen, dtype=torch.float64)
@@ -537,6 +594,21 @@ class InferenceEngine:
         """Advance one PREFILLING request by one chunk; on the final chunk
         record emit 0 (and its telemetry) and move it into the decode
         batch."""
+        logits = self._chunk(slot, h)
+        if h.prefill_pos == h.prompt_len:
+            self._extras_dev.pop(h.request_id, None)
+            self.scheduler.mark_running(h)
+            h.pos = h.prompt_len
+            sp = h.request.sampling
+            tok = self._sample(logits[0], h.seed, 0, sp.temperature)
+            norm = self._norms(logits)[0] if self.ec.track_stats else None
+            self._record(h, tok, norm, events)
+
+    def _chunk(self, slot: int, h: RequestHandle) -> torch.Tensor:
+        """The work of one prefill chunk of a PREFILLING request (the
+        audited chunk program, ``trace_prefill``): its row through the
+        chunk body from ``h.prefill_pos``, written back, and the position
+        advanced. Returns the chunk's last-position logits [1, V_pad]."""
         offset = h.prefill_pos
         width, nvalid = _next_chunk(h.prompt_len, offset,
                                     self.ec.prefill_chunk)
@@ -551,10 +623,12 @@ class InferenceEngine:
             resume = lease.resume
         else:
             row = gather_row(self.slots.cache, slot)
+        runs_begin = self._begin is not None and offset == resume
+        self._used_prefill.add((width, runs_begin))
         with _schemes.use_policy(self.policy):
             if self._begin is not None:
                 # the setup takes the extras, in the first chunk only
-                if offset == resume:
+                if runs_begin:
                     self._begin(self.params, row, **extras)
                 extras = {}
             logits, _ = self._chunk_fn(
@@ -567,32 +641,43 @@ class InferenceEngine:
             self.slots.scatter(row, lease.table_dev, offset // ps,
                                (offset + nvalid - 1) // ps + 1)
         h.prefill_pos = offset + nvalid
-        if h.prefill_pos == h.prompt_len:
-            self._extras_dev.pop(h.request_id, None)
-            self.scheduler.mark_running(h)
-            h.pos = h.prompt_len
-            sp = h.request.sampling
-            tok = self._sample(logits[0], h.seed, 0, sp.temperature)
-            norm = self._norms(logits)[0] if self.ec.track_stats else None
-            self._record(h, tok, norm, events)
+        return logits
 
     def _decode_tick(self, running: Dict[int, RequestHandle],
                      events: List[TokenEvent]) -> None:
-        """One decode position for every running slot under the engine's
-        Policy (as a prefill chunk runs): one slot at a time through the
-        batch-1 decode step, or with ``slot_loop="vmap"`` one step over
-        them all; then ONE telemetry launch over the whole [max_slots,
-        vocab] logit batch (rows of idle slots are zero)."""
+        """One decode tick: its device work (``_tick``), then the host
+        emit point: every running slot's token sampled and recorded with
+        its telemetry."""
+        self._emit(running, *self._tick(running), events)
+
+    def _tick(self, running: Dict[int, RequestHandle],
+              ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """The device work of one decode tick (the audited tick,
+        ``trace_tick``): one decode position for every running slot under
+        the engine's Policy (as a prefill chunk runs), one slot at a time
+        through the batch-1 decode step, or with ``slot_loop="vmap"`` one
+        step over them all; then ONE telemetry launch over the whole
+        [max_slots, vocab] logit batch (rows of idle slots are zero).
+        Returns (logits, norms or None). No value leaves the card here."""
         logits = torch.zeros((self.ec.max_slots, self.cfg.padded_vocab),
                              dtype=torch.float32, device=self.device)
         if self.ec.slot_loop == "vmap":
             self._vmapped_step(running, logits)
         else:
             self._scanned_step(running, logits)
+        norms = self._norms(logits) if self.ec.track_stats else None
+        return logits, norms
+
+    def _emit(self, running: Dict[int, RequestHandle], logits: torch.Tensor,
+              norms: Optional[torch.Tensor],
+              events: List[TokenEvent]) -> None:
+        """The tick's host emit point (the reference's reads of the tick's
+        outputs in ``step``): tokens sampled from ``logits``, the norms
+        copied to the host, each running request advanced one position."""
         toks = {slot: self._sample(logits[slot], h.seed, h.emitted,
                                    h.request.sampling.temperature)
                 for slot, h in running.items()}
-        norms = self._norms(logits).cpu() if self.ec.track_stats else None
+        norms = None if norms is None else norms.cpu()
         for slot, h in running.items():
             h.pos += 1
             self._record(h, toks[slot],
@@ -824,6 +909,57 @@ class InferenceEngine:
         return out
 
     # ------------------------------------------------------------ driving
+    # ------------------------------------------------------- audit surface
+    def trace_tick(self) -> Tuple[Callable, Tuple]:
+        """(tick, args) for the trace auditor (the reference's
+        ``trace_tick``, ``repro/serve/engine.py:1133``): ``tick(*args)``
+        runs the device work of ONE decode tick over the running slots
+        (``_tick``) and returns (logits, norms). An engine with nothing
+        running first fills every slot with a probe request, slot ``s``
+        holding a prompt of ``s + 1`` tokens (so each slot decodes at its
+        own position), through the engine's own admission and one
+        ``step()``: call it on an engine kept for auditing."""
+        if not self.scheduler.running:
+            for s in range(self.ec.max_slots):
+                self.submit(Request(
+                    prompt=list(range(1, s + 2)),
+                    sampling=SamplingParams(max_new_tokens=self.ec.max_len
+                                            - s)))
+            self.step()
+        return self._tick, (self.scheduler.running,)
+
+    def trace_prefill(self, width: int, first: bool = False,
+                      ) -> Tuple[Callable, Tuple]:
+        """(chunk, args) for the trace auditor (the reference's
+        ``trace_prefill``, ``repro/serve/engine.py:1147``): ``chunk(*args)``
+        runs the device work of one prefill chunk of width ``width``
+        (``_chunk``; a bucket width of ``prefill_program_family``) with
+        ``runs_begin == first``, for a probe request admitted into a free
+        slot, and returns its logits. Call it on an engine kept for
+        auditing, with a slot free."""
+        chunk = self.ec.prefill_chunk
+        if first and self._begin is None:
+            raise ValueError(f"{self.cfg.name} has no prefill_begin: its "
+                             f"chunks never run one (first=True)")
+        lead = 0 if first or self._begin is None else (chunk or width)
+        h = self.submit(Request(
+            prompt=list(range(1, lead + width + 1)),
+            sampling=SamplingParams(max_new_tokens=1)))
+        sch = self.scheduler
+        if sch.peek() is not h or not sch.can_admit() or (
+                self.pages is not None and not self._reserve_pages(h)):
+            raise RuntimeError("trace_prefill: no free slot (or pages) for "
+                               "the probe request")
+        sch.admit_next()
+        slot = next(s for s, x in sch.prefilling.items() if x is h)
+        if lead:
+            self._chunk(slot, h)
+        got = _next_chunk(h.prompt_len, h.prefill_pos, chunk)[0]
+        if got != width:
+            raise ValueError(f"width {width} is no prefill bucket of chunk "
+                             f"{chunk} (a probe of it runs width {got})")
+        return self._chunk, (slot, h)
+
     def stream(self, requests: Sequence[Request] = (),
                arrivals: Optional[Sequence[int]] = None,
                _sink: Optional[Dict[int, RequestHandle]] = None,

@@ -1535,3 +1535,19 @@ def test_cuda_flash_on_local_heads_equals_full_launch(cuda_device, heads,
         got = fa.flash_attention(ql, kl, vl, causal=True, q_groups=groups)
         assert torch.equal(got, out.view(b, ranks, per_q, s, dh)[:, r]
                            .flatten(0, 1))
+
+
+@pytest.mark.cuda
+def test_cuda_cost_audit_sass_strict(cuda_device):
+    """The cost auditor's SASS level with the card's toolkit: the scheme
+    probes of ``csrc/cost_probe.cu`` carry their declared mix, the
+    float32 probes no conversion, every compensation add survives, the
+    shipping kernels hold no tensor-core opcode in B1-B6 and no FFMA in
+    the B3/B4 sum instantiations; with the CPU cost cells, no finding."""
+    root = Path(__file__).resolve().parents[1]
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.analysis", "--cost", "--sass",
+         "--strict"], capture_output=True, text=True, cwd=str(root),
+        env=dict(os.environ, PYTHONPATH=str(root / "src")), timeout=900)
+    assert proc.returncode == 0, proc.stdout[-6000:] + proc.stderr[-3000:]
+    assert "0 violation(s)" in proc.stdout
