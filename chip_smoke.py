@@ -632,7 +632,10 @@ REDUCE_BEFORE_MS = {
 #: the kernel before its register-tiled redesign (16 query rows a CTA,
 #: scalar synchronous staging), taken by this script's graph timing on an
 #: NVIDIA H100 80GB HBM3 at 700 W; logged beside each new time
-FLASH_BEFORE_MS = {"entry": 7.2962, "serve": 0.0952, "serve-long": 0.8863}
+FLASH_BEFORE_MS = {"entry": 7.2962, "serve": 0.0952, "serve-long": 0.8863,
+                   # bfloat16 and float64 in the 16-row tile
+                   "entry-bf16": 10.6330, "serve-bf16": 0.0448,
+                   "entry-f64": 10.7227, "serve-f64": 0.0481}
 
 
 def check(ok: bool, what: str) -> None:
@@ -1072,8 +1075,10 @@ class Kernels:
         q_groups) of ``heads``: by default q_groups 1 and 2 at BH 4 (B7 in
         16-row tiles) and BH 48 (B7 in 64-row tiles, B8's 64-row chunks in
         16-row tiles: rows equal across tile heights). ``dtype``: the
-        compute dtype (float32 by default; float64 and bfloat16 take
-        16-row tiles only)."""
+        compute dtype (float32 by default; bfloat16's tall tile is 64
+        rows too, float64's 32). At least one case must run B7 in the
+        dtype's tall tile beside B8 in 16-row tiles: in float32 always,
+        in the others where ``heads`` reaches BH 48."""
         torch, fa = self.torch, self.fa
         dtype = dtype or torch.float32
         sq, skv, bk = 300, 600, 256
@@ -1118,10 +1123,11 @@ class Kernels:
                                fa.flash_chunk_accumulators.plan[0]))
                     cases += 1
         sync(torch, self.dev)
-        check(dtype != torch.float32
-              or any(r7 == 64 and r8 == 16 for _, r7, r8 in plans),
-              f"no parity case ran B7 in 64-row tiles beside B8 in 16-row "
-              f"tiles: (BH, B7 rows, B8 rows) {sorted(plans)}")
+        tall = fa.TILE_ROWS[torch.empty((), dtype=dtype).element_size()][0]
+        check((dtype != torch.float32 and max(bh for bh, _ in heads) < 48)
+              or any(r7 == tall and r8 == 16 for _, r7, r8 in plans),
+              f"no parity case ran B7 in {tall}-row tiles beside B8 in "
+              f"16-row tiles: (BH, B7 rows, B8 rows) {sorted(plans)}")
         log(f"# phase 2: {cases} {dtype} flash parity cases (dh={dh}, Sq={sq}, "
             f"Skv={skv}, block_k={bk}, (BH, G) {list(heads)}) bitwise equal "
             f"to the plain version; B8 rows at aligned offsets == B7 rows, "
@@ -1906,8 +1912,9 @@ class Kernels:
         projections at M 1 ([1, d] x [d, H dh]) and in a 64-token chunk
         ([64, d] x [d, d_ff]). Flash in each dtype: ``flash_parity`` at
         OLMo-1B's head dim (every scheme, causal and not, G 1 and 2, B8
-        rows == B7 rows) and B8 at OLMo-1B's serving chunk [H, 64, dh]
-        against 112 cached rows."""
+        rows == B7 rows; at BH 48 B7 takes the dtype's tall tile, 64 rows
+        in bfloat16 and 32 in float64) and B8 at OLMo-1B's serving chunk
+        [H, 64, dh] against 112 cached rows."""
         torch, km, fa = self.torch, self.km, self.fa
         bf16, f64 = torch.bfloat16, torch.float64
         cases = 0
@@ -1960,7 +1967,8 @@ class Kernels:
             f"shapes)")
         h, dh = cfg.n_heads, cfg.head_dim
         for dtype in (bf16, f64):
-            self.flash_parity(dh, heads=((4, 1), (16, 2)), dtype=dtype)
+            self.flash_parity(dh, heads=((4, 1), (16, 2), (48, 1)),
+                              dtype=dtype)
             sch = self.schemes.get("kahan")
             ceng = self.engine.CompensatedReduction(scheme=sch,
                                                     compute_dtype=dtype)
@@ -5935,6 +5943,17 @@ def cost_path():
         f"{', '.join(costmodel.SHIPPING)}: "
         + "; ".join(f"{k} {v}" for k, v in sorted(tally.items())))
     out["census"] = tally
+    # each flash instantiation's conversions beside its arithmetic (the
+    # bfloat16 tiles round with F2FP)
+    flash = {}
+    for fn, ops in sorted(census.functions.items()):
+        if sass_analysis.kernel_of(fn) == "kahan_flash_grid":
+            name = fn[fn.index("kahan_flash_grid"):]
+            flash[name] = {op: ops.get(op, 0)
+                           for op in ("F2FP", "F2F", "PRMT", "FADD", "FMUL",
+                                      "DADD", "DMUL", "LDS")}
+            log(f"# phase 16 census {name}: {flash[name]}")
+    out["flash_functions"] = flash
     seconds = time.perf_counter() - t0
     out["seconds"] = seconds
     log(f"# phase 16 took {seconds:.1f} s ({report.files} audited cells, "

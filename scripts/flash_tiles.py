@@ -1,19 +1,20 @@
 #!/usr/bin/env python3
-"""Time the compensated flash kernel (B7, B8) under both tile heights it
-has, on one CUDA card.
+"""Time the compensated flash kernel (B7, B8) under every tile it has, in
+each compute dtype, on one CUDA card.
 
     PYTHONPATH=src python3 scripts/flash_tiles.py [--out FILE.jsonl]
 
 At OLMo-1B's head shapes (B7: q, k, v [16, 2048, 128], causal; B8: a
 64-row chunk at the last full chunk of a 144- and a 1984-token cache;
-block_k 256, scheme kahan) it launches ``kahan_flash_grid`` through the
-wrapper's launch with each tile height that fits, once with k and v
-16-byte aligned (the cp.async ring) and once with both one float off in
-their storage (plain loads into the same ring). Every launch's grids must
-equal those of the plan ``flash_plan`` picks bit for bit, and that plan's
-must equal the plain version's. Device times come from launches captured
-in a CUDA graph. Prints one JSON object a line (card, then one row per
-shape, plan and alignment); ``--out`` also writes them to a file.
+block_k 256, scheme kahan), in each compute dtype, it launches
+``kahan_flash_grid`` through the wrapper's launch with each tile height
+of the dtype that fits (float32 and bfloat16 64 and 16 rows, float64 32
+and 16), once with k and v 16-byte aligned (the cp.async ring) and once with both one element off in their
+storage (plain loads into the same ring). Every launch's grids must equal
+those of the plan ``flash_plan`` picks bit for bit, and that plan's must
+equal the plain version's. Device times come from launches captured in a
+CUDA graph. Prints one JSON object a line (card, then one row per dtype,
+shape, tile and alignment); ``--out`` also writes them to a file.
 """
 
 from __future__ import annotations
@@ -35,12 +36,12 @@ from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import schemes  # noqa: E402
 
 
-def off_storage(x: torch.Tensor, floats: int) -> torch.Tensor:
-    """A contiguous copy of ``x`` that starts ``floats`` floats into its
-    storage."""
-    buf = x.new_empty(x.numel() + floats)
-    buf[floats:] = x.reshape(-1)
-    return buf[floats:].view(x.shape)
+def off_storage(x: torch.Tensor, elements: int) -> torch.Tensor:
+    """A contiguous copy of ``x`` that starts ``elements`` elements into
+    its storage."""
+    buf = x.new_empty(x.numel() + elements)
+    buf[elements:] = x.reshape(-1)
+    return buf[elements:].view(x.shape)
 
 
 def launch(q, k, v, plan, *, block_k, q_off, kv_len, scheme):
@@ -73,42 +74,47 @@ def main() -> int:
     shapes = (("B7 entry", 2048, 2048, 0),
               ("B8 serve", 64, 256, 64),
               ("B8 serve-long", 64, 2048, 1920))
-    for label, sq, skv, q_off in shapes:
-        # the engine's padded operands: kv_len masks the cache's tail
-        kv_len = {"B8 serve": 144, "B8 serve-long": 1984}.get(label, skv)
-        q = torch.randn((bh, sq, dh), generator=gen, device=dev)
-        k = torch.randn((bh, skv, dh), generator=gen, device=dev)
-        v = torch.randn((bh, skv, dh), generator=gen, device=dev)
-        kw = dict(block_k=bk, q_off=q_off, kv_len=kv_len, scheme=sch)
-        chosen = fa.flash_plan(bh, sq, dh, bk, sms=sms)
-        want = launch(q, k, v, chosen, **kw)
-        plain = fa.flash_plain(q, k, v, scheme=sch, block_k=bk,
-                               kv_len=kv_len, causal=True, q_off=q_off)
-        if not all(torch.equal(a, b) for a, b in zip(want, plain)):
-            raise RuntimeError(f"{label}: kernel != plain version")
-        # the fixed chains' ceiling: a rounded multiply and add per term
-        ceiling = fma_ceiling_ms(4 * bh * sq * skv * dh)
-        ku, vu = off_storage(k, 1), off_storage(v, 1)
-        for rows in fa.TILE_ROWS:
-            smem = fa.flash_smem_bytes(rows, dh, bk)
-            if smem > fa.SMEM_LIMIT or rows * dh > fa.TILE_OUTPUTS:
-                continue
-            plan = (rows, smem)
-            for aligned, (kk, vv) in ((True, (k, v)), (False, (ku, vu))):
-                got = launch(q, kk, vv, plan, **kw)
-                if not all(torch.equal(a, b) for a, b in zip(got, want)):
-                    raise RuntimeError(f"{label} {plan} aligned={aligned}: "
-                                       f"bits differ")
-                ms = graph_ms(torch, lambda: launch(q, kk, vv, plan, **kw))
-                row = {"shape": label, "q": [bh, sq, dh], "skv": skv,
-                       "rows": rows, "ring_stages": fa.RING_STAGES,
-                       "smem_bytes": smem, "ctas": -(-sq // rows) * bh,
-                       "copy": "cp.async" if aligned else "plain",
-                       "chosen": plan == chosen and aligned,
-                       "ms": ms, "mul_add_ceiling_ms": ceiling,
-                       "ceiling_share": ceiling / ms}
-                lines.append(row)
-                print(json.dumps(row), flush=True)
+    for dtype in (torch.float32, torch.bfloat16, torch.float64):
+        itemsize = torch.empty((), dtype=dtype).element_size()
+        for label, sq, skv, q_off in shapes:
+            # the engine's padded operands: kv_len masks the cache's tail
+            kv_len = {"B8 serve": 144, "B8 serve-long": 1984}.get(label, skv)
+            q, k, v = (torch.randn((bh, n, dh), generator=gen,
+                                   device=dev).to(dtype)
+                       for n in (sq, skv, skv))
+            kw = dict(block_k=bk, q_off=q_off, kv_len=kv_len, scheme=sch)
+            chosen = fa.flash_plan(bh, sq, dh, bk, sms=sms,
+                                   itemsize=itemsize)
+            want = launch(q, k, v, chosen, **kw)
+            plain = fa.flash_plain(q, k, v, scheme=sch, block_k=bk,
+                                   kv_len=kv_len, causal=True, q_off=q_off)
+            if not all(torch.equal(a, b) for a, b in zip(want, plain)):
+                raise RuntimeError(f"{label} {dtype}: kernel != plain "
+                                   f"version")
+            # the fixed chains' ceiling: a rounded multiply and add per term
+            ceiling = fma_ceiling_ms(4 * bh * sq * skv * dh, dtype)
+            ku, vu = off_storage(k, 1), off_storage(v, 1)
+            for plan in fa.fitting_tiles(dh, bk, itemsize):
+                rows, smem = plan
+                for aligned, (kk, vv) in ((True, (k, v)), (False, (ku, vu))):
+                    got = launch(q, kk, vv, plan, **kw)
+                    if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                        raise RuntimeError(f"{label} {dtype} {plan} "
+                                           f"aligned={aligned}: bits differ")
+                    ms = graph_ms(torch, lambda: launch(q, kk, vv, plan,
+                                                        **kw))
+                    row = {"dtype": str(dtype).split(".")[-1],
+                           "shape": label, "q": [bh, sq, dh], "skv": skv,
+                           "rows": rows, "ring_stages": fa.RING_STAGES,
+                           "sub_tile_keys": fa.sub_tile_keys(rows, itemsize),
+                           "smem_bytes": smem, "ctas": -(-sq // rows) * bh,
+                           "copy": "cp.async" if aligned else "plain",
+                           "chosen": plan == chosen and aligned,
+                           "ms": ms, "mul_add_ceiling_ms": ceiling,
+                           "ceiling_share": ceiling / ms}
+                    lines.append(row)
+                    print(json.dumps(row), flush=True)
+            del q, k, v, ku, vu, want, plain
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text("".join(json.dumps(x) + "\n"

@@ -10,8 +10,9 @@
 // exactly the sites where XLA on the CPU contracts the reference (see
 // kahan_reduce.cu, which is built with -fmad=false). The scheme id is a
 // template argument: the ids are the device_id values of schemes.py.
-// T is float, double or Bf16 (bfloat16 storage, every op computed in
-// float32 and rounded to bfloat16, as XLA and torch on the CPU do).
+// T is float, double, Bf16 (bfloat16 storage, every op computed in
+// float32 and rounded to bfloat16, as XLA and torch on the CPU do) or
+// Bf16f (the same ops on a bfloat16 value held in a float).
 
 #pragma once
 
@@ -33,6 +34,34 @@ __device__ __forceinline__ Bf16 operator-(Bf16 a, Bf16 b) { return Bf16(a.f() - 
 __device__ __forceinline__ Bf16 operator*(Bf16 a, Bf16 b) { return Bf16(a.f() * b.f()); }
 __device__ __forceinline__ Bf16 operator-(Bf16 a) { Bf16 r; r.v = __hneg(a.v); return r; }
 static_assert(sizeof(Bf16) == 2, "Bf16 must be 2 bytes");
+
+// A bfloat16 value held in a float (the bfloat16 bits in the upper half,
+// the lower half zero): each op computed in float and rounded to bfloat16
+// once, as Bf16's, so the bits are Bf16's, but no operand is widened
+// again. The rounding is one cvt.rn.bf16x2.f32 with a zero low half, whose
+// 32 bits are the rounded value as a float (scripts/bf16_rounding.py
+// times it against rounding on the integer pipe). Its input is never a
+// subnormal: it is a float op's result under -ftz=true.
+struct Bf16f {
+  float x;
+  Bf16f() = default;
+  __device__ explicit Bf16f(float f) : x(rounded(f)) {}
+  // a value that already is a bfloat16 one (a widened Bf16)
+  static __device__ __forceinline__ Bf16f exact(float f) {
+    Bf16f r;
+    r.x = f;
+    return r;
+  }
+  static __device__ __forceinline__ float rounded(float f) {
+    unsigned u;
+    asm("cvt.rn.bf16x2.f32 %0, %1, %2;" : "=r"(u) : "f"(f), "f"(0.0f));
+    return __uint_as_float(u);
+  }
+};
+__device__ __forceinline__ Bf16f operator+(Bf16f a, Bf16f b) { return Bf16f(a.x + b.x); }
+__device__ __forceinline__ Bf16f operator-(Bf16f a, Bf16f b) { return Bf16f(a.x - b.x); }
+__device__ __forceinline__ Bf16f operator*(Bf16f a, Bf16f b) { return Bf16f(a.x * b.x); }
+static_assert(sizeof(Bf16f) == 4, "Bf16f must be 4 bytes");
 
 __device__ __forceinline__ float fused(float a, float b, float c) {
   return __fmaf_rn(a, b, c);

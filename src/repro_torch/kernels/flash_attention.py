@@ -26,8 +26,8 @@ Every compute dtype of the reference runs on the card: q, k and v arrive
 promoted to float32, float64 or bfloat16, and the kernel holds the
 scores, ``m``, ``l``, ``acc`` and the compensations in that dtype (a
 bfloat16 op computed in float32 and rounded once, as torch computes it;
-float64's exp is libdevice's, as torch.exp's). float64 and bfloat16 take
-the 16-row tile only (``flash_plan``).
+float64's exp is libdevice's, as torch.exp's). Each dtype has a tall tile
+and a 16-row one (``flash_plan``).
 
 Which path runs depends only on where the tensors lie: on the CPU the
 plain version, on a CUDA tensor the kernel (a scheme without a device
@@ -38,7 +38,7 @@ version on the card.
 from __future__ import annotations
 
 import functools
-from typing import Optional, Tuple, Union
+from typing import List, Optional, Tuple, Union
 
 import torch
 
@@ -57,14 +57,15 @@ NEG_INF = -1e30
 MAX_HEAD_DIM = 256
 MAX_BLOCK_K = 1024
 
-#: the kernel's tile heights (query rows a CTA), largest first (float32;
-#: float64 and bfloat16 take the 16-row tile only); the depth of its K/V
-#: ring (64-key sub-tiles); at most TILE_OUTPUTS = rows * round4(dh) acc
-#: cells a CTA (32 a thread); its shared memory limit
-TILE_ROWS = (64, 16)
+#: by the compute dtype's itemsize: the kernel's tile heights (query rows
+#: a CTA), largest first, and the most acc cells a CTA holds, rows *
+#: round4(dh) (32 a thread, 16 in float64); the depth of its K/V ring, of
+#: 64-key sub-tiles (32 in float64's 32-row tile, ``sub_tile_keys``); its
+#: shared memory limit
+TILE_ROWS = {4: (64, 16), 2: (64, 16), 8: (32, 16)}
+TILE_OUTPUTS = {4: 8192, 2: 8192, 8: 4096}
 RING_STAGES = 2
 SUB_TILE_KEYS = 64
-TILE_OUTPUTS = 8192
 SMEM_LIMIT = 232448
 
 
@@ -84,47 +85,71 @@ def _round4(n: int) -> int:
     return _round_to(n, 4)
 
 
+def sub_tile_keys(rows: int, itemsize: int = 4) -> int:
+    """Keys of one K/V sub-tile (a ring stage): 64, but 32 in float64's
+    32-row tile, whose 64-key stages would not fit beside its score
+    block."""
+    return 32 if itemsize == 8 and rows == 32 else SUB_TILE_KEYS
+
+
 def flash_smem_bytes(rows: int, dh: int, block_k: int,
                      itemsize: int = 4) -> int:
     """Dynamic shared memory of one CTA of ``kahan_flash_grid`` (the
-    layout in the source note), in bytes, for elements of ``itemsize``
-    bytes (the compute dtype's) and ``vec = 16 / itemsize`` of them in 16
+    layout in the source note), in bytes, for a compute dtype of
+    ``itemsize`` bytes, ``vec = 16 / e`` elements of ``e`` bytes in 16
     bytes: the q tile ``[rows][ld]``, the score block ``[rows][round_vec(
-    block_k) + vec]``, ``RING_STAGES`` K/V sub-tiles of ``round_vec(min(64,
-    block_k) * ld)`` elements and 4 statistics a row, with ``ld = dh +
-    vec`` when ``dh % vec == 0``, else ``dh + 1``."""
-    vec = 16 // itemsize
-    ld = dh + vec if dh % vec == 0 else dh + 1
-    stage = _round_to(min(SUB_TILE_KEYS, block_k) * ld, vec)
-    return itemsize * (rows * ld + rows * (_round_to(block_k, vec) + vec)
-                       + RING_STAGES * stage + 4 * rows)
+    block_k) + vec]`` and 4 statistics a row in the compute type's
+    elements (``e`` the itemsize, but 4 for bfloat16, whose values are
+    held in floats), and ``RING_STAGES`` K/V sub-tiles of ``round_vec(min(
+    keys, block_k) * ld)`` elements of the dtype itself (``keys`` from
+    ``sub_tile_keys``), with ``ld = dh + vec`` when ``dh % vec == 0``,
+    else ``dh + 1``."""
+    def ld(e: int) -> int:
+        vec = 16 // e
+        return dh + vec if dh % vec == 0 else dh + 1
+
+    e = max(itemsize, 4)
+    stage = _round_to(min(sub_tile_keys(rows, itemsize), block_k)
+                      * ld(itemsize), 16 // itemsize)
+    return (e * (rows * ld(e) + rows * (_round_to(block_k, 16 // e)
+                                        + 16 // e) + 4 * rows)
+            + itemsize * RING_STAGES * stage)
+
+
+def fitting_tiles(dh: int, block_k: int,
+                  itemsize: int = 4) -> List[Tuple[int, int]]:
+    """``(rows, smem_bytes)`` of each tile of ``TILE_ROWS[itemsize]``,
+    tallest first, that fits a compute dtype of ``itemsize`` bytes at
+    these shapes: ``rows * round4(dh) <= TILE_OUTPUTS[itemsize]`` and its
+    shared memory at most ``SMEM_LIMIT``."""
+    out = []
+    for rows in TILE_ROWS[itemsize]:
+        smem = flash_smem_bytes(rows, dh, block_k, itemsize)
+        if (rows * _round4(dh) <= TILE_OUTPUTS[itemsize]
+                and smem <= SMEM_LIMIT):
+            out.append((rows, smem))
+    return out
 
 
 @functools.lru_cache(maxsize=None)
 def flash_plan(bh: int, sq: int, dh: int, block_k: int,
                sms: int = 132, itemsize: int = 4) -> Tuple[int, int]:
     """``(rows, smem_bytes)`` of a launch on ``BH`` head-rows of ``Sq``
-    queries in a compute dtype of ``itemsize`` bytes: the tallest tile of
-    ``TILE_ROWS`` (16 rows only for float64 and bfloat16) that leaves at
-    least two CTAs per SM (``ceil(Sq / rows) * BH >= 2 * sms``) and fits,
-    else the shortest that fits. A tile fits when ``rows * round4(dh) <=
-    TILE_OUTPUTS`` and its shared memory is at most ``SMEM_LIMIT``; in
-    float32 and bfloat16 16 rows fit every dh and block_k within the
-    kernel's limits, in float64 not all (dh 128 fits block_k up to 512):
-    a block_k that does not fit raises ``ValueError``. The row bits do not
-    depend on the plan. Cached: the wrapper asks at every launch."""
-    plan = None
-    for rows in TILE_ROWS if itemsize == 4 else TILE_ROWS[-1:]:
-        smem = flash_smem_bytes(rows, dh, block_k, itemsize)
-        if rows * _round4(dh) > TILE_OUTPUTS or smem > SMEM_LIMIT:
-            continue
-        plan = (rows, smem)
-        if -(-sq // rows) * bh >= 2 * sms:
-            return plan
-    if plan is None:
+    queries in a compute dtype of ``itemsize`` bytes: the tallest of the
+    ``fitting_tiles`` that leaves at least two CTAs per SM (``ceil(Sq /
+    rows) * BH >= 2 * sms``), else the shortest. In float32 and bfloat16
+    16 rows fit every dh and block_k within the kernel's limits, in
+    float64 not all (dh 128 fits block_k up to 512): a block_k that does
+    not fit raises ``ValueError``. The row bits do not depend on the plan.
+    Cached: the wrapper asks at every launch."""
+    fits = fitting_tiles(dh, block_k, itemsize)
+    if not fits:
         raise ValueError(f"flash kernel: no tile fits dh={dh}, "
                          f"block_k={block_k} in {itemsize}-byte elements")
-    return plan
+    for rows, smem in fits:
+        if -(-sq // rows) * bh >= 2 * sms:
+            return rows, smem
+    return fits[-1]
 
 
 @functools.lru_cache(maxsize=None)

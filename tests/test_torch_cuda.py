@@ -550,6 +550,47 @@ def test_cuda_flash_refuses_a_wrong_plan(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float64])
+def test_cuda_flash_refuses_another_dtypes_plan(cuda_device, dtype):
+    """In bfloat16 and float64 the C entry takes exactly the heights of
+    ``TILE_ROWS[itemsize]`` in their own layout: the chosen plan's bytes
+    off by 16, the other dtype's tall height (32 rows in bfloat16, 64 in
+    float64), bfloat16 laid out as float32 (its ring in float) and
+    float64's 32 rows at dh 256 (32 acc cells a thread) are refused
+    (error 1, cudaErrorInvalidValue) and nothing launches."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as fa
+
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    code = _build.DTYPE_CODE[dtype]
+    lib = _build.library("kahan_flash")
+
+    def launch(dh, plan, bh=2, sq=64, skv=64, bk=64):
+        q = torch.zeros((bh, sq, dh), device=cuda_device, dtype=dtype)
+        outs = [torch.empty((bh, sq, 1), device=cuda_device, dtype=dtype)
+                for _ in range(2)] + [torch.empty_like(q) for _ in range(2)]
+        return lib.kahan_flash_launch(
+            1, code, q.data_ptr(), q.data_ptr(), q.data_ptr(),
+            *[o.data_ptr() for o in outs], bh, 1, sq, skv, dh, bk, skv, 0,
+            1, fa.softmax_scale(dh), *plan, _build.stream_ptr(cuda_device))
+
+    rows, smem = fa.flash_plan(2, 64, 16, 64, itemsize=itemsize)
+    assert launch(16, (rows, smem)) == 0
+    other = 32 if itemsize == 2 else 64
+    bad = [(rows, smem + 16),
+           (other, fa.flash_smem_bytes(other, 16, 64, itemsize))]
+    if itemsize == 2:
+        bad.append((rows, fa.flash_smem_bytes(rows, 16, 64, 4)))
+    for plan in bad:
+        assert launch(16, plan) == 1, plan
+    if itemsize == 8:
+        plan = (32, fa.flash_smem_bytes(32, 256, 1, 8))
+        assert plan[1] <= fa.SMEM_LIMIT
+        assert launch(256, plan, skv=1, bk=1) == 1, plan
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
 def test_cuda_flash_engine_equals_oracle(cuda_device):
     """The engine's flash entries on the card equal the plain oracle
     ``ref.flash_attention_ref`` (which replays the engine's policy), bit
@@ -1207,50 +1248,80 @@ def test_cuda_whisper_smoke_engine_matches_cpu(cuda_device):
     assert solo.telemetry == got["dense"][1].telemetry
 
 
-#: (BH, Sq, Skv, dh, block_k, offset of k/v in elements): the flash cases
-#: of the compute dtypes; dh 18 takes scalar loads, an offset of 1 element
-#: plain loads in the ring; dh 256 at block_k 1024 fits in bfloat16 only
-#: (float64's 16-row tile fits dh 128 up to block_k 512)
+#: (BH, Sq, Skv, dh, block_k, offset of k/v in elements, q_groups): the
+#: flash cases of the compute dtypes; dh 18 takes scalar loads, an offset
+#: of 1 element plain loads in the ring; dh 256 at block_k 1024 fits in
+#: bfloat16 only (float64 fits dh 128 up to block_k 512). BH 48 at Sq 512
+#: and 520, BH 40 (hymba's dh 64 at G 5) and BH 32 (dh 80) at Sq 520 make
+#: ``flash_plan`` choose the tall tile (64 rows in bfloat16, 32 in
+#: float64) for B7; the others, and B8's 64-row chunks, 16 rows
 DTYPE_FLASH_CASES = [
-    (4, 150, 300, 16, 128, 0),
-    (4, 150, 300, 18, 128, 0),
-    (48, 512, 600, 128, 256, 0),
-    (16, 300, 600, 128, 256, 1),
-    (4, 200, 1500, 256, 1024, 0),
+    (4, 150, 300, 16, 128, 0, (1, 2)),
+    (4, 150, 300, 18, 128, 0, (1, 2)),
+    (48, 512, 600, 128, 256, 0, (1, 2)),
+    (16, 300, 600, 128, 256, 1, (1, 2)),
+    (4, 200, 1500, 256, 1024, 0, (1, 2)),
+    (40, 520, 600, 64, 256, 0, (1, 5)),
+    (32, 520, 600, 80, 256, 0, (1, 2)),
+    (48, 520, 700, 128, 256, 1, (2,)),
+    # block_k 513-1024: the softmax's 1024-key form, in float64 in the
+    # 32-row tile, the 16-row tile of two acc rows a thread and of four
+    (16, 200, 1200, 64, 600, 0, (1, 2)),
+    (4, 200, 1500, 64, 1024, 0, (1, 2)),
+    (4, 200, 1026, 136, 513, 0, (1,)),
 ]
+
+
+def _flash_data(gen, dtype, dev, rows, n, pad, dh, off=0):
+    """``[rows, pad, dh]`` of ``dtype``: ``n`` normal rows then zeros, in a
+    contiguous view ``off`` elements into its storage."""
+    x = torch.randn((rows, n, dh), generator=gen, device=dev)
+    x = torch.cat([x, x.new_zeros((rows, pad - n, dh))], 1).to(dtype)
+    buf = x.new_empty(x.numel() + off)
+    buf[off:] = x.reshape(-1)
+    return buf[off:].view(x.shape)
+
+
+def _flash_tiles(fa, dtype, bh, sq, dh, bk):
+    """Every (rows, bytes) the kernel has for these shapes in ``dtype``,
+    the plan ``flash_plan`` picks first."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    chosen = fa.flash_plan(bh, sq, dh, bk, itemsize=itemsize)
+    return [chosen] + [plan for plan in fa.fitting_tiles(dh, bk, itemsize)
+                       if plan != chosen]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float64])
 @pytest.mark.parametrize("case", DTYPE_FLASH_CASES,
-                         ids=lambda c: "bh{}-dh{}-bk{}-off{}".format(
-                             c[0], c[3], c[4], c[5]))
+                         ids=lambda c: "bh{}-dh{}-bk{}-off{}-g{}".format(
+                             c[0], c[3], c[4], c[5], c[6][-1]))
 def test_cuda_flash_bf16_and_f64_match_plain(cuda_device, dtype, case):
     """Tier 2 on the card in bfloat16 and float64 compute: B7 (causal and
-    not, G 1 and 2) and B8 (at block-aligned offsets, equal to B7's rows)
-    equal their plain version bit for bit, every built-in scheme, in the
-    16-row tile."""
+    not, at each case's G) and B8 (at block-aligned offsets, equal to B7's
+    rows) equal their plain version bit for bit, every built-in scheme, in
+    the tile ``flash_plan`` picks; the other height, where it fits,
+    forced through the launch, gives the same rows."""
     from repro_torch.kernels import flash_attention as fa
 
-    bh, sq, skv, dh, bk, offset = case
-    if dtype == torch.float64 and dh > 128:
+    bh, sq, skv, dh, bk, offset, groups_of = case
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    if dtype == torch.float64 and not fa.fitting_tiles(dh, bk, itemsize):
         with pytest.raises(ValueError, match="no tile fits"):
             fa.flash_plan(bh, sq, dh, bk, itemsize=8)
         return
     gen = torch.Generator(device=cuda_device).manual_seed(7)
     sq_pad, skv_pad = -(-sq // 64) * 64, -(-skv // bk) * bk
-
-    def data(rows, n, pad, off=0):
-        x = torch.randn((rows, n, dh), generator=gen, device=cuda_device)
-        x = torch.cat([x, x.new_zeros((rows, pad - n, dh))], 1).to(dtype)
-        buf = x.new_empty(x.numel() + off)
-        buf[off:] = x.reshape(-1)
-        return buf[off:].view(x.shape)
-
-    for groups in (1, 2):
-        q = data(bh, sq, sq_pad)
-        k = data(bh // groups, skv, skv_pad, offset)
-        v = data(bh // groups, skv, skv_pad, offset)
+    tiles = _flash_tiles(fa, dtype, bh, sq_pad, dh, bk)
+    tall = fa.TILE_ROWS[itemsize][0]
+    assert (tiles[0][0] == tall) == (-(-sq_pad // tall) * bh >= 2 * 132), (
+        tiles[0])
+    for groups in groups_of:
+        q = _flash_data(gen, dtype, cuda_device, bh, sq, sq_pad, dh)
+        k = _flash_data(gen, dtype, cuda_device, bh // groups, skv, skv_pad,
+                        dh, offset)
+        v = _flash_data(gen, dtype, cuda_device, bh // groups, skv, skv_pad,
+                        dh, offset)
         for scheme in SCHEMES:
             sch = tschemes.get(scheme)
             kw = dict(block_q=64, block_k=bk, scheme=sch, kv_len=skv,
@@ -1261,16 +1332,63 @@ def test_cuda_flash_bf16_and_f64_match_plain(cuda_device, dtype, case):
                                       kv_len=skv, causal=causal,
                                       q_groups=groups)
                 torch.cuda.synchronize()
-                assert fa.flash_accumulators.plan[0] == 16
+                assert fa.flash_accumulators.plan == tiles[0]
                 for g, w in zip(got, want):
                     assert g.dtype == dtype and torch.equal(g, w), (
                         scheme, causal, groups)
+                for plan in tiles[1:]:
+                    other = fa._launch(
+                        q, k, v, causal=causal, q_off=0,
+                        counter=fa.flash_accumulators, plan=plan, **kw)
+                    for g, w in zip(other, got):
+                        assert torch.equal(g, w), (scheme, causal, plan)
             full = fa.flash_accumulators(q, k, v, causal=True, **kw)
             for off in range(0, min(sq_pad, 128), 64):
                 chunk = fa.flash_chunk_accumulators(
                     q[:, off:off + 64].contiguous(), k, v, off, **kw)
+                assert fa.flash_chunk_accumulators.plan[0] == 16
                 for g, w in zip(chunk, full):
                     assert torch.equal(g, w[:, off:off + 64]), (scheme, off)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scheme", SCHEMES)
+def test_cuda_flash_bf16_subnormal_reaching_matches_plain(cuda_device,
+                                                          scheme):
+    """Tier 2 on subnormal-reaching data in bfloat16 compute, in the
+    64-row tile and the 16-row one: scores spread over about 100, so that
+    exp's arguments pass -87.34 (where its result leaves float's normal
+    range), and v down to 2^-40 with a fifth of it subnormal, so that
+    products p * v fall below 2^-126. B7 (causal and not) equals its
+    flushing plain version bit for bit."""
+    from repro_torch.kernels import flash_attention as fa
+
+    dev, bh, sq, skv, dh, bk = cuda_device, 48, 512, 512, 64, 256
+    gen = torch.Generator(device=dev).manual_seed(11)
+    # q row i is a_i everywhere and k row j is c_j / dh: s_ij is about
+    # a_i c_j / 8, spread over about 100 to 150 a row
+    a = torch.rand((bh, sq, 1), generator=gen, device=dev) + 0.5
+    c = torch.rand((bh, skv, 1), generator=gen, device=dev) * -800 + 40
+    q = a.expand(bh, sq, dh).to(torch.bfloat16).contiguous()
+    k = (c / dh).expand(bh, skv, dh).to(torch.bfloat16).contiguous()
+    e = torch.randint(-40, -9, (bh, skv, dh), generator=gen, device=dev)
+    sub = torch.rand((bh, skv, dh), generator=gen, device=dev) < 0.2
+    e = torch.where(sub, torch.randint(-133, -126, (bh, skv, dh),
+                                       generator=gen, device=dev), e)
+    sign = torch.randint(0, 2, (bh, skv, dh), generator=gen, device=dev)
+    v = ((sign * 2 - 1) * torch.exp2(e.float())).to(torch.bfloat16)
+    assert (v.float().abs() < 2.0 ** -126).any()
+    sch = tschemes.get(scheme)
+    kw = dict(block_q=64, block_k=bk, scheme=sch, kv_len=skv, q_groups=1)
+    for causal in (True, False):
+        want = fa.flash_plain(q, k, v, scheme=sch, block_k=bk, kv_len=skv,
+                              causal=causal)
+        for plan in _flash_tiles(fa, torch.bfloat16, bh, sq, dh, bk):
+            got = fa._launch(q, k, v, causal=causal, q_off=0,
+                             counter=fa.flash_accumulators, plan=plan, **kw)
+            torch.cuda.synchronize()
+            for g, w in zip(got, want):
+                assert torch.equal(g, w), (causal, plan)
 
 
 @pytest.mark.cuda

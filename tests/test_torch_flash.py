@@ -176,8 +176,8 @@ def test_flash_plan_fits_every_shape(dh, block_k):
     within the H100's 232448 bytes, for grids small and large."""
     for bh, sq in ((1, 1), (16, 64), (16, 2048), (64, 4096)):
         rows, smem = tfa.flash_plan(bh, sq, dh, block_k)
-        assert rows in tfa.TILE_ROWS
-        assert rows * ((dh + 3) // 4 * 4) <= tfa.TILE_OUTPUTS
+        assert rows in tfa.TILE_ROWS[4]
+        assert rows * ((dh + 3) // 4 * 4) <= tfa.TILE_OUTPUTS[4]
         assert smem == tfa.flash_smem_bytes(rows, dh, block_k) <= 232448
 
 
@@ -217,30 +217,77 @@ def test_flash_plan_bytes_match_the_layout():
 
 @pytest.mark.parametrize("itemsize", [2, 8])
 def test_flash_plan_in_bfloat16_and_float64(itemsize):
-    """bfloat16 (2 bytes) and float64 (8 bytes) take the 16-row tile only,
-    their layout padded by 16 bytes: ld = dh + 8 / dh + 2 elements, the
-    score row round(block_k) + 8 / + 2. bfloat16 fits every dh and
-    block_k; float64 fits OLMo-1B's dh 128 up to block_k 512, and a plan
-    that does not fit raises."""
-    for bh, sq in ((1, 1), (16, 2048), (64, 4096)):
-        rows, smem = tfa.flash_plan(bh, sq, 128, 256, itemsize=itemsize)
-        assert rows == 16
-        assert smem == tfa.flash_smem_bytes(16, 128, 256, itemsize)
+    """bfloat16 (2 bytes) takes float32's heights, 64 or 16 rows: its q
+    tile, score block and statistics in float32's layout (its values are
+    held in floats), its K/V ring in bfloat16 (ld = dh + 8). float64 (8
+    bytes) takes 32 or 16 rows, its layout padded by 16 bytes (ld = dh +
+    2, the score row round2(block_k) + 2), the 32-row tile with 32-key
+    ring stages. The tall tile where the grid keeps two
+    CTAs an SM (B7), 16 rows otherwise (a B8 chunk). bfloat16 fits every
+    dh and block_k; float64 fits OLMo-1B's dh 128 up to block_k 512; every
+    (dh, block_k) the kernel takes either fits or raises."""
+    tall = 64 if itemsize == 2 else 32
+    # B7: ceil(2048 / rows) * 16 CTAs >= 2 * 132; a B8 chunk never is
+    assert tfa.flash_plan(16, 2048, 128, 256, itemsize=itemsize)[0] == tall
+    assert tfa.flash_plan(16, 64, 128, 256, itemsize=itemsize)[0] == 16
+    assert tfa.flash_plan(1, 1, 128, 256, itemsize=itemsize)[0] == 16
     if itemsize == 2:
-        # 16 * 136 + 16 * 264 + 2 * 64 * 136 + 4 * 16 = 23872 elements
-        assert tfa.flash_smem_bytes(16, 128, 256, 2) == 47744
-        for dh in (1, 18, 64, 128, 256):
-            for bk in (1, 100, 256, 1024):
-                assert tfa.flash_plan(4, 64, dh, bk, itemsize=2)[1] <= (
-                    tfa.SMEM_LIMIT)
+        # 4 * (64 * 132 + 64 * 260 + 4 * 64) + 2 * 2 * 64 * 136 bytes
+        assert tfa.flash_plan(16, 2048, 128, 256, itemsize=2) == (64, 136192)
+        # 4 * (16 * 132 + 16 * 260 + 4 * 16) + 2 * 2 * 64 * 136
+        assert tfa.flash_plan(16, 64, 128, 256, itemsize=2) == (16, 60160)
+        # 4 * (16 * 260 + 16 * 1028 + 4 * 16) + 2 * 2 * 64 * 264
+        assert tfa.flash_smem_bytes(16, 256, 1024, 2) == 150272
+        # ld 19 floats, 19 bfloat16 in the ring (dh % 8 != 0):
+        # 4 * (16 * 19 + 16 * 104 + 4 * 16) + 2 * 2 * 64 * 19
+        assert tfa.flash_smem_bytes(16, 18, 100, 2) == 12992
     else:
-        # 16 * 130 + 16 * 258 + 2 * 64 * 130 + 4 * 16 = 22912 elements
-        assert tfa.flash_smem_bytes(16, 128, 256, 8) == 183296
+        # 32 * 130 + 32 * 258 + 2 * 32 * 130 + 4 * 32 = 20864 doubles
+        assert tfa.flash_plan(16, 2048, 128, 256, itemsize=8) == (32, 166912)
+        # 16 * 130 + 16 * 258 + 2 * 64 * 130 + 4 * 16 = 22912 doubles
+        assert tfa.flash_plan(16, 64, 128, 256, itemsize=8) == (16, 183296)
+        # 32 * 130 + 32 * 514 + 2 * 32 * 130 + 4 * 32 = 29056 doubles: the
+        # H100's limit exactly
+        assert tfa.flash_plan(16, 2048, 128, 512, itemsize=8) == (32, 232448)
         assert tfa.flash_plan(16, 64, 128, 512, itemsize=8) == (16, 216064)
         with pytest.raises(ValueError, match="no tile fits"):
             tfa.flash_plan(16, 64, 128, 1024, itemsize=8)
         with pytest.raises(ValueError, match="no tile fits"):
             tfa.flash_plan(16, 64, 256, 128, itemsize=8)
+    for dh in (1, 3, 16, 18, 64, 80, 128, 255, 256):
+        for bk in (1, 8, 46, 47, 100, 128, 256, 512, 1024):
+            for bh, sq in ((4, 64), (64, 4096)):
+                try:
+                    rows, smem = tfa.flash_plan(bh, sq, dh, bk,
+                                                itemsize=itemsize)
+                except ValueError as err:
+                    assert "no tile fits" in str(err)
+                    assert itemsize == 8 and not (dh <= 128 and bk <= 512)
+                    continue
+                assert rows in tfa.TILE_ROWS[itemsize]
+                assert rows * ((dh + 3) // 4 * 4) <= (
+                    tfa.TILE_OUTPUTS[itemsize])
+                assert smem == tfa.flash_smem_bytes(rows, dh, bk, itemsize)
+                assert smem <= tfa.SMEM_LIMIT
+                assert (rows, smem) in tfa.fitting_tiles(dh, bk, itemsize)
+
+
+def test_float64_tiles_reach_the_1024_key_softmax():
+    """A block_k of 513-1024 keys runs the softmax's 1024-key form (p2 =
+    1024): in float64 every tile's plan reaches it, the 32-row tile and
+    the 16-row tile of four acc rows a thread (dh > 128) as well as the
+    16-row tile of two. Those are the shapes the card test holds to the
+    plain version at block_k 600, 513 and 1024."""
+    # 32 * 66 + 32 * 602 + 2 * 32 * 66 + 4 * 32 = 25728 doubles
+    assert tfa.flash_plan(16, 2048, 64, 600, itemsize=8) == (32, 205824)
+    # 16 * 138 + 16 * 516 + 2 * 64 * 138 + 4 * 16 = 28192 doubles
+    assert tfa.flash_plan(16, 64, 136, 513, itemsize=8) == (16, 225536)
+    # ld 144 (dh odd): 16 * 144 + 16 * 516 + 2 * 64 * 144 + 4 * 16 = 29056
+    # doubles, the limit exactly; dh 144 (ld 146) does not fit
+    assert tfa.fitting_tiles(143, 513, 8) == [(16, 232448)]
+    assert tfa.fitting_tiles(144, 513, 8) == []
+    # 16 * 66 + 16 * 1026 + 2 * 64 * 66 + 4 * 16 = 25984 doubles
+    assert tfa.flash_plan(4, 256, 64, 1024, itemsize=8) == (16, 207872)
 
 
 # ---------------------------------------------------------------------------
