@@ -637,6 +637,15 @@ FLASH_BEFORE_MS = {"entry": 7.2962, "serve": 0.0952, "serve-long": 0.8863,
                    "entry-bf16": 10.6330, "serve-bf16": 0.0448,
                    "entry-f64": 10.7227, "serve-f64": 0.0481}
 
+#: device ms of the bfloat16 and float64 matmul rows (phase 3) for the
+#: kernel before its redesign (bfloat16 computed on 16-bit registers,
+#: widened at every op; float64 in 32-row tiles staged through registers),
+#: taken by this script's graph timing on an NVIDIA H100 80GB HBM3 at
+#: 700 W; logged beside each new time
+MATMUL_BEFORE_MS = {"decode-qkvo-bf16": 0.0161, "chunk-gate-up-bf16": 0.5654,
+                    "batched-bf16": 0.5655, "decode-qkvo-f64": 0.0301,
+                    "chunk-gate-up-f64": 0.4215}
+
 
 def check(ok: bool, what: str) -> None:
     if not ok:
@@ -1857,13 +1866,17 @@ class Kernels:
                "gbytes_per_s": n_bytes / ms / 1e6,
                "mul_add_ceiling_ms": ceiling,
                "ceiling_share": ceiling / ms,
-               "tile": [tm, tn] if tm else None, "cluster": split or None}
+               "tile": [tm, tn] if tm else None, "cluster": split or None,
+               "before_ms": MATMUL_BEFORE_MS.get(label)}
         self.timing[(name, label)] = row
         plan = (f"tile {tm}x{tn}, cluster {split}" if tm
                 else "rows path (M <= 8)")
+        before = MATMUL_BEFORE_MS.get(label)
+        was = f"; before the redesign {before:.4f}" if before else ""
         log(f"# {name} {label} {row['shape']} {dtype_name(cdt)} compute: "
             f"kernel {ms:.4f} ms "
-            f"({row['tflops']:.2f} TFLOP/s, {row['gbytes_per_s']:.0f} GB/s), "
+            f"({row['tflops']:.2f} TFLOP/s, {row['gbytes_per_s']:.0f} GB/s"
+            f"{was}), "
             f"{by} bound {least:.4f} ms, mul+add ceiling {ceiling:.4f} ms "
             f"({100 * ceiling / ms:.1f}%), {plan}, plain {plain_ms:.1f} ms, "
             f"library ({dtype_name(cdt)} matmul) {library_ms:.4f} ms")
@@ -1908,7 +1921,8 @@ class Kernels:
         against their plain versions, bitwise. Matmul, every scheme: M in
         {1, 3, 8} (the rows path) and {9, 37, 64, 300} (the tiles) x 1, 4
         and 17 K-blocks of 128 x N 200; B6 at [3, 37, 1024] x [3, 1024,
-        200] equal to its plain version and a loop of B5; OLMo-1B's
+        200] equal to its plain version and a loop of B5; M 1 and 37 on
+        subnormal-reaching and on large operands; OLMo-1B's
         projections at M 1 ([1, d] x [d, H dh]) and in a 64-token chunk
         ([64, d] x [d, d_ff]). Flash in each dtype: ``flash_parity`` at
         OLMo-1B's head dim (every scheme, causal and not, G 1 and 2, B8
@@ -1945,6 +1959,21 @@ class Kernels:
                 check(all(torch.equal(g[i], o) for g, o in zip(got, one)),
                       f"bfloat16 B6 != a loop of B5 ({name})")
             cases += 1
+            # subnormal-reaching operands (a fifth subnormal, products
+            # below 2^-126) and large ones (products near 2^110, no sum
+            # near bfloat16's largest finite value), rows path and tiles
+            for lo, hi in ((-70, -50), (40, 56)):
+                for m in (1, 37):
+                    a = self.sub_data((m, 4 * 128), bf16, lo, hi)
+                    b = self.sub_data((4 * 128, 200), bf16, lo, hi)
+                    got = km.matmul_accumulators(a, b, **kw)
+                    want = km.matmul_plain(a[None], b[None], scheme=sch,
+                                           block_k=128, compute_dtype=bf16)
+                    self.compare("matmul_accumulators", got,
+                                 (want[0][0], want[1][0]),
+                                 f"{name} bfloat16 M={m} operands 2^[{lo}, "
+                                 f"{hi}) with subnormals")
+                    cases += 1
         eng = self.engine.CompensatedReduction(scheme="kahan",
                                                compute_dtype=bf16)
         d, hd = cfg.d_model, cfg.n_heads * cfg.head_dim
@@ -1962,9 +1991,9 @@ class Kernels:
             cases += 1
         sync(torch, self.dev)
         log(f"# phase 2: {cases} bfloat16 matmul parity cases bitwise equal "
-            f"to the plain version (B5 on both paths, B6 == its plain "
-            f"version and a loop of B5, OLMo-1B's q and chunk gate/up "
-            f"shapes)")
+            f"to the plain version (B5 on both paths, subnormal-reaching "
+            f"and large operands, B6 == its plain version and a loop of "
+            f"B5, OLMo-1B's q and chunk gate/up shapes)")
         h, dh = cfg.n_heads, cfg.head_dim
         for dtype in (bf16, f64):
             self.flash_parity(dh, heads=((4, 1), (16, 2), (48, 1)),
@@ -3259,12 +3288,13 @@ def dtype_serve(torch, kernels):
     km, fa = kernels.km, kernels.fa
     stats = {}
     for dtype, tag in ((torch.bfloat16, "bf16"), (torch.float64, "f64")):
-        seen = {}
+        seen, rows = {}, {}
         orig_mm, orig_fa = km._launch, fa._launch
 
         def mm_spy(a, b, *, compute_dtype, counter, **kw):
             key = ("matmul", dtype_name(compute_dtype))
             seen[key] = seen.get(key, 0) + 1
+            rows[a.shape[1]] = rows.get(a.shape[1], 0) + 1
             return orig_mm(a, b, compute_dtype=compute_dtype,
                            counter=counter, **kw)
 
@@ -3292,6 +3322,13 @@ def dtype_serve(torch, kernels):
               and counts["flash_chunk_accumulators"] > 0,
               f"{path}: B5 / B8 launches by compute dtype {seen}, counts "
               f"{counts}")
+        # B5 a chunk (M 64, the tiles) apart from a decode position (M 1,
+        # the rows path): 7 a layer each
+        _, prompt, new = (int(x) for x in DTYPE_TRACE.split(":"))
+        per = PROJECTIONS * cfg.n_layers
+        want_rows = {64: per * (prompt // 64), 1: per * (new - 1)}
+        check(rows == want_rows, f"{path}: B5 launches by M {rows}, want "
+              f"{want_rows}")
         kernels.launches[path] = counts
         for name in ("sum_accumulators_batched", "flash_chunk_accumulators"):
             kernels.path_labels[(name, path)] = path
@@ -3301,10 +3338,12 @@ def dtype_serve(torch, kernels):
         stats[tag] = {"serve": st, "tokens": h.tokens,
                       "telemetry": h.telemetry,
                       "launches_by_dtype": {f"{k[0]}:{k[1]}": n
-                                            for k, n in seen.items()}}
+                                            for k, n in seen.items()},
+                      "b5_launches_by_m": rows}
         log(f"# phase 14(c) [{dtype_name(dtype)} compute] {DTYPE_TRACE}: "
             f"tokens {h.tokens}, telemetry {h.telemetry[:3]}...; B5 and B8 "
-            f"launches by compute dtype {seen}")
+            f"launches by compute dtype {seen}; B5 by M {rows} (M 64 on "
+            f"kahan_matmul_grid, M 1 on kahan_matmul_rows)")
 
         fmodel, prompt = p4["flash_model"], p4["prompt"]
         seen.clear()
@@ -5943,17 +5982,24 @@ def cost_path():
         f"{', '.join(costmodel.SHIPPING)}: "
         + "; ".join(f"{k} {v}" for k, v in sorted(tally.items())))
     out["census"] = tally
-    # each flash instantiation's conversions beside its arithmetic (the
-    # bfloat16 tiles round with F2FP)
-    flash = {}
+    # each flash instantiation's conversions beside its arithmetic, and
+    # those of the matmul kernels in bfloat16 (Bf16) and float64 (ddd)
+    # compute (the bfloat16 tiles round with F2FP)
+    shown = {"flash": {}, "matmul": {}}
     for fn, ops in sorted(census.functions.items()):
-        if sass_analysis.kernel_of(fn) == "kahan_flash_grid":
-            name = fn[fn.index("kahan_flash_grid"):]
-            flash[name] = {op: ops.get(op, 0)
-                           for op in ("F2FP", "F2F", "PRMT", "FADD", "FMUL",
-                                      "DADD", "DMUL", "LDS")}
-            log(f"# phase 16 census {name}: {flash[name]}")
-    out["flash_functions"] = flash
+        kernel = sass_analysis.kernel_of(fn)
+        if kernel == "kahan_flash_grid" or (
+                kernel.startswith("kahan_matmul")
+                and ("Bf16" in fn or "dddLi" in fn)):
+            name = fn[fn.index(kernel):]
+            row = {op: ops.get(op, 0)
+                   for op in ("F2FP", "F2F", "PRMT", "FADD", "FMUL", "DADD",
+                              "DMUL", "LDS")}
+            shown["flash" if kernel == "kahan_flash_grid"
+                  else "matmul"][name] = row
+            log(f"# phase 16 census {name}: {row}")
+    out["flash_functions"] = shown["flash"]
+    out["matmul_functions"] = shown["matmul"]
     seconds = time.perf_counter() - t0
     out["seconds"] = seconds
     log(f"# phase 16 took {seconds:.1f} s ({report.files} audited cells, "

@@ -157,10 +157,6 @@ constexpr int kMaxDh = 256;
 constexpr int kMaxBk = 1024;
 constexpr int kSmemLimit = 232448;
 
-// the type every value is formed in, for the dtype T of the arrays
-template <typename T> struct Compute { using type = T; };
-template <> struct Compute<Bf16> { using type = Bf16f; };
-
 // What differs between the compute types: NEG_INF of the reference in
 // the type, exp as torch computes it on a CUDA tensor of the dtype, the
 // row maximum and the warp shuffles.
@@ -210,19 +206,6 @@ template <> struct Num<Bf16f> {
   }
 };
 
-// An element as a compute value, and back: exact both ways (a bfloat16
-// widened to a float; a Bf16f's upper half).
-__device__ __forceinline__ float to_c(float x) { return x; }
-__device__ __forceinline__ double to_c(double x) { return x; }
-__device__ __forceinline__ Bf16f to_c(Bf16 x) { return Bf16f::exact(x.f()); }
-__device__ __forceinline__ float to_t(float x) { return x; }
-__device__ __forceinline__ double to_t(double x) { return x; }
-__device__ __forceinline__ Bf16 to_t(Bf16f x) {
-  Bf16 r;
-  r.v = __ushort_as_bfloat16(
-      static_cast<unsigned short>(__float_as_uint(x.x) >> 16));
-  return r;
-}
 // the two bfloat16 of a 32-bit word, widened
 __device__ __forceinline__ Bf16f lo_of(unsigned w) {
   return Bf16f::exact(__uint_as_float(w << 16));

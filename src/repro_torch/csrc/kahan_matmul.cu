@@ -42,8 +42,14 @@
 // rounds: that is how torch computes a bfloat16 op, and it is not what the
 // native bf16 add and multiply do (they round the exact result once, which
 // differs from float-then-bfloat16 where the float result lies on a
-// bfloat16 midpoint). The stages and the fold buffers hold bfloat16; the
-// tile plan is float32's.
+// bfloat16 midpoint). Values are held as floats (C = Compute<T> = Bf16f:
+// the bfloat16 bits in the upper half), and each rounding is one
+// cvt.rn.bf16x2.f32 (F2FP), so no operand is widened again after it enters
+// shared memory or registers: the stages, p, and the fold's s and c hold
+// Bf16f, and only s_out and c_out are written as bfloat16 bits. The tile
+// plan, stages and shared-memory budget are float32's. Each term then
+// costs four instructions (FMUL, F2FP, FADD, F2FP) against float32's two,
+// so bfloat16 reaches at most half of float32's mul+add ceiling.
 //
 // Two paths, chosen by M; both give the bits above.
 //
@@ -79,12 +85,26 @@
 //   M 64 the widening then took a fifth of the chain's instructions, and
 //   that ring measured slower on every shape.
 // - masked rows: the tile has TM = 32, 64 or 128 rows by M (128 from M =
-//   256; float64 always 32), so a 32-token chunk computes no masked half.
+//   256), so a 32-token chunk computes no masked half.
 // Past M, N and the K-block the stages are zero-filled, and the chain runs
 // whole stages: a term +0 * +0 = +0 leaves p's bits as they are (p starts
 // at +0, and a rounded sum is -0 only when both terms are). Four elements
 // that are not aligned for one vector load, or not all in range, are read
 // one by one into the same registers.
+// float64 has its own tile, sized by the FP64 pipe (64 lanes an SM, half
+// float32's) and by shared memory (its elements are twice as wide):
+// - TM = 64 rows (32 up to M 32) by 64 columns, 4 x 4 cells a thread, whose
+//   four columns are two pairs 32 apart (2 tx, 2 tx + 1, 32 + 2 tx, 33 +
+//   2 tx): each double2 read of B by a warp is then 256 contiguous bytes,
+//   and a k-step reads 8 double2 for 32 DMUL and 32 DADD;
+// - stages of 32 K columns that need no widening, so they are copied
+//   straight into shared memory by a ring of kF64Ring stages of 16-byte
+//   cp.async copies (element loads where a pair is not aligned or not all
+//   in range), two stages ahead of the chain;
+// - at TM 64 only one CTA fits an SM (166,912 B), so the instantiation is
+//   bounded at one CTA an SM (up to 255 registers; it takes 138 for its
+//   4 x 4 doubles of p and of each operand quad) and the cluster split is
+//   lowered until the tiles fill the SMs once, not twice.
 //
 // M <= 8 (decode and the batch-1 body; kahan_matmul_rows): no row is
 // padded and no thread works on a row past M. What bounds it is the bytes
@@ -108,7 +128,8 @@
 //   of the plain loop;
 // - B and A reach shared memory through a ring of kRowStages stages of
 //   16-byte cp.async copies (a stage holds tile_k rows of every group's
-//   K-block: B as stored, widened where it is read), issued by every
+//   K-block: B as stored, widened where it is read; bfloat16 to Bf16f by
+//   a shift), issued by every
 //   thread of the CTA kRowStages - 1 tiles ahead of the chain. A stage
 //   holds up to kRowStageBytes (16 KB) of B, so a CTA keeps up to 48 KB of
 //   B in flight: about 6 MB over 128 CTAs, more than the 2-3 MB that the
@@ -124,6 +145,7 @@
 // so at the model's widths every copy is a cp.async.
 
 #include <cstdint>
+#include <type_traits>
 
 #include <cuda_bf16.h>
 #include <cooperative_groups.h>
@@ -135,51 +157,85 @@ namespace {
 
 using namespace repro_schemes;
 
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+               :: "r"(d), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
 // ---- M > 8: K-blocks split over a cluster, folded in order ---------------
 
 constexpr int kThreads = 256;   // 16 x 16 threads, each RM x kRegN cells
 constexpr int kTileN = 64;      // columns of a tile
-constexpr int kRegN = 4;        // adjacent columns a thread owns
-constexpr int kTileK = 64;      // K columns a stage holds
+constexpr int kRegN = 4;        // columns a thread owns
+constexpr int kTileK = 64;      // K columns a stage holds (float, Bf16f)
+constexpr int kF64TileK = 32;   // K columns a stage holds (double)
+constexpr int kF64Ring = 3;     // cp.async stages of the double tile
 constexpr int kMaxSplit = 8;    // CTAs of a cluster (portable limit)
 
-// padded row of an A stage, in elements of the compute dtype: 16 bytes
-// past kTileK keep rows 16-byte aligned and put the two adjacent rows a
-// warp reads in different banks
-template <typename T> __host__ __device__ constexpr int a_ld() {
-  return kTileK + 16 / sizeof(T);
+// K columns of a stage, and stages, for the compute type C
+template <typename C> __host__ __device__ constexpr int tile_k() {
+  return sizeof(C) == 8 ? kF64TileK : kTileK;
+}
+template <typename C> __host__ __device__ constexpr int n_stages() {
+  return sizeof(C) == 8 ? kF64Ring : 2;
 }
 
-// Four adjacent elements of the compute dtype in shared memory: one vector
-// load or store.
-template <typename T> struct Quad;
+// padded row of an A stage, in elements of the compute type: 16 bytes
+// past the stage's K columns keep rows 16-byte aligned and put the two
+// adjacent rows a warp reads in different banks
+template <typename C> __host__ __device__ constexpr int a_ld() {
+  return tile_k<C>() + 16 / sizeof(C);
+}
+
+// CTAs of a tile height an SM: two, but one for the 64-row double tile,
+// whose shared memory leaves room for only one (its launch bounds follow)
+template <typename C> __host__ __device__ constexpr int ctas_per_sm(int tm) {
+  return sizeof(C) == 8 && tm == 64 ? 1 : 2;
+}
+
+// The column (of the tile's kTileN) of a thread's cell j: four adjacent
+// ones; in double two pairs kTileN / 2 apart, so that the double2 reads of
+// a warp's 16 threads of one row cover 256 contiguous bytes
+template <typename C> __device__ __forceinline__ int col_of(int tx, int j) {
+  if constexpr (sizeof(C) == 8)
+    return 2 * tx + j + (j < 2 ? 0 : kTileN / 2 - 2);
+  else
+    return tx * kRegN + j;
+}
+
+// A thread's four elements of a stage row as compute values: four adjacent
+// ones in one vector load, or in double the pairs at p and p + off.
+template <typename C> struct Quad;
 template <> struct Quad<float> {
   float4 v;
-  __device__ __forceinline__ void load(const float* p) {
+  __device__ __forceinline__ void load(const float* p, int) {
     v = *reinterpret_cast<const float4*>(p);
   }
   __device__ __forceinline__ float operator[](int j) const {
     return j == 0 ? v.x : j == 1 ? v.y : j == 2 ? v.z : v.w;
   }
 };
-template <> struct Quad<Bf16> {
-  uint2 v;   // element 2q in the low half of word q
-  __device__ __forceinline__ void load(const Bf16* p) {
-    v = *reinterpret_cast<const uint2*>(p);
+template <> struct Quad<Bf16f> {
+  float4 v;
+  __device__ __forceinline__ void load(const Bf16f* p, int) {
+    v = *reinterpret_cast<const float4*>(p);
   }
-  __device__ __forceinline__ Bf16 operator[](int j) const {
-    const unsigned w = j < 2 ? v.x : v.y;
-    Bf16 r;
-    r.v = __ushort_as_bfloat16(
-        static_cast<unsigned short>(j % 2 ? w >> 16 : w & 0xffffu));
-    return r;
+  __device__ __forceinline__ Bf16f operator[](int j) const {
+    return Bf16f::exact(j == 0 ? v.x : j == 1 ? v.y : j == 2 ? v.z : v.w);
   }
 };
 template <> struct Quad<double> {
   double2 v, w;
-  __device__ __forceinline__ void load(const double* p) {
+  __device__ __forceinline__ void load(const double* p, int off) {
     v = *reinterpret_cast<const double2*>(p);
-    w = *reinterpret_cast<const double2*>(p + 2);
+    w = *reinterpret_cast<const double2*>(p + off);
   }
   __device__ __forceinline__ double operator[](int j) const {
     return j == 0 ? v.x : j == 1 ? v.y : j == 2 ? w.x : w.y;
@@ -188,21 +244,13 @@ template <> struct Quad<double> {
 __device__ __forceinline__ void store4(float* p, const float (&x)[4]) {
   *reinterpret_cast<float4*>(p) = make_float4(x[0], x[1], x[2], x[3]);
 }
-__device__ __forceinline__ void store4(Bf16* p, const Bf16 (&x)[4]) {
-  const auto bits = [](Bf16 b) {
-    return static_cast<unsigned>(__bfloat16_as_ushort(b.v));
-  };
-  *reinterpret_cast<uint2*>(p) = make_uint2(bits(x[0]) | bits(x[1]) << 16,
-                                            bits(x[2]) | bits(x[3]) << 16);
-}
-__device__ __forceinline__ void store4(double* p, const double (&x)[4]) {
-  *reinterpret_cast<double2*>(p) = make_double2(x[0], x[1]);
-  *reinterpret_cast<double2*>(p + 2) = make_double2(x[2], x[3]);
+__device__ __forceinline__ void store4(Bf16f* p, const Bf16f (&x)[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(x[0].x, x[1].x, x[2].x, x[3].x);
 }
 
 // Four adjacent operand elements as read from device memory (one vector
 // load where they are aligned and all in range), kept as stored until they
-// are widened into shared memory.
+// are widened into shared memory (float and Bf16f stages).
 template <typename X> struct Raw4;
 template <> struct Raw4<float> {
   float4 v;
@@ -216,27 +264,8 @@ template <> struct Raw4<float> {
     else if (j == 2) v.z = x;
     else v.w = x;
   }
-  template <typename T>
-  __device__ __forceinline__ void widen4(T (&x)[4]) const {
+  __device__ __forceinline__ void widen4(float (&x)[4]) const {
     x[0] = v.x; x[1] = v.y; x[2] = v.z; x[3] = v.w;
-  }
-};
-template <> struct Raw4<double> {
-  double2 v, w;
-  __device__ __forceinline__ void load(const double* p) {
-    v = *reinterpret_cast<const double2*>(p);
-    w = *reinterpret_cast<const double2*>(p + 2);
-  }
-  __device__ __forceinline__ void set(int j, const double* p, bool ok) {
-    const double x = ok ? *p : 0.0;
-    if (j == 0) v.x = x;
-    else if (j == 1) v.y = x;
-    else if (j == 2) w.x = x;
-    else w.y = x;
-  }
-  template <typename T>
-  __device__ __forceinline__ void widen4(T (&x)[4]) const {
-    x[0] = v.x; x[1] = v.y; x[2] = w.x; x[3] = w.y;
   }
 };
 template <> struct Raw4<__nv_bfloat16> {
@@ -251,19 +280,16 @@ template <> struct Raw4<__nv_bfloat16> {
     word = j % 2 ? (word & 0xffffu) | (x << 16) : (word & 0xffff0000u) | x;
   }
   // bf16 -> float is exact: the bits move to the top half
-  template <typename T>
-  __device__ __forceinline__ void widen4(T (&x)[4]) const {
+  __device__ __forceinline__ void widen4(float (&x)[4]) const {
     x[0] = __uint_as_float(v.x << 16);
     x[1] = __uint_as_float(v.x & 0xffff0000u);
     x[2] = __uint_as_float(v.y << 16);
     x[3] = __uint_as_float(v.y & 0xffff0000u);
   }
-  // bf16 -> Bf16: the bits as they are
-  __device__ __forceinline__ void widen4(Bf16 (&x)[4]) const {
-    x[0].v = __ushort_as_bfloat16(static_cast<unsigned short>(v.x & 0xffffu));
-    x[1].v = __ushort_as_bfloat16(static_cast<unsigned short>(v.x >> 16));
-    x[2].v = __ushort_as_bfloat16(static_cast<unsigned short>(v.y & 0xffffu));
-    x[3].v = __ushort_as_bfloat16(static_cast<unsigned short>(v.y >> 16));
+  __device__ __forceinline__ void widen4(Bf16f (&x)[4]) const {
+    float f[4];
+    widen4(f);
+    for (int j = 0; j < 4; ++j) x[j] = Bf16f::exact(f[j]);
   }
 };
 
@@ -277,13 +303,13 @@ __device__ __forceinline__ void cluster_wait() {
 struct GridWalk {
   int m, n, k, block_k, steps, split, rank, tiles_per_block, n_tiles;
   int m0, n0;
-  bool vec_a, vec_b;   // quads of A rows / B rows may be read as vectors
+  bool vec_a, vec_b;   // A rows / B rows may be read as vectors
 };
 
 // The quads of stage tile t (round t / tiles_per_block, columns [kt *
 // kTileK, + kTileK) of K-block round * split + rank) that this thread
-// moves: A's rows are 8 quads of k, B's 16 quads of columns; zeros past M,
-// N and the K-block.
+// moves through its registers (float and Bf16f stages): A's rows are 16
+// quads of k, B's 16 quads of columns; zeros past M, N and the K-block.
 template <int TM, typename TA, typename TB>
 struct StageRegs {
   static constexpr int kQA = TM * (kTileK / 4) / kThreads;
@@ -330,34 +356,85 @@ struct StageRegs {
   }
 
   // widen into the stage buffers: A as [TM][a_ld], B as [kTileK][kTileN]
-  template <typename T>
-  __device__ __forceinline__ void store(T* as, T* bs) const {
+  template <typename C>
+  __device__ __forceinline__ void store(C* as, C* bs) const {
 #pragma unroll
     for (int u = 0; u < kQA; ++u) {
       const int e = threadIdx.x + u * kThreads;
-      T x[4];
+      C x[4];
       a[u].widen4(x);
-      store4(as + (e / (kTileK / 4)) * a_ld<T>() + 4 * (e % (kTileK / 4)), x);
+      store4(as + (e / (kTileK / 4)) * a_ld<C>() + 4 * (e % (kTileK / 4)), x);
     }
 #pragma unroll
     for (int u = 0; u < kQB; ++u) {
       const int e = threadIdx.x + u * kThreads;
-      T x[4];
+      C x[4];
       b[u].widen4(x);
       store4(bs + (e / (kTileN / 4)) * kTileN + 4 * (e % (kTileN / 4)), x);
     }
   }
 };
+struct NoStageRegs {};
+
+// Copy stage tile t of the walk into ring slot t % kF64Ring (double, which
+// needs no widening): A as [TM][a_ld], B as [kF64TileK][kTileN], in 16-byte
+// cp.async copies of two elements; a pair that is not aligned, or not all
+// in range, by element loads, zeros past M, N and the K-block. Always
+// commits one group.
+template <int TM>
+__device__ __forceinline__ void copy_stage(double* ring, const double* ga,
+                                           const double* gb, int t,
+                                           const GridWalk& w) {
+  constexpr int TK = kF64TileK, LDA = a_ld<double>();
+  const int r = t / w.tiles_per_block;
+  const long long g = (long long)r * w.split + w.rank;
+  if (t < w.n_tiles && g < w.steps) {
+    double* as = ring + (t % kF64Ring) * (TM * LDA + TK * kTileN);
+    double* bs = as + TM * LDA;
+    const int k_in = (t - r * w.tiles_per_block) * TK;
+    const int rows = min(TK, w.block_k - k_in);   // K columns of the tile
+    const long long k0 = g * w.block_k + k_in;
+#pragma unroll
+    for (int u = 0; u < TM * (TK / 2) / kThreads; ++u) {
+      const int e = threadIdx.x + u * kThreads;
+      const int i = e / (TK / 2), kq = 2 * (e % (TK / 2));
+      const int row = w.m0 + i;
+      const double* src = ga + (long long)row * w.k + k0 + kq;
+      double* dst = as + i * LDA + kq;
+      if (w.vec_a && row < w.m && kq + 2 <= rows) {
+        cp_async16(dst, src);
+      } else {
+        dst[0] = row < w.m && kq < rows ? src[0] : 0.0;
+        dst[1] = row < w.m && kq + 1 < rows ? src[1] : 0.0;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < TK * (kTileN / 2) / kThreads; ++u) {
+      const int e = threadIdx.x + u * kThreads;
+      const int kk = e / (kTileN / 2), jq = 2 * (e % (kTileN / 2));
+      const int col = w.n0 + jq;
+      const double* src = gb + (k0 + kk) * w.n + col;
+      double* dst = bs + kk * kTileN + jq;
+      if (w.vec_b && kk < rows && col + 2 <= w.n) {
+        cp_async16(dst, src);
+      } else {
+        dst[0] = kk < rows && col < w.n ? src[0] : 0.0;
+        dst[1] = kk < rows && col + 1 < w.n ? src[1] : 0.0;
+      }
+    }
+  }
+  cp_async_commit();
+}
 
 // Fold the round's block products into the slice [lo, hi) of the tile's
 // cells: K-block r * split + jj lies in the shared memory of rank jj.
-template <int S, typename T>
-__device__ __forceinline__ void fold_slice(T* s_sh, T* c_sh, T* p_sh, int lo,
+template <int S, typename C>
+__device__ __forceinline__ void fold_slice(C* s_sh, C* c_sh, C* p_sh, int lo,
                                            int hi, int live, long long g0) {
   namespace cg = cooperative_groups;
   cg::cluster_group cluster = cg::this_cluster();
   for (int e = lo + threadIdx.x; e < hi; e += kThreads) {
-    T s = s_sh[e - lo], c = c_sh[e - lo];
+    C s = s_sh[e - lo], c = c_sh[e - lo];
     for (int jj = 0; jj < live; ++jj)
       update<S>(s, c, cluster.map_shared_rank(p_sh, jj)[e], g0 + jj);
     s_sh[e - lo] = s;
@@ -365,49 +442,55 @@ __device__ __forceinline__ void fold_slice(T* s_sh, T* c_sh, T* p_sh, int lo,
   }
 }
 
-template <int S, typename T, int RM>
-__device__ __forceinline__ void fold_own(T* s_sh, T* c_sh,
-                                         const T (&p)[RM][kRegN], int ty,
+template <int S, typename C, int RM>
+__device__ __forceinline__ void fold_own(C* s_sh, C* c_sh,
+                                         const C (&p)[RM][kRegN], int ty,
                                          int tx, long long g) {
 #pragma unroll
   for (int i = 0; i < RM; ++i)
 #pragma unroll
     for (int j = 0; j < kRegN; ++j) {
-      const int e = (ty + 16 * i) * kTileN + tx * kRegN + j;
+      const int e = (ty + 16 * i) * kTileN + col_of<C>(tx, j);
       update<S>(s_sh[e], c_sh[e], p[i][j], g);
     }
 }
 
-// bytes of dynamic shared memory: two stages of A and B in the compute
-// dtype, p of the tile (split > 1), and s and c of the CTA's slice of the
+// bytes of dynamic shared memory: the stages of A and B in the compute
+// type, p of the tile (split > 1), and s and c of the CTA's slice of the
 // tile's cells
-template <typename T, int TM>
+template <typename C, int TM>
 size_t grid_smem(int split) {
   const int cells = TM * kTileN;
   const int slice = (cells + split - 1) / split;
-  return 2 * (size_t)(TM * a_ld<T>() + kTileK * kTileN) * sizeof(T)
-         + (split > 1 ? (size_t)cells * sizeof(T) : 0)
-         + 2 * (size_t)slice * sizeof(T);
+  return n_stages<C>() * (size_t)(TM * a_ld<C>() + tile_k<C>() * kTileN)
+             * sizeof(C)
+         + (split > 1 ? (size_t)cells * sizeof(C) : 0)
+         + 2 * (size_t)slice * sizeof(C);
 }
 
-// At most 128 registers a thread, so that two CTAs fit an SM where the
-// grid has them (gate/up, B6 and down at M 64 do).
+// Bounded so that ctas_per_sm CTAs fit an SM: two (at most 128 registers a
+// thread, where the grid has them: gate/up, B6 and down at M 64 do), one
+// for the 64-row double tile.
 template <typename T, typename TA, typename TB, int TM>
-__global__ void __launch_bounds__(kThreads, 2)
+__global__ void __launch_bounds__(
+    kThreads, ctas_per_sm<typename Compute<T>::type>(TM))
 kahan_matmul_grid(const TA* __restrict__ a, const TB* __restrict__ b,
                   T* __restrict__ s_out, T* __restrict__ c_out, int m, int n,
                   int k, int block_k, int scheme, int split, int vec_a,
                   int vec_b) {
+  using C = typename Compute<T>::type;
+  constexpr bool kRing = sizeof(C) == 8;   // double: the cp.async ring
   constexpr int RM = TM / 16;
-  constexpr int LDA = a_ld<T>();
-  constexpr int kStageElems = TM * LDA + kTileK * kTileN;
+  constexpr int TK = tile_k<C>();
+  constexpr int LDA = a_ld<C>();
+  constexpr int kStageElems = TM * LDA + TK * kTileN;
   extern __shared__ __align__(16) unsigned char smem[];
-  T* stages = reinterpret_cast<T*>(smem);   // [2][A stage, B stage]
-  T* p_sh = stages + 2 * kStageElems;
+  C* stages = reinterpret_cast<C*>(smem);   // [n_stages][A stage, B stage]
+  C* p_sh = stages + n_stages<C>() * kStageElems;
   constexpr int cells = TM * kTileN;
-  T* s_sh = p_sh + (split > 1 ? cells : 0);
+  C* s_sh = p_sh + (split > 1 ? cells : 0);
   const int slice = (cells + split - 1) / split;
-  T* c_sh = s_sh + slice;
+  C* c_sh = s_sh + slice;
 
   const int tx = threadIdx.x % 16;
   const int ty = threadIdx.x / 16;
@@ -416,7 +499,7 @@ kahan_matmul_grid(const TA* __restrict__ a, const TB* __restrict__ b,
   w.steps = k / block_k;
   w.split = split;
   w.rank = blockIdx.z % split;   // the cluster is (1, 1, split)
-  w.tiles_per_block = (block_k + kTileK - 1) / kTileK;
+  w.tiles_per_block = (block_k + TK - 1) / TK;
   w.n_tiles = (w.steps + split - 1) / split * w.tiles_per_block;
   w.m0 = blockIdx.y * TM;
   w.n0 = blockIdx.x * kTileN;
@@ -430,36 +513,51 @@ kahan_matmul_grid(const TA* __restrict__ a, const TB* __restrict__ b,
   const int lo = w.rank * slice;
   const int hi = min(cells, lo + slice);
   for (int e = lo + threadIdx.x; e < hi; e += kThreads) {
-    s_sh[e - lo] = T(0.0f);
-    c_sh[e - lo] = T(0.0f);
+    s_sh[e - lo] = C(0.0f);
+    c_sh[e - lo] = C(0.0f);
   }
-  T p[RM][kRegN];
+  C p[RM][kRegN];
 #pragma unroll
   for (int i = 0; i < RM; ++i)
 #pragma unroll
-    for (int j = 0; j < kRegN; ++j) p[i][j] = T(0.0f);
+    for (int j = 0; j < kRegN; ++j) p[i][j] = C(0.0f);
 
-  // stage t lives in buffer t % 2; the registers carry stage t + 1 while
-  // stage t is multiplied, so its loads from device memory overlap the chain
-  StageRegs<TM, TA, TB> regs;
-  regs.fetch(a, b, 0, w);
-  regs.store(stages, stages + TM * LDA);
-  regs.fetch(a, b, 1, w);
+  // float and Bf16f: stage t lives in buffer t % 2; the registers carry
+  // stage t + 1 while stage t is multiplied, so its loads from device
+  // memory overlap the chain. double: the ring holds stages t .. t + 2.
+  std::conditional_t<kRing, NoStageRegs, StageRegs<TM, TA, TB>> regs;
+  if constexpr (kRing) {
+#pragma unroll
+    for (int t = 0; t < kF64Ring - 1; ++t) copy_stage<TM>(stages, a, b, t, w);
+  } else {
+    regs.fetch(a, b, 0, w);
+    regs.store(stages, stages + TM * LDA);
+    regs.fetch(a, b, 1, w);
+  }
   for (int t = 0; t < w.n_tiles; ++t) {
-    __syncthreads();   // stage t stored; stage t - 1's buffer consumed
+    if constexpr (kRing) {
+      cp_async_wait<kF64Ring - 2>();   // this thread's copies of stage t
+      __syncthreads();   // everyone's; stage t - 1's slot consumed
+      copy_stage<TM>(stages, a, b, t + kF64Ring - 1, w);
+    } else {
+      __syncthreads();   // stage t stored; stage t - 1's buffer consumed
+    }
     const int r = t / w.tiles_per_block;
     const long long g = (long long)r * split + w.rank;
     if (g < w.steps) {
-      // a thread's rows ty + 16 * i and columns tx * 4 + j, four k at a time
-      const T* as = stages + (t % 2) * kStageElems + ty * LDA;
-      const T* bs = stages + (t % 2) * kStageElems + TM * LDA + tx * kRegN;
+      // a thread's rows ty + 16 * i and columns col_of(tx, j), four k at a
+      // time
+      const C* as = stages + (t % n_stages<C>()) * kStageElems + ty * LDA;
+      const C* bs = stages + (t % n_stages<C>()) * kStageElems + TM * LDA
+                    + col_of<C>(tx, 0);
 #pragma unroll
-      for (int k4 = 0; k4 < kTileK; k4 += 4) {
-        Quad<T> af[RM], bf[4];
+      for (int k4 = 0; k4 < TK; k4 += 4) {
+        Quad<C> af[RM], bf[4];
 #pragma unroll
-        for (int i = 0; i < RM; ++i) af[i].load(as + 16 * i * LDA + k4);
+        for (int i = 0; i < RM; ++i) af[i].load(as + 16 * i * LDA + k4, 2);
 #pragma unroll
-        for (int kk = 0; kk < 4; ++kk) bf[kk].load(bs + (k4 + kk) * kTileN);
+        for (int kk = 0; kk < 4; ++kk)
+          bf[kk].load(bs + (k4 + kk) * kTileN, kTileN / 2);
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
@@ -469,10 +567,12 @@ kahan_matmul_grid(const TA* __restrict__ a, const TB* __restrict__ b,
               p[i][j] = p[i][j] + af[i][kk] * bf[kk][j];
       }
     }
-    if (t + 1 < w.n_tiles) {
-      T* next = stages + ((t + 1) % 2) * kStageElems;
-      regs.store(next, next + TM * LDA);
-      regs.fetch(a, b, t + 2, w);
+    if constexpr (!kRing) {
+      if (t + 1 < w.n_tiles) {
+        C* next = stages + ((t + 1) % 2) * kStageElems;
+        regs.store(next, next + TM * LDA);
+        regs.fetch(a, b, t + 2, w);
+      }
     }
     if (t - r * w.tiles_per_block < w.tiles_per_block - 1) continue;
     // the round's block products are formed: fold them in K-block order
@@ -490,7 +590,7 @@ kahan_matmul_grid(const TA* __restrict__ a, const TB* __restrict__ b,
         for (int i = 0; i < RM; ++i)
 #pragma unroll
           for (int j = 0; j < kRegN; ++j)
-            p_sh[(ty + 16 * i) * kTileN + tx * kRegN + j] = p[i][j];
+            p_sh[(ty + 16 * i) * kTileN + col_of<C>(tx, j)] = p[i][j];
       }
       cluster_arrive();
       cluster_wait();               // every live rank's p is written
@@ -509,8 +609,9 @@ kahan_matmul_grid(const TA* __restrict__ a, const TB* __restrict__ b,
 #pragma unroll
     for (int i = 0; i < RM; ++i)
 #pragma unroll
-      for (int j = 0; j < kRegN; ++j) p[i][j] = T(0.0f);
+      for (int j = 0; j < kRegN; ++j) p[i][j] = C(0.0f);
   }
+  if constexpr (kRing) cp_async_wait<0>();
   if (split == 1)
     __syncthreads();                // the slice is every thread's cells
   else
@@ -518,8 +619,8 @@ kahan_matmul_grid(const TA* __restrict__ a, const TB* __restrict__ b,
   for (int e = lo + threadIdx.x; e < hi; e += kThreads) {
     const int row = w.m0 + e / kTileN, col = w.n0 + e % kTileN;
     if (row < m && col < n) {
-      s_out[(long long)row * n + col] = s_sh[e - lo];
-      c_out[(long long)row * n + col] = c_sh[e - lo];
+      s_out[(long long)row * n + col] = to_t(s_sh[e - lo]);
+      c_out[(long long)row * n + col] = to_t(c_sh[e - lo]);
     }
   }
 }
@@ -537,22 +638,10 @@ template <typename T> __device__ __forceinline__ T widen(double x) { return T(x)
 template <typename T> __device__ __forceinline__ T widen(__nv_bfloat16 x) {
   return T(__bfloat162float(x));
 }
-template <> __device__ __forceinline__ Bf16 widen<Bf16>(__nv_bfloat16 x) {
-  Bf16 r;
-  r.v = x;
-  return r;
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
-               :: "r"(d), "l"(src) : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N> __device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+// bf16 -> Bf16f: the bits shifted to the top half, where they are read
+template <> __device__ __forceinline__ Bf16f widen<Bf16f>(__nv_bfloat16 x) {
+  return Bf16f::exact(
+      __uint_as_float(static_cast<unsigned>(__bfloat16_as_ushort(x)) << 16));
 }
 
 // Stage tile t of the CTA's walk (round r = t / tiles_per_block, rows
@@ -618,18 +707,22 @@ __device__ __forceinline__ void stage_row_tile(
   cp_async_commit();
 }
 
+// Bounded at two CTAs an SM (128 registers): with the thread count alone
+// ptxas aimed at 48 or 64 registers and spilled a few bytes in some
+// instantiations (dot2 at M 1 in bfloat16, M 3-4 in float64 and float32).
 template <int S, typename T, typename TA, typename TB, int MR>
-__global__ void __launch_bounds__(kRowThreads)
+__global__ void __launch_bounds__(kRowThreads, 2)
 kahan_matmul_rows(const TA* __restrict__ a, const TB* __restrict__ b,
                   T* __restrict__ s_out, T* __restrict__ c_out, int m, int n,
                   int k, int block_k, int groups, int lg_cols, int tile_k,
                   int lg_tile_k, int vec_a, int vec_b) {
+  using C = typename Compute<T>::type;
   extern __shared__ __align__(16) unsigned char smem[];
   const int cols = 1 << lg_cols;
   TB* b_sh = reinterpret_cast<TB*>(smem);
   TA* a_sh = reinterpret_cast<TA*>(
       smem + ((size_t)kRowStages * groups * tile_k * sizeof(TB) << lg_cols));
-  T* p_sh = reinterpret_cast<T*>(
+  C* p_sh = reinterpret_cast<C*>(
       reinterpret_cast<unsigned char*>(a_sh)
       + (size_t)kRowStages * groups * m * tile_k * sizeof(TA));
 
@@ -647,9 +740,9 @@ kahan_matmul_rows(const TA* __restrict__ a, const TB* __restrict__ b,
   const int tiles_per_block = (block_k + tile_k - 1) / tile_k;
   const int n_tiles = (steps + groups - 1) / groups * tiles_per_block;
 
-  T p[MR], s[MR], c[MR];
+  C p[MR], s[MR], c[MR];
 #pragma unroll
-  for (int i = 0; i < MR; ++i) { p[i] = T(0.0f); s[i] = T(0.0f); c[i] = T(0.0f); }
+  for (int i = 0; i < MR; ++i) { p[i] = C(0.0f); s[i] = C(0.0f); c[i] = C(0.0f); }
 
   for (int t = 0; t < kRowStages - 1; ++t)
     stage_row_tile(a_sh, b_sh, a, b, t, m, n, k, block_k, steps, groups,
@@ -671,10 +764,10 @@ kahan_matmul_rows(const TA* __restrict__ a, const TB* __restrict__ b,
       const TA* as = a_sh + (slot * groups + j) * m * tile_k;
 #pragma unroll 16
       for (int kk = 0; kk < rows; ++kk) {
-        const T bv = widen<T>(bs[kk << lg_cols]);
+        const C bv = widen<C>(bs[kk << lg_cols]);
 #pragma unroll
         for (int i = 0; i < MR; ++i)
-          if (i < m) p[i] = p[i] + widen<T>(as[i * tile_k + kk]) * bv;
+          if (i < m) p[i] = p[i] + widen<C>(as[i * tile_k + kk]) * bv;
       }
     }
     if (kt == tiles_per_block - 1) {   // the round's block products formed
@@ -695,7 +788,7 @@ kahan_matmul_rows(const TA* __restrict__ a, const TB* __restrict__ b,
         }
       }
 #pragma unroll
-      for (int i = 0; i < MR; ++i) p[i] = T(0.0f);
+      for (int i = 0; i < MR; ++i) p[i] = C(0.0f);
     }
   }
   cp_async_wait<0>();
@@ -704,8 +797,8 @@ kahan_matmul_rows(const TA* __restrict__ a, const TB* __restrict__ b,
 #pragma unroll
     for (int i = 0; i < MR; ++i) {
       if (i >= m) continue;
-      s_out[(long long)i * n + n0 + col] = s[i];
-      c_out[(long long)i * n + n0 + col] = c[i];
+      s_out[(long long)i * n + n0 + col] = to_t(s[i]);
+      c_out[(long long)i * n + n0 + col] = to_t(c[i]);
     }
   }
 }
@@ -720,15 +813,17 @@ struct Args {
 };
 
 // The M > 8 path's plan: TM rows a tile (32 up to M 32, 128 from M 256,
-// else 64; float64 always 32) and the cluster size `split` (K-blocks
-// formed at once per tile): min(steps, kMaxSplit), lowered until tiles *
-// split is at most twice the SM count (and batch * split fits grid z).
+// else 64; float64 32 up to M 32, else 64) and the cluster size `split`
+// (K-blocks formed at once per tile): min(steps, kMaxSplit), lowered until
+// tiles * split is at most ctas_per_sm times the SM count (twice, once for
+// the 64-row float64 tile) and batch * split fits grid z.
 struct GridPlan {
   int tm, split;
 };
 
 template <typename T>
 GridPlan grid_plan(int batch, int m, int n, int k, int block_k) {
+  using C = typename Compute<T>::type;
   static int sms = 0;
   if (sms == 0) {
     int dev = 0;
@@ -738,25 +833,40 @@ GridPlan grid_plan(int batch, int m, int n, int k, int block_k) {
       sms = 132;
   }
   GridPlan plan;
-  plan.tm = sizeof(T) == 8 ? 32 : m <= 32 ? 32 : m >= 256 ? 128 : 64;
+  plan.tm = m <= 32 ? 32 : sizeof(C) == 8 || m < 256 ? 64 : 128;
   const long long tiles = (long long)((n + kTileN - 1) / kTileN)
                           * ((m + plan.tm - 1) / plan.tm) * batch;
+  const long long slots = (long long)ctas_per_sm<C>(plan.tm) * sms;
   const int steps = k / block_k;
   plan.split = steps < kMaxSplit ? steps : kMaxSplit;
-  while (plan.split > 1 && (tiles * plan.split > 2LL * sms
+  while (plan.split > 1 && (tiles * plan.split > slots
                             || (long long)batch * plan.split > 65535))
     --plan.split;
   return plan;
 }
 
+// The plans the M > 8 path has for a call, which a caller may force: a
+// tile height of the compute dtype (32, 64 or 128 rows; float64 32 or 64)
+// and 1 <= split <= min(steps, kMaxSplit) with batch * split in grid z.
+template <typename T>
+bool plan_fits(const GridPlan& plan, int batch, int steps) {
+  const bool rows = plan.tm == 32 || plan.tm == 64
+                    || (plan.tm == 128 && sizeof(typename Compute<T>::type) != 8);
+  return rows && plan.split >= 1 && plan.split <= kMaxSplit
+         && plan.split <= steps && (long long)batch * plan.split <= 65535;
+}
+
 template <typename T, typename TA, typename TB, int TM>
 int launch_tile(int scheme, int split, const Args& x) {
-  // a quad is four elements; its vector load wants them aligned
-  const int vec_a = reinterpret_cast<uintptr_t>(x.a) % (4 * sizeof(TA)) == 0
-                    && x.k % 4 == 0 && x.block_k % 4 == 0;
-  const int vec_b = reinterpret_cast<uintptr_t>(x.b) % (4 * sizeof(TB)) == 0
-                    && x.n % 4 == 0;
-  const size_t smem = grid_smem<T, TM>(split);
+  using C = typename Compute<T>::type;
+  // a vector read moves four elements (float, Bf16f stages) or two
+  // (double); it wants them aligned
+  constexpr int kVec = sizeof(C) == 8 ? 2 : 4;
+  const int vec_a = reinterpret_cast<uintptr_t>(x.a) % (kVec * sizeof(TA)) == 0
+                    && x.k % kVec == 0 && x.block_k % kVec == 0;
+  const int vec_b = reinterpret_cast<uintptr_t>(x.b) % (kVec * sizeof(TB)) == 0
+                    && x.n % kVec == 0;
+  const size_t smem = grid_smem<C, TM>(split);
   auto kern = kahan_matmul_grid<T, TA, TB, TM>;
   static size_t smem_set = 48 * 1024;
   if (smem > smem_set) {
@@ -786,17 +896,22 @@ int launch_tile(int scheme, int split, const Args& x) {
   return (int)cudaGetLastError();
 }
 
+// `forced` (tm 0: none) replaces the plan of grid_plan; one that does not
+// fit is refused
 template <typename T, typename TA, typename TB>
-int launch_grid(int scheme, const Args& x) {
+int launch_grid(int scheme, const Args& x, GridPlan forced) {
   if (scheme < NAIVE || scheme > DOT2) return (int)cudaErrorInvalidValue;
-  const GridPlan plan = grid_plan<T>(x.batch, x.m, x.n, x.k, x.block_k);
-  if constexpr (sizeof(T) == 8) {
-    return launch_tile<T, TA, TB, 32>(scheme, plan.split, x);
-  } else {
-    if (plan.tm == 32) return launch_tile<T, TA, TB, 32>(scheme, plan.split, x);
-    if (plan.tm == 64) return launch_tile<T, TA, TB, 64>(scheme, plan.split, x);
+  if (forced.tm != 0 && !plan_fits<T>(forced, x.batch, x.k / x.block_k))
+    return (int)cudaErrorInvalidValue;
+  const GridPlan plan = forced.tm != 0
+                            ? forced
+                            : grid_plan<T>(x.batch, x.m, x.n, x.k, x.block_k);
+  if (plan.tm == 32) return launch_tile<T, TA, TB, 32>(scheme, plan.split, x);
+  if (plan.tm == 64) return launch_tile<T, TA, TB, 64>(scheme, plan.split, x);
+  if constexpr (sizeof(typename Compute<T>::type) == 8)
+    return (int)cudaErrorInvalidValue;
+  else
     return launch_tile<T, TA, TB, 128>(scheme, plan.split, x);
-  }
 }
 
 // The M <= 8 path: 32 columns per CTA where that still gives
@@ -825,7 +940,7 @@ int launch_rows(int scheme, const Args& x) {
   const size_t smem =
       (size_t)kRowStages * groups * tile_k
           * (cols * sizeof(TB) + x.m * sizeof(TA))
-      + (size_t)groups * x.m * cols * sizeof(T);
+      + (size_t)groups * x.m * cols * sizeof(typename Compute<T>::type);
   const dim3 grid((x.n + cols - 1) / cols, x.batch);
   auto ta = static_cast<const TA*>(x.a);
   auto tb = static_cast<const TB*>(x.b);
@@ -858,12 +973,13 @@ int launch_rows(int scheme, const Args& x) {
 }
 
 template <typename T, typename TA, typename TB>
-int launch_types(int scheme, const Args& x) {
+int launch_types(int scheme, const Args& x, GridPlan forced) {
+  if (x.m > 8) return launch_grid<T, TA, TB>(scheme, x, forced);
+  if (forced.tm != 0 || forced.split != 0) return (int)cudaErrorInvalidValue;
   if (x.m == 1) return launch_rows<T, TA, TB, 1>(scheme, x);
   if (x.m == 2) return launch_rows<T, TA, TB, 2>(scheme, x);
   if (x.m <= 4) return launch_rows<T, TA, TB, 4>(scheme, x);
-  if (x.m <= 8) return launch_rows<T, TA, TB, 8>(scheme, x);
-  return launch_grid<T, TA, TB>(scheme, x);
+  return launch_rows<T, TA, TB, 8>(scheme, x);
 }
 
 }  // namespace
@@ -871,27 +987,31 @@ int launch_types(int scheme, const Args& x) {
 // C entry point. dtype codes: 0 = float32, 1 = float64, 2 = bfloat16.
 // dtype is the compute dtype of s, c and every operation; a_dtype and
 // b_dtype are the operands' (float32 or bfloat16 for a float32 compute
-// dtype, float64 for float64, bfloat16 for bfloat16). a [batch, m, k] and b [batch, k, n] are
-// row-major contiguous, k a multiple of block_k. Returns cudaGetLastError()
-// after the launch (0 = launched).
+// dtype, float64 for float64, bfloat16 for bfloat16). a [batch, m, k] and
+// b [batch, k, n] are row-major contiguous, k a multiple of block_k. tm and
+// split force the M > 8 path's plan (both 0: kahan_matmul_plan's); a plan
+// that plan_fits refuses, or any at M <= 8, is refused. Returns
+// cudaGetLastError() after the launch (0 = launched).
 extern "C" int kahan_matmul_launch(int scheme, int dtype, int a_dtype,
                                    int b_dtype, const void* a, const void* b,
                                    void* s, void* c, int batch, int m, int n,
-                                   int k, int block_k, void* stream) {
+                                   int k, int block_k, int tm, int split,
+                                   void* stream) {
   if (batch < 1 || batch > 65535 || m < 1 || n < 1 || k < 1 ||
-      block_k < 1 || k % block_k != 0)
+      block_k < 1 || k % block_k != 0 || (tm == 0) != (split == 0))
     return (int)cudaErrorInvalidValue;
   const Args x{a, b, s, c, batch, m, n, k, block_k,
                static_cast<cudaStream_t>(stream)};
+  const GridPlan forced{tm, split};
   if (dtype == 0) {
-    if (a_dtype == 0 && b_dtype == 0) return launch_types<float, float, float>(scheme, x);
-    if (a_dtype == 0 && b_dtype == 2) return launch_types<float, float, __nv_bfloat16>(scheme, x);
-    if (a_dtype == 2 && b_dtype == 0) return launch_types<float, __nv_bfloat16, float>(scheme, x);
-    if (a_dtype == 2 && b_dtype == 2) return launch_types<float, __nv_bfloat16, __nv_bfloat16>(scheme, x);
+    if (a_dtype == 0 && b_dtype == 0) return launch_types<float, float, float>(scheme, x, forced);
+    if (a_dtype == 0 && b_dtype == 2) return launch_types<float, float, __nv_bfloat16>(scheme, x, forced);
+    if (a_dtype == 2 && b_dtype == 0) return launch_types<float, __nv_bfloat16, float>(scheme, x, forced);
+    if (a_dtype == 2 && b_dtype == 2) return launch_types<float, __nv_bfloat16, __nv_bfloat16>(scheme, x, forced);
   } else if (dtype == 1 && a_dtype == 1 && b_dtype == 1) {
-    return launch_types<double, double, double>(scheme, x);
+    return launch_types<double, double, double>(scheme, x, forced);
   } else if (dtype == 2 && a_dtype == 2 && b_dtype == 2) {
-    return launch_types<Bf16, __nv_bfloat16, __nv_bfloat16>(scheme, x);
+    return launch_types<Bf16, __nv_bfloat16, __nv_bfloat16>(scheme, x, forced);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -1,6 +1,6 @@
 // Device update functions of the four built-in compensation schemes,
-// shared by kahan_reduce.cu (dot and sum grids) and kahan_flash.cu (the
-// online-softmax accumulators).
+// shared by kahan_reduce.cu (dot and sum grids), kahan_flash.cu (the
+// online-softmax accumulators) and kahan_matmul.cu (the K-block fold).
 //
 // Each function is one scheme's accumulator fold, op for op as the torch
 // callables in repro_torch/kernels/schemes.py (and the reference's in
@@ -62,6 +62,24 @@ __device__ __forceinline__ Bf16f operator+(Bf16f a, Bf16f b) { return Bf16f(a.x 
 __device__ __forceinline__ Bf16f operator-(Bf16f a, Bf16f b) { return Bf16f(a.x - b.x); }
 __device__ __forceinline__ Bf16f operator*(Bf16f a, Bf16f b) { return Bf16f(a.x * b.x); }
 static_assert(sizeof(Bf16f) == 4, "Bf16f must be 4 bytes");
+
+// The type every value is formed in, for the dtype T of a kernel's arrays
+// (kahan_flash.cu, kahan_matmul.cu): bfloat16 as Bf16f, the others as
+// they are; and an element as a compute value and back, exact both ways
+// (a bfloat16 widened to a float; a Bf16f's upper half).
+template <typename T> struct Compute { using type = T; };
+template <> struct Compute<Bf16> { using type = Bf16f; };
+__device__ __forceinline__ float to_c(float x) { return x; }
+__device__ __forceinline__ double to_c(double x) { return x; }
+__device__ __forceinline__ Bf16f to_c(Bf16 x) { return Bf16f::exact(x.f()); }
+__device__ __forceinline__ float to_t(float x) { return x; }
+__device__ __forceinline__ double to_t(double x) { return x; }
+__device__ __forceinline__ Bf16 to_t(Bf16f x) {
+  Bf16 r;
+  r.v = __ushort_as_bfloat16(
+      static_cast<unsigned short>(__float_as_uint(x.x) >> 16));
+  return r;
+}
 
 __device__ __forceinline__ float fused(float a, float b, float c) {
   return __fmaf_rn(a, b, c);

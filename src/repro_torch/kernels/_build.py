@@ -64,9 +64,9 @@ _SIGNATURES = {
     },
     "kahan_matmul": {
         # (scheme, dtype, a_dtype, b_dtype, a, b, s, c, batch, m, n, k,
-        #  block_k, stream)
+        #  block_k, tm, split, stream)
         "kahan_matmul_launch": (_I, _I, _I, _I, _V, _V, _V, _V, _I, _I, _I,
-                                _I, _I, _V),
+                                _I, _I, _I, _I, _V),
         # (dtype, batch, m, n, k, block_k, *tm, *tn, *split)
         "kahan_matmul_plan": (_I, _I, _I, _I, _I, _I, _P, _P, _P),
     },

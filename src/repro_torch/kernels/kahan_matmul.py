@@ -30,7 +30,13 @@ those of operands promoted first, and bf16 weights are never copied.
 Every compute dtype of the reference runs on the card: float32, float64
 and bfloat16. In bfloat16 each product, add and fold op is computed in
 float32 and rounded to bfloat16 once, as torch computes a bfloat16 op, so
-the kernel agrees with the plain version bit for bit.
+the kernel agrees with the plain version bit for bit (the kernel holds
+the values as floats and rounds each with one conversion).
+
+At M > 8 the kernel picks a tile height (``TILE_ROWS``) and a cluster
+split from the shapes (``grid_plan`` asks the library which); a test may
+force any other plan that ``fitting_plans`` lists through ``_launch``'s
+``plan=``, and the bits do not depend on it.
 
 Which path runs depends only on where the tensors lie: on the CPU the
 plain version, on a CUDA tensor the kernel (a scheme without a device
@@ -40,7 +46,7 @@ version on the card.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -57,6 +63,30 @@ OPERAND_DTYPES = {
     torch.float64: (torch.float64,),
     torch.bfloat16: (torch.bfloat16,),
 }
+
+
+#: tile heights of the kernel's M > 8 path for each compute dtype (the
+#: rows of ``kahan_matmul_grid``'s instantiations), and the largest cluster
+MAX_SPLIT = 8
+TILE_ROWS = {
+    torch.float32: (32, 64, 128),
+    torch.bfloat16: (32, 64, 128),
+    torch.float64: (32, 64),
+}
+
+
+def fitting_plans(batch: int, m: int, k: int, block_k: int,
+                  compute_dtype: torch.dtype) -> Tuple[Tuple[int, int], ...]:
+    """Every ``(rows, split)`` the kernel's M > 8 path takes for a
+    ``[batch, M, K]`` call (the C entry refuses any other): a height of
+    ``TILE_ROWS[compute_dtype]`` and a cluster of 1 to ``min(K / block_k,
+    MAX_SPLIT)`` CTAs with ``batch * split`` within grid z. None at M <=
+    8, which runs the rows path."""
+    if m <= 8:
+        return ()
+    splits = range(1, min(k // block_k, MAX_SPLIT) + 1)
+    return tuple((rows, split) for rows in TILE_ROWS[compute_dtype]
+                 for split in splits if batch * split <= 65535)
 
 
 def block_product(a: Tensor, b: Tensor) -> Tensor:
@@ -89,7 +119,11 @@ def matmul_plain(a: Tensor, b: Tensor, *, scheme: CompensationScheme,
 
 def _launch(a: Tensor, b: Tensor, *, scheme: CompensationScheme,
             block_m: int, block_n: int, block_k: int,
-            compute_dtype: torch.dtype, counter) -> Tuple[Tensor, Tensor]:
+            compute_dtype: torch.dtype, counter,
+            plan: Optional[Tuple[int, int]] = None) -> Tuple[Tensor, Tensor]:
+    """One counted launch (or, on CPU tensors, the plain version).
+    ``plan``: a ``(rows, split)`` of ``fitting_plans`` that replaces the
+    kernel's own at M > 8 (for tests and tile sweeps)."""
     if a.dim() != 3 or b.dim() != 3 or a.shape[0] != b.shape[0] \
             or a.shape[2] != b.shape[1]:
         raise ValueError(
@@ -114,6 +148,12 @@ def _launch(a: Tensor, b: Tensor, *, scheme: CompensationScheme,
     if a.device != b.device:
         raise ValueError(f"matmul kernel: operands on {a.device} and "
                          f"{b.device}")
+    if plan is not None and tuple(plan) not in fitting_plans(
+            batch, m, k, block_k, compute_dtype):
+        raise ValueError(f"matmul kernel: plan {plan} is not one of "
+                         f"{fitting_plans(batch, m, k, block_k, compute_dtype)}"
+                         f" for [{batch}, {m}, {k}] at block_k {block_k} in "
+                         f"{compute_dtype}")
     if type(a) is not Tensor and abstract.screen(counter.__name__, a, b):
         s, c = (a.new_empty((batch, m, n), dtype=compute_dtype)
                 for _ in range(2))
@@ -139,7 +179,7 @@ def _launch(a: Tensor, b: Tensor, *, scheme: CompensationScheme,
     err = lib.kahan_matmul_launch(
         scheme.device_id, code[compute_dtype], code[a.dtype], code[b.dtype],
         a.data_ptr(), b.data_ptr(), s.data_ptr(), c.data_ptr(), batch, m, n,
-        k, block_k, _build.stream_ptr(a.device))
+        k, block_k, *(plan or (0, 0)), _build.stream_ptr(a.device))
     _build.check(err, "kahan_matmul_grid")
     return s, c
 
@@ -148,10 +188,10 @@ def grid_plan(batch: int, m: int, n: int, k: int, block_k: int,
               compute_dtype: torch.dtype = torch.float32
               ) -> Tuple[int, int, int]:
     """``(rows, columns, split)`` of the tile that the kernel's M > 8 path
-    takes for a ``[batch, M, K] x [batch, K, N]`` call: ``split`` CTAs of
-    a thread-block cluster form a tile's K-blocks at once. ``(0, 0, 0)``
-    at M <= 8 (the rows path). Asks the built library, so it needs the
-    card."""
+    takes for a ``[batch, M, K] x [batch, K, N]`` call in
+    ``compute_dtype``: ``split`` CTAs of a thread-block cluster form a
+    tile's K-blocks at once. ``(0, 0, 0)`` at M <= 8 (the rows path).
+    Asks the built library, so it needs the card."""
     import ctypes
 
     lib = _build.library("kahan_matmul")

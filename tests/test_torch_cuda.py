@@ -1429,6 +1429,183 @@ def test_cuda_matmul_bf16_matches_plain(cuda_device, m):
             assert all(torch.equal(g[i], o) for g, o in zip(got, one))
 
 
+def _matmul_plan_launches(km, a, b, kw):
+    """B5 (or B6, for a 3-D ``a``) under the kernel's own plan, then under
+    every other plan ``fitting_plans`` lists, each one counted launch."""
+    batched = a.dim() == 3
+    a3, b3 = (a, b) if batched else (a[None], b[None])
+    counter = (km.matmul_accumulators_batched if batched
+               else km.matmul_accumulators)
+    plans = km.fitting_plans(a3.shape[0], a3.shape[1], a3.shape[2],
+                             kw["block_k"], kw["compute_dtype"])
+    for plan in (None, *plans):
+        before = counter.launches
+        got = km._launch(a3, b3, counter=counter, plan=plan, **kw)
+        assert counter.launches == before + 1
+        yield plan, got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [9, 37, 64, 300])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float64])
+def test_cuda_matmul_every_plan_matches_plain(cuda_device, dtype, m):
+    """Tier 2 on the card in bfloat16 and float64 compute: B5 at M > 8
+    under its own plan and under every other tile height and cluster
+    split the C entry takes (``fitting_plans``: 32, 64 and 128 rows in
+    bfloat16, 32 and 64 in float64, splits 1 to min(K-blocks, 8)), at 1,
+    4 and 17 K-blocks of 128 and a ragged N 200, equals the plain version
+    bit for bit, every built-in scheme."""
+    from repro_torch.kernels import kahan_matmul as km
+
+    gen = torch.Generator(device=cuda_device).manual_seed(12)
+    assert km.TILE_ROWS[dtype] == ((32, 64) if dtype == torch.float64
+                                   else (32, 64, 128))
+    for scheme in SCHEMES:
+        sch = tschemes.get(scheme)
+        kw = dict(scheme=sch, block_m=8, block_n=200, block_k=128,
+                  compute_dtype=dtype)
+        for steps in (1, 4, 17):
+            a, b = _matmul_operands(gen, cuda_device, m, steps * 128, 200,
+                                    dtype)
+            want = km.matmul_plain(a[None], b[None], scheme=sch, block_k=128,
+                                   compute_dtype=dtype)
+            n_plans = 0
+            for plan, got in _matmul_plan_launches(km, a, b, kw):
+                torch.cuda.synchronize()
+                n_plans += 1
+                for g, w in zip(got, want):
+                    assert g.dtype == dtype and torch.equal(g, w), (
+                        scheme, steps, plan)
+            assert n_plans == 1 + len(km.TILE_ROWS[dtype]) * min(steps, 8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scheme", SCHEMES)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float64])
+def test_cuda_matmul_batched_equals_loop_in_bf16_and_f64(cuda_device, dtype,
+                                                         scheme):
+    """Tier 2 on the card in bfloat16 and float64 compute: B6 at batch 3
+    equals its plain version and a loop of B5 launches bit for bit, at M
+    1 (the rows path), 9 and 64 (the tiles, every plan forced on B6)."""
+    from repro_torch.kernels import kahan_matmul as km
+
+    gen = torch.Generator(device=cuda_device).manual_seed(13)
+    sch = tschemes.get(scheme)
+    kw = dict(scheme=sch, block_m=8, block_n=200, block_k=256,
+              compute_dtype=dtype)
+    for m in (1, 9, 64):
+        a = torch.randn((3, m, 1024), generator=gen,
+                        device=cuda_device).to(dtype)
+        b = torch.randn((3, 1024, 200), generator=gen,
+                        device=cuda_device).to(dtype)
+        loop = [km.matmul_accumulators(a[i], b[i], **kw) for i in range(3)]
+        want = km.matmul_plain(a, b, scheme=sch, block_k=256,
+                               compute_dtype=dtype)
+        for plan, got in _matmul_plan_launches(km, a, b, kw):
+            torch.cuda.synchronize()
+            assert all(torch.equal(g, w) for g, w in zip(got, want)), (m,
+                                                                      plan)
+            for i in range(3):
+                assert all(torch.equal(g[i], o)
+                           for g, o in zip(got, loop[i])), (m, plan, i)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scheme", SCHEMES)
+def test_cuda_matmul_bf16_subnormal_reaching_matches_plain(cuda_device,
+                                                           scheme):
+    """Tier 2 on subnormal-reaching data in bfloat16 compute: operands
+    down to 2^-70 with a fifth of them subnormal, so that products fall
+    below 2^-126 (flushed) and partial sums near it; and operands up to
+    2^57, products up to 2^116, near bfloat16's largest finite value
+    (no sum reaches it). B5 on the rows path (M 1, 3, 8) and at M 37 under
+    every plan equals its flushing plain version bit for bit."""
+    from repro_torch.kernels import kahan_matmul as km
+
+    dev, bf16 = cuda_device, torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(14)
+
+    def data(shape, lo, hi):
+        e = torch.randint(lo, hi, shape, generator=gen, device=dev)
+        sub = torch.rand(shape, generator=gen, device=dev) < 0.2
+        if lo < 0:
+            e = torch.where(sub, torch.randint(-133, -126, shape,
+                                               generator=gen, device=dev), e)
+        sign = torch.randint(0, 2, shape, generator=gen, device=dev) * 2 - 1
+        frac = 1 + torch.rand(shape, generator=gen, device=dev)
+        return (sign * frac * torch.exp2(e.float())).to(bf16)
+
+    sch = tschemes.get(scheme)
+    kw = dict(scheme=sch, block_m=8, block_n=200, block_k=128,
+              compute_dtype=bf16)
+    for lo, hi in ((-70, -50), (40, 58)):
+        for m in (1, 3, 8, 37):
+            a, b = data((m, 4 * 128), lo, hi), data((4 * 128, 200), lo, hi)
+            if lo < 0:
+                assert (a.float().abs() < 2.0 ** -126).any()
+            want = km.matmul_plain(a[None], b[None], scheme=sch, block_k=128,
+                                   compute_dtype=bf16)
+            assert all(bool(torch.isfinite(w).all()) for w in want)
+            for plan, got in _matmul_plan_launches(km, a, b, kw):
+                torch.cuda.synchronize()
+                for g, w in zip(got, want):
+                    assert torch.equal(g, w), (lo, m, plan)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float64])
+def test_cuda_matmul_refuses_a_wrong_plan(cuda_device, dtype):
+    """The C entry takes exactly the plans of ``fitting_plans`` for the
+    compute dtype: a height it does not have (48 rows; 128 in float64), a
+    split of 0 or past min(K-blocks, 8), a plan at M <= 8, or a height
+    without a split, is refused (error 1, cudaErrorInvalidValue) and
+    nothing launches; ``_launch`` refuses the same before it launches.
+    ``grid_plan`` reports a plan of the list: at the 64-token gate/up
+    shape 64 rows, split 2 in float32 and bfloat16, 1 in float64 (one
+    CTA an SM)."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import kahan_matmul as km
+
+    code = _build.DTYPE_CODE[dtype]
+    lib = _build.library("kahan_matmul")
+
+    def launch(m, plan, k=512):
+        a = torch.zeros((m, k), device=cuda_device, dtype=dtype)
+        b = torch.zeros((k, 64), device=cuda_device, dtype=dtype)
+        s, c = torch.empty((m, 64), device=cuda_device, dtype=dtype), \
+            torch.empty((m, 64), device=cuda_device, dtype=dtype)
+        return lib.kahan_matmul_launch(
+            1, code, code, code, a.data_ptr(), b.data_ptr(), s.data_ptr(),
+            c.data_ptr(), 1, m, 64, k, 128, *plan,
+            _build.stream_ptr(cuda_device))
+
+    fitting = km.fitting_plans(1, 16, 512, 128, dtype)
+    assert len(fitting) == len(km.TILE_ROWS[dtype]) * 4
+    for plan in fitting + ((0, 0),):
+        assert launch(16, plan) == 0, plan
+    bad = [(48, 1), (64, 0), (64, 5), (32, 9), (0, 1)]
+    if dtype == torch.float64:
+        bad.append((128, 1))
+    for plan in bad:
+        assert launch(16, plan) == 1, plan
+    assert launch(8, (32, 1)) == 1
+    torch.cuda.synchronize()
+    x = torch.zeros((16, 512), device=cuda_device, dtype=dtype)
+    w = torch.zeros((512, 64), device=cuda_device, dtype=dtype)
+    before = km.matmul_accumulators.launches
+    for plan in bad:
+        with pytest.raises(ValueError, match="plan"):
+            km._launch(x[None], w[None], scheme=tschemes.KAHAN, block_m=8,
+                       block_n=64, block_k=128, compute_dtype=dtype,
+                       counter=km.matmul_accumulators, plan=plan)
+    assert km.matmul_accumulators.launches == before
+    rows, cols, split = km.grid_plan(1, 64, 8192, 2048, 512, dtype)
+    assert (rows, cols) == (64, 64)
+    assert split == (1 if dtype == torch.float64 else 2)
+    assert (rows, split) in km.fitting_plans(1, 64, 2048, 512, dtype)
+
+
 @pytest.mark.cuda
 def test_cuda_vmap_lands_on_one_batched_launch(cuda_device):
     """``torch.func.vmap`` of ``ops.dot``, ``ops.asum`` and ``ops.matmul``

@@ -15,6 +15,17 @@ numpy seeds and go through both packages. Parity tiers:
   reference's own routing tolerance, rtol = atol = 1e-3
   (``tests/test_engine_routing.py``); greedy tokens EXACT. Gradients:
   within the same matmul tolerance.
+  In bfloat16 and float64 compute (the card's B-9 instantiations) the
+  raw grids are held against the reference's Pallas kernel in the same
+  dtype: bfloat16 within ``1e-2 * (|a| @ |b|)`` (ROADMAP's tier 3 for
+  bfloat16 matmul: the port rounds each of a block's products and adds
+  to bfloat16, XLA's ``dot_general`` sums in its own order and width),
+  float64 within ``2 * (block_k + steps) * 2^-53 * (|a| @ |b|)``: each
+  side's worst case is one rounding a product and an add in a block
+  product of ``block_k`` terms and one an add in the fold over ``steps``
+  K-blocks (measured: 5.3e-3 of that scale in bfloat16; none in float64,
+  where XLA on the CPU happens to sum a block in the same ascending
+  order).
 * tier 2 (bitwise within the port): batched equals a loop of single
   calls; an output row is the same whatever M is; the oracle
   ``ref.matmul_ref`` equals the engine; the backward equals the
@@ -192,6 +203,101 @@ def test_wrapper_grids_within_tolerance_of_reference_kernel(scheme,
                         [*want, want[0] + want[1]]):
             _assert_close_to_scale(g[i].numpy(), np.asarray(w)[i], a[i],
                                    b[i])
+
+
+BF16_MATMUL_RTOL = 1e-2
+
+
+@pytest.mark.parametrize("compute_dtype", ["bfloat16", "float64"])
+@pytest.mark.parametrize("batched", [False, True], ids=["B5", "B6"])
+@pytest.mark.parametrize("scheme", SCHEMES)
+def test_wrapper_grids_in_bfloat16_and_float64_vs_reference_kernel(
+        scheme, batched, compute_dtype):
+    """Tier 3 at the kernel boundary in bfloat16 and float64 compute:
+    the wrappers' raw (s, c) grids at M 37 (the M > 8 tiles on the card)
+    and M 5 (the rows path), 4 K-blocks of 128, vs the reference's Pallas
+    kernels in the same dtype (interpret mode; float64 under
+    ``jax.enable_x64``): s, c and s + c each within the module's stated
+    tolerance, the grids in the compute dtype."""
+    from repro.kernels import kahan_matmul as jkm
+
+    rng = np.random.default_rng(19)
+    block_k, steps = 128, 4
+    tdt, jdt = getattr(torch, compute_dtype), getattr(jnp, compute_dtype)
+    rtol = (BF16_MATMUL_RTOL if compute_dtype == "bfloat16"
+            else 2 * (block_k + steps) * 2.0 ** -53)
+    kw = dict(block_m=8, block_n=128, block_k=block_k)
+    for m in (37, 5):
+        a = rng.standard_normal((2, m, steps * block_k))
+        b = rng.standard_normal((2, steps * block_k, 256))
+        if compute_dtype == "bfloat16":
+            a, b = (torch.from_numpy(x).bfloat16().double().numpy()
+                    for x in (a, b))
+        if not batched:
+            a, b = a[:1], b[:1]
+        ta, tb = (torch.from_numpy(x).to(tdt) for x in (a, b))
+        with jax.enable_x64(compute_dtype == "float64"):
+            ja, jb = (jnp.asarray(x).astype(jdt) for x in (a, b))
+            jkw = dict(kw, scheme=jschemes.get(scheme), interpret=True,
+                       compute_dtype=jdt, block_m=m)
+            tkw = dict(kw, scheme=tschemes.get(scheme), compute_dtype=tdt)
+            if batched:
+                got = tkm.matmul_accumulators_batched(ta, tb, **tkw)
+                want = jkm.matmul_accumulators_batched(ja, jb, **jkw)
+            else:
+                got = [g[None] for g in tkm.matmul_accumulators(
+                    ta[0], tb[0], **tkw)]
+                want = [w[None] for w in jkm.matmul_accumulators(
+                    ja[0], jb[0], **jkw)]
+            want = [np.asarray(w) for w in want]
+        assert all(g.dtype == tdt for g in got)
+        assert all(w.dtype.name == compute_dtype for w in want)
+        for i in range(a.shape[0]):
+            scale = np.abs(a[i]) @ np.abs(b[i])
+            for g, w in zip([*got, got[0] + got[1]],
+                            [*want, want[0] + want[1]]):
+                err = np.abs(g[i].double().numpy() - w[i].astype(np.float64))
+                assert (err <= rtol * scale).all(), (m, (err / scale).max())
+
+
+@pytest.mark.parametrize("compute_dtype", [torch.float32, torch.bfloat16,
+                                           torch.float64])
+def test_forced_plans_are_the_kernels_own(compute_dtype):
+    """The plans a caller may force on the kernel's M > 8 path
+    (``fitting_plans``), pinned by hand: the tile heights of the dtype's
+    instantiations (32, 64 and 128 rows; 32 and 64 in float64) times
+    cluster splits 1 to min(K-blocks, 8), split 1 alone where the batch
+    fills grid z, none at M <= 8. ``_launch`` refuses any other before it
+    runs; on CPU tensors every fitting plan gives the plain version's
+    grids."""
+    heights = (32, 64) if compute_dtype == torch.float64 else (32, 64, 128)
+    assert tkm.TILE_ROWS[compute_dtype] == heights
+    assert tkm.fitting_plans(1, 64, 2048, 512, compute_dtype) == tuple(
+        (h, s) for h in heights for s in (1, 2, 3, 4))
+    assert tkm.fitting_plans(4, 300, 20 * 128, 128, compute_dtype) == tuple(
+        (h, s) for h in heights for s in range(1, 9))
+    assert tkm.fitting_plans(65535, 9, 1024, 256, compute_dtype) == tuple(
+        (h, 1) for h in heights)
+    assert tkm.fitting_plans(1, 8, 2048, 512, compute_dtype) == ()
+    rng = np.random.default_rng(23)
+    a = torch.from_numpy(rng.standard_normal((1, 12, 256))).to(compute_dtype)
+    b = torch.from_numpy(rng.standard_normal((1, 256, 40))).to(compute_dtype)
+    kw = dict(scheme=tschemes.KAHAN, block_m=8, block_n=40, block_k=128,
+              compute_dtype=compute_dtype,
+              counter=tkm.matmul_accumulators_batched)
+    want = tkm.matmul_plain(a, b, scheme=tschemes.KAHAN, block_k=128,
+                            compute_dtype=compute_dtype)
+    for plan in tkm.fitting_plans(1, 12, 256, 128, compute_dtype):
+        got = tkm._launch(a, b, plan=plan, **kw)
+        assert all(torch.equal(g, w) for g, w in zip(got, want)), plan
+    bad = [(48, 1), (64, 0), (64, 3), (32, 9), (0, 1)]
+    if compute_dtype == torch.float64:
+        bad.append((128, 1))
+    for plan in bad:
+        with pytest.raises(ValueError, match="plan"):
+            tkm._launch(a, b, plan=plan, **kw)
+    with pytest.raises(ValueError, match="plan"):
+        tkm._launch(a[:, :8], b, plan=(32, 1), **kw)
 
 
 @pytest.mark.parametrize("scheme", SCHEMES)
