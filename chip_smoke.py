@@ -43,8 +43,7 @@ there is no CUDA device or no ``src/repro_torch`` beside it.
    ``matmul_plain`` bit for bit; operands whose rows are not 16-byte
    aligned (staged without cp.async); B6 at batch 4 and M 1 equal to a
    loop of B5. The M > 8 path: M in {9, 32, 37, 64, 100, 300} x 1, 3 and
-   4 K-blocks and M in {9, 37, 300} x 16 and 17 K-blocks (not on bf16
-   operands), x N 200, every scheme, float32 (bf16 and float32
+   4 K-blocks and M 37 x 17 K-blocks (not on bf16 operands), x N 200, every scheme, float32 (bf16 and float32
    operands) and float64, equal to ``matmul_plain`` bit for bit; B6 at
    batch 3 equal to a loop of B5; rows
    0, 8, 31 and M - 1 of M in {9, 64, 300} equal M = 1 products. The
@@ -184,7 +183,8 @@ there is no CUDA device or no ``src/repro_torch`` beside it.
    batch-sharded mesh (B4, 2 requests a rank), ``deterministic_mean``
    and ``compressed_psum`` on a [2048, 8192] leaf, twice, then OLMo-1B
    at full width, CUT to 2 of its 16 layers (``DIST_LAYERS``), on
-   ``make_local_mesh()`` (phase 6's run A, 2 steps, twice), its loss
+   ``make_local_mesh()`` (phase 6's run A, ``DIST_TRAIN_STEPS`` (1)
+   step, twice), its loss
    folded through ``sharded_asum``. Checked:
    every result the same bits on both ranks and in both runs, equal to
    the same kernels' per-shard grids folded here by
@@ -294,8 +294,8 @@ there is no CUDA device or no ``src/repro_torch`` beside it.
    version; request 0 alone == interleaved, bitwise (a slot reused
    after an eviction is held to a fresh engine on the CPU,
    ``tests/test_torch_xlstm.py``). Then ``XLSTMLM.prefill`` of a
-   640-token prompt (two 512-token chunks, the second padded) and 8
-   greedy ``decode_step``s, each step's logits against a prefill of the
+   640-token prompt (two 512-token chunks, the second padded) and
+   ``XLSTM_STEPS`` (4) greedy ``decode_step``s, each step's logits against a prefill of the
    prompt and the tokens so far: with the bf16 weights, the compute and
    every float32 cast in float64 within relative L2 2e-3 and the same
    argmax (in bf16 and float32 compute rounding alone parts the two
@@ -366,6 +366,30 @@ there is no CUDA device or no ``src/repro_torch`` beside it.
    tensor-core opcode in B1-B6 and no FFMA in the B3/B4 sum
    instantiations. Any finding of the audit (the CPU cost cells
    included) fails the phase.
+17. Every family's train step (``family_train_path``): qwen2.5-3b,
+   internvl2-2b, deepseek-v2-lite-16b, hymba-1.5b, xlstm-1.3b and
+   whisper-large-v3 at their published widths (random weights from seed
+   0, the configs' dtypes), depth cut as ``FAMILY_CUTS`` says with every
+   kind of block kept, through the port's ``make_train_step`` at phase
+   6's batch (seq 256, global batch 8, 2 microbatches, warmup 1, lr
+   ``TRAIN_LR``): run A (cuBLAS projections, the column-scan norm) and
+   run B (``kahan_matmul``, B3 once a leaf) from the same weights and
+   batches, each step 1, step 1 again from the same state (bitwise: every
+   param and moment leaf, loss, grad norm) and step 2 under the profiler;
+   deepseek-v2-lite's A and B in float32 compute, gated, and in its own
+   bf16, logged. Checked: every loss and grad norm finite, run B's step-1
+   loss and grad norm within phase 6's limits of run A's, each step's B5
+   (``train_b5_per_step``), B3 and column-scan counts exact and nothing
+   else launched, the peak below 80 GB. Before them B5's autograd
+   backward at K or N padded by the engine (11008, 2816) bitwise against
+   the plain version, and B5's training rows (``family_train_times``);
+   after them one smoke step of every family under
+   ``torch.use_deterministic_algorithms(True, warn_only=True)``, gated on
+   no op without a deterministic CUDA path, and the crash-restart at
+   deepseek-v2-lite's smoke config (``resume_check``). Logged per run
+   with the card: wall ms a step after the first, device-busy ms of the
+   profiled step, B5 ms, peak GiB; one JSON line ``{"family_train":
+   {...}}``.
 
 The last three lines are the card (``nvidia-smi`` name and power
 limit), one JSON object ``{"kernels": [...]}`` and
@@ -387,7 +411,9 @@ and "whisper-prefill" (``EncDecLM.prefill``, B7); phase 14's "vmap-dot",
 "vmap-asum" and "vmap-matmul" (timed at phase 3's batched shapes),
 "serve-vmap" (B5 timed at M 4), "serve-bf16" / "serve-f64" (B4, B5
 and B8 timed in that compute dtype, B5 at the decode q/k/v/o shape) and
-"prefill-bf16" / "prefill-f64" (B7 at the entry shape in that dtype):
+"prefill-bf16" / "prefill-f64" (B7 at the entry shape in that dtype);
+phase 17's "train-<arch>-a" / "-b" (and deepseek-v2-lite's
+"train-deepseek-v2-lite-16b-bfloat16-a" / "-b"), each run's three steps:
 its ``launches`` are
 that path's count and its times were taken at that path's shape (B5 on "serve-matmul": the decode q/k/v/o
 shape at M 1, the one launched most; on "train-b" the up projection's
@@ -405,7 +431,9 @@ gate/up [1, 2048] x [2048, 2816], the projection launched most; on
 "serve-whisper-large-v3-matmul" the decode q/k/v/o [1, 1280] x [1280,
 1280], on "whisper-encode-matmul" the encoder's q/k/v/o [1500, 1280] x
 [1280, 1280], both padded by the engine to K 1536; on "whisper-prefill"
-B7 at [20, 160, 64]).
+B7 at [20, 160, 64]; on phase 17's run B paths B5 at
+``FAMILY_B5_ROW``'s padded shape of that config, B3 and the column scan
+at phase 3's training rows).
 """
 
 from __future__ import annotations
@@ -483,7 +511,8 @@ LADDER_CONDS = (1e0, 1e1, 1e4, 1e6, 1e8, 1e10, 1e12)
 #: asum and dot at the paper's n (2^26 a rank), a matmul with K split 2,
 #: the serving telemetry's shape (2 requests a rank), a [2048, 8192]
 #: leaf through the compressed all-reduce, and OLMo-1B trained on the
-#: mesh (phase 6's run A, 2 steps, twice, cut to DIST_LAYERS layers)
+#: mesh (phase 6's run A, DIST_TRAIN_STEPS steps, twice, cut to
+#: DIST_LAYERS layers)
 DIST_RANKS = 2
 #: seconds the two ranks of phase 8 or of phase 15 have, together, to end
 #: (they take under a minute on the H100)
@@ -492,7 +521,9 @@ DIST_N = 1 << 27
 DIST_MATMUL = (1024, 2048, 8192)
 DIST_ACT = (4, 57344)
 DIST_LEAF = (2048, 8192)
-DIST_TRAIN_STEPS = 2
+#: one train step (two until PR 32: ROADMAP A5's first cut for the
+#: script's time limit; the step's checks are the same for any count)
+DIST_TRAIN_STEPS = 1
 #: the layers of phase 8's OLMo-1B (of 16: the script's time limit; phase
 #: 6 trains all 16 on one rank)
 DIST_LAYERS = 2
@@ -560,7 +591,7 @@ HYMBA_B5_ROW = "hymba-decode-qo"
 #: separates a fault from rounding
 XLSTM = "xlstm-1.3b"
 XLSTM_PROMPT = 640
-XLSTM_STEPS = 8
+XLSTM_STEPS = 4            # 8 until PR 32 (the script's time limit)
 XLSTM_REL = 2e-3
 #: phase 13: the encoder-decoder family. whisper-large-v3 at its
 #: published width and depth serves phase 9's trace with each request's
@@ -720,7 +751,7 @@ def main() -> int:
 
 
 def run_all(torch, card: str, dryrun) -> None:
-    """Phases 1-16 and the closing lines (``main``)."""
+    """Phases 1-17 and the closing lines (``main``)."""
     with ThreadPoolExecutor(len(LIBRARIES) + 1) as pool:
         run_phases(torch, card, dryrun, pool)
 
@@ -797,6 +828,8 @@ def run_phases(torch, card: str, dryrun, pool) -> None:
                                    shard_spec(cfg), dryrun)}))
     run("phase 1 cost_probe.cu", ready, COST_PROBE)
     log(json.dumps({"cost": run("phase 16", cost_path)}))
+    log(json.dumps({"family_train": run("phase 17", family_train_path, torch,
+                                        kernels, card)}))
     log(f"# chip_smoke steps, seconds each: {json.dumps(run.seconds)}")
     log(f"# chip_smoke took {time.perf_counter() - STARTED:.1f} s")
     log(card)
@@ -1666,11 +1699,10 @@ class Kernels:
     def matmul_grid_parity(self):
         """The M > 8 path against ``matmul_plain``, bitwise: M in {9, 32,
         37, 64, 100, 300} (every tile height, masked rows) x 1, 3 and 4
-        K-blocks of 128, and M in {9, 37, 300} (one a tile height) x 16 and
-        17 (cluster splits that do and do not divide the K-blocks, and more
-        rounds than ranks; the plain chain's time grows with K; bf16
-        operands, widened on load, at the first three only) x N = 200
-        (ragged), for
+        K-blocks of 128, and M 37 x 17 (a cluster split that does not
+        divide the K-blocks, more rounds than ranks; the plain chain's time
+        grows with K; bf16 operands, widened on load, at the first three
+        only) x N = 200 (ragged), for
         every scheme, float32 (bf16 and float32 operands) and float64; B6
         at batch 3 equal to a loop of B5; rows 0, 8, 31 and M - 1 of M in
         {9, 64, 300} equal M = 1 products (across the rows / grid
@@ -1685,8 +1717,8 @@ class Kernels:
                           compute_dtype=dtype)
                 shallow = [(m, steps) for m in (9, 32, 37, 64, 100, 300)
                            for steps in (1, 3, 4)]
-                deep = [(m, steps) for m in (9, 37, 300)
-                        for steps in (16, 17)]
+                # one deep row (six until PR 32: the script's time limit)
+                deep = [(37, 17)]
                 for odt in ((f32, bf16) if dtype == f32 else (f64,)):
                     for m, steps in shallow + (deep if odt != bf16 else []):
                         a = self.normal((m, steps * 128)).to(odt)
@@ -1787,6 +1819,69 @@ class Kernels:
         check(torch.equal(a.grad, da) and torch.equal(b.grad, db),
               "matmul backward != B5 on (g, bT) and (aT, g)")
         return 1
+
+    def padded_backward_parity(self):
+        """Phase 17: the autograd backward of ``ops.matmul`` (bf16 a and
+        weight, a float32 gradient, as a projection's) at
+        ``PADDED_BACKWARD``'s shapes, whose K or N the engine zero-pads:
+        dA = g @ Wᵀ and dB = aᵀ @ g bitwise equal to the plain version on
+        the operands ``_prep_matmul`` pads at the backward's blocks, and
+        unpadded on the way out."""
+        torch, km = self.torch, self.km
+        from repro_torch.core import kahan as K
+        from repro_torch.kernels import ops
+
+        eng = self.engine.CompensatedReduction(scheme="kahan")
+
+        def plain(x, y, blocks):
+            xp, yp = eng._prep_matmul(x, y, blocks)
+            s, c = km.matmul_plain(xp[None], yp[None], scheme=eng.scheme,
+                                   block_k=blocks[2],
+                                   compute_dtype=torch.float32)
+            return K.add(s[0], c[0])[:, :y.shape[1]]
+
+        for m, k, n in PADDED_BACKWARD:
+            a = self.normal((m, k)).bfloat16().requires_grad_()
+            w = self.normal((k, n)).bfloat16().requires_grad_()
+            g = self.normal((m, n))
+            ops.matmul(a, w, scheme="kahan").backward(g)
+            fwd = eng._matmul_blocks(m, n, k, None, None, None)
+            da = plain(g, w.detach().T.contiguous(),
+                       eng._matmul_blocks(m, k, n, *fwd)).to(a.dtype)
+            db = plain(a.detach().T.contiguous(), g,
+                       eng._matmul_blocks(k, n, m, *fwd)).to(w.dtype)
+            for got, want, what in ((a.grad, da, "dA"), (w.grad, db, "dB")):
+                check(got.shape == want.shape and same_bits(torch, got, want),
+                      f"B5's {what} at [{m}, {k}] x [{k}, {n}] (padded) != "
+                      f"the plain version")
+        sync(torch, self.dev)
+        log(f"# phase 17: B5's backward (dA and dB) at {PADDED_BACKWARD}, K "
+            f"or N padded by the engine, bitwise equal to the plain version "
+            f"and unpadded")
+
+    def family_train_times(self):
+        """Phase 17's B5 rows, at 1024 tokens a microbatch: qwen2.5-3b's
+        padded backward of the up projection (dA = g @ Wᵀ, K 11008; dB =
+        aᵀ @ g, N 11008), deepseek-v2-lite's shared-expert gate/up (N 2816)
+        and MLA q (N 3072) in float32 compute (float32 activations against
+        bf16 weights), hymba-1.5b's up projection (K 1600, N 5504) and
+        whisper-large-v3's encoder q/k/v/o and up over 4 x 1500 frames (K
+        1280), each padded by the engine."""
+        torch = self.torch
+        f32, bf16 = torch.float32, torch.bfloat16
+        t = TRAIN_BATCH // TRAIN_MICRO * TRAIN_SEQ
+        frames = TRAIN_BATCH // TRAIN_MICRO * 1500
+        for label, m, k, n, dts in (
+                ("train-qwen-dA-up", t, 11008, 2048, (f32, bf16)),
+                ("train-qwen-dB-up", 2048, t, 11008, (bf16, f32)),
+                ("train-deepseek-shared-up", t, 2048, 2816, (f32, bf16)),
+                ("train-deepseek-mla-q", t, 2048, 3072, (f32, bf16)),
+                ("train-hymba-up", t, 1600, 5504, (bf16, bf16)),
+                ("train-whisper-encode-qkvo", frames, 1280, 1280,
+                 (bf16, bf16)),
+                ("train-whisper-encode-up", frames, 1280, 5120,
+                 (bf16, bf16))):
+            self.time_matmul(label, m, k, n, reps=3, dtypes=dts, pads=True)
 
     def time_matmul(self, label, m, k, n, batch=None, reps=20,
                     dtypes=None, pads=False, compute_dtype=None):
@@ -3567,9 +3662,16 @@ def device_events(torch, dev, fn):
         fn()
         sync(torch, dev)
         host_ms = (time.perf_counter() - t0) * 1e3
-    return host_ms, [(e.self_device_time_total / 1e3, e.key, e.count)
-                     for e in prof.key_averages()
-                     if e.device_type == DeviceType.CUDA]
+    # the recorded activities summed by name, as ``key_averages()`` sums
+    # them, without building its Python event tree (seconds a step with
+    # tens of thousands of kernels; since PR 32)
+    by_name = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA and not e.is_hidden_event():
+            got = by_name.setdefault(e.name(), [0, 0])
+            got[0] += e.duration_ns()
+            got[1] += 1
+    return host_ms, [(ns / 1e6, name, n) for name, (ns, n) in by_name.items()]
 
 
 def profile_once(torch, dev, fn):
@@ -3634,12 +3736,13 @@ def norm_loop_vs_kernel(torch, kernels, tree):
             "loop_shape": list(leaf.shape), "tall_leaves": len(tall)}
 
 
-def resume_check(torch, dev):
-    """At the smoke config on the card: a run that crashes after step 2
-    (``FailureInjector``) and resumes from its checkpoint under
+def resume_check(torch, dev, arch="olmo-1b"):
+    """At ``arch``'s smoke config on the card: a run that crashes after
+    step 2 (``FailureInjector``) and resumes from its checkpoint under
     ``run_with_restarts`` reaches step 4 with params and optimizer state
     bitwise equal to the uninterrupted run's (``kahan_matmul`` on, so B5
-    and the one-hot embedding backward are in the step)."""
+    and the one-hot embedding backward are in the step; at a MoE config
+    the fixed-order backward of the dispatch and the pick too)."""
     import tempfile
 
     from repro_torch.configs import get_smoke
@@ -3649,7 +3752,7 @@ def resume_check(torch, dev):
     from repro_torch.optim import AdamWConfig
     from repro_torch.train import TrainConfig, Trainer
 
-    cfg = get_smoke("olmo-1b").replace(kahan_matmul=True)
+    cfg = get_smoke(arch).replace(kahan_matmul=True)
 
     def make(ckpt_dir, hook=None):
         tc = TrainConfig(steps=4, microbatches=2, warmup=1, log_every=1,
@@ -3666,17 +3769,18 @@ def resume_check(torch, dev):
         resumed, restarts = run_with_restarts(
             lambda: make(os.path.join(tmp, "ft"), injector), max_restarts=2)
     check(restarts == 1 and resumed.step == 4,
-          f"crash-restart: {restarts} restarts, step {resumed.step}")
+          f"crash-restart ({arch}): {restarts} restarts, step "
+          f"{resumed.step}")
     pairs = list(zip(T.leaves((ref.params, ref.opt_state)),
                      T.leaves((resumed.params, resumed.opt_state))))
     same = sum(torch.equal(x, y) for x, y in pairs)
     check(same == len(pairs),
-          f"crash-restart: {len(pairs) - same} of {len(pairs)} param / "
-          f"optimizer leaves differ from the uninterrupted run")
-    log(f"# phase 6: a smoke-config run crashed after step 2 resumed to step "
+          f"crash-restart ({arch}): {len(pairs) - same} of {len(pairs)} "
+          f"param / optimizer leaves differ from the uninterrupted run")
+    log(f"# a {arch} smoke-config run crashed after step 2 resumed to step "
         f"4 with all {len(pairs)} param and optimizer leaves bitwise equal "
         f"to the uninterrupted run's")
-    return {"leaves": len(pairs), "restarts": restarts}
+    return {"arch": arch, "leaves": len(pairs), "restarts": restarts}
 
 
 def dense_enqueue_cost(torch, kernels, cfg, calls=200):
@@ -6008,6 +6112,346 @@ def cost_path():
           f"phase 16: {len(report.violations)} cost finding(s): "
           + "; ".join(v.format() for v in report.violations[:5]))
     return out
+
+
+# -- 17. every family's train step --------------------------------------------
+
+#: phase 17: each family's config at its published width (random weights
+#: from seed 0, the config's own dtypes), its depth cut to what the
+#: phase's time allows with every kind of block kept: qwen2.5-3b 2 of 36
+#: layers, internvl2-2b 2 of 24, deepseek-v2-lite-16b 2 of 27 (its dense
+#: first layer and one MoE layer), hymba-1.5b 4 of 32 (global, window,
+#: window, global), xlstm-1.3b 8 of 48 (one group: 7 mLSTM and 1 sLSTM
+#: block), whisper-large-v3 2 of 32 encoder and 2 of 32 decoder layers
+#: (the encoder over its 1500 frames). Phase 6's batch, lr and limits
+#: (internvl2-2b's sequences carry its 256 patches before the 256 tokens)
+FAMILY_TRAIN = ("qwen2.5-3b", "internvl2-2b", "deepseek-v2-lite-16b",
+                "hymba-1.5b", "xlstm-1.3b", "whisper-large-v3")
+FAMILY_CUTS = {"qwen2.5-3b": dict(n_layers=2),
+               "internvl2-2b": dict(n_layers=2),
+               "deepseek-v2-lite-16b": dict(n_layers=2),
+               "hymba-1.5b": dict(n_layers=4, global_attn_layers=(0, 3)),
+               "xlstm-1.3b": dict(n_layers=8),
+               "whisper-large-v3": dict(n_layers=2, encoder_layers=2)}
+#: the configs whose runs A and B are compared in float32 compute, their
+#: own compute dtype's runs logged beside: bf16 reroutes MoE tokens
+#: between two bodies (phase 10)
+FAMILY_TRAIN_F32 = ("deepseek-v2-lite-16b",)
+#: the timing row (``Kernels.family_train_times``) of each run B's B5
+#: launches in the kernels line: a padded projection of its own shapes
+FAMILY_B5_ROW = {"qwen2.5-3b": "train-qwen-dA-up",
+                 "internvl2-2b": "train-up",
+                 "deepseek-v2-lite-16b": "train-deepseek-shared-up",
+                 "hymba-1.5b": "train-hymba-up",
+                 "whisper-large-v3": "train-whisper-encode-up"}
+#: B5's padded backward, held bitwise to the plain version: [M, K] x [K,
+#: N] with K or N off the engine's blocks (qwen2.5-3b's up and down
+#: 11008 -> 11264, deepseek-v2-lite's shared expert 2816 -> 3072)
+PADDED_BACKWARD = ((128, 2048, 11008), (128, 11008, 2048),
+                   (128, 2048, 2816), (128, 2816, 2048))
+#: the smoke configs stepped once each under the deterministic-algorithm
+#: probe: every family, llama4-maverick too
+PROBE_ARCHS = ("olmo-1b", "qwen2.5-3b", "internvl2-2b",
+               "deepseek-v2-lite-16b", "llama4-maverick-400b-a17b",
+               "hymba-1.5b", "xlstm-1.3b", "whisper-large-v3")
+#: the card's memory: a run's peak must stay below it
+CARD_BYTES = 80e9
+
+
+def family_config(name):
+    """``name``'s published config cut to ``FAMILY_CUTS[name]``."""
+    from repro_torch.configs import get_config
+
+    cut = dict(FAMILY_CUTS[name])
+    cfg = get_config(name)
+    enc = cut.pop("encoder_layers", None)
+    if enc is not None:
+        cut["encoder"] = dataclasses.replace(cfg.encoder, n_layers=enc)
+    return cfg.replace(**cut)
+
+
+def train_data(cfg, seq, batch):
+    """The synthetic stream of ``cfg``'s train step: patch embeddings for
+    a VLM, frames for an encoder-decoder."""
+    from repro_torch.data import DataConfig, SyntheticLM
+
+    return SyntheticLM(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=seq, global_batch=batch,
+        vision_patches=cfg.vision.n_patches if cfg.vision else 0,
+        d_model=cfg.d_model,
+        n_frames=cfg.encoder.n_frames if cfg.encoder else 0))
+
+
+def train_b5_per_step(model) -> int:
+    """B5 launches a train step of ``TRAIN_MICRO`` microbatches under
+    ``kahan_matmul``, from the code: each projection of a layer run under
+    ``torch.utils.checkpoint`` four times a microbatch (forward, recompute,
+    dA, dB), each of whisper's encoder (run once, outside it) three times;
+    xLSTM's projections are einsums in the reference too (none)."""
+    cfg = model.cfg
+    if cfg.xlstm is not None:
+        per = 0
+    elif cfg.encoder is not None:
+        per = 3 * 6 * cfg.encoder.n_layers + 4 * 8 * cfg.n_layers
+    elif cfg.moe is not None:
+        per = 4 * b5_per_position(model)
+    else:
+        per = 4 * PROJECTIONS * cfg.n_layers
+    return per * TRAIN_MICRO
+
+
+def same_bits(torch, x, y) -> bool:
+    """``x`` and ``y`` hold the same bits (a zero's sign included)."""
+    if x.shape != y.shape or x.dtype != y.dtype:
+        return False
+    if x.is_floating_point():
+        ints = {2: torch.int16, 4: torch.int32, 8: torch.int64}
+        x, y = (t.view(ints[t.element_size()]) for t in (x, y))
+    return torch.equal(x, y)
+
+
+def family_train_path(torch, kernels, card):
+    """Phase 17: every family's train step on the card, through the port's
+    ``make_train_step`` (``family_train`` a config); B5's padded backward
+    against its plain version; one smoke step of every family under the
+    deterministic-algorithm probe; the crash-restart at the MoE smoke
+    config."""
+    kernels.padded_backward_parity()
+    kernels.family_train_times()
+    out = {}
+    for name in FAMILY_TRAIN:
+        cfg = family_config(name)
+        if name in FAMILY_TRAIN_F32:
+            out[name] = family_train(torch, kernels,
+                                     cfg.replace(compute_dtype="float32"),
+                                     card, gate=True)
+            out[f"{name}-{cfg.compute_dtype}"] = family_train(
+                torch, kernels, cfg, card, gate=False)
+        else:
+            out[name] = family_train(torch, kernels, cfg, card, gate=True)
+    stamp("phase 17: the deterministic-algorithm probe")
+    out["probe"] = deterministic_probe(torch, kernels.dev)
+    stamp("phase 17: the crash-restart at the MoE smoke config")
+    out["resume"] = resume_check(torch, kernels.dev, "deepseek-v2-lite-16b")
+    return out
+
+
+def family_train(torch, kernels, cfg, card, gate):
+    """Phase 17 on one config: the model and its weights once, then run A
+    (cuBLAS projections, the column-scan norm) and run B
+    (``kahan_matmul``, ``kahan_norm=False``: B3 once a leaf) from the same
+    weights and batches (``family_run``). Checked: every loss and grad
+    norm finite; with ``gate``, run B's step-1 loss and grad norm within
+    phase 6's limits of run A's; each step's launch counts; the first
+    step repeated bitwise in each run; the peak below the card's memory.
+    Logged with the card: wall ms a step after the first, device-busy ms
+    of the profiled step, B5 ms a step, peak GiB."""
+    from repro_torch.core import tree as T
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train.trainer import batch_to_device
+
+    dev = kernels.dev
+    what = f"{cfg.name} ({cfg.n_layers} layers, {cfg.compute_dtype})"
+    stamp(f"phase 17 {what}: the model and its weights")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    # a VLM's patches take the first positions, masked out of the loss:
+    # its sequences carry them before phase 6's 256 text tokens
+    seq = TRAIN_SEQ + (cfg.vision.n_patches if cfg.vision else 0)
+    data = train_data(cfg, seq, TRAIN_BATCH)
+    batches = [batch_to_device(data.batch_at(i), dev) for i in range(2)]
+    model = build_model(cfg, dev)
+    start = model.init(torch.Generator(device=dev).manual_seed(0))
+    leaves = T.leaves(start)
+    tall = sum(x.dim() >= 2 and x.shape[0] > 1 for x in leaves)
+    b5 = train_b5_per_step(model)
+    want = {"A": {"column_sq_accumulators": tall},
+            "B": {"matmul_accumulators": b5, "sum_accumulators": len(leaves)}}
+    runs = {}
+    for run, rcfg, opt in (
+            ("A", cfg, AdamWConfig(lr=TRAIN_LR)),
+            ("B", cfg.replace(kahan_matmul=True),
+             AdamWConfig(lr=TRAIN_LR, kahan_norm=False))):
+        rmodel = model if run == "A" else build_model(rcfg, dev)
+        runs[run] = family_run(torch, kernels.dev, rmodel, rcfg, start,
+                               batches, opt, f"{what} run {run}", card)
+        for i, counts in enumerate(runs[run].pop("counts")):
+            for name, n in counts.items():
+                check(n == want[run].get(name, 0),
+                      f"phase 17 {what} run {run} step {i + 1}: {name} "
+                      f"launched {n} times, want {want[run].get(name, 0)}")
+    peak = torch.cuda.max_memory_allocated(dev)
+    a, b = runs["A"], runs["B"]
+    for run in (a, b):
+        check(all(math.isfinite(x) and x > 0
+                  for x in run["loss"] + run["grad_norm"]),
+              f"phase 17 {what}: a loss or grad norm is not finite and "
+              f"positive: {run['loss']}, {run['grad_norm']}")
+    rel = abs(b["loss"][0] - a["loss"][0]) / a["loss"][0]
+    rel_g = abs(b["grad_norm"][0] - a["grad_norm"][0]) / a["grad_norm"][0]
+    if gate:
+        check(rel < STEP1_LOSS_RTOL,
+              f"phase 17 {what}: run B's step-1 loss {b['loss'][0]:.6f} "
+              f"differs from run A's {a['loss'][0]:.6f} by {rel:.2e}")
+        check(rel_g < STEP1_GRAD_NORM_RTOL,
+              f"phase 17 {what}: run B's step-1 grad norm "
+              f"{b['grad_norm'][0]:.6f} differs from run A's "
+              f"{a['grad_norm'][0]:.6f} by {rel_g:.2e}")
+    check(peak < CARD_BYTES,
+          f"phase 17 {what}: peak {peak / 2 ** 30:.2f} GiB")
+    path = f"train-{cfg.name}" + ("" if gate else f"-{cfg.compute_dtype}")
+    kernels.launches[f"{path}-a"] = a["launches"]
+    kernels.launches[f"{path}-b"] = b["launches"]
+    kernels.path_labels[("column_sq_accumulators", f"{path}-a")] = "train"
+    kernels.path_labels[("sum_accumulators", f"{path}-b")] = "train"
+    if b5:
+        kernels.path_labels[("matmul_accumulators", f"{path}-b")] = (
+            FAMILY_B5_ROW[cfg.name])
+    log(f"# phase 17 {what} on {card}: run B's step-1 loss within {rel:.2e} "
+        f"of run A's (limit {STEP1_LOSS_RTOL}{'' if gate else ', logged'}), "
+        f"grad norm within {rel_g:.2e} (limit {STEP1_GRAD_NORM_RTOL}); B5 "
+        f"{b5}, B3 {len(leaves)} and the column scan {tall} launches a step; "
+        f"peak {peak / 2 ** 30:.2f} GiB; first step repeated bitwise in both "
+        f"runs")
+    out = {"config": {"name": cfg.name, "n_layers": cfg.n_layers,
+                      "compute_dtype": cfg.compute_dtype,
+                      "param_dtype": cfg.param_dtype},
+           "A": a, "B": b, "step1_loss_rel": rel, "step1_grad_norm_rel": rel_g,
+           "gated": gate, "b5_launches_per_step": b5,
+           "b3_launches_per_step": len(leaves), "column_scans_per_step": tall,
+           "peak_bytes": peak, "card": card}
+    del model, start, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def family_run(torch, dev, model, cfg, start, batches, opt, what, card):
+    """One run of ``make_train_step`` (``TRAIN_MICRO`` microbatches,
+    warmup 1) from the weights ``start``: step 1, step 1 again from the
+    same params, fresh optimizer state and batch (every param and moment
+    leaf, the loss and the grad norm bitwise equal to the first's; its
+    wall ms the step's time after the first), then step 2 under the
+    profiler (device-busy ms, the port's kernels' ms). Each step's launch
+    counts (reset just before it) go back under ``counts``, their sum
+    under ``launches``."""
+    from repro_torch.core import tree as T
+    from repro_torch.kernels.engine import launch_counts, reset_launch_counts
+    from repro_torch.optim import init as opt_init
+    from repro_torch.train import TrainConfig, make_train_step
+
+    step = make_train_step(model, cfg, TrainConfig(
+        steps=2, microbatches=TRAIN_MICRO, warmup=1, opt=opt))
+    params = T.tree_map(lambda p: p.clone().requires_grad_(), start)
+    counts, metrics = [], []
+
+    def fresh():
+        with torch.no_grad():
+            for p, s in zip(T.leaves(params), T.leaves(start)):
+                p.copy_(s)
+        return opt_init(opt, params)
+
+    def one(state, batch):
+        reset_launch_counts()
+        _, state, m = step(params, state, batch)
+        sync(torch, dev)
+        counts.append(launch_counts())
+        metrics.append({k: m[k].detach().clone() for k in ("loss",
+                                                             "grad_norm")})
+        return state
+
+    stamp(f"phase 17 {what}: step 1")
+    state = one(fresh(), batches[0])
+    first = [x.clone() for x in T.leaves((params, state))]
+    state = fresh()
+    stamp(f"phase 17 {what}: step 1 again")
+    t0 = time.perf_counter()
+    state = one(state, batches[0])
+    wall = (time.perf_counter() - t0) * 1e3
+    again = T.leaves((params, state))
+    differ = sum(not same_bits(torch, x, y) for x, y in zip(first, again))
+    differ += sum(not same_bits(torch, metrics[0][k], metrics[1][k])
+                  for k in ("loss", "grad_norm"))
+    check(differ == 0,
+          f"phase 17 {what}: step 1 repeated from the same state gave other "
+          f"bits in {differ} of {len(first) + 2} leaves and metrics")
+    del first, again
+    stamp(f"phase 17 {what}: step 2, profiled")
+    box = {}
+    prof = profile_once(torch, dev, lambda: box.update(
+        state=one(state, batches[1])))
+    del box, params
+    loss = [float(m["loss"]) for m in metrics]
+    norm = [float(m["grad_norm"]) for m in metrics]
+    total = {k: sum(c[k] for c in counts) for k in counts[0]}
+    b5_ms, b5_n = prof["by_kernel"].get("B5", [0.0, 0])
+    log(f"# phase 17 {what} on {card}: {wall:.1f} ms a step after the "
+        f"first, device busy {prof['busy_ms']:.1f} ms in the profiled step "
+        f"({prof['host_ms']:.1f} ms under the profiler), B5 {b5_ms:.1f} ms "
+        f"in {b5_n} launches; loss {[round(x, 5) for x in loss]}, grad norm "
+        f"{[round(x, 5) for x in norm]}; top {prof['top']}")
+    return {"loss": loss, "grad_norm": norm, "wall_ms_per_step": wall,
+            "device_busy_ms_per_step": prof["busy_ms"],
+            "device_busy_share": prof["busy_ms"] / wall,
+            "profiled_step_ms": prof["host_ms"], "b5_ms_per_step": b5_ms,
+            "b5_launches_profiled": b5_n,
+            "kernel_ms_per_step": prof["by_kernel"],
+            "top_kernels_ms": prof["top"], "counts": counts,
+            "launches": total}
+
+
+def deterministic_probe(torch, dev):
+    """One train step of each of ``PROBE_ARCHS``' smoke configs
+    (``kahan_matmul`` on, 2 microbatches) under
+    ``torch.use_deterministic_algorithms(True, warn_only=True)``: the ops
+    torch reports as having no deterministic CUDA implementation (an
+    atomic order), by config. The note that cuBLAS wants a fixed workspace
+    (``CUBLAS_WORKSPACE_CONFIG``, about streams that share one) is listed
+    apart. Gate: no op of the first kind."""
+    import warnings
+
+    from repro_torch.configs import get_smoke
+    from repro_torch.core import tree as T
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.optim import init as opt_init
+    from repro_torch.train import TrainConfig, make_train_step
+    from repro_torch.train.trainer import batch_to_device
+
+    atomic, workspace = {}, {}
+    for name in PROBE_ARCHS:
+        cfg = get_smoke(name).replace(kahan_matmul=True)
+        model = build_model(cfg, dev)
+        params = T.tree_map(lambda p: p.requires_grad_(), model.init(
+            torch.Generator(device=dev).manual_seed(0)))
+        opt = AdamWConfig(lr=TRAIN_LR)
+        step = make_train_step(model, cfg, TrainConfig(
+            steps=2, microbatches=TRAIN_MICRO, warmup=1, opt=opt))
+        batch = batch_to_device(train_data(cfg, 32, 4).batch_at(0), dev)
+        state = opt_init(opt, params)
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                step(params, state, batch)
+                sync(torch, dev)
+        finally:
+            torch.use_deterministic_algorithms(False)
+        msgs = sorted({str(w.message).splitlines()[0][:200] for w in caught})
+        workspace[name] = [m for m in msgs if "CuBLAS" in m
+                           or "CUBLAS_WORKSPACE_CONFIG" in m]
+        atomic[name] = [m for m in msgs if "deterministic" in m
+                        and m not in workspace[name]]
+    log(f"# phase 17: the deterministic-algorithm probe (one smoke step of "
+        f"each family, warn_only): ops without a deterministic CUDA path "
+        f"{atomic}; the cuBLAS workspace note in "
+        f"{sorted(n for n, m in workspace.items() if m)}")
+    check(not any(atomic.values()),
+          f"phase 17: ops without a deterministic CUDA path on a train "
+          f"step: {atomic}")
+    return {"atomic": atomic, "cublas_workspace": workspace}
 
 
 if __name__ == "__main__":

@@ -26,7 +26,14 @@ the port pins it to the same answer:
 * combine: each token's contributions are added from zero in the sorted
   order, ascending expert id, as XLA's sequential scatter-add applies
   them, with no atomics, so a token's sum is the same on every run and
-  whatever else is in the batch.
+  whatever else is in the batch;
+* the backward in the same fixed order: the dispatch's token gather
+  (``_TokenGather``) and the expert-output pick (``_ExpertPick``) are
+  Functions whose backward adds a token's ``k`` gradient rows by
+  ``combine`` and writes each kept entry's row once, where autograd's
+  own would scatter-add with atomics on CUDA (a different order every
+  run, so a step and a resumed run would not repeat). On the CPU they
+  give the bits of autograd's scatter-adds, which add in that order.
 
 Router logits, probabilities and the load-balance statistics are float32;
 the buffer, the expert FFN and the combine run in the compute dtype. The
@@ -159,6 +166,52 @@ def combine(contrib: Tensor, order: Tensor, k: int) -> Tensor:
     return y
 
 
+class _TokenGather(torch.autograd.Function):
+    """``xg`` [G, Tg, D] gathered at the sorted entries' tokens ``token``
+    [G, Tg*k] -> [G, Tg*k, D]. Backward: each token's ``k`` gradient
+    rows added from zero in the sorted order (``combine``, in float32 for
+    a bf16 gradient and rounded once, as the CPU's scatter-add adds), with
+    no atomics."""
+
+    @staticmethod
+    def forward(ctx, xg: Tensor, token: Tensor, order: Tensor, k: int):
+        ctx.save_for_backward(order)
+        ctx.k = k
+        return torch.gather(xg, 1, token[..., None].expand(-1, -1,
+                                                            xg.shape[-1]))
+
+    @staticmethod
+    def backward(ctx, g: Tensor):
+        (order,) = ctx.saved_tensors
+        acc = torch.promote_types(g.dtype, torch.float32)
+        return combine(g.to(acc), order, ctx.k).to(g.dtype), None, None, None
+
+
+class _ExpertPick(torch.autograd.Function):
+    """The expert outputs ``out`` [G, E, C, D] at each sorted entry's
+    (expert, row): a dropped entry (row ``C``) reads row ``C - 1``, which
+    its zero gate cancels. Backward: each kept entry's gradient row
+    written to its own (expert, row), the dropped entries' to a spare row
+    ``C`` that is cut off; no two kept entries share a row, so nothing is
+    added in an order that can change. A dropped entry's gradient is its
+    zero gate times the token's (``moe_apply``), so indexing's backward,
+    which adds it to row ``C - 1``, gives the same bits."""
+
+    @staticmethod
+    def forward(ctx, out: Tensor, gi: Tensor, expert: Tensor, rows: Tensor):
+        ctx.save_for_backward(gi, expert, rows)
+        ctx.shape = out.shape
+        return out[gi, expert, rows.clamp_max(out.shape[2] - 1)]
+
+    @staticmethod
+    def backward(ctx, g: Tensor):
+        gi, expert, rows = ctx.saved_tensors
+        grp, e, cap, d = ctx.shape
+        grad = g.new_zeros((grp, e, cap + 1, d))
+        grad.index_put_((gi, expert, rows), g, accumulate=True)
+        return grad[:, :, :cap], None, None, None
+
+
 def moe_apply(p: Params, cfg, x: Tensor) -> Tuple[Tensor, Dict[str, Tensor]]:
     """x [B,S,D] -> (y [B,S,D], {aux_loss, dropped_frac}) as the
     reference's ``moe_apply`` (``repro/models/moe.py:88-190``)."""
@@ -187,7 +240,7 @@ def moe_apply(p: Params, cfg, x: Tensor) -> Tuple[Tensor, Dict[str, Tensor]]:
     cap = r.capacity
     rows = torch.where(r.keep, r.pos, cap)
     gi = torch.arange(g, device=x.device)[:, None].expand_as(rows)
-    gathered = torch.gather(xg, 1, r.token[..., None].expand(-1, -1, d))
+    gathered = _TokenGather.apply(xg, r.token, r.order, mo.top_k)
     gathered = torch.where(r.keep[..., None], gathered, 0).to(cd)
     buf = x.new_zeros((g, mo.n_experts, cap + 1, d), dtype=cd)
     buf[gi, r.expert, rows] = gathered
@@ -213,7 +266,7 @@ def moe_apply(p: Params, cfg, x: Tensor) -> Tuple[Tensor, Dict[str, Tensor]]:
     # the expert outputs back to the group-local layout for the combine
     out = constrain(out, "moe_group", None, None, None)
 
-    picked = out[gi, r.expert, rows.clamp_max(cap - 1)]          # [G,Tk,D]
+    picked = _ExpertPick.apply(out, gi, r.expert, rows)          # [G,Tk,D]
     y = combine(picked * (r.gate * r.keep).to(cd)[..., None], r.order,
                 mo.top_k)
     y = constrain(y, "moe_group", None, None)

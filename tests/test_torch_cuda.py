@@ -865,45 +865,79 @@ def test_cuda_column_scan_matches_loop(cuda_device, rows, trail, dtype):
         assert torch.equal(g, w)
 
 
-def _smoke_step(device, kahan_matmul, kahan_norm, steps=2):
-    """``steps`` train steps (2 microbatches each) of the OLMo-1B smoke
-    config on ``device`` from the same params (made on the CPU) and
-    batches; returns (params, opt state, metrics)."""
+#: every family's smoke config (phase 17 of chip_smoke.py trains each at
+#: its published width)
+FAMILY_SMOKES = ["olmo-1b", "qwen2.5-3b", "internvl2-2b",
+                 "deepseek-v2-lite-16b", "llama4-maverick-400b-a17b",
+                 "hymba-1.5b", "xlstm-1.3b", "whisper-large-v3"]
+
+
+def _smoke_data(cfg):
+    from repro_torch.data import DataConfig, SyntheticLM
+
+    return SyntheticLM(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=32, global_batch=4,
+        vision_patches=cfg.vision.n_patches if cfg.vision else 0,
+        d_model=cfg.d_model,
+        n_frames=cfg.encoder.n_frames if cfg.encoder else 0))
+
+
+def _smoke_step(device, kahan_matmul, kahan_norm, steps=2, name="olmo-1b",
+                wide=False, **replace):
+    """``steps`` train steps (2 microbatches each) of ``name``'s smoke
+    config (with ``replace``) on ``device`` from the same params (made on
+    the CPU) and batches; returns (params, opt state, metrics). ``wide``:
+    params, compute, the microbatch accumulator and the kernels' Policy
+    in float64, and the model's float32 casts widened
+    (``torch_widen.WidenedModel``)."""
     from repro_torch.configs import get_smoke
     from repro_torch.core import tree as T
-    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.kernels import use_policy
     from repro_torch.models import build_model
     from repro_torch.optim import AdamWConfig, init
     from repro_torch.train import TrainConfig, make_train_step
     from repro_torch.train.trainer import batch_to_device
+    from torch_widen import WidenedModel
 
-    cfg = get_smoke("olmo-1b").replace(loss_chunk=16,
-                                      kahan_matmul=kahan_matmul)
+    cfg = get_smoke(name).replace(kahan_matmul=kahan_matmul, **replace)
+    if wide:
+        cfg = cfg.replace(param_dtype="float64", compute_dtype="float64")
+    if name == "olmo-1b":
+        cfg = cfg.replace(loss_chunk=16)
     params = build_model(cfg, torch.device("cpu")).init(
         torch.Generator().manual_seed(0))
     params = T.tree_map(lambda p: p.to(device).requires_grad_(), params)
     tc = TrainConfig(steps=steps, microbatches=2, warmup=0,
+                     accum_dtype="float64" if wide else "float32",
                      opt=AdamWConfig(lr=1e-3, kahan_norm=kahan_norm))
     model = build_model(cfg, device)
-    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=32,
-                                  global_batch=4))
-    step = make_train_step(model, cfg, tc)
+    data = _smoke_data(cfg)
+    step = make_train_step(WidenedModel(model) if wide else model, cfg, tc)
     opt = init(tc.opt, params)
-    for i in range(steps):
-        params, opt, m = step(params, opt,
-                              batch_to_device(data.batch_at(i), device))
+    with use_policy(compute_dtype=torch.float64 if wide else torch.float32):
+        for i in range(steps):
+            params, opt, m = step(params, opt,
+                                  batch_to_device(data.batch_at(i), device))
     return params, opt, m
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("name", FAMILY_SMOKES)
 @pytest.mark.parametrize("kahan_matmul", [False, True])
-def test_cuda_train_step_matches_cpu(cuda_device, kahan_matmul):
-    """Tier 3: two smoke-config train steps on the card within rtol 1e-5
-    (loss, grad norm) and 1e-5 absolute (params) of the same steps on the
-    CPU: float32 matmuls sum in other orders there."""
+def test_cuda_train_step_matches_cpu(cuda_device, kahan_matmul, name):
+    """Tier 3: two smoke-config train steps of every family (float32
+    compute) on the card within rtol 1e-5 (loss, grad norm) and 1e-5
+    absolute (params) of the same steps on the CPU: float32 matmuls sum in
+    other orders there. hymba-1.5b as its CPU parity against the
+    reference holds it (float64 params, compute, accumulator and kernel
+    Policy, the model's float32 casts widened): in float32 the two
+    devices' roundings part one embedding component of a rare token, and
+    Adam's first updates turn that into a 7.0e-5 step difference (one
+    element of 131072; 2.2e-5 in float64 with the casts kept)."""
     from repro_torch.core import tree as T
 
-    out = [_smoke_step(d, kahan_matmul, True)
+    wide = name == "hymba-1.5b"
+    out = [_smoke_step(d, kahan_matmul, True, name=name, wide=wide)
            for d in (cuda_device, torch.device("cpu"))]
     (pc, _, mc), (pp, _, mp) = out
     for k in ("loss", "grad_norm"):
@@ -932,6 +966,206 @@ def test_cuda_train_step_launch_counts(cuda_device, kahan_norm):
     norm = "column_sq_accumulators" if kahan_norm else "sum_accumulators"
     other = "sum_accumulators" if kahan_norm else "column_sq_accumulators"
     assert counts[norm] == leaves and counts[other] == 0
+
+
+#: B5 launches a projection makes in one step of 2 microbatches: 4 a
+#: microbatch (forward, recompute, dA, dB) in a layer under
+#: ``torch.utils.checkpoint``, 3 in whisper's encoder (run once)
+FAMILY_B5 = {
+    "olmo-1b": 4 * 7 * 2 * 2,                   # 7 projections, 2 layers
+    "qwen2.5-3b": 4 * 7 * 2 * 2,
+    "internvl2-2b": 4 * 7 * 2 * 2,
+    # MLA q, dkv, kr, o and 3 MLP (dense) or shared-expert projections a
+    # layer, 3 layers
+    "deepseek-v2-lite-16b": 4 * 7 * 3 * 2,
+    # 2 superblocks of a dense and a MoE layer (shared expert): 7 each
+    "llama4-maverick-400b-a17b": 4 * 14 * 2 * 2,
+    "hymba-1.5b": 4 * 7 * 4 * 2,                # the SSM stays plain
+    "xlstm-1.3b": 0,                            # einsums, as the reference
+    # encoder: q, k, v, o, up, down; decoder: self q/k/v/o, cross q/o, MLP
+    "whisper-large-v3": (3 * 6 * 2 + 4 * 8 * 2) * 2,
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", FAMILY_SMOKES)
+def test_cuda_family_train_step_launch_counts(cuda_device, name):
+    """Every family's step under ``kahan_matmul`` (``kahan_norm=False``):
+    B5 the count its projections give (``FAMILY_B5``), B3 once a parameter
+    leaf, no other kernel."""
+    from repro_torch.kernels.engine import launch_counts, reset_launch_counts
+
+    reset_launch_counts()
+    params, _, _ = _smoke_step(cuda_device, True, False, steps=1, name=name)
+    from repro_torch.core import tree as T
+
+    counts = launch_counts()
+    assert counts.pop("matmul_accumulators") == FAMILY_B5[name]
+    assert counts.pop("sum_accumulators") == len(T.leaves(params))
+    assert not any(counts.values()), counts
+
+
+def _bits(x):
+    ints = {2: torch.int16, 4: torch.int32, 8: torch.int64}
+    return x.view(ints[x.element_size()]) if x.is_floating_point() else x
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", FAMILY_SMOKES)
+def test_cuda_train_step_repeats_bitwise(cuda_device, name):
+    """Tier 2 on the card: one step of every family's smoke config
+    (``kahan_matmul`` on) run twice from the same params, optimizer state
+    and batch gives the same bits: loss, grad norm, every param and moment
+    leaf (a MoE config's dispatch and pick backward included)."""
+    from repro_torch.core import tree as T
+
+    runs = [_smoke_step(cuda_device, True, True, steps=1, name=name)
+            for _ in range(2)]
+    (p1, o1, m1), (p2, o2, m2) = runs
+    for k in ("loss", "grad_norm"):
+        assert torch.equal(_bits(m1[k]), _bits(m2[k])), k
+    for a, b in zip(T.leaves((p1, o1)), T.leaves((p2, o2))):
+        assert torch.equal(_bits(a.detach()), _bits(b.detach()))
+
+
+@pytest.mark.cuda
+def test_cuda_moe_top6_step_repeats_bitwise(cuda_device):
+    """deepseek-v2-lite's smoke config routed top-6, as its published
+    config is: a token's six gradient rows are added in one fixed order,
+    so one step run twice from the same state gives the same bits (an
+    atomic sum of two terms from zero is the same either way; of six, it
+    is not)."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke
+    from repro_torch.core import tree as T
+
+    moe = dataclasses.replace(get_smoke("deepseek-v2-lite-16b").moe,
+                              top_k=6)
+    runs = [_smoke_step(cuda_device, True, True, steps=1,
+                        name="deepseek-v2-lite-16b", moe=moe)
+            for _ in range(2)]
+    (p1, o1, m1), (p2, o2, m2) = runs
+    assert float(m1["dropped_frac"]) > 0
+    for k in ("loss", "grad_norm"):
+        assert torch.equal(_bits(m1[k]), _bits(m2[k])), k
+    for a, b in zip(T.leaves((p1, o1)), T.leaves((p2, o2))):
+        assert torch.equal(_bits(a.detach()), _bits(b.detach()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", FAMILY_SMOKES)
+def test_cuda_train_step_has_no_atomic_op(cuda_device, name):
+    """Under ``torch.use_deterministic_algorithms(True, warn_only=True)``
+    one step of every family's smoke config (``kahan_matmul`` on) reports
+    no op without a deterministic CUDA implementation (the cuBLAS
+    workspace note, about streams that share one, aside)."""
+    import warnings
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            _smoke_step(cuda_device, True, True, steps=1, name=name)
+            torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    found = {str(w.message).splitlines()[0] for w in caught}
+    atomic = [m for m in found if "deterministic" in m
+              and "CuBLAS" not in m and "CUBLAS_WORKSPACE_CONFIG" not in m]
+    assert not atomic, atomic
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["deepseek-v2-lite-16b",
+                                  "llama4-maverick-400b-a17b"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_moe_backward_matches_cpu_order(cuda_device, name, dtype):
+    """The MoE dispatch's token gather and the expert-output pick, on the
+    card, give bitwise the gradients autograd's own backward gives on the
+    CPU, which scatter-adds in the sorted order: each token's ``top_k``
+    rows from zero by ascending expert, each kept entry's row once (a
+    dropped entry's pick gradient zero, as its gate makes it); at a smoke
+    config's routing with drops, float32 and bfloat16."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.core import tree as T
+    from repro_torch.models import build_model, moe
+
+    cfg = get_smoke(name)
+    model = build_model(cfg, torch.device("cpu"))
+    seg = next(s for s in model.segments if s.kind in ("moe", "super"))
+    p = model.init(torch.Generator().manual_seed(0))[seg.name]
+    p = T.tree_map(lambda t: t[0], p["b"] if seg.kind == "super" else p)
+    gen = torch.Generator().manual_seed(1)
+    xg = torch.randn((2, 16, cfg.d_model), generator=gen)
+    r = moe.route(p["ffn"], cfg, xg, 16)
+    assert not bool(r.keep.all())                  # some entries drop
+    g, tk = r.token.shape
+    e, cap, d = cfg.moe.n_experts, r.capacity, cfg.d_model
+    rows = torch.where(r.keep, r.pos, cap)
+    gi = torch.arange(g)[:, None].expand_as(rows)
+    x = xg.to(dtype).requires_grad_()
+    out = torch.randn((g, e, cap, d), generator=gen).to(dtype)
+    out.requires_grad_()
+    cot = torch.randn((g, tk, d), generator=gen).to(dtype)
+    # a dropped entry's pick is weighted by its zero gate in moe_apply
+    pick_cot = cot * r.keep[..., None].to(dtype)
+    # the CPU's own autograd: scatter-adds in index order
+    want_x = torch.autograd.grad(
+        torch.gather(x, 1, r.token[..., None].expand(-1, -1, d)), x, cot)[0]
+    want_o = torch.autograd.grad(
+        out[gi, r.expert, rows.clamp_max(cap - 1)], out, pick_cot)[0]
+    dev = cuda_device
+    xc = x.detach().to(dev).requires_grad_()
+    oc = out.detach().to(dev).requires_grad_()
+    got_x = torch.autograd.grad(moe._TokenGather.apply(
+        xc, r.token.to(dev), r.order.to(dev), cfg.moe.top_k), xc,
+        cot.to(dev))[0]
+    got_o = torch.autograd.grad(moe._ExpertPick.apply(
+        oc, gi.to(dev), r.expert.to(dev), rows.to(dev)), oc,
+        pick_cot.to(dev))[0]
+    assert torch.equal(_bits(got_x.cpu()), _bits(want_x))
+    assert torch.equal(_bits(got_o.cpu()), _bits(want_o))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,n", [(2048, 11008), (11008, 2048),
+                                 (2048, 2816), (2816, 2048)])
+def test_cuda_matmul_padded_backward_matches_plain(cuda_device, k, n):
+    """B5's backward where the engine pads K or N (qwen2.5-3b's up and
+    down 11008 -> 11264, deepseek-v2-lite's shared expert 2816 -> 3072):
+    dA = g @ Wᵀ and dB = aᵀ @ g bitwise equal to the plain version on the
+    operands ``_prep_matmul`` pads at the backward's blocks, unpadded."""
+    from repro_torch.core import kahan as K
+    from repro_torch.kernels import engine, kahan_matmul, ops
+
+    m = 64
+    eng = engine.CompensatedReduction(scheme="kahan")
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+
+    def plain(x, y, blocks):
+        xp, yp = eng._prep_matmul(x, y, blocks)
+        s, c = kahan_matmul.matmul_plain(xp[None], yp[None],
+                                         scheme=eng.scheme,
+                                         block_k=blocks[2],
+                                         compute_dtype=torch.float32)
+        return K.add(s[0], c[0])[:, :y.shape[1]]
+
+    a = torch.randn((m, k), generator=gen, device=cuda_device).bfloat16()
+    w = torch.randn((k, n), generator=gen, device=cuda_device).bfloat16()
+    g = torch.randn((m, n), generator=gen, device=cuda_device)
+    a.requires_grad_(), w.requires_grad_()
+    before = engine.launch_counts()["matmul_accumulators"]
+    ops.matmul(a, w, scheme="kahan").backward(g)
+    assert engine.launch_counts()["matmul_accumulators"] == before + 3
+    fwd = eng._matmul_blocks(m, n, k, None, None, None)
+    da = plain(g, w.detach().T.contiguous(),
+               eng._matmul_blocks(m, k, n, *fwd)).to(a.dtype)
+    db = plain(a.detach().T.contiguous(), g,
+               eng._matmul_blocks(k, n, m, *fwd)).to(w.dtype)
+    assert a.grad.shape == (m, k) and w.grad.shape == (k, n)
+    assert torch.equal(_bits(a.grad), _bits(da))
+    assert torch.equal(_bits(w.grad), _bits(db))
 
 
 # ---------------------------------------------------------------------------

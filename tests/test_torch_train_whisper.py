@@ -1,0 +1,13 @@
+"""The port's whole train step against the reference's on
+whisper-large-v3's smoke config (the encoder over its frames,
+cross-attention, the GELU MLP): two steps at microbatches 2,
+``kahan_matmul`` off and on, at ROADMAP's training tolerances (tier 3;
+``tests/torch_train_parity.py``), in float32."""
+
+import pytest
+from torch_train_parity import train_step_parity
+
+
+@pytest.mark.parametrize("kahan_matmul", [False, True])
+def test_train_step_within_tolerance(kahan_matmul):
+    train_step_parity("whisper-large-v3", kahan_matmul)
